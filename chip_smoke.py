@@ -2,27 +2,41 @@
 """Drive the PyTorch port on one CUDA card and fail loudly.
 
     python3 chip_smoke.py [--seed N] [--requests N] [--clients N]
-                          [--json PATH]
+                          [--train-steps N] [--json PATH]
 
 Phases (none catches its own failure; there is no CPU path):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
-2. build every kernel of the serving path from ``mxnet_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once) and print ptxas' register and
-   shared-memory lines;
-3. kernels: K1 ``fu_mm_fwd`` (with and without statistics), K2
-   ``fu_mm_skip_fwd`` and K3 ``fu_c3_fwd2d`` at the four ResNet-50 stage
-   shapes at batch 8, in float32 and bfloat16, against their plain PyTorch
-   versions on the card, with kernel, plain and library times beside the
-   least time the card could take;
+2. build every kernel of the serving and training paths from
+   ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per source, all at once) and
+   print ptxas' register and shared-memory lines;
+3. kernels against their plain PyTorch versions on the card, in float32
+   and bfloat16, with kernel, plain and library times beside the least
+   time the card could take: K1 ``fu_mm_fwd`` (with and without
+   statistics), K2 ``fu_mm_skip_fwd`` and K3 ``fu_c3_fwd2d`` at the four
+   ResNet-50 stage shapes at batch 8; K5 ``fu_mm_bwd`` (conv3's final and
+   conv1's deferred shapes) and K6 ``fu_c3_bwd2d`` at the four stage
+   shapes and K8 ``nn_conv1x1_bwd`` at its three 224x224 sites, at batch
+   32, each also launched twice on the same inputs to show equal bits;
 4. serve: ResNet-50 (224x224, 1000 classes, NHWC, fused units, weights
    from ``--seed``) saved as a checkpoint, loaded by
    ``ServingEngine.from_checkpoint`` on cuda:0, warmed up, and sent
    ``--requests`` requests from ``--clients`` threads; every answer is held
    against the same graph run through the kernels' plain versions, and
-   each kernel must have launched 12 times (the 12 fused units) per
-   dispatched batch;
-5. the kernel table as one JSON line, then the result line
+   the forward kernels must have launched 12 times (the 12 fused units)
+   per dispatched batch and the backward kernels not at all;
+5. train: the same ResNet-50 through ``Module.fit`` on cuda:0 for
+   ``--train-steps`` SGD steps at batch 32 on one seeded batch with random
+   labels, with MXNET_CONV1X1_FUSED_BWD=1.  The main path (cuDNN free to
+   choose) must launch K1 12, K2 12, K3 12, K5 24, K6 12 and K8 3 times
+   per step, keep every loss and parameter finite and lower the loss; it
+   gives the step time, images/s, peak memory and one profiled step.
+   Then, with cuDNN deterministic, runs from the same weights through the
+   kernels, MXNET_FUSED_UNIT_C3=xla, the plain versions on the batch
+   reversed and two faults planted at K6's launch are each held against
+   the plain versions' run by the losses and step 1's gradients: every
+   sound run must pass and every fault must fail;
+6. the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -47,6 +61,19 @@ STAGES = [(56 * 56, 256, 2), (28 * 28, 512, 3), (14 * 14, 1024, 5),
           (7 * 7, 2048, 2)]
 STAGE_HW = [56, 28, 14, 7]
 BATCH = 8
+TRAIN_BATCH = 32
+# K8's sites at 224x224: the transition units' stride-1 1x1 convolutions
+# with H*W <= 256, as (name, H*W, Ci, Co)
+K8_SITES = [("stage3_unit1_conv3", 14 * 14, 256, 1024),
+            ("stage4_unit1_conv1", 14 * 14, 1024, 512),
+            ("stage4_unit1_conv3", 7 * 7, 512, 2048)]
+# launches of each kernel per training step: 12 fused units (K5 twice in
+# each) and K8's three sites
+# the kernels a served (eval) forward launches, 12 times a batch; the
+# backward kernels must not launch there
+SERVE_KERNELS = ("mm_fwd", "c3_fwd2d", "mm_skip_fwd")
+TRAIN_LAUNCHES = {"mm_fwd": 12, "mm_skip_fwd": 12, "c3_fwd2d": 12,
+                  "mm_bwd": 24, "c3_bwd2d": 12, "conv1x1_bwd": 3}
 # H100 SXM peaks (NVIDIA data sheet, dense): FP32 outside the tensor cores,
 # bf16 in them, and HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -56,6 +83,26 @@ HBM_BYTES_S = 3.35e12
 # last bits, so they may sit one bf16 step apart.  Statistics are f32 sums
 # over every row.  All relative to the largest magnitude of the reference.
 TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7, "stats": 1e-4}
+# backward kernels: dP / dx as the forward outputs; dW, db and dg are f32
+# sums over all R rows (up to 100352) in another order, from the same
+# rounded operands in both dtypes (bf16 products are exact in f32), except
+# K8's dW, which is rounded to the weight's dtype
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# training: each run from the same weights is held against the plain
+# versions' run (float32, cuDNN deterministic).  Step 1's loss is a forward
+# only.  Step 1's gradient carries the whole backward, through
+# BatchNorm+ReLU chains that amplify the rounding of another sum order:
+# GRAD_RTOL holds |g - g_plain| / |g_plain| over all parameters as one
+# vector, PARAM_RTOL the same ratio of the worst single parameter.  On the
+# H100 (PERF.md, PR 2) the sound runs (the kernels, cuDNN free to choose,
+# MXNET_FUSED_UNIT_C3=xla, the plain versions on the batch reversed) read
+# at most 1.40e-2 and 1.75e-2, the planted faults at least 0.257 and 1.0.
+# The losses of steps 2..N drift apart by up to 8.2e-3 in the sound runs
+# and by no more in the faults' (2.4e-3 and 8.7e-3): LOSS_RTOL only
+# bounds that drift and does not tell a fault from the rounding.
+LOSS_RTOL_FIRST, LOSS_RTOL = 1e-5, 3e-2
+GRAD_RTOL, PARAM_RTOL = 5e-2, 1e-1
+SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
 # served probabilities against the plain graph: float32 through 50 layers
 # whose products are summed in another order
 SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-6
@@ -104,6 +151,12 @@ def rel_err(got, want):
     return float((got.float() - want.float()).abs().max()) / scale
 
 
+def c3_pairs(n, side):
+    """(output row, tap) pairs of a 3x3 / pad 1 over n side x side images
+    whose input lies inside the image: the products the work needs."""
+    return n * (3 * side - 2) ** 2
+
+
 def kernel_phase(torch, fu, device, seed):
     """Every kernel against its plain version at the stage shapes."""
     import torch.nn.functional as F
@@ -144,7 +197,7 @@ def kernel_phase(torch, fu, device, seed):
                  lambda: torch.matmul(a1, w1t)),
                 ("fu_c3_fwd2d", "", fu.c3_fwd2d, fu.c3_fwd2d_plain,
                  (y1, w2, sc2, sh2, BATCH, side, side, False),
-                 2 * r * 9 * cq * cq,
+                 2 * c3_pairs(BATCH, side) * cq * cq,
                  (2 * r * cq + 9 * cq * cq) * es + vec * cq,
                  lambda: F.conv2d(a2_nchw, w2_oihw, padding=1)),
                 ("fu_mm_skip_fwd", "", fu.mm_skip_fwd, fu.mm_skip_fwd_plain,
@@ -197,17 +250,143 @@ def kernel_phase(torch, fu, device, seed):
     return rows
 
 
+def bwd_kernel_phase(torch, fu, nn, device, seed):
+    """K5, K6 and K8 against their plain versions at ResNet-50's training
+    shapes (batch 32), with a bitwise repeat of each launch."""
+    gen = torch.Generator(device="cpu").manual_seed(seed + 7)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    def vec(n):
+        return randn(n).abs() + 0.5, randn(n, scale=0.1)
+
+    cases = []      # (kernel, variant, stage, units, r, ci, co, maker)
+    for stage, ((hw, c, units), side) in enumerate(zip(STAGES, STAGE_HW)):
+        cq = c // 4
+        r = TRAIN_BATCH * hw
+        cases += [("fu_mm_bwd", "final", stage + 1, units, r, cq, c, side),
+                  ("fu_mm_bwd", "deferred", stage + 1, units, r, c, cq,
+                   side),
+                  ("fu_c3_bwd2d", "", stage + 1, units, r, cq, cq, side)]
+    for name, hw, ci, co in K8_SITES:
+        cases.append(("nn_conv1x1_bwd", name, None, 1,
+                      TRAIN_BATCH * hw, ci, co, None))
+    rows = []
+    for kname, variant, stage, units, r, ci, co, side in cases:
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            es = torch.tensor([], dtype=dt).element_size()
+            x = randn(r, ci).to(dt)
+            g = randn(r, co).to(dt)
+            vecs = vec(ci) + vec(ci)            # sc, sh, xs, xh
+            if kname == "nn_conv1x1_bwd":
+                w = randn(co, 1, 1, ci, scale=ci ** -0.5).to(dt)
+                args = (x, g, w)
+                kern, plain = nn.conv1x1_bwd, nn.conv1x1_bwd_plain
+                flops = 4 * r * ci * co
+                nbytes = (2 * r * ci + r * co + 2 * co * ci) * es
+                a, gf, w2 = x, g, w.reshape(co, ci)
+                lib = lambda: (torch.matmul(gf, w2),  # noqa: E731
+                               torch.matmul(gf.t(), a))
+            else:
+                fin = None
+                # g, x, dP; sc, sh, xs, xh in and db, dg out (f32)
+                nbytes = (2 * r * ci + r * co) * es + 6 * ci * 4
+                if variant != "final":
+                    fin = (randn(co).abs() + 0.5, randn(co, scale=0.1),
+                           randn(co, scale=0.1))
+                    nbytes += r * co * es + 3 * co * 4
+                yraw = randn(r, co).to(dt) if fin else None
+                gf = fu._finalize_g(g, yraw, fin).to(dt)
+                a = fu._prologue(x, vecs[0], vecs[1]).to(dt)
+                if kname == "fu_mm_bwd":
+                    w = randn(co, 1, 1, ci, scale=ci ** -0.5).to(dt)
+                    args = (g, yraw, fin, x, w) + vecs
+                    kern, plain = fu.mm_bwd, fu.mm_bwd_plain
+                    flops = 4 * r * ci * co
+                    nbytes += co * ci * (es + 4)
+                    w2 = w.reshape(co, ci)
+                    lib = lambda: (torch.matmul(gf, w2),  # noqa: E731
+                                   torch.matmul(gf.t(), a))
+                else:
+                    w = randn(co, 3, 3, ci, scale=(9 * ci) ** -0.5).to(dt)
+                    n = TRAIN_BATCH
+                    args = (g, yraw, fin, x, w) + vecs + (n, side, side)
+                    kern, plain = fu.c3_bwd2d, fu.c3_bwd2d_plain
+                    flops = 4 * c3_pairs(n, side) * ci * co
+                    nbytes += 9 * co * ci * (es + 4)
+                    a4 = a.reshape(n, side, side, ci).permute(0, 3, 1, 2)
+                    g4 = gf.reshape(n, side, side, co).permute(0, 3, 1, 2)
+                    w4 = w.permute(0, 3, 1, 2)
+                    lib = lambda: (  # noqa: E731
+                        torch.nn.grad.conv2d_input(a4.shape, w4, g4,
+                                                   padding=1),
+                        torch.nn.grad.conv2d_weight(a4, w4.shape, g4,
+                                                    padding=1))
+            got, want = kern(*args), plain(*args)
+            again = kern(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                raise AssertionError("%s %s: two launches on the same "
+                                     "inputs differ" % (kname, variant))
+            errs = [rel_err(p, q) for p, q in zip(got, want)]
+            tols = [TOL[dname]] + [BWD_TOL[dname]] * 3
+            if kname == "nn_conv1x1_bwd":
+                tols = [TOL[dname]] * 2
+            for i, (e, t) in enumerate(zip(errs, tols)):
+                if e > t:
+                    raise AssertionError(
+                        "%s %s stage %s %s: output %d relative error %.3g "
+                        "over %.3g" % (kname, variant, stage, dname, i, e,
+                                       t))
+            row = {
+                "kernel": kname, "variant": variant, "stage": stage,
+                "dtype": dname, "rows": r, "ci": ci, "co": co,
+                "units_per_step": units, "rel_errs": errs,
+                "max_abs_err": max(float((p.float() - q.float()).abs()
+                                         .max()) for p, q in zip(got, want)),
+                "ms": time_ms(torch, lambda: kern(*args)),
+                "plain_ms": time_ms(torch, lambda: plain(*args)),
+                "library_ms": time_ms(torch, lib),
+                "flops": flops, "bytes": nbytes,
+                "bound_ms": 1e3 * max(flops / PEAK_FLOPS[dname],
+                                      nbytes / HBM_BYTES_S),
+                "bound_by": ("operations" if flops / PEAK_FLOPS[dname]
+                             >= nbytes / HBM_BYTES_S else "bytes"),
+            }
+            rows.append(row)
+            log("  %-14s %-18s %-8s rel_err %s  kernel %.4f ms  plain "
+                "%.4f ms  library %.4f ms  bound %.4f ms (%s)"
+                % (kname, variant or "stage %d" % stage, dname,
+                   "/".join("%.1e" % e for e in errs), row["ms"],
+                   row["plain_ms"], row["library_ms"], row["bound_ms"],
+                   row["bound_by"]))
+    return rows
+
+
 @contextlib.contextmanager
-def plain_kernels(fu):
-    """The fused unit's chain through the kernels' plain versions: the
-    reference side of the serve check, and only that."""
-    saved = (fu.mm_fwd, fu.c3_fwd2d, fu.mm_skip_fwd)
-    fu.mm_fwd, fu.c3_fwd2d, fu.mm_skip_fwd = (
-        fu.mm_fwd_plain, fu.c3_fwd2d_plain, fu.mm_skip_fwd_plain)
+def replaced(mod, name, fn):
+    """``mod.name`` is ``fn`` inside the block."""
+    saved = getattr(mod, name)
+    setattr(mod, name, fn)
     try:
         yield
     finally:
-        fu.mm_fwd, fu.c3_fwd2d, fu.mm_skip_fwd = saved
+        setattr(mod, name, saved)
+
+
+@contextlib.contextmanager
+def plain_kernels(fu, nn):
+    """Every kernel's plain version in place of its wrapper: the
+    reference side of the serve and train checks, and only that."""
+    with contextlib.ExitStack() as stack:
+        for mod, name in [(fu, "mm_fwd"), (fu, "c3_fwd2d"),
+                          (fu, "mm_skip_fwd"), (fu, "mm_bwd"),
+                          (fu, "c3_bwd2d"), (nn, "conv1x1_bwd")]:
+            stack.enter_context(replaced(mod, name,
+                                         getattr(mod, name + "_plain")))
+        yield
 
 
 def send_requests(eng, xs, n_clients):
@@ -244,19 +423,19 @@ def percentile(sorted_vals, q):
                            int(len(sorted_vals) * q / 100.0))]
 
 
-def profile_forward(torch, pred, x, reps=5):
-    """Host wall and device busy time of ``reps`` forwards of one bound
-    Predictor, from torch.profiler's CUDA activity: the device's idle
-    share and where its time goes, by kernel name."""
+def profile_calls(torch, fn, reps):
+    """Host wall and device busy time per call of ``reps`` calls of
+    ``fn`` (after one warm call), from torch.profiler's CUDA activity: the
+    device's idle share and where its time goes, by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    pred.forward(data=x).get_output(0)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            pred.forward(data=x).get_output(0)
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side activity only (kernels, copies, sets): the operator rows
@@ -268,14 +447,14 @@ def profile_forward(torch, pred, x, reps=5):
                                  + evt.time_range.elapsed_us() / 1e3)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"reps": reps, "wall_ms_per_forward": 1e3 * wall / reps,
-            "device_busy_ms_per_forward": busy / reps,
+    return {"reps": reps, "wall_ms": 1e3 * wall / reps,
+            "device_busy_ms": busy / reps,
             "device_idle_share": (1.0 - busy / (1e3 * wall)) if busy
             else None,
-            "top_device_ms_per_forward": [(k, v / reps) for k, v in top]}
+            "top_device_ms": [(k, v / reps) for k, v in top]}
 
 
-def serve_phase(torch, mt, fu, seed, n_requests, n_clients):
+def serve_phase(torch, mt, fu, nn, seed, n_requests, n_clients):
     import numpy as np
     shape = (224, 224, 3)
     sym = mt.models.get_resnet_symbol(
@@ -300,10 +479,11 @@ def serve_phase(torch, mt, fu, seed, n_requests, n_clients):
         log("  engine up and warm (%d buckets) in %.2f s"
             % (buckets, time.perf_counter() - t0))
 
-        for k in fu.KERNEL_WRAPPERS:
+        for k in fu.KERNEL_WRAPPERS + (nn.conv1x1_bwd,):
             k.launches = 0
         futures, wall, lat = send_requests(eng, xs, n_clients)
-        launches = {k.__name__: k.launches for k in fu.KERNEL_WRAPPERS}
+        launches = {k.__name__: k.launches
+                    for k in fu.KERNEL_WRAPPERS + (nn.conv1x1_bwd,)}
         st = eng.stats()
         # the same traffic again on the now-used worker: steady state
         again, wall2, lat2 = send_requests(eng, xs, n_clients)
@@ -316,9 +496,10 @@ def serve_phase(torch, mt, fu, seed, n_requests, n_clients):
     outs = np.stack([f.result() for f in futures])
     assert st["requests_served"] == n_requests, st
     for name, n in launches.items():
-        if n != 12 * st["batches"]:
+        want = 12 * st["batches"] if name in SERVE_KERNELS else 0
+        if n != want:
             raise AssertionError("%s launched %d times for %d batches, not "
-                                 "12 per batch" % (name, n, st["batches"]))
+                                 "%d" % (name, n, st["batches"], want))
 
     # the same graph through the plain versions, on the same card
     ref_args, ref_aux = mt.convert.params_from_numpy(args, aux,
@@ -326,14 +507,16 @@ def serve_phase(torch, mt, fu, seed, n_requests, n_clients):
     pred = mt.Predictor(sym, ref_args, ref_aux, {"data": (BATCH,) + shape},
                         ctx=mt.gpu(0))
     refs = []
-    with plain_kernels(fu):
+    with plain_kernels(fu, nn):
         for i in range(0, n_requests, BATCH):
             chunk = xs[i:i + BATCH]
             pad = np.zeros((BATCH - len(chunk),) + shape, np.float32)
             refs.append(pred.forward(data=np.concatenate([chunk, pad]))
                         .get_output(0)[:len(chunk)])
     refs = np.concatenate(refs)
-    prof = profile_forward(torch, pred, np.ascontiguousarray(xs[:BATCH]))
+    x8 = np.ascontiguousarray(xs[:BATCH])
+    prof = profile_calls(torch, lambda: pred.forward(data=x8).get_output(0),
+                         5)
     assert all(f.exception() is None for f in again)
     np.testing.assert_array_equal(np.stack([f.result() for f in again]),
                                   outs)
@@ -360,33 +543,238 @@ def serve_phase(torch, mt, fu, seed, n_requests, n_clients):
     }
 
 
-def kernel_table(rows, launches):
-    """One entry per kernel of the serving path: times are per ResNet-50
-    forward at batch 8 in float32 (each stage's shape weighted by its
-    number of fused units), errors the largest over the four stages."""
+def _fin_swapped(launch):
+    """K6 launched with its finalize vectors u0 and u1 in each other's
+    place."""
+    def faulty(name, *args):
+        if name == "fu_c3_bwd2d":
+            args = args[:3] + (args[4], args[3]) + args[5:]
+        launch(name, *args)
+    return faulty
+
+
+def _dw_zeroed(launch):
+    """K6 launched and its weight gradient dropped."""
+    def faulty(name, *args):
+        launch(name, *args)
+        if name == "fu_c3_bwd2d":
+            args[15].zero_()
+    return faulty
+
+
+# known faults on the kernel path, planted where fused_unit launches K6
+# (arguments g, y_raw, c1, u0, u1, x, w, sc, sh, xs, xh, dP, partials,
+# db, dg, dW, ...), each of which the train check must reject: the
+# control that shows the check can fail
+PLANTED_FAULTS = {"fault: K6 u0/u1 swapped": _fin_swapped,
+                  "fault: K6 dW zeroed": _dw_zeroed}
+
+
+def fit_run(torch, mt, sym, args, aux, x, y, steps):
+    """``steps`` SGD steps of ``Module.fit`` on cuda:0 over the one batch
+    (x, y); returns (per-step (loss, accuracy, host time at the step's
+    end), step 1's gradient of every parameter on the host, the module)."""
+    per_step, grads = [], {}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        if not per_step:
+            grads.update((n, g._data.to("cpu", torch.float32, copy=True))
+                         for n, g in mod._exec.grad_dict.items() if n in args)
+        vals = dict(param.eval_metric.get_name_value())
+        per_step.append((float(vals["cross-entropy"]),
+                         float(vals["accuracy"]), time.perf_counter()))
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    arg_nd, aux_nd = mt.convert.params_from_numpy(args, aux,
+                                                  device=mt.gpu(0))
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH),
+            eval_metric=["acc", "ce"], optimizer="sgd",
+            optimizer_params=SGD, kvstore="local", num_epoch=steps,
+            arg_params=arg_nd, aux_params=aux_nd,
+            batch_end_callback=on_batch)
+    return per_step, grads, mod
+
+
+def train_reading(per_step, grads, ref_per_step, ref_grads):
+    """One run against the plain run: the relative loss difference at each
+    step, and step 1's gradient difference over all parameters as one
+    vector, |g - g_plain| / |g_plain|, beside the largest such ratio of a
+    single parameter and its name."""
+    rel = [abs(a[0] - b[0]) / abs(b[0])
+           for a, b in zip(per_step, ref_per_step)]
+    diff2 = {n: float((g - ref_grads[n]).double().pow(2).sum())
+             for n, g in grads.items()}
+    ref2 = {n: float(g.double().pow(2).sum()) for n, g in ref_grads.items()}
+    per_param = {n: (diff2[n] / ref2[n]) ** 0.5 if ref2[n] else 0.0
+                 for n in diff2}
+    worst = max(per_param, key=per_param.get)
+    grad_err = (sum(diff2.values()) / sum(ref2.values())) ** 0.5
+    return {"loss_rel_diff": rel, "grad_rel_err": grad_err,
+            "param_rel_err": per_param[worst], "param_worst": worst,
+            "passes": (rel[0] <= LOSS_RTOL_FIRST
+                       and max(rel[1:]) <= LOSS_RTOL
+                       and grad_err <= GRAD_RTOL
+                       and per_param[worst] <= PARAM_RTOL)}
+
+
+def train_phase(torch, mt, fu, nn, seed, steps, card):
+    import numpy as np
+    sym = mt.models.get_resnet_symbol(
+        num_classes=1000, num_layers=50, image_shape=(3, 224, 224),
+        layout="NHWC", unit_impl="fused")
+    args, aux = mt.convert.random_params(sym, {"data": (1, 224, 224, 3)},
+                                         seed=seed)
+    rng = np.random.default_rng(seed + 2)
+    x = rng.standard_normal((TRAIN_BATCH, 224, 224, 3)).astype(np.float32)
+    y = rng.integers(0, 1000, TRAIN_BATCH).astype(np.float32)
+    wrappers = fu.KERNEL_WRAPPERS + (nn.conv1x1_bwd,)
+    os.environ["MXNET_CONV1X1_FUSED_BWD"] = "1"
+    try:
+        # the main path as a user runs it, cuDNN free to choose: counted,
+        # timed and profiled
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in wrappers:
+            k.launches = 0
+        t0 = time.perf_counter()
+        main, main_grads, mod = fit_run(torch, mt, sym, args, aux, x, y,
+                                        steps)
+        launches = {k.__name__: k.launches for k in wrappers}
+        peak = torch.cuda.max_memory_allocated()
+        final_args, final_aux = mod.get_params()
+        finite = all(bool(torch.isfinite(v._data).all())
+                     for v in list(final_args.values())
+                     + list(final_aux.values()))
+        batch = next(iter(mt.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH)))
+
+        def step():
+            mod.forward_backward(batch)
+            mod.update()
+        prof = profile_calls(torch, step, 2)
+        del mod, final_args, final_aux
+        torch.cuda.empty_cache()
+
+        # the check: every run from the same weights with cuDNN
+        # deterministic, held against the plain versions' run
+        torch.backends.cudnn.deterministic = True
+        runs = {}
+        with plain_kernels(fu, nn):
+            runs["plain"] = fit_run(torch, mt, sym, args, aux, x, y,
+                                    steps)[:2]
+            runs["plain, batch reversed"] = fit_run(
+                torch, mt, sym, args, aux, x[::-1].copy(), y[::-1].copy(),
+                steps)[:2]
+        runs["kernels"] = fit_run(torch, mt, sym, args, aux, x, y,
+                                  steps)[:2]
+        os.environ["MXNET_FUSED_UNIT_C3"] = "xla"
+        try:
+            runs["MXNET_FUSED_UNIT_C3=xla"] = fit_run(
+                torch, mt, sym, args, aux, x, y, steps)[:2]
+        finally:
+            os.environ.pop("MXNET_FUSED_UNIT_C3")
+        for name, plant in PLANTED_FAULTS.items():
+            with replaced(fu, "launch", plant(fu.launch)):
+                runs[name] = fit_run(torch, mt, sym, args, aux, x, y,
+                                     steps)[:2]
+        torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("MXNET_CONV1X1_FUSED_BWD")
+        torch.backends.cudnn.deterministic = False
+
+    ref = runs.pop("plain")
+    losses = [s[0] for s in main]
+    readings = {name: train_reading(*run, *ref) for name, run in runs.items()}
+    readings["main path (cuDNN free)"] = train_reading(main, main_grads,
+                                                       *ref)
+    log("  plain run's losses %s" % fmt([s[0] for s in ref[0]]))
+    for name, r in readings.items():
+        log("  %-34s loss rel diff %s; step-1 gradient rel err %.3e, "
+            "worst parameter %.3e (%s)"
+            % (name, fmt(r["loss_rel_diff"], "%.2e"), r["grad_rel_err"],
+               r["param_rel_err"], r["param_worst"]))
+    step_ms = sorted(1e3 * (b[2] - a[2]) for a, b in zip(main, main[1:]))
+    median = step_ms[len(step_ms) // 2] if len(step_ms) % 2 else \
+        0.5 * (step_ms[len(step_ms) // 2 - 1] + step_ms[len(step_ms) // 2])
+    log("  main path: losses %s; accuracy %s; launches in %d steps: %s"
+        % (fmt(losses), [s[1] for s in main], steps, launches))
+    log("  median step (2..%d) %.2f ms, %.1f images/s, first step %.2f s, "
+        "max_memory_allocated %.2f GB [%s]" % (
+            steps, median, TRAIN_BATCH * 1e3 / median, main[0][2] - t0,
+            peak / 1e9, card))
+    log_profile("one training step", prof, card)
+
+    for name, per in TRAIN_LAUNCHES.items():
+        if launches[name] != per * steps:
+            raise AssertionError("%s launched %d times in %d steps, not %d "
+                                 "per step" % (name, launches[name], steps,
+                                               per))
+    if not (finite and np.isfinite(losses).all()):
+        raise AssertionError("non-finite loss or parameter: losses %s"
+                             % losses)
+    for name, r in readings.items():
+        if r["passes"] == name.startswith("fault"):
+            raise AssertionError("%s %s the train check: %s" % (
+                name, "passed" if r["passes"] else "failed", r))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall: %s" % losses)
+    return {"steps": steps, "batch": TRAIN_BATCH, "losses": losses,
+            "plain_losses": [s[0] for s in ref[0]],
+            "accuracies": [s[1] for s in main], "launches": launches,
+            "checks": readings,
+            "step_ms_2_to_n": step_ms, "median_step_ms": median,
+            "images_per_s": TRAIN_BATCH * 1e3 / median,
+            "first_step_s": main[0][2] - t0,
+            "max_memory_allocated": peak, "profile_step": prof}
+
+
+_SOURCES = {
+    "fu_mm_fwd": ("mm_fwd", "mxnet_tpu/ops/fused_unit.py:376"),
+    "fu_c3_fwd2d": ("c3_fwd2d", "mxnet_tpu/ops/fused_unit.py:457"),
+    "fu_mm_skip_fwd": ("mm_skip_fwd", "mxnet_tpu/ops/fused_unit.py:400"),
+    "fu_mm_bwd": ("mm_bwd", "mxnet_tpu/ops/fused_unit.py:523"),
+    "fu_c3_bwd2d": ("c3_bwd2d", "mxnet_tpu/ops/fused_unit.py:483"),
+    "nn_conv1x1_bwd": ("conv1x1_bwd", "mxnet_tpu/ops/nn.py:212"),
+}
+
+
+def kernel_table(rows, bwd_rows, serve, train):
+    """One entry per kernel.  K1-K3: times per ResNet-50 forward at batch
+    8 (each stage's shape weighted by its number of fused units) and
+    launches in the serve phase; K5, K6, K8: times per training step at
+    batch 32 and launches in the train phase.  All float32; errors are the
+    largest over the shapes.  Every entry also gives its launches per
+    serve batch and per training step."""
     table = []
-    for name in ("fu_mm_fwd", "fu_c3_fwd2d", "fu_mm_skip_fwd"):
-        sel = [r for r in rows if r["kernel"] == name and not r["variant"]
-               and r["dtype"] == "float32"]
-        per_fwd = lambda key: sum(r[key] * r["units_per_forward"]  # noqa: E731
-                                  for r in sel)
-        ops = per_fwd("flops") / PEAK_FLOPS["float32"]
-        mem = per_fwd("bytes") / HBM_BYTES_S
+    for name, (wrapper, replaces) in _SOURCES.items():
+        fwd = wrapper in SERVE_KERNELS
+        if fwd:
+            sel = [r for r in rows if r["kernel"] == name
+                   and not r["variant"] and r["dtype"] == "float32"]
+            weight = "units_per_forward"
+        else:
+            sel = [r for r in bwd_rows if r["kernel"] == name
+                   and r["dtype"] == "float32"]
+            weight = "units_per_step"
+        total = lambda key: sum(r[key] * r[weight]  # noqa: E731
+                                for r in sel)
+        ops = total("flops") / PEAK_FLOPS["float32"]
+        mem = total("bytes") / HBM_BYTES_S
         table.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/%s.cu" % name,
-            "replaces": {"fu_mm_fwd": "mxnet_tpu/ops/fused_unit.py:376",
-                         "fu_c3_fwd2d": "mxnet_tpu/ops/fused_unit.py:457",
-                         "fu_mm_skip_fwd": "mxnet_tpu/ops/fused_unit.py:400",
-                         }[name],
-            "launches": launches[{"fu_mm_fwd": "mm_fwd",
-                                  "fu_c3_fwd2d": "c3_fwd2d",
-                                  "fu_mm_skip_fwd": "mm_skip_fwd"}[name]],
+            "replaces": replaces,
+            "launches": (serve if fwd else train)["launches"][wrapper],
+            "launches_per_serve_batch":
+                serve["launches"][wrapper] / serve["batches"],
+            "launches_per_train_step":
+                train["launches"][wrapper] / train["steps"],
+            "per": "serve forward, batch 8" if fwd
+            else "train step, batch 32",
             "max_abs_err": max(r["max_abs_err"] for r in sel),
-            "ms": per_fwd("ms"), "plain_ms": per_fwd("plain_ms"),
-            "bound_ms": per_fwd("bound_ms"),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
             "bound_by": "operations" if ops >= mem else "bytes",
-            "library_ms": per_fwd("library_ms"),
+            "library_ms": total("library_ms"),
         })
     return table
 
@@ -396,9 +784,12 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--train-steps", type=int, default=6)
     ap.add_argument("--json", metavar="PATH",
                     help="also write every measurement to this file")
     opts = ap.parse_args()
+    if opts.train_steps < 2:
+        sys.exit("chip_smoke: --train-steps must be at least 2")
 
     import torch
     if not torch.cuda.is_available():
@@ -413,6 +804,7 @@ def main():
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import cuda_build
     from mxnet_tpu_torch.ops import fused_unit as fu
+    from mxnet_tpu_torch.ops import nn
 
     t_start = time.perf_counter()
     card = card_line()
@@ -430,12 +822,14 @@ def main():
             if "registers" in line or "spill" in line:
                 log("    " + line.strip())
 
-    log("[3] kernels against their plain versions, batch %d" % BATCH)
+    log("[3] kernels against their plain versions: forward at batch %d, "
+        "backward at batch %d" % (BATCH, TRAIN_BATCH))
     device = torch.device("cuda", 0)
     rows = kernel_phase(torch, fu, device, opts.seed)
+    bwd_rows = bwd_kernel_phase(torch, fu, nn, device, opts.seed)
 
     log("[4] serve ResNet-50 224x224 from a checkpoint on %s" % name)
-    serve = serve_phase(torch, mt, fu, opts.seed, opts.requests,
+    serve = serve_phase(torch, mt, fu, nn, opts.seed, opts.requests,
                         opts.clients)
     log("  %d requests from %d clients in %d batches (occupancy %.3f): "
         "latency p50 %.2f ms, p99 %.2f ms, max %.2f ms, %.1f images/s; "
@@ -451,15 +845,14 @@ def main():
             steady["batches"], steady["latency_p50_ms"],
             steady["latency_p99_ms"], steady["latency_max_ms"],
             steady["images_per_s"], card))
-    log("  one batch-8 forward: host wall %.3f ms, device busy %.3f ms, "
-        "idle share %s [%s]" % (
-            prof["wall_ms_per_forward"], prof["device_busy_ms_per_forward"],
-            "not measured" if prof["device_idle_share"] is None
-            else "%.3f" % prof["device_idle_share"], card))
-    for kname, ms in prof["top_device_ms_per_forward"]:
-        log("    %8.4f ms  %s" % (ms, kname[:100]))
+    log_profile("one batch-8 forward", prof, card)
 
-    table = kernel_table(rows, serve["launches"])
+    log("[5] train ResNet-50 224x224 through Module.fit on %s, batch %d, "
+        "%d steps" % (name, TRAIN_BATCH, opts.train_steps))
+    train = train_phase(torch, mt, fu, nn, opts.seed, opts.train_steps,
+                        card)
+
+    table = kernel_table(rows, bwd_rows, serve, train)
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)),
                     exist_ok=True)
@@ -467,14 +860,28 @@ def main():
             json.dump({"card": card, "device": name,
                        "torch": torch.__version__, "cuda": torch.version.cuda,
                        "build_s": build_s, "kernel_rows": rows,
-                       "serve": serve, "kernels": table,
+                       "bwd_kernel_rows": bwd_rows, "serve": serve,
+                       "train": train, "kernels": table,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log("[5] done in %.1f s" % (time.perf_counter() - t_start))
+    log("[6] done in %.1f s" % (time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def fmt(vals, spec="%.5f"):
+    return "[" + ", ".join(spec % v for v in vals) + "]"
+
+
+def log_profile(what, prof, card):
+    log("  %s: host wall %.3f ms, device busy %.3f ms, idle share %s [%s]"
+        % (what, prof["wall_ms"], prof["device_busy_ms"],
+           "not measured" if prof["device_idle_share"] is None
+           else "%.3f" % prof["device_idle_share"], card))
+    for kname, ms in prof["top_device_ms"]:
+        log("    %8.4f ms  %s" % (ms, kname[:100]))
 
 
 if __name__ == "__main__":

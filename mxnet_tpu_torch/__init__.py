@@ -3,9 +3,11 @@
 The JAX package ``mxnet_tpu`` stays beside it, unchanged, as the
 reference.  Module names follow the reference's so each counterpart is
 easy to find.  This slice serves a frozen ResNet-50 (Symbol -> Executor ->
-Predictor / ServingEngine) through hand-written CUDA kernels for the fused
-bottleneck units (ops/fused_unit.py, csrc/).  Entry points run on the
-first CUDA card unless the caller passes ``ctx=cpu()``.
+Predictor / ServingEngine) and trains it (Module.fit -> Executor forward
+and backward -> SGD) through hand-written CUDA kernels for the fused
+bottleneck units and the 1x1-convolution backward (ops/fused_unit.py,
+ops/nn.py, csrc/).  Entry points run on the first CUDA card unless the
+caller passes ``ctx=cpu()`` (``context=cpu()`` for Module).
 """
 __version__ = "0.12.0.torch1"
 
@@ -28,3 +30,13 @@ from .predict import Predictor, load_checkpoint_predictor
 from . import serving
 from .serving import ServingEngine
 from . import convert
+from . import random
+from . import initializer
+from . import initializer as init
+from . import optimizer
+from . import optimizer as opt
+from . import metric
+from . import io
+from . import callback
+from . import module
+from . import module as mod

@@ -1,7 +1,8 @@
 """Runtime configuration: the MXNET_* environment variables this package reads.
 
 Counterpart of ``mxnet_tpu/config.py``, keeping only the variables the
-ResNet-50 serving path reads, under the same names and defaults.
+ResNet-50 serving and training paths read, under the same names and
+defaults.
 """
 from __future__ import annotations
 
@@ -39,6 +40,11 @@ VARIABLES = {v.name: v for v in [
          "'xla' runs the middle conv as a plain torch convolution segment "
          "instead (the name is kept from the reference package); '4d' "
          "selects a kernel that is not yet ported and raises."),
+    _Var("MXNET_CONV1X1_FUSED_BWD", bool, False,
+         "Compute a channels-last stride-1 1x1 convolution's dgrad and "
+         "wgrad in one hand-written CUDA kernel (ops/nn.py conv1x1_bwd) "
+         "where its H*W <= 256; the forward stays torch's convolution.  "
+         "Off by default, as in the reference package."),
     _Var("MXNET_SERVE_MAX_BATCH", int, 8,
          "Largest batch bucket the serving engine coalesces to, rounded "
          "up to a power of two; pending requests pad up to the smallest "

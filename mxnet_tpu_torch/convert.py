@@ -5,7 +5,11 @@ Both packages name parameters the same way and keep the same layouts
 numpy arrays (what the JAX package's ``asnumpy`` gives, keyed by name)
 in, NDArrays out, and back.  ``load_params`` reads a ``.params`` file the
 JAX package wrote.  ``random_params`` makes a seeded set for any graph, as
-numpy arrays that either package takes.
+numpy arrays that either package takes.  Checkpoints need no conversion:
+``model.save_checkpoint`` (and ``Module.save_checkpoint`` after training)
+writes the files ``mxnet_tpu.model.load_checkpoint`` reads, and
+``model.load_checkpoint`` reads the JAX package's
+(tests/test_torch_train.py).
 """
 from __future__ import annotations
 

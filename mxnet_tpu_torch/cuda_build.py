@@ -27,7 +27,7 @@ __all__ = ["KERNELS", "build", "load", "build_dir"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
-_COMMON = ["fu_gemm.cuh"]
+_COMMON = ["fu_gemm.cuh", "fu_bwd.cuh"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +37,9 @@ KERNELS = {
     "fu_mm_skip_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fu_c3_fwd2d": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _P],
+    "fu_mm_bwd": [_P] * 17 + [_I] * 7 + [_P],
+    "fu_c3_bwd2d": [_P] * 17 + [_I] * 8 + [_P],
+    "nn_conv1x1_bwd": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

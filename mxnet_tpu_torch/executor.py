@@ -1,12 +1,21 @@
-"""Executor: a bound symbol that runs forward.
+"""Executor: a bound symbol that runs forward, and backward in training.
 
 Counterpart of ``mxnet_tpu/executor.py``.  ``build_graph_fn`` interprets
 the symbol's registry impls in topological order; torch runs each op
 eagerly on the bound tensors' device, so there is no trace or compile
 step.  Aux-state mutation is threaded functionally as in the reference:
 an op's aux write-back output replaces that aux entry for downstream
-readers and is returned to the caller.  This slice is inference only:
-``forward(is_train=False)``; training comes with the training slice.
+readers and is returned to the caller.
+
+``forward(is_train=True)`` runs the graph in training mode under
+autograd, with a fresh leaf for each argument whose gradient is
+requested, and writes the aux states back right there, once per step.
+(The reference defers a training forward to ``backward``, and applies
+the moving averages a second time when the outputs are read before
+``backward``; the port does not.)  ``backward`` differentiates the
+recorded outputs: loss heads ignore the head gradient, so
+``backward()`` needs none, and an argument the outputs do not depend on
+gets a zero gradient.
 """
 from __future__ import annotations
 
@@ -59,47 +68,129 @@ def build_graph_fn(symbol, arg_names, aux_names):
     return graph_fn
 
 
-class Executor:
-    """Symbol bound to argument and aux NDArrays on one context."""
+_GRAD_REQS = ("null", "write", "add")
 
-    def __init__(self, symbol, ctx, args, aux_states=None, grad_req="null"):
+
+class Executor:
+    """Symbol bound to argument, gradient and aux NDArrays on one
+    context.  ``grad_req`` is one of null/write/add, or a list or dict of
+    them by argument; a gradient array is allocated for every argument
+    whose request is not null and that ``args_grad`` does not give."""
+
+    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
+                 aux_states=None):
+        self._symbol = symbol
+        self._ctx = ctx
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
+        self.output_names = symbol.list_outputs()
         self.arg_dict = self._as_dict(args, self.arg_names, "args")
         self.aux_dict = self._as_dict(aux_states or {}, self.aux_names, "aux")
-        reqs = grad_req.values() if isinstance(grad_req, dict) else [grad_req]
-        if any(r != "null" for r in reqs):
-            raise MXNetError("gradients are not yet ported: bind with "
-                             "grad_req='null'")
+        if isinstance(grad_req, str):
+            reqs = {n: grad_req for n in self.arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            reqs = dict(zip(self.arg_names, grad_req))
+        else:
+            reqs = {n: grad_req.get(n, "null") for n in self.arg_names}
+        bad = sorted(set(reqs.values()) - set(_GRAD_REQS))
+        if bad:
+            raise MXNetError("grad_req must be one of %s, got %s"
+                             % (_GRAD_REQS, bad))
+        self._grad_req = reqs
+        self.grad_dict = self._as_dict(args_grad or {}, self.arg_names,
+                                       "args_grad", allow_missing=True)
+        for n in self.arg_names:
+            if reqs[n] != "null" and n not in self.grad_dict:
+                self.grad_dict[n] = NDArray(torch.zeros_like(
+                    self.arg_dict[n]._data))
         self._graph_fn = build_graph_fn(symbol, self.arg_names,
                                         self.aux_names)
         self.outputs = []
+        self._recorded = None
 
     @staticmethod
-    def _as_dict(values, names, what):
+    def _as_dict(values, names, what, allow_missing=False):
         if isinstance(values, dict):
             missing = [n for n in names if n not in values]
-            if missing:
+            if missing and not allow_missing:
                 raise MXNetError("%s: missing %s" % (what, missing))
-            return {n: values[n] for n in names}
+            return {n: values[n] for n in names if n in values}
         values = list(values)
-        if len(values) != len(names):
+        if len(values) != len(names) and not allow_missing:
             raise MXNetError("%s: expected %d entries, got %d"
                              % (what, len(names), len(values)))
-        return dict(zip(names, values))
+        return {n: v for n, v in zip(names, values) if v is not None}
+
+    @property
+    def grad_arrays(self):
+        """Gradient arrays in argument order, None where not requested."""
+        return [self.grad_dict.get(n) for n in self.arg_names]
 
     def forward(self, is_train=False, **kwargs):
-        if is_train:
-            raise MXNetError("forward(is_train=True) is not yet ported")
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("forward: unknown argument %r" % k)
             src = v._data if isinstance(v, NDArray) \
                 else torch.from_numpy(np.asarray(v))
             self.arg_dict[k]._data.copy_(src)
-        with torch.inference_mode():
-            outs, _ = self._graph_fn(
-                [self.arg_dict[n]._data for n in self.arg_names],
-                [self.aux_dict[n]._data for n in self.aux_names])
-        self.outputs = [NDArray(o) for o in outs]
+        aux = [self.aux_dict[n]._data for n in self.aux_names]
+        self._recorded = None
+        if not is_train:
+            with torch.inference_mode():
+                outs, _ = self._graph_fn(
+                    [self.arg_dict[n]._data for n in self.arg_names], aux)
+            self.outputs = [NDArray(o) for o in outs]
+            return self.outputs
+        leaves = {n: self.arg_dict[n]._data.detach().requires_grad_(True)
+                  for n in self.arg_names if self._grad_req[n] != "null"}
+        with torch.enable_grad():
+            outs, new_aux = self._graph_fn(
+                [leaves.get(n, self.arg_dict[n]._data)
+                 for n in self.arg_names], aux, training=True)
+        for n, a in zip(self.aux_names, new_aux):
+            self.aux_dict[n]._data = a.detach()
+        self._recorded = (outs, leaves)
+        self.outputs = [NDArray(o.detach()) for o in outs]
         return self.outputs
+
+    def backward(self, out_grads=None):
+        """Gradients of the outputs of the last ``forward(is_train=True)``
+        into ``grad_dict``: written, or added under grad_req='add'."""
+        if self._recorded is None:
+            raise MXNetError("backward called without forward(is_train=True)")
+        outs, leaves = self._recorded
+        self._recorded = None
+        if out_grads is None:
+            heads = [torch.ones_like(o) for o in outs]
+        else:
+            if isinstance(out_grads, NDArray):
+                out_grads = [out_grads]
+            heads = [g._data for g in out_grads]
+        pairs = [(o, h) for o, h in zip(outs, heads) if o.requires_grad]
+        names = list(leaves)
+        grads = [None] * len(names)
+        if pairs and names:
+            grads = torch.autograd.grad([o for o, _ in pairs],
+                                        [leaves[n] for n in names],
+                                        [h for _, h in pairs],
+                                        allow_unused=True)
+        with torch.no_grad():
+            for n, g in zip(names, grads):
+                dst = self.grad_dict[n]._data
+                if self._grad_req[n] == "add":
+                    if g is not None:
+                        dst.add_(g)
+                elif g is None:
+                    dst.zero_()
+                else:
+                    dst.copy_(g)
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        for src, dst, what in ((arg_params or {}, self.arg_dict, "arg"),
+                               (aux_params or {}, self.aux_dict, "aux")):
+            for k, v in src.items():
+                if k in dst:
+                    dst[k][:] = v
+                elif not allow_extra_params:
+                    raise MXNetError("unknown %s %r" % (what, k))

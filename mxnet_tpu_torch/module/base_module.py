@@ -1,0 +1,133 @@
+"""BaseModule: the train/predict interface and the ``fit`` loop.
+
+Counterpart of ``mxnet_tpu/module/base_module.py``: ``forward_backward``,
+``score`` and ``fit`` (bind, init params and optimizer, then per epoch
+forward_backward / update / metric with batch-end callbacks, and the
+epoch-end callbacks with a host-consistent copy of the parameters).  The
+reference's step telemetry and monitors are not ported.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+from .. import metric
+from ..initializer import Uniform
+from ..model import BatchEndParam
+
+__all__ = ["BaseModule"]
+
+
+def _as_list(obj):
+    if obj is None:
+        return []
+    return list(obj) if isinstance(obj, (list, tuple)) else [obj]
+
+
+def _check_input_names(symbol, names, typename, throw):
+    """Declared data/label names must be inputs of the symbol."""
+    args = set(symbol.list_arguments())
+    missing = [n for n in names if n not in args]
+    if not missing:
+        return
+    msg = ("Module %s_names=%s contains '%s', which is not an input of the "
+           "symbol" % (typename, list(names), missing[0]))
+    if throw:
+        raise ValueError(msg)
+    logging.warning(msg)
+
+
+class BaseModule:
+    """Lifecycle: bind -> init_params -> init_optimizer -> forward /
+    backward / update, or fit / score."""
+
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    @property
+    def symbol(self):
+        return self._symbol
+
+    def forward_backward(self, data_batch):
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """``eval_metric`` over ``eval_data`` in inference mode."""
+        assert self.binded and self.params_initialized
+        eval_metric = metric.create(eval_metric)
+        eval_metric.reset()
+        if reset:
+            eval_data.reset()
+        nbatch = 0
+        for nbatch, batch in enumerate(eval_data):
+            if num_batch is not None and nbatch >= num_batch:
+                break
+            self.forward(batch, is_train=False)
+            self.update_metric(eval_metric, batch.label)
+            for cb in _as_list(batch_end_callback):
+                cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                 eval_metric=eval_metric, locals=locals()))
+        for cb in _as_list(score_end_callback):
+            cb(BatchEndParam(epoch=epoch, nbatch=nbatch + 1,
+                             eval_metric=eval_metric, locals=locals()))
+        return eval_metric.get_name_value()
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", optimizer="sgd",
+            optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=Uniform(0.01), arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None):
+        """Train over ``train_data`` for epochs [begin_epoch, num_epoch)."""
+        if num_epoch is None:
+            raise ValueError("fit() needs num_epoch")
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        validation_metric = validation_metric or eval_metric
+        eval_metric = metric.create(eval_metric)
+
+        for epoch in range(begin_epoch, num_epoch):
+            t_epoch = time.time()
+            eval_metric.reset()
+            for nbatch, batch in enumerate(train_data):
+                self.forward_backward(batch)
+                self.update()
+                self.update_metric(eval_metric, batch.label)
+                for cb in _as_list(batch_end_callback):
+                    cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                     eval_metric=eval_metric,
+                                     locals=locals()))
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                             time.time() - t_epoch)
+            arg_params, aux_params = self.get_params()
+            self.set_params(arg_params, aux_params)
+            for cb in _as_list(epoch_end_callback):
+                cb(epoch, self.symbol, arg_params, aux_params)
+            if eval_data:
+                for name, val in self.score(
+                        eval_data, validation_metric,
+                        score_end_callback=eval_end_callback,
+                        batch_end_callback=eval_batch_end_callback,
+                        epoch=epoch):
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                     name, val)
+            train_data.reset()

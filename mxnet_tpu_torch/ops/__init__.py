@@ -6,3 +6,4 @@ from . import elemwise      # noqa: F401
 from . import shape_ops     # noqa: F401
 from . import nn            # noqa: F401
 from . import fused_unit    # noqa: F401
+from . import optimizer_ops  # noqa: F401

@@ -14,23 +14,33 @@ Activations flow as (rows, C) with rows = n*h*w, the reference's 2D row
 layout.  Weights stay in their OHWI checkpoint layout: the kernels read
 (Co, Ci) and (Co, 3, 3, Ci) directly.
 
+In training mode K1 and K3 also return the batch statistics of their
+output, and the unit is a ``torch.autograd.Function`` whose backward runs
+the chain in reverse through two more kernels:
+
+- K5 ``mm_bwd``       dgrad + wgrad of a 1x1 conv (conv3, then conv1)
+- K6 ``c3_bwd2d``     dgrad + wgrad of the 3x3 conv (conv2)
+
+each of which finalizes the next BatchNorm's backward in its prologue,
+masks by the recomputed ReLU and takes its own BatchNorm's reductions in
+its epilogue, so neither normalized activations nor their gradients reach
+device memory.
+
 Each kernel has, beside it here, its plain PyTorch version (the same
 arithmetic: prologue in f32, rounded to the data type before the product,
 f32 accumulation, one rounding of the output), a launch counter
 (``<wrapper>.launches``) and a note on what it replaces.  A wrapper uses
 the plain version only for tensors on the CPU or the meta device; for a
 CUDA tensor it launches the kernel or raises.  The CUDA sources are
-``mxnet_tpu_torch/csrc/fu_*.cu`` (tiling and bound: ``fu_gemm.cuh``).
-
-Eval only: training mode (batch statistics and the backward kernels K5-K7
-of the reference) comes with the training slice and raises here.
+``mxnet_tpu_torch/csrc/fu_*.cu`` (tiling and bound: ``fu_gemm.cuh``,
+``fu_bwd.cuh``).
 """
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
 from .registry import register, P
+from ._cuda import (check, check_dims, launch, on_host, stream,
+                    wgrad_buffers)
 from ..base import MXNetError
 from .. import config
 
@@ -83,59 +93,61 @@ def c3_fwd2d_plain(x2d, w, sc, sh, n, h, w_, with_stats=False):
     return (acc.to(x2d.dtype),) + _stats(acc, with_stats)
 
 
+def _finalize_g(g2d, yraw2d, fin):
+    """The cotangent at the conv output, as f32 values of g's dtype: g
+    itself when final (fin None), else the deferred BatchNorm backward
+    c1*g + u0 + u1*y_raw in f32, rounded to g's dtype."""
+    if fin is None:
+        return g2d.float()
+    c1, u0, u1 = fin
+    return (c1 * g2d.float() + u0 + u1 * yraw2d.float()).to(
+        g2d.dtype).float()
+
+
+def _bwd_epilogue(da, x2d, sc, sh, xs, xh):
+    """ReLU mask of the recomputed prologue, then the BatchNorm sums from
+    the f32 dP: (dP in x's dtype, sum dP, sum dP * xhat)."""
+    xf = x2d.float()
+    dp = da * (torch.relu(xf * sc + sh) > 0).float()
+    return (dp.to(x2d.dtype), dp.sum(0), (dp * (xf * xs + xh)).sum(0))
+
+
+def mm_bwd_plain(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh):
+    """Plain version of K5: (dP (R, Ci), dW (Co, Ci) f32, sum dP,
+    sum dP * xhat)."""
+    g = _finalize_g(g2d, yraw2d, fin)
+    w2 = w.reshape(w.shape[0], -1).float()
+    dp, db, dg = _bwd_epilogue(torch.matmul(g, w2), x2d, sc, sh, xs, xh)
+    return dp, torch.matmul(g.t(), _prologue(x2d, sc, sh)), db, dg
+
+
+def c3_bwd2d_plain(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_):
+    """Plain version of K6: (dP (R, Ci), dW (Co, 3, 3, Ci) f32, sum dP,
+    sum dP * xhat).  Tap (dh, dw) pairs output row p with input row
+    p + (dh, dw): its wgrad sums g[p]^T a[p + tap] and its dgrad adds
+    g[q - tap] @ w_tap to input row q, zero-padded at the image edges."""
+    co, ci = g2d.shape[1], x2d.shape[1]
+    g = _finalize_g(g2d, yraw2d, fin)
+    gp = F.pad(g.reshape(n, h, w_, co), (0, 0, 1, 1, 1, 1))
+    ap = F.pad(_prologue(x2d, sc, sh).reshape(n, h, w_, ci),
+               (0, 0, 1, 1, 1, 1))
+    wf = w.float()
+    dw = torch.empty((co, 3, 3, ci), dtype=torch.float32, device=g.device)
+    da = None
+    for th in range(3):
+        for tw in range(3):
+            patch = ap[:, th:th + h, tw:tw + w_, :].reshape(-1, ci)
+            dw[:, th, tw, :] = torch.matmul(g.t(), patch)
+            gpatch = gp[:, 2 - th:2 - th + h, 2 - tw:2 - tw + w_, :]
+            part = torch.matmul(gpatch.reshape(-1, co), wf[:, th, tw, :])
+            da = part if da is None else da + part
+    dp, db, dg = _bwd_epilogue(da, x2d, sc, sh, xs, xh)
+    return dp, dw, db, dg
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-
-_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _on_host(t):
-    if t.device.type in ("cpu", "meta"):
-        return True
-    if t.device.type != "cuda":
-        raise MXNetError("fused unit kernels run on CUDA or CPU tensors, "
-                         "got %s" % t.device)
-    return False
-
-
-def _check(name, dtype, device, **tensors):
-    """Device, dtype, contiguity and alignment checks for a launch."""
-    for k, t in tensors.items():
-        want = torch.float32 if k in ("sc", "sh") else dtype
-        if t.device != device:
-            raise MXNetError("%s: %s is on %s, x on %s"
-                             % (name, k, t.device, device))
-        if t.dtype != want:
-            raise MXNetError("%s: %s has dtype %s, expected %s"
-                             % (name, k, t.dtype, want))
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise MXNetError("%s: %s must be contiguous and 16-byte "
-                             "aligned" % (name, k))
-    if dtype not in _DTYPES:
-        raise MXNetError("%s: dtype %s not supported (float32, bfloat16)"
-                         % (name, dtype))
-
-
-def _check_dims(name, k, n):
-    """The kernels stage four channels per vector load."""
-    if k % 4 or n % 4:
-        raise MXNetError("%s: input and output channels must be multiples "
-                         "of 4, got %d and %d" % (name, k, n))
-
-
-def _launch(name, *args):
-    from .. import cuda_build
-    fn = cuda_build.load(name)
-    rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args])
-    if rc != 0:
-        raise MXNetError("%s: launch failed with CUDA error %d" % (name, rc))
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
 
 def _stats_buffers(rows, n, device):
     part = torch.empty((2, -(-rows // _ROW_BLOCK), n), dtype=torch.float32,
@@ -154,7 +166,7 @@ def mm_fwd(x2d, w, sc, sh, with_stats=False):
     at ResNet-50 widths (2*R*Ci*Co operations against R*(Ci+Co) elements
     moved); the design stages the normalized tile once into shared memory
     and keeps a 4x4 f32 accumulator per thread (csrc/fu_gemm.cuh)."""
-    if _on_host(x2d):
+    if on_host(x2d):
         return mm_fwd_plain(x2d, w, sc, sh, with_stats)
     rows, ci = x2d.shape
     w2 = w.reshape(w.shape[0], -1)
@@ -163,16 +175,16 @@ def mm_fwd(x2d, w, sc, sh, with_stats=False):
         raise MXNetError("mm_fwd: shapes x %s w %s sc %s sh %s disagree"
                          % (tuple(x2d.shape), tuple(w.shape),
                             tuple(sc.shape), tuple(sh.shape)))
-    _check("mm_fwd", x2d.dtype, x2d.device, x=x2d, w=w2, sc=sc, sh=sh)
-    _check_dims("mm_fwd", ci, co)
+    check("mm_fwd", x2d.dtype, x2d.device, x=x2d, w=w2, sc=sc, sh=sh)
+    check_dims("mm_fwd", ci, co)
     y = torch.empty((rows, co), dtype=x2d.dtype, device=x2d.device)
     part = s = ss = None
     if with_stats:
         part, s, ss = _stats_buffers(rows, co, x2d.device)
     with torch.cuda.device(x2d.device):
-        _launch("fu_mm_fwd", x2d, w2, sc, sh, y, part, s, ss, rows, ci, co,
-                int(x2d.dtype == torch.bfloat16), int(with_stats),
-                _stream(x2d.device))
+        launch("fu_mm_fwd", x2d, w2, sc, sh, y, part, s, ss, rows, ci, co,
+               int(x2d.dtype == torch.bfloat16), int(with_stats),
+               stream(x2d.device))
     mm_fwd.launches += 1
     return y, s, ss
 
@@ -188,7 +200,7 @@ def mm_skip_fwd(x2d, w, sc, sh, skip2d):
     (``_mm_skip_fwd``, pallas_call "fu_mm_skip_fwd").  Bound on the H100:
     arithmetic at ResNet-50 widths; the residual add rides the epilogue,
     so the sum is written once (csrc/fu_gemm.cuh)."""
-    if _on_host(x2d):
+    if on_host(x2d):
         return mm_skip_fwd_plain(x2d, w, sc, sh, skip2d)
     rows, ci = x2d.shape
     w2 = w.reshape(w.shape[0], -1)
@@ -198,13 +210,13 @@ def mm_skip_fwd(x2d, w, sc, sh, skip2d):
         raise MXNetError("mm_skip_fwd: shapes x %s w %s skip %s disagree"
                          % (tuple(x2d.shape), tuple(w.shape),
                             tuple(skip2d.shape)))
-    _check("mm_skip_fwd", x2d.dtype, x2d.device, x=x2d, w=w2, sc=sc, sh=sh,
-           skip=skip2d)
-    _check_dims("mm_skip_fwd", ci, co)
+    check("mm_skip_fwd", x2d.dtype, x2d.device, x=x2d, w=w2, sc=sc, sh=sh,
+          skip=skip2d)
+    check_dims("mm_skip_fwd", ci, co)
     y = torch.empty((rows, co), dtype=x2d.dtype, device=x2d.device)
     with torch.cuda.device(x2d.device):
-        _launch("fu_mm_skip_fwd", x2d, w2, sc, sh, skip2d, y, rows, ci, co,
-                int(x2d.dtype == torch.bfloat16), _stream(x2d.device))
+        launch("fu_mm_skip_fwd", x2d, w2, sc, sh, skip2d, y, rows, ci, co,
+               int(x2d.dtype == torch.bfloat16), stream(x2d.device))
     mm_skip_fwd.launches += 1
     return y
 
@@ -222,7 +234,7 @@ def c3_fwd2d(x2d, w, sc, sh, n, h, w_, with_stats=False):
     arithmetic (9 taps of 2*R*Ci*Co); each output row reads its neighbour
     rows directly with zeros outside the image, so there is no rolled copy
     and no mask tensor, and it runs at every width (csrc/fu_gemm.cuh)."""
-    if _on_host(x2d):
+    if on_host(x2d):
         return c3_fwd2d_plain(x2d, w, sc, sh, n, h, w_, with_stats)
     rows, ci = x2d.shape
     co = w.shape[0]
@@ -231,27 +243,135 @@ def c3_fwd2d(x2d, w, sc, sh, n, h, w_, with_stats=False):
         raise MXNetError("c3_fwd2d: shapes x %s w %s disagree with "
                          "n,h,w = %d,%d,%d" % (tuple(x2d.shape),
                                                tuple(w.shape), n, h, w_))
-    _check("c3_fwd2d", x2d.dtype, x2d.device, x=x2d, w=w, sc=sc, sh=sh)
-    _check_dims("c3_fwd2d", ci, co)
+    check("c3_fwd2d", x2d.dtype, x2d.device, x=x2d, w=w, sc=sc, sh=sh)
+    check_dims("c3_fwd2d", ci, co)
     y = torch.empty((rows, co), dtype=x2d.dtype, device=x2d.device)
     part = s = ss = None
     if with_stats:
         part, s, ss = _stats_buffers(rows, co, x2d.device)
     with torch.cuda.device(x2d.device):
-        _launch("fu_c3_fwd2d", x2d, w, sc, sh, y, part, s, ss, rows, ci, co,
-                h, w_, int(x2d.dtype == torch.bfloat16), int(with_stats),
-                _stream(x2d.device))
+        launch("fu_c3_fwd2d", x2d, w, sc, sh, y, part, s, ss, rows, ci, co,
+               h, w_, int(x2d.dtype == torch.bfloat16), int(with_stats),
+               stream(x2d.device))
     c3_fwd2d.launches += 1
     return y, s, ss
 
 
 c3_fwd2d.launches = 0
 
-KERNEL_WRAPPERS = (mm_fwd, c3_fwd2d, mm_skip_fwd)
+
+def _check_fin(name, fin, yraw2d, rows, co):
+    if fin is None:
+        return
+    if yraw2d is None or yraw2d.shape != (rows, co) \
+            or any(v.shape != (co,) for v in fin):
+        raise MXNetError("%s: deferred finalize needs y_raw (%d, %d) and "
+                         "three (%d,) vectors" % (name, rows, co, co))
+
+
+def mm_bwd(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh):
+    """K5: the backward of y = relu(x*sc + sh) @ w^T for x (R, Ci), w
+    (Co, Ci) or (Co, 1, 1, Ci), from the cotangent g (R, Co).  With ``fin
+    = (c1, u0, u1)`` the cotangent is first finalized as c1*g + u0 +
+    u1*y_raw (the consumer BatchNorm's deferred backward, rounded to the
+    data type); with ``fin`` None it is final.  Returns dP = (g @ w) *
+    relu'(x*sc + sh) (R, Ci) in x's dtype, dW = g^T relu(x*sc + sh) (Co, Ci)
+    f32, and the f32 sums of dP and of dP*(x*xs + xh) over the rows.
+
+    Replaces mxnet_tpu/ops/fused_unit.py ``_k_matmul_bwd`` (``_mm_bwd``,
+    pallas_call "fu_mm_bwd"), which returns dW transposed.  Bound on the
+    H100: arithmetic (4*R*Ci*Co operations: dgrad and wgrad); the design
+    (csrc/fu_bwd.cuh) recomputes the finalize and the prologue while
+    staging tiles, so neither the finalized cotangent nor the activation is
+    written, splits the wgrad's sum over R into a fixed number of chunks,
+    and adds every partial (dW and the sums) in a fixed order."""
+    if on_host(x2d):
+        return mm_bwd_plain(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh)
+    rows, ci = x2d.shape
+    w2 = w.reshape(w.shape[0], -1)
+    co = w2.shape[0]
+    if g2d.shape != (rows, co) or w2.shape[1] != ci \
+            or any(v.shape != (ci,) for v in (sc, sh, xs, xh)):
+        raise MXNetError("mm_bwd: shapes g %s x %s w %s disagree"
+                         % (tuple(g2d.shape), tuple(x2d.shape),
+                            tuple(w.shape)))
+    _check_fin("mm_bwd", fin, yraw2d, rows, co)
+    extra = {} if fin is None else dict(yraw=yraw2d, c1=fin[0], u0=fin[1],
+                                        u1=fin[2])
+    check("mm_bwd", x2d.dtype, x2d.device, g=g2d, x=x2d, w=w2, sc=sc,
+          sh=sh, xs=xs, xh=xh, **extra)
+    check_dims("mm_bwd", ci, co)
+    dev = x2d.device
+    dp = torch.empty((rows, ci), dtype=x2d.dtype, device=dev)
+    part, db, dg = _stats_buffers(rows, ci, dev)
+    dw, wpart, splits, chunk = wgrad_buffers(rows, co, ci, dev)
+    c1, u0, u1 = fin if fin is not None else (None, None, None)
+    with torch.cuda.device(dev):
+        launch("fu_mm_bwd", g2d, yraw2d if fin is not None else None, c1,
+               u0, u1, x2d, w2, sc, sh, xs, xh, dp, part, db, dg, dw, wpart,
+               rows, ci, co, splits, chunk,
+               int(x2d.dtype == torch.bfloat16), int(fin is not None),
+               stream(dev))
+    mm_bwd.launches += 1
+    return dp, dw, db, dg
+
+
+mm_bwd.launches = 0
+
+
+def c3_bwd2d(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_):
+    """K6: the backward of the 3x3 / stride 1 / pad 1 convolution y =
+    conv3x3(relu(x*sc + sh)) over n whole h x w_ images held as x
+    (n*h*w_, Ci), weight (Co, 3, 3, Ci) OHWI, from the deferred cotangent
+    g (R, Co) with ``fin = (c1, u0, u1)`` (finalized as in ``mm_bwd``).
+    Returns dP (R, Ci) in x's dtype, dW (Co, 3, 3, Ci) f32, and the f32
+    sums of dP and of dP*(x*xs + xh).
+
+    Replaces mxnet_tpu/ops/fused_unit.py ``_k_conv3_bwd_2d``
+    (``_c3_bwd2d``, pallas_call "fu_c3_bwd2d"), which returns dW as
+    (3, 3, Ci, Co).  Bound on the H100: arithmetic (9 taps of 4*R*Ci*Co);
+    the dgrad reads each tap's neighbour row directly with zeros outside
+    the image (no rolled copy, no mask tensor), the wgrad tiles the OHWI
+    gradient with the taps folded into its columns, and it runs at every
+    width (csrc/fu_bwd.cuh)."""
+    if on_host(x2d):
+        return c3_bwd2d_plain(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n,
+                              h, w_)
+    rows, ci = x2d.shape
+    co = w.shape[0]
+    if rows != n * h * w_ or tuple(w.shape[1:]) != (3, 3, ci) \
+            or g2d.shape != (rows, co) \
+            or any(v.shape != (ci,) for v in (sc, sh, xs, xh)):
+        raise MXNetError("c3_bwd2d: shapes g %s x %s w %s disagree with "
+                         "n,h,w = %d,%d,%d" % (tuple(g2d.shape),
+                                               tuple(x2d.shape),
+                                               tuple(w.shape), n, h, w_))
+    if fin is None:
+        raise MXNetError("c3_bwd2d: the 3x3's cotangent is always deferred")
+    _check_fin("c3_bwd2d", fin, yraw2d, rows, co)
+    check("c3_bwd2d", x2d.dtype, x2d.device, g=g2d, yraw=yraw2d, c1=fin[0],
+          u0=fin[1], u1=fin[2], x=x2d, w=w, sc=sc, sh=sh, xs=xs, xh=xh)
+    check_dims("c3_bwd2d", ci, co)
+    dev = x2d.device
+    dp = torch.empty((rows, ci), dtype=x2d.dtype, device=dev)
+    part, db, dg = _stats_buffers(rows, ci, dev)
+    dw, wpart, splits, chunk = wgrad_buffers(rows, co, 9 * ci, dev)
+    with torch.cuda.device(dev):
+        launch("fu_c3_bwd2d", g2d, yraw2d, fin[0], fin[1], fin[2], x2d, w,
+               sc, sh, xs, xh, dp, part, db, dg, dw, wpart, rows, ci, co, h,
+               w_, splits, chunk, int(x2d.dtype == torch.bfloat16),
+               stream(dev))
+    c3_bwd2d.launches += 1
+    return dp, dw.reshape(co, 3, 3, ci), db, dg
+
+
+c3_bwd2d.launches = 0
+
+KERNEL_WRAPPERS = (mm_fwd, c3_fwd2d, mm_skip_fwd, mm_bwd, c3_bwd2d)
 
 
 # ---------------------------------------------------------------------------
-# The unit's eval chain
+# The unit's chain, forward and backward
 # ---------------------------------------------------------------------------
 
 def _c3_mode():
@@ -259,6 +379,10 @@ def _c3_mode():
     if mode not in ("auto", "2d", "4d", "xla"):
         raise MXNetError("MXNET_FUSED_UNIT_C3 must be one of "
                          "auto/2d/4d/xla, got %r" % mode)
+    if mode == "4d":
+        raise MXNetError("MXNET_FUSED_UNIT_C3=4d selects the 4D 3x3 kernels "
+                         "(fu_c3_fwd, fu_c3_bwd), which are not yet ported; "
+                         "use auto, 2d or xla")
     return mode
 
 
@@ -270,37 +394,135 @@ def _c3_fwd_segment(x4d, w, sc, sh):
     return y.permute(0, 2, 3, 1)
 
 
+def _c3_bwd_segment(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_):
+    """K6's function through torch's convolution gradients (the
+    counterpart of ``_c3_bwd_xla``), chosen only by
+    MXNET_FUSED_UNIT_C3=xla; the products round to the data type as the
+    reference's do."""
+    co, ci = g2d.shape[1], x2d.shape[1]
+    g = _finalize_g(g2d, yraw2d, fin).to(g2d.dtype)
+    g = g.reshape(n, h, w_, co).permute(0, 3, 1, 2)
+    a = _prologue(x2d, sc, sh).to(x2d.dtype)
+    a = a.reshape(n, h, w_, ci).permute(0, 3, 1, 2)
+    w_oihw = w.permute(0, 3, 1, 2)
+    da = torch.nn.grad.conv2d_input(a.shape, w_oihw, g, padding=1)
+    dw = torch.nn.grad.conv2d_weight(a, w_oihw.shape, g, padding=1)
+    dp, db, dg = _bwd_epilogue(da.permute(0, 2, 3, 1).reshape(-1, ci).float(),
+                               x2d, sc, sh, xs, xh)
+    return dp, dw.permute(0, 2, 3, 1).float(), db, dg
+
+
 def _bn_vectors(mu, var, gamma, beta, eps):
-    """Per-channel scale/shift of an eval BatchNorm, in f32."""
-    sc = gamma.float() * torch.rsqrt(var.float() + eps)
-    return sc, beta.float() - mu.float() * sc
+    """f32 per-channel vectors of a BatchNorm with statistics (mu, var):
+    scale and shift of its output, and xs, xh with xhat = x*xs + xh, and
+    inv = 1/sqrt(var + eps)."""
+    inv = torch.rsqrt(var.float() + eps)
+    sc = gamma.float() * inv
+    return sc, beta.float() - mu.float() * sc, inv, -mu.float() * inv, inv
 
 
-def _fused_unit_fwd_eval(eps, n, h, w_, data, g1, b1, w1, g2, b2, w2,
-                         g3, b3, w3, stats):
-    """conv1 -> conv2 -> conv3+skip with the moving statistics
-    ``stats = (mm1, mv1, mm2, mv2, mm3, mv3)``: (mm1, mv1) normalize the
-    data for conv1, (mm2, mv2) conv1's output, (mm3, mv3) conv2's.  The
-    output has the input's shape (2D in, 2D out)."""
+def _finalize_vectors(gamma, inv, mu, dbeta, dgamma, m):
+    """(c1, u0, u1) with which c1*dP + u0 + u1*x is a BatchNorm's input
+    gradient, from its reductions dbeta = sum dP, dgamma = sum dP*xhat."""
+    c1 = gamma.float() * inv
+    u0 = -c1 * (dbeta + dgamma * (-mu * inv)) / m
+    u1 = -c1 * dgamma * inv / m
+    return c1, u0, u1
+
+
+def _stats_from_sums(s, ss, m):
+    """Batch mean and biased variance from sum y and sum y^2 (the
+    reference's one-pass formula and clamp)."""
+    mu = s / m
+    return mu, torch.clamp(ss / m - mu * mu, min=0.0)
+
+
+def _fused_unit_chain(eps, n, h, w_, data, g1, b1, w1, g2, b2, w2, g3, b3,
+                      w3, mu0, var0, fixed_stats=None):
+    """conv1 -> conv2 -> conv3+skip.  (mu0, var0) normalize the data for
+    conv1.  Training (fixed_stats None) normalizes conv1's and conv2's
+    outputs by their batch statistics, taken from K1's and K3's epilogues;
+    eval passes the moving statistics as fixed_stats = (mu1, var1, mu2,
+    var2).  One chain serves both modes, as in the reference.  Returns
+    (out in data's shape, y1, y2, (mu1, var1), (mu2, var2))."""
+    training = fixed_stats is None
     c = data.shape[-1]
     rows = n * h * w_
     cq = w1.shape[0]
     x2d = data.reshape(rows, c)
-    sc1, sh1 = _bn_vectors(stats[0], stats[1], g1, b1, eps)
-    y1 = mm_fwd(x2d, w1, sc1, sh1)[0]
-    sc2, sh2 = _bn_vectors(stats[2], stats[3], g2, b2, eps)
-    mode = _c3_mode()
-    if mode == "4d":
-        raise MXNetError("MXNET_FUSED_UNIT_C3=4d selects the 4D 3x3 kernel "
-                         "(fu_c3_fwd), which is not yet ported; use auto, "
-                         "2d or xla")
-    if mode == "xla":
+    sc1, sh1 = _bn_vectors(mu0, var0, g1, b1, eps)[:2]
+    y1, s1, ss1 = mm_fwd(x2d, w1, sc1, sh1, training)
+    mu1, var1 = _stats_from_sums(s1, ss1, rows) if training \
+        else fixed_stats[:2]
+    sc2, sh2 = _bn_vectors(mu1, var1, g2, b2, eps)[:2]
+    if _c3_mode() == "xla":
         y2 = _c3_fwd_segment(y1.reshape(n, h, w_, cq), w2, sc2, sh2)
         y2 = y2.reshape(rows, cq)
+        if training:
+            yf = y2.float()
+            s2, ss2 = yf.sum(0), (yf * yf).sum(0)
     else:
-        y2 = c3_fwd2d(y1, w2, sc2, sh2, n, h, w_)[0]
-    sc3, sh3 = _bn_vectors(stats[4], stats[5], g3, b3, eps)
-    return mm_skip_fwd(y2, w3, sc3, sh3, x2d).reshape(data.shape)
+        y2, s2, ss2 = c3_fwd2d(y1, w2, sc2, sh2, n, h, w_, training)
+    mu2, var2 = _stats_from_sums(s2, ss2, rows) if training \
+        else fixed_stats[2:]
+    sc3, sh3 = _bn_vectors(mu2, var2, g3, b3, eps)[:2]
+    out = mm_skip_fwd(y2, w3, sc3, sh3, x2d).reshape(data.shape)
+    return out, y1, y2, (mu1, var1), (mu2, var2)
+
+
+class _FusedUnitCore(torch.autograd.Function):
+    """The training chain with its hand-written backward (the reference's
+    ``_fused_unit_core`` custom VJP).  Outputs (out, mu1, var1, mu2, var2):
+    the interior batch statistics feed the moving averages only and carry
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, cfg, data, g1, b1, w1, g2, b2, w2, g3, b3, w3, mu0,
+                var0):
+        out, y1, y2, st1, st2 = _fused_unit_chain(
+            *cfg, data, g1, b1, w1, g2, b2, w2, g3, b3, w3, mu0, var0)
+        ctx.cfg = cfg
+        ctx.save_for_backward(data, y1, y2, *st1, *st2, g1, b1, w1, g2, b2,
+                              w2, g3, b3, w3, mu0, var0)
+        ctx.mark_non_differentiable(*st1, *st2)
+        return (out,) + st1 + st2
+
+    @staticmethod
+    def backward(ctx, g_out, *_stat_cots):
+        (data, y1, y2, mu1, var1, mu2, var2, g1, b1, w1, g2, b2, w2, g3, b3,
+         w3, mu0, var0) = ctx.saved_tensors
+        eps, n, h, w_ = ctx.cfg
+        c = data.shape[-1]
+        rows = n * h * w_
+        x2d = data.reshape(rows, c)
+        g2d = g_out.contiguous().reshape(rows, c)
+        sc1, sh1, xs0, xh0, inv0 = _bn_vectors(mu0, var0, g1, b1, eps)
+        sc2, sh2, xs1, xh1, inv1 = _bn_vectors(mu1, var1, g2, b2, eps)
+        sc3, sh3, xs2, xh2, inv2 = _bn_vectors(mu2, var2, g3, b3, eps)
+        # conv3: the cotangent at `out` is final (the skip passes it to
+        # the data's gradient unchanged, added at the end)
+        dp3, dw3, db3, dg3 = mm_bwd(g2d, None, None, y2, w3, sc3, sh3, xs2,
+                                    xh2)
+        # conv2: bn3's backward finalized in the prologue
+        fin3 = _finalize_vectors(g3, inv2, mu2, db3, dg3, rows)
+        c3_bwd = _c3_bwd_segment if _c3_mode() == "xla" else c3_bwd2d
+        dp2, dw2, db2, dg2 = c3_bwd(dp3, y2, fin3, y1, w2, sc2, sh2, xs1,
+                                    xh1, n, h, w_)
+        # conv1: bn2's backward finalized in the prologue
+        fin2 = _finalize_vectors(g2, inv1, mu1, db2, dg2, rows)
+        dp1, dw1, db1, dg1 = mm_bwd(dp2, y1, fin2, x2d, w1, sc1, sh1, xs0,
+                                    xh0)
+        # close: bn1's backward and the skip path
+        c1v, u0v, u1v = _finalize_vectors(g1, inv0, mu0, db1, dg1, rows)
+        g_data = (c1v * dp1.float() + u0v + u1v * x2d.float()
+                  + g2d.float()).to(data.dtype)
+        return (None, g_data.reshape(data.shape),
+                dg1.to(g1.dtype), db1.to(b1.dtype), dw1.reshape(w1.shape)
+                .to(w1.dtype),
+                dg2.to(g2.dtype), db2.to(b2.dtype), dw2.to(w2.dtype),
+                dg3.to(g3.dtype), db3.to(b3.dtype), dw3.reshape(w3.shape)
+                .to(w3.dtype),
+                None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -342,12 +564,11 @@ def _fbu_fill(attrs, in_shapes):
 def fused_bottleneck_unit(attrs, data, g1, b1, w1, g2, b2, w2, g3, b3, w3,
                           mm1, mv1, mm2, mv2, mm3, mv3):
     """A stride-1 dim-match pre-activation bottleneck unit as the fused
-    kernel chain, eval mode.  Parameters match the unfused subgraph
+    kernel chain.  Parameters match the unfused subgraph
     (models/resnet.py _residual_unit).  NHWC 4D data, or (rows, C) 2D data
-    with the ``height``/``width`` attrs."""
-    if attrs.get("_training", False):
-        raise MXNetError("_contrib_FusedBottleneckUnit: training mode is "
-                         "not yet ported (it needs the backward kernels)")
+    with the ``height``/``width`` attrs.  Training normalizes by batch
+    statistics, records the kernels' backward and returns the six moving
+    averages updated (each once); eval uses and returns them unchanged."""
     if data.ndim == 4:
         n, h, w_, _c = data.shape
     elif data.ndim == 2:
@@ -363,7 +584,21 @@ def fused_bottleneck_unit(attrs, data, g1, b1, w1, g2, b2, w2, g3, b3, w3,
     else:
         raise MXNetError("_contrib_FusedBottleneckUnit expects NHWC 4D "
                          "or (rows, C) 2D data")
-    out = _fused_unit_fwd_eval(attrs["eps"], n, h, w_, data, g1, b1, w1,
-                               g2, b2, w2, g3, b3, w3,
-                               (mm1, mv1, mm2, mv2, mm3, mv3))
+    eps, mom = attrs["eps"], attrs["momentum"]
+    if attrs.get("_training", False):
+        with torch.no_grad():
+            xf = data.float().reshape(-1, data.shape[-1])
+            mu0, var0 = xf.mean(0), xf.var(0, unbiased=False)
+        out, mu1, var1, mu2, var2 = _FusedUnitCore.apply(
+            (eps, n, h, w_), data, g1, b1, w1, g2, b2, w2, g3, b3, w3, mu0,
+            var0)
+
+        def upd(old, new):
+            return mom * old + (1 - mom) * new.detach()
+        return (out, upd(mm1, mu0), upd(mv1, var0), upd(mm2, mu1),
+                upd(mv2, var1), upd(mm3, mu2), upd(mv3, var2))
+    out = _fused_unit_chain(eps, n, h, w_, data, g1, b1, w1, g2, b2, w2, g3,
+                            b3, w3, mm1.float(), mv1.float(),
+                            (mm2.float(), mv2.float(), mm3.float(),
+                             mv3.float()))[0]
     return (out, mm1, mv1, mm2, mv2, mm3, mv3)

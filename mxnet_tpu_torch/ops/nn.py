@@ -1,4 +1,4 @@
-"""Neural-network layer ops, forward only.
+"""Neural-network layer ops.
 
 Counterpart of the ResNet ops in ``mxnet_tpu/ops/nn.py``: Convolution,
 Pooling, BatchNorm, Activation, FullyConnected and SoftmaxOutput, with
@@ -6,13 +6,20 @@ the same parameter schemas (so symbol JSON interchanges) and the same
 layouts at the op boundary (NHWC data with OHWI weights when ``layout``
 ends in C, else NCHW/OIHW).  None of these was a Pallas kernel in the
 reference, so they run on torch's own operators (cuDNN/cuBLAS on the
-card).  BatchNorm's training-mode forward and every backward come with
-the training slice; a training-mode BatchNorm raises here.
+card) and take their gradients from autograd, except where the reference
+wrote the backward by hand: BatchNorm's training backward and
+SoftmaxOutput's loss gradient are ``torch.autograd.Function``s with the
+reference's arithmetic, and with MXNET_CONV1X1_FUSED_BWD a stride-1 1x1
+convolution's backward is the hand-written CUDA kernel K8
+(``conv1x1_bwd``, csrc/nn_conv1x1_bwd.cu).
 """
 import torch
 import torch.nn.functional as F
 
 from .registry import register, P
+from ._cuda import (check, check_dims, launch, on_host, stream,
+                    wgrad_buffers)
+from .. import config
 from ..base import MXNetError
 
 
@@ -122,6 +129,80 @@ def _conv1x1_cl(x, w, stride):
     return y.reshape(x.shape[:-1] + (co,))
 
 
+def conv1x1_bwd_plain(x2d, dy2d, w):
+    """Plain version of K8: (dx = dy @ w in x's dtype, dW = dy^T x
+    computed in f32 and cast to w's dtype, in w's shape)."""
+    w2 = w.reshape(w.shape[0], -1).float()
+    dx = torch.matmul(dy2d.float(), w2).to(x2d.dtype)
+    dw = torch.matmul(dy2d.float().t(), x2d.float())
+    return dx, dw.reshape(w.shape).to(w.dtype)
+
+
+def conv1x1_bwd(x2d, dy2d, w):
+    """K8: the backward of a 1x1 convolution y = x @ w^T with x (R, Ci), w
+    (Co, Ci) or (Co, 1, 1, Ci), from dy (R, Co): (dx = dy @ w (R, Ci) in
+    x's dtype, dW = dy^T x summed in f32 and cast to w's dtype, in w's
+    shape).
+
+    Replaces mxnet_tpu/ops/nn.py ``_fused1x1_bwd_pallas``.  Bound on the
+    H100: arithmetic (4*R*Ci*Co operations) at the transition units'
+    widths; it is K5's two products without finalize, prologue, mask or
+    sums, on K5's tiles (csrc/nn_conv1x1_bwd.cu, csrc/fu_bwd.cuh), with
+    the wgrad's sum over R in fixed chunks added in a fixed order."""
+    if on_host(x2d):
+        return conv1x1_bwd_plain(x2d, dy2d, w)
+    rows, ci = x2d.shape
+    w2 = w.reshape(w.shape[0], -1)
+    co = w2.shape[0]
+    if dy2d.shape != (rows, co) or w2.shape[1] != ci:
+        raise MXNetError("conv1x1_bwd: shapes x %s dy %s w %s disagree"
+                         % (tuple(x2d.shape), tuple(dy2d.shape),
+                            tuple(w.shape)))
+    check("conv1x1_bwd", x2d.dtype, x2d.device, x=x2d, dy=dy2d, w=w2)
+    check_dims("conv1x1_bwd", ci, co)
+    dev = x2d.device
+    dx = torch.empty((rows, ci), dtype=x2d.dtype, device=dev)
+    dw, wpart, splits, chunk = wgrad_buffers(rows, co, ci, dev)
+    with torch.cuda.device(dev):
+        launch("nn_conv1x1_bwd", x2d, dy2d, w2, dx, dw, wpart, rows, ci, co,
+               splits, chunk, int(x2d.dtype == torch.bfloat16),
+               stream(dev))
+    conv1x1_bwd.launches += 1
+    return dx, dw.reshape(w.shape).to(w.dtype)
+
+
+conv1x1_bwd.launches = 0
+
+
+class _Conv1x1FusedBwd(torch.autograd.Function):
+    """A channels-last stride-1 1x1 convolution whose forward is torch's
+    and whose backward is K8 (the reference's ``_conv1x1_fused_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _to_channels_last(F.conv2d(_to_channels_first(x),
+                                          _to_channels_first(w)))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        ci, co = x.shape[-1], w.shape[0]
+        dx, dw = conv1x1_bwd(x.contiguous().reshape(-1, ci),
+                             dy.contiguous().reshape(-1, co), w)
+        return dx.reshape(x.shape), dw
+
+
+def _conv1x1_fused_eligible(attrs, k, stride, pad, data):
+    """The reference's gate (``_conv1x1_fused_eligible``) without its
+    row-divisibility condition, a TPU tile constraint: both paths give
+    the same gradient."""
+    return (config.get("MXNET_CONV1X1_FUSED_BWD") and _channels_last(attrs)
+            and data.ndim == 4 and all(ki == 1 for ki in k)
+            and all(s == 1 for s in stride) and attrs["num_group"] == 1
+            and not any(pad) and data.shape[1] * data.shape[2] <= 256)
+
+
 @register("Convolution", aliases=["convolution", "Convolution_v1",
                                   "convolution_v1"],
           nin=lambda attrs: 2 if (attrs or {}).get("no_bias") else 3,
@@ -134,7 +215,9 @@ def convolution(attrs, data, weight, bias=None):
     dilate = tuple(attrs["dilate"]) or (1,) * nd
     pad = tuple(attrs["pad"]) or (0,) * nd
     cl = _channels_last(attrs)
-    if (cl and all(ki == 1 for ki in k) and attrs["num_group"] == 1
+    if _conv1x1_fused_eligible(attrs, k, stride, pad, data):
+        out = _Conv1x1FusedBwd.apply(data, weight)
+    elif (cl and all(ki == 1 for ki in k) and attrs["num_group"] == 1
             and not any(pad)):
         out = _conv1x1_cl(data, weight, stride)
     elif cl:
@@ -197,7 +280,7 @@ def pooling(attrs, data):
 
 
 # ---------------------------------------------------------------------------
-# BatchNorm (eval: normalize with the moving statistics)
+# BatchNorm: batch statistics in training, moving statistics in eval
 # ---------------------------------------------------------------------------
 
 _BN_PARAMS = {"eps": P(float, 1e-3), "momentum": P(float, 0.9),
@@ -217,16 +300,60 @@ def _bn_fill(attrs, in_shapes):
     return out
 
 
+class _BatchNormTrain(torch.autograd.Function):
+    """Training BatchNorm: (out, batch mean, batch var) with the
+    reference's hand-written backward (``_bn_train_bwd``): one pass for
+    the two sums, one for dx.  The statistics carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, red, bshape):
+        xf = x.float()
+        # f32 E[x] and E[x^2]; the clamp keeps f32 cancellation from
+        # making the variance negative
+        mean = xf.mean(red)
+        var = torch.clamp((xf * xf).mean(red) - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + eps)
+        scale = gamma * inv
+        shift = beta - mean * scale
+        out = (xf * scale.reshape(bshape) + shift.reshape(bshape)) \
+            .to(x.dtype)
+        ctx.red, ctx.bshape = red, bshape
+        ctx.save_for_backward(x, gamma, mean, inv)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, gamma, mean, inv = ctx.saved_tensors
+        red, bshape = ctx.red, ctx.bshape
+        dyf, xf = dy.float(), x.float()
+        n = xf.numel() // mean.numel()
+        sdy = dyf.sum(red)
+        sdyx = (dyf * xf).sum(red)
+        dgamma = (sdyx - mean * sdy) * inv
+        xhat = (xf - mean.reshape(bshape)) * inv.reshape(bshape)
+        dx = ((gamma * inv).reshape(bshape)
+              * (dyf - (sdy / n).reshape(bshape)
+                 - xhat * (dgamma / n).reshape(bshape))).to(x.dtype)
+        return dx, dgamma, sdy, None, None, None
+
+
 def _batch_norm_impl(attrs, data, gamma, beta, mov_mean, mov_var):
     """Outputs (out, mean, var, moving_mean, moving_var): three graph
-    outputs, then the two aux write-backs (unchanged in eval)."""
-    if attrs.get("_training", False) and not attrs["use_global_stats"]:
-        raise MXNetError("BatchNorm: training mode is not yet ported")
+    outputs, then the two aux write-backs (unchanged in eval).  With
+    fix_gamma the scale is ones, so gamma's gradient is zero."""
     ax = attrs["axis"] % data.ndim
+    red = tuple(i for i in range(data.ndim) if i != ax)
     bshape = tuple(data.shape[ax] if i == ax else 1 for i in range(data.ndim))
     f32 = torch.float32
     gamma32 = torch.ones_like(gamma, dtype=f32) if attrs["fix_gamma"] \
         else gamma.to(f32)
+    if attrs.get("_training", False) and not attrs["use_global_stats"]:
+        out, mean, var = _BatchNormTrain.apply(
+            data, gamma32, beta.to(f32), attrs["eps"], red, bshape)
+        m = attrs["momentum"]
+        return (out, mean, var, m * mov_mean + (1 - m) * mean,
+                m * mov_var + (1 - m) * var)
     mean = mov_mean.to(f32)
     var = mov_var.to(f32)
     scale = gamma32 * torch.rsqrt(var + attrs["eps"])
@@ -273,11 +400,54 @@ def activation(attrs, x):
                                      choices=["null", "batch", "valid"]),
                   "out_grad": P(bool, False), "smooth_alpha": P(float, 0.0)})
 def softmax_output(attrs, data, label):
-    """Forward: softmax over the class axis (the label is read only by
-    the backward, which comes with the training slice)."""
-    if attrs["multi_output"]:
+    """Softmax over the class axis; its gradient is the loss's, whatever
+    the head gradient (``_SoftmaxOutput``)."""
+    return _SoftmaxOutput.apply(data, label, attrs)
+
+
+def _softmax_fwd(data, multi_output):
+    if multi_output:
         return torch.softmax(data, dim=1)
     if data.ndim > 2:
         return torch.softmax(data.reshape(data.shape[0], -1),
                              dim=-1).reshape(data.shape)
     return torch.softmax(data, dim=-1)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Loss head (softmax_output-inl.h): d(data) = p - onehot(label),
+    with label smoothing, ignored labels, normalization and grad_scale as
+    the reference applies them; the incoming head gradient is not read,
+    so ``backward()`` needs none."""
+
+    @staticmethod
+    def forward(ctx, data, label, attrs):
+        out = _softmax_fwd(data, attrs["multi_output"])
+        ctx.attrs = attrs
+        ctx.save_for_backward(out, label)
+        return out
+
+    @staticmethod
+    def backward(ctx, _head):
+        out, label = ctx.saved_tensors
+        a = ctx.attrs
+        axis = 1 if a["multi_output"] else -1
+        k = out.shape[axis]
+        lab = label.long()
+        # labels outside [0, k) one-hot to zeros, as jax.nn.one_hot does
+        onehot = (lab.unsqueeze(-1) == torch.arange(k, device=lab.device)) \
+            .to(out.dtype).movedim(-1, axis)
+        alpha = a["smooth_alpha"]
+        if alpha:
+            onehot = onehot * (1 - alpha) + alpha / (k - 1) * (1 - onehot)
+        grad = out - onehot
+        valid = None
+        if a["use_ignore"]:
+            mask = (lab != int(a["ignore_label"])).to(out.dtype)
+            grad = grad * mask.unsqueeze(axis)
+            valid = torch.clamp(mask.sum(), min=1.0)
+        if a["normalization"] == "batch":
+            grad = grad / out.shape[0]
+        elif a["normalization"] == "valid":
+            grad = grad / (valid if valid is not None else label.numel())
+        return grad * a["grad_scale"], torch.zeros_like(label), None

@@ -73,7 +73,7 @@ class Predictor(object):
         self._data_names = list(data_shapes)
         self._exec = symbol.bind(
             ctx, args=_assemble_args(symbol, data_shapes, ctx, params),
-            aux_states=aux)
+            grad_req="null", aux_states=aux)
         self._outputs = None
 
     def set_input(self, name=None, value=None, **named):

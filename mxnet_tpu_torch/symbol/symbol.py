@@ -169,9 +169,28 @@ class Symbol:
         with open(fname, "w") as f:
             f.write(self.tojson())
 
-    def bind(self, ctx, args, aux_states=None, grad_req="null"):
+    def attr_dict(self):
+        """{name: {attr: string}} of every node that has attributes."""
+        return {n.name: attrs_to_strings(n.attrs)
+                for n in _topo(self._outputs) if n.attrs}
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None):
         from ..executor import Executor
-        return Executor(self, ctx, args, aux_states, grad_req=grad_req)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def simple_bind(self, ctx, grad_req="write", **shapes):
+        """Bind to zero-filled float32 arguments and aux states of the
+        shapes inferred from the given input shapes, with gradient arrays
+        per ``grad_req``."""
+        from ..executor import Executor
+        from ..ndarray import zeros
+        arg_shapes, _, aux_shapes = self.infer_shape(**shapes)
+        args = {n: zeros(s, ctx) for n, s in zip(self.list_arguments(),
+                                                  arg_shapes)}
+        aux = {n: zeros(s, ctx) for n, s in
+               zip(self.list_auxiliary_states(), aux_shapes)}
+        return Executor(self, ctx, args, None, grad_req, aux)
 
 
 def _infer_graph(heads, known_shapes):

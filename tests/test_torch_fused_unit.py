@@ -175,10 +175,152 @@ def test_unit_unported_c3_modes_raise(monkeypatch, mode):
                *[torch.from_numpy(a) for a in ins])
 
 
-def test_unit_training_mode_raises():
+def test_unit_training_mode_raises(monkeypatch):
+    """Training through the 4D 3x3 kernels (K4/K7) is not yet ported."""
+    monkeypatch.setenv("MXNET_FUSED_UNIT_C3", "4d")
     n, h, w, c = CASES[0]
     ins = [np.zeros((n, h, w, c), np.float32)] \
         + _unit_inputs(_case_rng(CASES[0]), c)
     with pytest.raises(MXNetError, match="not yet ported"):
         invoke("_contrib_FusedBottleneckUnit", _unit_attrs(c, "4d", h, w),
                *[torch.from_numpy(a) for a in ins], training=True)
+
+
+# ---------------------------------------------------------------------------
+# Training: the backward kernels' plain versions and the unit's gradients
+# ---------------------------------------------------------------------------
+
+def _bwd_inputs(case, co, ci):
+    """Cotangent, raw output, finalize vectors, input, (Co, Ci) weight and
+    the four BatchNorm vectors of one conv's backward."""
+    n, h, w, _ = case
+    rng = _case_rng(case + (co, ci))
+    rows = n * h * w
+    r = lambda *s, scale=1.0: (rng.standard_normal(s)  # noqa: E731
+                               * scale).astype(np.float32)
+    g, yraw, x = r(rows, co), r(rows, co), r(rows, ci)
+    fin = (_vec(rng, co), r(co, scale=0.1), r(co, scale=0.1))
+    vecs = (_vec(rng, ci), r(ci, scale=0.3), _vec(rng, ci), r(ci, scale=0.3))
+    return g, yraw, fin, x, vecs
+
+
+def _close_rel(got, want, tol=TOL):
+    """Within tol of the largest magnitude of the reference."""
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    assert got.shape == want.shape
+    assert float(np.abs(got - want).max()) / scale <= tol
+
+
+@pytest.mark.parametrize("deferred", [True, False])
+@pytest.mark.parametrize("case", CASES)
+def test_mm_bwd_plain_matches_pallas(case, deferred):
+    """K5 at the unit's conv3 (final, Co = C) and conv1 (deferred, Co =
+    C/4) shapes against _mm_bwd in interpret mode; the port's dW is the
+    reference's transposed."""
+    c = case[-1]
+    co, ci = (c // 4, c) if deferred else (c, c // 4)
+    g, yraw, fin, x, vecs = _bwd_inputs(case, co, ci)
+    w = (_case_rng(case).standard_normal((co, ci)) * 0.1).astype(np.float32)
+    fin = fin if deferred else None
+    ref = jfu._mm_bwd(jnp.asarray(g), jnp.asarray(yraw) if deferred else None,
+                      None if fin is None else tuple(map(jnp.asarray, fin)),
+                      jnp.asarray(x), jnp.asarray(w),
+                      *map(jnp.asarray, vecs), jnp.float32)
+    t = torch.from_numpy
+    out = tfu.mm_bwd(t(g), t(yraw) if deferred else None,
+                     None if fin is None else tuple(map(t, fin)), t(x),
+                     t(w).reshape(co, 1, 1, ci), *map(t, vecs))
+    _close_rel(out[0], ref[0])
+    _close_rel(out[1].t(), ref[1])
+    _close_rel(out[2], ref[2])
+    _close_rel(out[3], ref[3])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_c3_bwd2d_plain_matches_pallas(case):
+    n, h, w, c = case
+    cq = c // 4
+    g, yraw, fin, x, vecs = _bwd_inputs(case, cq, cq)
+    w2 = (_case_rng(case).standard_normal((cq, 3, 3, cq)) * 0.1) \
+        .astype(np.float32)
+    ref = jfu._c3_bwd2d(jnp.asarray(g), jnp.asarray(yraw),
+                        tuple(map(jnp.asarray, fin)), jnp.asarray(x),
+                        jfu._w4(jnp.asarray(w2)), *map(jnp.asarray, vecs),
+                        n, h, w, jnp.float32)
+    t = torch.from_numpy
+    out = tfu.c3_bwd2d(t(g), t(yraw), tuple(map(t, fin)), t(x), t(w2),
+                       *map(t, vecs), n, h, w)
+    _close_rel(out[0], ref[0])
+    _close_rel(out[1].permute(1, 2, 3, 0), ref[1])
+    _close_rel(out[2], ref[2])
+    _close_rel(out[3], ref[3])
+
+
+_PARAM_NAMES = ["data", "g1", "b1", "w1", "g2", "b2", "w2", "g3", "b3", "w3"]
+
+
+def _jax_training_unit(attrs, ins):
+    """JAX: outputs and the gradients of sum(tanh(out)) with respect to
+    the data and the nine parameters."""
+    import jax
+    aux = [jnp.asarray(a) for a in ins[10:]]
+
+    def loss(*diff):
+        outs = jfu.fused_bottleneck_unit(dict(attrs, _training=True),
+                                         *diff, *aux)
+        return jnp.sum(jnp.tanh(outs[0])), outs
+    (_, outs), grads = jax.value_and_grad(loss, argnums=tuple(range(10)),
+                                          has_aux=True)(
+        *[jnp.asarray(a) for a in ins[:10]])
+    return [np.asarray(o) for o in outs], [np.asarray(g) for g in grads]
+
+
+def _port_training_unit(attrs, ins):
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in ins[:10]]
+    outs = invoke("_contrib_FusedBottleneckUnit", attrs, *leaves,
+                  *[torch.from_numpy(a) for a in ins[10:]], training=True)
+    torch.tanh(outs[0]).sum().backward()
+    return ([o.detach().numpy() for o in outs],
+            [leaf.grad.numpy() for leaf in leaves])
+
+
+def _check_training_unit(case, form="4d"):
+    n, h, w, c = case
+    rng = _case_rng(case)
+    data = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    ins = [data] + _unit_inputs(rng, c)
+    attrs = _unit_attrs(c, "4d", h, w)
+    ref_outs, ref_grads = _jax_training_unit(attrs, ins)
+    if form == "2d":
+        ins[0] = data.reshape(n * h * w, c)
+        attrs = _unit_attrs(c, "2d", h, w)
+    outs, grads = _port_training_unit(attrs, ins)
+    assert len(outs) == len(ref_outs) == 7
+    _close(outs[0].reshape(data.shape), ref_outs[0])
+    for o, r in zip(outs[1:], ref_outs[1:]):         # the six write-backs
+        _close(o, r)
+    # the atol rule of tests/test_fused_unit.py: 3e-5 of the gradient's
+    # largest magnitude, at least 3e-5
+    for name, g, r in zip(_PARAM_NAMES, grads, ref_grads):
+        scale = float(np.abs(r).max()) + 1e-6
+        np.testing.assert_allclose(g.reshape(r.shape), r, rtol=0,
+                                   atol=3e-5 * max(scale, 1.0),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_unit_training_matches_jax(case):
+    """Output, the six moving-average write-backs, and the gradients of
+    the data and all nine parameters against jax.grad of the JAX op, with
+    non-trivial gammas and moving statistics."""
+    _check_training_unit(case)
+
+
+def test_unit_training_2d_and_c3_xla_match_jax(monkeypatch):
+    """The 2D row form, and MXNET_FUSED_UNIT_C3=xla (the middle conv and
+    its backward as torch convolutions) in both packages."""
+    _check_training_unit(CASES[0], form="2d")
+    monkeypatch.setenv("MXNET_FUSED_UNIT_C3", "xla")
+    _check_training_unit(CASES[1])

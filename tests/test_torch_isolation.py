@@ -68,6 +68,8 @@ def test_entry_points_without_ctx_raise_without_a_card(no_card, tmp_path):
         mt.ServingEngine.from_checkpoint(prefix, 0, {"data": (3,)})
     with pytest.raises(mt.MXNetError, match="ctx=cpu"):
         mt.load_checkpoint_predictor(prefix, 0, {"data": (1, 3)})
+    with pytest.raises(mt.MXNetError, match="ctx=cpu"):
+        mt.mod.Module(sym, label_names=None)
 
 
 def test_entry_points_with_cpu_ctx_run_without_a_card(no_card):
@@ -79,6 +81,12 @@ def test_entry_points_with_cpu_ctx_run_without_a_card(no_card):
         np.testing.assert_array_equal(
             eng.predict(np.array([-3.0, 1.0, 0.5]), timeout=30),
             [0.0, 1.0, 0.5])
+    mod = mt.mod.Module(sym, label_names=None, context=mt.cpu())
+    mod.bind([("data", (1, 3))], for_training=False)
+    mod.init_params()
+    mod.forward(mt.io.DataBatch([mt.nd.array([[-1.0, 0.0, 2.0]])]))
+    np.testing.assert_array_equal(mod.get_outputs()[0].asnumpy(),
+                                  [[0.0, 0.0, 2.0]])
 
 
 def test_contexts_name_torch_devices():

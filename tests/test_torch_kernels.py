@@ -1,5 +1,5 @@
-"""The CUDA kernels of the fused bottleneck unit against their plain
-PyTorch versions.
+"""The CUDA kernels of the fused bottleneck unit (K1-K3, K5, K6) and the
+1x1-convolution backward (K8) against their plain PyTorch versions.
 
 The tests marked ``cuda`` need a card and skip where there is none. This
 file imports neither JAX nor the JAX package, so on a machine that has no
@@ -12,6 +12,7 @@ import torch
 
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import fused_unit as fu
+from mxnet_tpu_torch.ops import nn
 
 # (n, h, w, c): the JAX package's fused-unit cases, a ResNet-50 stage-4
 # unit at batch 2, and a width that is a multiple of 4 but not of the tile
@@ -52,6 +53,16 @@ def test_wrappers_on_meta_tensors_take_plain_version():
     y3 = fu.mm_skip_fwd(m(98, 64), m(256, 1, 1, 64), m(64), m(64),
                         m(98, 256))
     assert y3.shape == (98, 256)
+    dp, dw, db, dg = fu.mm_bwd(m(98, 64), m(98, 64), (m(64),) * 3,
+                               m(98, 256), m(64, 1, 1, 256), *(m(256),) * 4)
+    assert dp.shape == (98, 256) and dw.shape == (64, 256)
+    assert db.shape == dg.shape == (256,)
+    dp, dw, _, _ = fu.c3_bwd2d(m(98, 64), m(98, 64), (m(64),) * 3,
+                               m(98, 64), m(64, 3, 3, 64), *(m(64),) * 4,
+                               2, 7, 7)
+    assert dp.shape == (98, 64) and dw.shape == (64, 3, 3, 64)
+    dx, dw = nn.conv1x1_bwd(m(98, 256), m(98, 64), m(64, 1, 1, 256))
+    assert dx.shape == (98, 256) and dw.shape == (64, 1, 1, 256)
     assert [k.launches for k in fu.KERNEL_WRAPPERS] == before
 
 
@@ -129,3 +140,78 @@ def test_wrappers_reject_bad_inputs_on_card(cuda_device):
         fu.mm_fwd(torch.zeros(64, 30, device=cuda_device),
                   torch.zeros(8, 1, 1, 30, device=cuda_device),
                   v[:30], v[:30])
+
+
+def _bwd_inputs(case, device, dtype):
+    """Backward inputs of the unit's three convs: conv3 (final cotangent
+    g3), conv2 (deferred from bn3) and conv1 (deferred from bn2)."""
+    n, h, w, c = case
+    cq = c // 4
+    g = torch.Generator().manual_seed(n * 1000 + h * 100 + w * 10 + c + 1)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g)  # noqa: E731
+                               * scale).to(device)
+    rows = n * h * w
+    t = dict(x=r(rows, c), y1=r(rows, cq), y2=r(rows, cq), g3=r(rows, c),
+             dpn=r(rows, cq), w1=r(cq, 1, 1, c, scale=c ** -0.5),
+             w2=r(cq, 3, 3, cq, scale=(9 * cq) ** -0.5),
+             w3=r(c, 1, 1, cq, scale=cq ** -0.5))
+    t = {k: v.to(dtype) for k, v in t.items()}
+    for name, width in (("c", c), ("q", cq)):
+        t["sc" + name], t["sh" + name] = r(width).abs() + 0.5, r(width) * 0.3
+        t["xs" + name], t["xh" + name] = r(width).abs() + 0.5, r(width) * 0.3
+        t["fin" + name] = (r(width).abs() + 0.5, r(width) * 0.1,
+                           r(width) * 0.1)
+    return t
+
+
+def _bwd_calls(case, t):
+    n, h, w, _ = case
+    vq = (t["scq"], t["shq"], t["xsq"], t["xhq"])
+    vc = (t["scc"], t["shc"], t["xsc"], t["xhc"])
+    return [
+        (fu.mm_bwd, fu.mm_bwd_plain,
+         (t["g3"], None, None, t["y2"], t["w3"]) + vq),
+        (fu.c3_bwd2d, fu.c3_bwd2d_plain,
+         (t["dpn"], t["y2"], t["finq"], t["y1"], t["w2"]) + vq + (n, h, w)),
+        (fu.mm_bwd, fu.mm_bwd_plain,
+         (t["dpn"], t["y1"], t["finq"], t["x"], t["w1"]) + vc),
+        (nn.conv1x1_bwd, nn.conv1x1_bwd_plain, (t["x"], t["dpn"], t["w1"])),
+    ]
+
+
+# dP / dx: as the forward outputs.  dW, db, dg: f32 sums over every row in
+# another order (bf16 products are exact in f32), so an f32 bound in both
+# dtypes, except K8's dW, which the wrapper rounds to the weight's dtype.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES)
+def test_backward_kernels_match_plain_on_card(cuda_device, case, dtype):
+    dt = getattr(torch, dtype)
+    t = _bwd_inputs(case, cuda_device, dt)
+    for kernel, plain, args in _bwd_calls(case, t):
+        before = kernel.launches
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for i, (g, r) in enumerate(zip(got, want)):
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert g.device == cuda_device
+            tol = CARD_TOL[dt] if i == 0 or kernel is nn.conv1x1_bwd \
+                else BWD_TOL[dt]
+            scale = float(r.float().abs().max())
+            err = float((g.float() - r.float()).abs().max()) / scale
+            assert err <= tol, (kernel.__name__, i, err)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_repeat_bitwise_on_card(cuda_device):
+    """No atomics, fixed split of the wgrad's rows: the same bits twice,
+    at a shape whose wgrad is split (stage 1 of ResNet-50 at batch 2)."""
+    case = (2, 56, 56, 256)
+    t = _bwd_inputs(case, cuda_device, torch.float32)
+    for kernel, _plain, args in _bwd_calls(case, t):
+        for a, b in zip(kernel(*args), kernel(*args)):
+            assert torch.equal(a, b), kernel.__name__

@@ -155,3 +155,173 @@ def test_reshape_codes(shape, spec):
 def test_flatten():
     x = _rand(np.random.default_rng(8), 2, 1, 1, 6)
     _check("Flatten", {}, x, tol=0)
+
+
+# ---------------------------------------------------------------------------
+# Training: forward in training mode and gradients against jax.vjp
+# ---------------------------------------------------------------------------
+
+def _vjp_both(op, attrs, inputs, wrt, head):
+    """(port outputs, port gradients, JAX outputs, JAX gradients) of
+    sum(out[0] * head) with respect to inputs[i] for i in wrt, in
+    training mode.  A gradient the port does not produce reads as zeros,
+    as the executor writes it."""
+    import jax
+    ts = [torch.from_numpy(a).requires_grad_(i in wrt)
+          for i, a in enumerate(inputs)]
+    outs = invoke(op, attrs, *ts, training=True)
+    (outs[0] * torch.from_numpy(head)).sum().backward()
+    grads = [ts[i].grad.numpy() if ts[i].grad is not None
+             else np.zeros_like(inputs[i]) for i in wrt]
+
+    def f(*diff):
+        args = [jnp.asarray(a) for a in inputs]
+        for i, d in zip(wrt, diff):
+            args[i] = d
+        return invoke_jax(op, attrs, *args, training=True)
+    ref, vjp = jax.vjp(lambda *d: f(*d)[0],
+                       *[jnp.asarray(inputs[i]) for i in wrt])
+    ref_grads = vjp(jnp.asarray(head))
+    return ([o.detach().numpy() for o in outs], grads,
+            [np.asarray(r) for r in f(*[jnp.asarray(inputs[i])
+                                       for i in wrt])],
+            [np.asarray(g) for g in ref_grads])
+
+
+def _close_scaled(got, want, tol=TOL):
+    """Within tol of max(1, the reference's largest magnitude)."""
+    scale = max(float(np.abs(want).max()), 1.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("fix_gamma", [True, False])
+def test_batchnorm_training(fix_gamma):
+    """Batch statistics, moving-average write-backs and the hand-written
+    backward; with fix_gamma gamma's gradient is zero in both."""
+    rng = np.random.default_rng(11)
+    x = _rand(rng, 4, 5, 5, 6) + 0.5
+    gamma = rng.uniform(0.5, 1.5, 6).astype(np.float32)
+    beta, mean = _rand(rng, 6), _rand(rng, 6)
+    var = rng.uniform(0.5, 1.5, 6).astype(np.float32)
+    head = _rand(rng, *x.shape)
+    attrs = dict(fix_gamma=fix_gamma, eps=2e-5, axis=3, momentum=0.9)
+    outs, grads, ref, ref_grads = _vjp_both(
+        "BatchNorm", attrs, [x, gamma, beta, mean, var], (0, 1, 2), head)
+    assert len(outs) == len(ref) == 5
+    for o, r in zip(outs, ref):
+        _close_scaled(o, r)
+    for g, r in zip(grads, ref_grads):
+        _close_scaled(g, r)
+    if fix_gamma:
+        assert not grads[1].any()
+
+
+@pytest.mark.parametrize("attrs", [
+    {}, dict(normalization="batch"), dict(normalization="valid"),
+    dict(normalization="valid", use_ignore=True, ignore_label=2),
+    dict(use_ignore=True, ignore_label=0, grad_scale=0.5),
+    dict(smooth_alpha=0.1, normalization="batch"),
+])
+def test_softmax_output_gradient(attrs):
+    """p - onehot(label), whatever the head gradient."""
+    rng = np.random.default_rng(12)
+    data = _rand(rng, 6, 5, scale=2.0)
+    label = np.array([0, 2, 4, 2, 1, 3], np.float32)
+    outs, grads, ref, ref_grads = _vjp_both(
+        "SoftmaxOutput", attrs, [data, label], (0,), _rand(rng, 6, 5))
+    _close_scaled(outs[0], ref[0])
+    _close_scaled(grads[0], ref_grads[0])
+
+
+@pytest.mark.parametrize("op,momentum", [("sgd_update", None),
+                                         ("sgd_mom_update", 0.9)])
+@pytest.mark.parametrize("clip", [-1.0, 0.05])
+def test_sgd_updates_in_place(op, momentum, clip):
+    from mxnet_tpu_torch.ops import optimizer_ops
+    rng = np.random.default_rng(13)
+    w, g, mom = _rand(rng, 4, 6), _rand(rng, 4, 6), _rand(rng, 4, 6)
+    attrs = dict(lr=0.05, wd=1e-4, rescale_grad=0.25, clip_gradient=clip)
+    tw, tm = torch.from_numpy(w.copy()), torch.from_numpy(mom.copy())
+    if momentum is None:
+        ref = invoke_jax(op, attrs, jnp.asarray(w), jnp.asarray(g))
+        optimizer_ops.sgd_update(tw, torch.from_numpy(g), **attrs)
+        ours = [tw]
+    else:
+        attrs["momentum"] = momentum
+        ref = invoke_jax(op, attrs, jnp.asarray(w), jnp.asarray(g),
+                         jnp.asarray(mom))
+        optimizer_ops.sgd_mom_update(tw, torch.from_numpy(g), tm, **attrs)
+        ours = [tw, tm]
+    for o, r in zip(ours, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-6,
+                                   atol=1e-7)
+
+
+# 1x1 cases with the K8 gate on: (4, 8, 8, 16) is eligible (H*W <= 256),
+# (2, 18, 18, 8) is not (H*W = 324), nor is the strided shortcut
+TRAIN_CONV_CASES = CONV_CASES[:3] + [
+    ((4, 8, 8, 16), dict(kernel=(1, 1), num_filter=12, no_bias=True,
+                         layout="NHWC")),
+    ((2, 18, 18, 8), dict(kernel=(1, 1), num_filter=8, no_bias=True,
+                          layout="NHWC")),
+]
+
+
+@pytest.mark.parametrize("shape,attrs", TRAIN_CONV_CASES)
+def test_convolution_gradients(shape, attrs, monkeypatch):
+    monkeypatch.setenv("MXNET_CONV1X1_FUSED_BWD", "1")
+    from mxnet_tpu_torch.ops import nn
+    rng = np.random.default_rng(sum(shape))
+    cin = shape[-1]
+    w = _rand(rng, *((attrs["num_filter"],) + attrs["kernel"] + (cin,)),
+              scale=0.2)
+    x = _rand(rng, *shape)
+    out_shape = invoke("Convolution", attrs, torch.from_numpy(x),
+                       torch.from_numpy(w))[0].shape
+    calls = []
+    plain = nn.conv1x1_bwd_plain
+    monkeypatch.setattr(nn, "conv1x1_bwd_plain",
+                        lambda *a: calls.append(a) or plain(*a))
+    outs, grads, ref, ref_grads = _vjp_both(
+        "Convolution", attrs, [x, w], (0, 1),
+        _rand(rng, *out_shape))
+    # K8's gate: only the stride-1 1x1 at H*W <= 256 goes through it (its
+    # plain version, on the CPU)
+    assert len(calls) == (shape == (4, 8, 8, 16))
+    _close_scaled(outs[0], ref[0])
+    for g, r in zip(grads, ref_grads):
+        _close_scaled(g, r)
+
+
+def test_conv1x1_bwd_plain_matches_pallas():
+    """K8's plain version against _fused1x1_bwd_pallas (interpret mode)."""
+    from mxnet_tpu.ops.nn import _fused1x1_bwd_pallas
+    from mxnet_tpu_torch.ops import nn
+    rng = np.random.default_rng(14)
+    x, dy, w = _rand(rng, 512, 32), _rand(rng, 512, 48), _rand(rng, 48, 32)
+    dx_ref, dw_ref = _fused1x1_bwd_pallas(jnp.asarray(x), jnp.asarray(dy),
+                                          jnp.asarray(w))
+    dx, dw = nn.conv1x1_bwd(torch.from_numpy(x), torch.from_numpy(dy),
+                            torch.from_numpy(w).reshape(48, 1, 1, 32))
+    _close_scaled(dx.numpy(), np.asarray(dx_ref))
+    _close_scaled(dw.numpy().reshape(48, 32), np.asarray(dw_ref))
+
+
+@pytest.mark.parametrize("op,attrs,shape,wshape", [
+    ("FullyConnected", dict(num_hidden=10), (4, 2, 2, 4), (10, 16)),
+    ("Pooling", dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                     pool_type="max", layout="NHWC"), (2, 9, 9, 4), None),
+    ("Pooling", dict(global_pool=True, kernel=(7, 7), pool_type="avg",
+                     layout="NHWC"), (2, 7, 7, 4), None),
+])
+def test_dense_and_pooling_gradients(op, attrs, shape, wshape):
+    rng = np.random.default_rng(15)
+    ins = [_rand(rng, *shape)]
+    if wshape:
+        ins += [_rand(rng, *wshape, scale=0.3), _rand(rng, wshape[0])]
+    out_shape = invoke(op, attrs, *map(torch.from_numpy, ins))[0].shape
+    outs, grads, ref, ref_grads = _vjp_both(
+        op, attrs, ins, tuple(range(len(ins))), _rand(rng, *out_shape))
+    _close_scaled(outs[0], ref[0])
+    for g, r in zip(grads, ref_grads):
+        _close_scaled(g, r)
