@@ -36,7 +36,24 @@ Phases (none catches its own failure; there is no CPU path):
    reversed and two faults planted at K6's launch are each held against
    the plain versions' run by the losses and step 1's gradients: every
    sound run must pass and every fault must fail;
-6. the kernel table as one JSON line, then the result line
+6. the KV-cache writes K9 ``cache_write_row`` and K10 ``cache_write_rows``
+   against their plain versions at 8 and 64 slots, max_len 128 and 2048,
+   d 200, in float32, float16 and bfloat16, with edge positions, windows
+   straddling the end and counts 0..5: the whole cache bit-identical, and
+   untouched outside the written rows; timed beside the one-hot blend they
+   replace, one ``index_put_`` and their bound;
+7. decode: the attention decoder of ``perf/decode_bench.py``
+   (``build_spec_models``, copied here: vocab 10000, d 200, 6 blocks,
+   max_len 128, weights from ``--seed``) served by ``DecodeEngine`` on
+   cuda:0 with 8 slots, 64 requests (geometric lengths of mean 16, 8 with
+   4-16-token prompts) at k = 0, 2 and 4 (the 1-block draft).  Every
+   stream must equal the k=0 engine's, ``greedy_decode``'s through the
+   kernels, the engine's with the plain scatter and with selection off;
+   the served graph must hold 12 ``_cache_write_row`` and no ``one_hot``,
+   and K9 and K10 must launch exactly as the graphs imply per step.
+   Tokens/s, step p50/p99, accept rate and tokens per step, and one
+   profiled step at k = 0 and 4;
+8. the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -67,13 +84,27 @@ TRAIN_BATCH = 32
 K8_SITES = [("stage3_unit1_conv3", 14 * 14, 256, 1024),
             ("stage4_unit1_conv1", 14 * 14, 1024, 512),
             ("stage4_unit1_conv3", 7 * 7, 512, 2048)]
-# launches of each kernel per training step: 12 fused units (K5 twice in
-# each) and K8's three sites
 # the kernels a served (eval) forward launches, 12 times a batch; the
 # backward kernels must not launch there
 SERVE_KERNELS = ("mm_fwd", "c3_fwd2d", "mm_skip_fwd")
+# launches of each kernel per training step: 12 fused units (K5 twice in
+# each), K8's three sites, and no cache write
 TRAIN_LAUNCHES = {"mm_fwd": 12, "mm_skip_fwd": 12, "c3_fwd2d": 12,
-                  "mm_bwd": 24, "c3_bwd2d": 12, "conv1x1_bwd": 3}
+                  "mm_bwd": 24, "c3_bwd2d": 12, "conv1x1_bwd": 3,
+                  "cache_write_row": 0, "cache_write_rows": 0}
+# The attention decoder of perf/decode_bench.py build_spec_models at the
+# widths of the repo's language-model configuration (models/lstm_lm.py,
+# PTB: vocab 10000, d 200), the benchmark's depth and tail scale, and the
+# decode engine's default slot pool (MXNET_DECODE_SLOTS, _MAX_LEN)
+DECODER = dict(vocab=10000, d=200, max_len=128, layers=6, tail_scale=0.05)
+DECODE_SLOTS = 8
+# traffic: decode_bench.make_jobs's recipe (1-token prompts, geometric
+# output lengths of mean 16), 8 of the requests given 4-16-token prompts
+DECODE_REQUESTS, DECODE_MEAN_NEW, DECODE_PROMPTED = 64, 16, 8
+SPEC_KS = (2, 4)
+# K9/K10 shapes: the engine's slot pool and a 64-slot one, its max_len and
+# a long context, the decoder's d; K10's window is the widest, k + 1 = 5
+KV_SLOTS, KV_T, KV_WINDOW = (8, 64), (128, 2048), 5
 # H100 SXM peaks (NVIDIA data sheet, dense): FP32 outside the tensor cores,
 # bf16 in them, and HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -454,7 +485,12 @@ def profile_calls(torch, fn, reps):
             "top_device_ms": [(k, v / reps) for k, v in top]}
 
 
-def serve_phase(torch, mt, fu, nn, seed, n_requests, n_clients):
+def kernel_wrappers(fu, nn, kv):
+    """Every kernel wrapper of the port: K1-K3, K5, K6, K8, K9, K10."""
+    return fu.KERNEL_WRAPPERS + (nn.conv1x1_bwd,) + kv.KERNEL_WRAPPERS
+
+
+def serve_phase(torch, mt, fu, nn, kv, seed, n_requests, n_clients):
     import numpy as np
     shape = (224, 224, 3)
     sym = mt.models.get_resnet_symbol(
@@ -479,11 +515,11 @@ def serve_phase(torch, mt, fu, nn, seed, n_requests, n_clients):
         log("  engine up and warm (%d buckets) in %.2f s"
             % (buckets, time.perf_counter() - t0))
 
-        for k in fu.KERNEL_WRAPPERS + (nn.conv1x1_bwd,):
+        for k in kernel_wrappers(fu, nn, kv):
             k.launches = 0
         futures, wall, lat = send_requests(eng, xs, n_clients)
         launches = {k.__name__: k.launches
-                    for k in fu.KERNEL_WRAPPERS + (nn.conv1x1_bwd,)}
+                    for k in kernel_wrappers(fu, nn, kv)}
         st = eng.stats()
         # the same traffic again on the now-used worker: steady state
         again, wall2, lat2 = send_requests(eng, xs, n_clients)
@@ -541,6 +577,79 @@ def serve_phase(torch, mt, fu, nn, seed, n_requests, n_clients):
         "max_prob": float(outs.max()),
         "launches": launches,
     }
+
+
+def build_spec_models(mt, vocab, d, max_len, layers, seed, tail_scale):
+    """The attention decoder of ``perf/decode_bench.py`` build_spec_models,
+    built with the port (this script cannot import the JAX package): the
+    target stacks ``layers`` single-head attention blocks over per-layer
+    (slots, max_len, d) K and V caches written through one-hot blends
+    (``x + proj(attn(x))``, the output projections of blocks past the
+    first scaled by ``tail_scale``); the draft is block 0 with the shared
+    head.  The same graphs (JSON) and, drawn in the same order from
+    ``seed``, the same weights, as float32 numpy arrays.  Returns
+    (target, target state_info, draft, draft state_info, params)."""
+    import numpy as np
+    sym = mt.sym
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, scale=1.0):
+        return (rng.standard_normal(shape).astype(np.float32)
+                * np.float32(scale))
+
+    params = {"emb_weight": w(vocab, d)}
+    tok, pos = sym.Variable("token"), sym.Variable("pos")
+    steps_r = sym.reshape(sym._arange(start=0, stop=max_len),
+                          shape=(1, max_len))
+    mask = sym.broadcast_lesser_equal(steps_r,
+                                      sym.reshape(pos, shape=(-1, 1)))
+
+    def block(x, i, scale):
+        prefix = "blk%d_" % i
+        kc, vc = sym.Variable(prefix + "k"), sym.Variable(prefix + "v")
+        q = sym.FullyConnected(x, num_hidden=d, no_bias=True,
+                               name=prefix + "q")
+        k = sym.FullyConnected(x, num_hidden=d, no_bias=True,
+                               name=prefix + "kf")
+        v = sym.FullyConnected(x, num_hidden=d, no_bias=True,
+                               name=prefix + "vf")
+        ohe = sym.expand_dims(sym.one_hot(pos, depth=max_len), axis=2)
+        k_new = sym.broadcast_mul(kc, 1.0 - ohe) \
+            + sym.broadcast_mul(sym.expand_dims(k, axis=1), ohe)
+        v_new = sym.broadcast_mul(vc, 1.0 - ohe) \
+            + sym.broadcast_mul(sym.expand_dims(v, axis=1), ohe)
+        scores = sym.batch_dot(k_new, sym.expand_dims(q, axis=2))
+        scores = sym.reshape(scores, shape=(0, max_len)) \
+            * (1.0 / np.sqrt(d))
+        scores = scores * mask + (1.0 - mask) * (-1e9)
+        attn = sym.softmax(scores, axis=1)
+        ctx = sym.batch_dot(sym.expand_dims(attn, axis=1), v_new)
+        o = sym.FullyConnected(sym.reshape(ctx, shape=(0, d)),
+                               num_hidden=d, no_bias=True, name=prefix + "o")
+        for name, sc in (("q", 0.5), ("kf", 0.5), ("vf", 0.5), ("o", scale)):
+            draw = w(d, d, scale=sc)
+            params.setdefault(prefix + name + "_weight", draw)
+        infos = [{"name": prefix + c, "shape": (max_len, d), "cache": True}
+                 for c in ("k", "v")]
+        return x + o, k_new, v_new, infos
+
+    params["out_fc_weight"] = w(vocab, d)
+    params["out_fc_bias"] = np.zeros((vocab,), np.float32)
+
+    def stack(n_blocks):
+        x = sym.Embedding(tok, input_dim=vocab, output_dim=d, name="emb")
+        outs, infos = [], []
+        for i in range(n_blocks):
+            x, k_new, v_new, inf = block(x, i,
+                                         1.0 if i == 0 else tail_scale)
+            outs += [k_new, v_new]
+            infos += inf
+        logits = sym.FullyConnected(x, num_hidden=vocab, name="out_fc")
+        return sym.Group([logits] + outs), infos
+
+    target, t_info = stack(layers)
+    draft, d_info = stack(1)
+    return target, t_info, draft, d_info, params
 
 
 def _fin_swapped(launch):
@@ -617,7 +726,7 @@ def train_reading(per_step, grads, ref_per_step, ref_grads):
                        and per_param[worst] <= PARAM_RTOL)}
 
 
-def train_phase(torch, mt, fu, nn, seed, steps, card):
+def train_phase(torch, mt, fu, nn, kv, seed, steps, card):
     import numpy as np
     sym = mt.models.get_resnet_symbol(
         num_classes=1000, num_layers=50, image_shape=(3, 224, 224),
@@ -627,7 +736,7 @@ def train_phase(torch, mt, fu, nn, seed, steps, card):
     rng = np.random.default_rng(seed + 2)
     x = rng.standard_normal((TRAIN_BATCH, 224, 224, 3)).astype(np.float32)
     y = rng.integers(0, 1000, TRAIN_BATCH).astype(np.float32)
-    wrappers = fu.KERNEL_WRAPPERS + (nn.conv1x1_bwd,)
+    wrappers = kernel_wrappers(fu, nn, kv)
     os.environ["MXNET_CONV1X1_FUSED_BWD"] = "1"
     try:
         # the main path as a user runs it, cuDNN free to choose: counted,
@@ -727,6 +836,340 @@ def train_phase(torch, mt, fu, nn, seed, steps, card):
             "max_memory_allocated": peak, "profile_step": prof}
 
 
+def kv_phase(torch, kv, device, seed):
+    """K9 and K10 against their plain versions at decode shapes: every
+    dtype, positions 0 and T-1, windows straddling the end, out-of-range
+    positions, counts 0..K; the whole cache bit-identical to the plain
+    version's and, outside the written rows, to its input.  Times beside
+    the one-hot blend the kernels replace, one index_put_ and the bound."""
+    gen = torch.Generator(device="cpu").manual_seed(seed + 11)
+    d, K = DECODER["d"], KV_WINDOW
+    rows_out = []
+    for n in KV_SLOTS:
+        for T in KV_T:
+            for dname in ("float32", "float16", "bfloat16"):
+                dt = getattr(torch, dname)
+                es = torch.tensor([], dtype=dt).element_size()
+                cache = torch.randn(n, T, d, generator=gen).to(dt)
+                row = torch.randn(n, d, generator=gen).to(dt)
+                rows = torch.randn(n, K, d, generator=gen).to(dt)
+                edges = [0, T - 1, T - 2, T - K + 1, T + 7, -3]
+                pos = torch.tensor([edges[i] if i < len(edges) else
+                                    int(torch.randint(0, T, (1,),
+                                                      generator=gen))
+                                    for i in range(n)], dtype=torch.float32)
+                count = torch.tensor([i % (K + 1) for i in range(n)],
+                                     dtype=torch.float32)
+                # which rows each write may touch, computed on the host
+                p_row = pos.long().clamp(0, T - 1)
+                w_row = torch.zeros(n, T, dtype=torch.bool)
+                w_row[torch.arange(n), p_row] = True
+                w_rows = torch.zeros(n, T, dtype=torch.bool)
+                acc = []
+                for i in range(n):
+                    for j in range(int(count[i])):
+                        if 0 <= int(pos[i]) + j < T:
+                            w_rows[i, int(pos[i]) + j] = True
+                            acc.append((i, j, int(pos[i]) + j))
+                cache, row, rows = (t.to(device) for t in (cache, row, rows))
+                pos, count = pos.to(device), count.to(device)
+                for name, kern, plain, args, written in (
+                        ("cache_write_row", kv.cache_write_row,
+                         kv.cache_write_row_plain, (row, pos), w_row),
+                        ("cache_write_rows", kv.cache_write_rows,
+                         kv.cache_write_rows_plain, (rows, pos, count),
+                         w_rows)):
+                    got = kern(cache.clone(), *args)
+                    want = plain(cache.clone(), *args)
+                    again = kern(cache.clone(), *args)
+                    torch.cuda.synchronize()
+                    written = written.to(device)
+                    if not (torch.equal(got, want) and torch.equal(got, again)
+                            and torch.equal(got[~written],
+                                            cache[~written])):
+                        raise AssertionError(
+                            "%s slots %d T %d %s: the cache differs from "
+                            "the plain version's or outside its rows"
+                            % (name, n, T, dname))
+                    ar = torch.arange(n, device=device)
+                    if name == "cache_write_row":
+                        moved = 2 * n * d * es + 4 * n
+                        ii, pp = ar, pos.long().clamp(0, T - 1)
+                        vals = row
+                        oh = (p_row.to(device)[:, None] == torch.arange(
+                            T, device=device)).to(dt)[..., None]
+                        src = row[:, None, :]
+                    else:
+                        moved = 2 * len(acc) * d * es + 8 * n
+                        ii = torch.tensor([a[0] for a in acc],
+                                          device=device, dtype=torch.long)
+                        jj = torch.tensor([a[1] for a in acc],
+                                          device=device, dtype=torch.long)
+                        pp = torch.tensor([a[2] for a in acc],
+                                          device=device, dtype=torch.long)
+                        vals = rows[ii, jj]
+                        oh = None
+                    buf = cache.clone()
+                    if oh is not None:
+                        # the graph's blend: one_hot, 1 - oh, two products
+                        # and the sum, over the whole cache
+                        blend = lambda: buf * (1.0 - oh) + src * oh  # noqa
+                    else:
+                        def blend():
+                            c = buf
+                            for j in range(K):
+                                pj = (pos.long() + j)[:, None]
+                                ohj = ((pj == torch.arange(T, device=device))
+                                       * (count[:, None] > j)).to(dt)
+                                ohj = ohj[..., None]
+                                c = c * (1.0 - ohj) \
+                                    + rows[:, j:j + 1] * ohj
+                            return c
+                    r = {"kernel": name, "slots": n, "T": T, "d": d,
+                         "dtype": dname, "window": K if oh is None else 1,
+                         "bitwise_equal": True, "max_abs_err": 0.0,
+                         "ms": time_ms(torch, lambda: kern(buf, *args)),
+                         "plain_ms": time_ms(torch,
+                                             lambda: plain(buf, *args)),
+                         "blend_ms": time_ms(torch, blend),
+                         "library_ms": time_ms(
+                             torch, lambda: buf.index_put_((ii, pp), vals)),
+                         "bytes": moved,
+                         "bound_ms": 1e3 * moved / HBM_BYTES_S,
+                         "bound_by": "bytes"}
+                    rows_out.append(r)
+                    log("  %-16s slots %2d T %4d %-8s bitwise  kernel %.4f "
+                        "ms  plain %.4f ms  blend %.4f ms  index_put_ %.4f "
+                        "ms  bound %.6f ms (bytes)"
+                        % (name, n, T, dname, r["ms"], r["plain_ms"],
+                           r["blend_ms"], r["library_ms"], r["bound_ms"]))
+    return rows_out
+
+
+def launches_per_step(k, draft_blocks=1):
+    """(K9, K10) launches per decode step the graphs imply: K9 writes K and
+    V of each of the target's blocks (12 at 6 blocks) and, speculating,
+    of each draft block too, at each of the k + 1 window positions; K10
+    commits each target and draft cache once per speculative step."""
+    caches = 2 * DECODER["layers"]
+    if not k:
+        return caches, 0
+    caches += 2 * draft_blocks
+    return caches * (k + 1), caches
+
+
+def decode_jobs(seed):
+    """decode_bench.make_jobs's recipe (1-token prompts, geometric output
+    lengths of mean 16, capped into the slot), with DECODE_PROMPTED of the
+    requests given 4-16-token prompts so that teacher forcing runs."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 1)
+    cap, vocab = DECODER["max_len"] - 1, DECODER["vocab"]
+    jobs = []
+    for _ in range(DECODE_REQUESTS):
+        n = int(min(cap, rng.geometric(1.0 / DECODE_MEAN_NEW)))
+        jobs.append(([int(rng.integers(vocab))], max(1, n)))
+    for i in rng.choice(DECODE_REQUESTS, DECODE_PROMPTED, replace=False):
+        extra = rng.integers(vocab, size=int(rng.integers(3, 16)))
+        jobs[i] = (jobs[i][0] + [int(t) for t in extra], jobs[i][1])
+    return jobs
+
+
+def decode_run(mt, target, t_info, draft, d_info, params, jobs, k,
+               wrappers):
+    """Serve ``jobs`` through a warm DecodeEngine on cuda:0 at spec width
+    ``k``; every launch counter is set to 0 after the warmup and read at
+    the end.  Returns (token lists, finish reasons, stats, wall seconds,
+    launches, the served step graph)."""
+    eng = mt.serving.DecodeEngine(
+        target, params, {}, t_info, num_slots=DECODE_SLOTS,
+        max_len=DECODER["max_len"], ctx=mt.gpu(0), default_deadline_ms=0,
+        draft_sym=draft if k else None, draft_arg_params=params,
+        draft_state_info=d_info, spec_k=k)
+    try:
+        eng.warmup()
+        for w in wrappers:
+            w.launches = 0
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, max_new_tokens=n) for p, n in jobs]
+        res = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+        st = eng.stats()["decode"]
+        served = eng.served_sym
+    finally:
+        eng.close()
+    return ([list(r.tokens) for r in res], [r.finish_reason for r in res],
+            st, wall, launches, served)
+
+
+def decode_phase(torch, mt, fu, nn, kv, seed, card):
+    """The attention decoder served by DecodeEngine on cuda:0 at k = 0, 2
+    and 4 with the 1-block draft, and at k = 4 with the target as its own
+    draft (every proposal accepted, so K10 commits whole windows); each
+    stream held against greedy_decode through the kernels, the engine with
+    the plain scatter, the engine with selection off and the other runs;
+    launch counts held against the graphs; timed and one step profiled."""
+    target, t_info, draft, d_info, np_params = build_spec_models(
+        mt, seed=seed, **DECODER)
+    params = mt.convert.params_from_numpy(np_params, {},
+                                          device=mt.gpu(0))[0]
+    jobs = decode_jobs(seed)
+    wrappers = kernel_wrappers(fu, nn, kv)
+    # name -> (k, draft graph, its state info, its blocks)
+    plan = {"k=%d" % k: (k, draft, d_info, 1) for k in (0,) + SPEC_KS}
+    k_max = max(SPEC_KS)
+    plan["k=%d, self-draft" % k_max] = (k_max, target, t_info,
+                                        DECODER["layers"])
+    runs = {name: decode_run(mt, target, t_info, dr, di, params, jobs, k,
+                             wrappers)
+            for name, (k, dr, di, _b) in plan.items()}
+    streams, reasons, _st, _w, _l, served = runs["k=0"]
+    ops = [line.strip() for line in served.tojson().splitlines()
+           if '"op"' in line]
+    n_k9 = sum('"_cache_write_row"' in o for o in ops)
+    if n_k9 != launches_per_step(0)[0] or any('"one_hot"' in o for o in ops):
+        raise AssertionError("the served step graph holds %d "
+                             "_cache_write_row (want %d) or a one_hot"
+                             % (n_k9, launches_per_step(0)[0]))
+    # the references: greedy_decode through the kernels, the engine with
+    # the plain scatter and with selection off
+    prog = mt.serving.StepProgram(served, params, {}, t_info, DECODE_SLOTS,
+                                  ctx=mt.gpu(0))
+    # the engine caps max_new_tokens at max_len - len(prompt)
+    want_len = [min(n, DECODER["max_len"] - len(p)) for p, n in jobs]
+    greedy = [list(mt.serving.greedy_decode(prog, p, n))
+              for (p, _n), n in zip(jobs, want_len)]
+    checks = {"greedy_decode": greedy}
+    other_runs = {}
+    for k in (0, k_max):
+        with replaced(kv, "cache_write_row", kv.cache_write_row_plain), \
+                replaced(kv, "cache_write_rows", kv.cache_write_rows_plain):
+            other_runs["plain scatter, k=%d" % k] = decode_run(
+                mt, target, t_info, draft, d_info, params, jobs, k,
+                wrappers)
+        os.environ["MXNET_OPT_SELECT_KERNELS"] = "0"
+        try:
+            other_runs["selection off, k=%d" % k] = decode_run(
+                mt, target, t_info, draft, d_info, params, jobs, k,
+                wrappers)
+        finally:
+            os.environ.pop("MXNET_OPT_SELECT_KERNELS")
+    for name, run in other_runs.items():
+        checks[name] = run[0]
+    for name in plan:
+        if name != "k=0":
+            checks["engine, %s" % name] = runs[name][0]
+    if [len(s) for s in streams] != want_len \
+            or set(reasons) != {"length"} \
+            or not all(0 <= t < DECODER["vocab"] for s in streams for t in s):
+        raise AssertionError("decode k=0: lengths %s, reasons %s"
+                             % ([len(s) for s in streams], set(reasons)))
+    for name, other in checks.items():
+        if other != streams:
+            bad = [i for i, (a, b) in enumerate(zip(other, streams))
+                   if a != b]
+            raise AssertionError("decode: %d streams of %s differ from the "
+                                 "k=0 engine's, first request %d"
+                                 % (len(bad), name, bad[0]))
+    out = {"jobs": len(jobs), "prompted": DECODE_PROMPTED,
+           "tokens": sum(want_len), "checks": sorted(checks), "runs": {}}
+    for name, (k, _dr, _di, blocks) in plan.items():
+        _s, _r, st, wall, launches, _sv = runs[name]
+        steps = st["steps"]
+        for kname, per in zip(("cache_write_row", "cache_write_rows"),
+                              launches_per_step(k, blocks)):
+            if launches[kname] != per * steps:
+                raise AssertionError("%s: %s launched %d times in %d steps, "
+                                     "not %d per step"
+                                     % (name, kname, launches[kname], steps,
+                                        per))
+        others = {n: c for n, c in launches.items()
+                  if n not in ("cache_write_row", "cache_write_rows") and c}
+        if others:
+            raise AssertionError("decode launched %s" % others)
+        spec = st["spec"]
+        out["runs"][name] = {
+            "k": k, "steps": steps, "wall_s": wall,
+            "tokens_per_s": st["tokens_generated"] / wall,
+            "step_ms_p50": st["step_ms"]["p50"],
+            "step_ms_p99": st["step_ms"]["p99"],
+            "accept_rate": spec.get("accept_rate"),
+            "tokens_per_step": spec.get("tokens_per_step"),
+            "launches": launches}
+        log("  %s: %d requests, %d tokens in %d steps, %.3f s: %.1f "
+            "tokens/s, step p50 %.3f ms p99 %.3f ms, accept rate %s, tokens "
+            "per slot-step %s; K9 %d (%d/step), K10 %d [%s]"
+            % (name, len(jobs), st["tokens_generated"], steps, wall,
+               out["runs"][name]["tokens_per_s"], st["step_ms"]["p50"],
+               st["step_ms"]["p99"], fmt_opt(spec.get("accept_rate")),
+               fmt_opt(spec.get("tokens_per_step")),
+               launches["cache_write_row"], launches_per_step(k, blocks)[0],
+               launches["cache_write_rows"], card))
+    out["reference_runs"] = {}
+    for name, (_s, _r, st, wall, _l, _sv) in other_runs.items():
+        out["reference_runs"][name] = {
+            "steps": st["steps"], "wall_s": wall,
+            "tokens_per_s": st["tokens_generated"] / wall,
+            "step_ms_p50": st["step_ms"]["p50"],
+            "step_ms_p99": st["step_ms"]["p99"]}
+        log("  reference run, %s: %.1f tokens/s, step p50 %.3f ms p99 %.3f "
+            "ms [%s]" % (name, st["tokens_generated"] / wall,
+                         st["step_ms"]["p50"], st["step_ms"]["p99"], card))
+    if out["runs"]["k=%d, self-draft" % k_max]["accept_rate"] != 1.0:
+        raise AssertionError("the target as its own draft did not accept "
+                             "every proposal")
+    log("  every stream equals the k=0 engine's: %s"
+        % "; ".join(sorted(checks)))
+    out["profile"] = {}
+    for k in (0, k_max):
+        out["profile"]["k=%d" % k] = profile_decode_step(
+            torch, mt, target, t_info, draft, d_info, params, k)
+        prof = out["profile"]["k=%d" % k]
+        log_profile("one decode step, k=%d, 8 live slots" % k, prof, card)
+        if k:
+            log("  its working copies of the caches: %.1f MB, %.4f ms [%s]"
+                % (prof["working_copies_bytes"] / 1e6,
+                   prof["working_copies_ms"], card))
+    return out
+
+
+def profile_decode_step(torch, mt, target, t_info, draft, d_info, params, k):
+    """One engine step on the card as the scheduler runs it (the served
+    graph, 8 live slots at positions 40..47, host vectors in, ids out),
+    profiled over a few repetitions."""
+    import numpy as np
+    eng = mt.serving.DecodeEngine(
+        target, params, {}, t_info, num_slots=DECODE_SLOTS,
+        max_len=DECODER["max_len"], ctx=mt.gpu(0), start=False,
+        draft_sym=draft if k else None, draft_arg_params=params,
+        draft_state_info=d_info, spec_k=k)
+    prog = eng.program
+    state = {"s": prog.init_states()}
+    n = DECODE_SLOTS
+    tok = np.arange(n, dtype=np.float32) * 7
+    pos = 40.0 + np.arange(n, dtype=np.float32)
+    ones = np.ones(n, np.float32)
+
+    def step():
+        if k:
+            _t, _c, state["s"] = prog.step_spec(tok, pos, ones, ones,
+                                                state["s"])
+        else:
+            _t, state["s"] = prog.step(tok, pos, ones, state["s"])
+    prof = profile_calls(torch, step, 5)
+    if k:
+        # the speculative chains' working copies of the caches, one per
+        # cache per step (serving/decode.py step_spec)
+        caches = list(state["s"].values())
+        prof["working_copies_ms"] = time_ms(
+            torch, lambda: [c.clone() for c in caches])
+        prof["working_copies_bytes"] = sum(c.numel() * c.element_size()
+                                           for c in caches)
+    eng.close()
+    return prof
+
+
 _SOURCES = {
     "fu_mm_fwd": ("mm_fwd", "mxnet_tpu/ops/fused_unit.py:376"),
     "fu_c3_fwd2d": ("c3_fwd2d", "mxnet_tpu/ops/fused_unit.py:457"),
@@ -734,49 +1177,84 @@ _SOURCES = {
     "fu_mm_bwd": ("mm_bwd", "mxnet_tpu/ops/fused_unit.py:523"),
     "fu_c3_bwd2d": ("c3_bwd2d", "mxnet_tpu/ops/fused_unit.py:483"),
     "nn_conv1x1_bwd": ("conv1x1_bwd", "mxnet_tpu/ops/nn.py:212"),
+    "cache_write_row": ("cache_write_row", "mxnet_tpu/ops/cache.py:84"),
+    "cache_write_rows": ("cache_write_rows", "mxnet_tpu/ops/cache.py:163"),
 }
 
 
-def kernel_table(rows, bwd_rows, serve, train):
+def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode):
     """One entry per kernel.  K1-K3: times per ResNet-50 forward at batch
     8 (each stage's shape weighted by its number of fused units) and
     launches in the serve phase; K5, K6, K8: times per training step at
-    batch 32 and launches in the train phase.  All float32; errors are the
-    largest over the shapes.  Every entry also gives its launches per
-    serve batch and per training step."""
+    batch 32 and launches in the train phase; K9, K10: times of one launch
+    at the decode engine's shape (8 slots, max_len 128, d 200) and
+    launches in the decode runs at k = 0, 2 and 4 together.  All float32;
+    errors are the largest over the shapes.  Every entry also gives its
+    launches per serve batch, per training step and per decode step."""
     table = []
     for name, (wrapper, replaces) in _SOURCES.items():
-        fwd = wrapper in SERVE_KERNELS
-        if fwd:
-            sel = [r for r in rows if r["kernel"] == name
-                   and not r["variant"] and r["dtype"] == "float32"]
-            weight = "units_per_forward"
+        decode_launches = sum(r["launches"][wrapper]
+                              for r in decode["runs"].values())
+        per_decode = {name: r["launches"][wrapper] / r["steps"]
+                      for name, r in decode["runs"].items()}
+        if wrapper in ("cache_write_row", "cache_write_rows"):
+            sel = [r for r in kv_rows if r["kernel"] == wrapper]
+            main = [r for r in sel if r["slots"] == DECODE_SLOTS
+                    and r["T"] == DECODER["max_len"]
+                    and r["dtype"] == "float32"][0]
+            long_t = [r for r in sel if r["slots"] == DECODE_SLOTS
+                      and r["T"] == max(KV_T)
+                      and r["dtype"] == "float32"][0]
+            entry = {
+                "launches": decode_launches,
+                "per": "one launch, %d slots, max_len %d, d %d, float32"
+                       % (DECODE_SLOTS, DECODER["max_len"], DECODER["d"]),
+                "max_abs_err": max(r["max_abs_err"] for r in sel),
+                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": "bytes",
+                "library_ms": main["library_ms"],
+                "blend_ms": main["blend_ms"],
+                "ms_max_len_%d" % max(KV_T): long_t["ms"],
+                "blend_ms_max_len_%d" % max(KV_T): long_t["blend_ms"],
+            }
         else:
-            sel = [r for r in bwd_rows if r["kernel"] == name
-                   and r["dtype"] == "float32"]
-            weight = "units_per_step"
-        total = lambda key: sum(r[key] * r[weight]  # noqa: E731
-                                for r in sel)
-        ops = total("flops") / PEAK_FLOPS["float32"]
-        mem = total("bytes") / HBM_BYTES_S
-        table.append({
+            fwd = wrapper in SERVE_KERNELS
+            if fwd:
+                sel = [r for r in rows if r["kernel"] == name
+                       and not r["variant"] and r["dtype"] == "float32"]
+                weight = "units_per_forward"
+            else:
+                sel = [r for r in bwd_rows if r["kernel"] == name
+                       and r["dtype"] == "float32"]
+                weight = "units_per_step"
+            total = lambda key: sum(r[key] * r[weight]  # noqa: E731
+                                    for r in sel)
+            ops = total("flops") / PEAK_FLOPS["float32"]
+            mem = total("bytes") / HBM_BYTES_S
+            entry = {
+                "launches": (serve if fwd else train)["launches"][wrapper],
+                "per": "serve forward, batch 8" if fwd
+                else "train step, batch 32",
+                "max_abs_err": max(r["max_abs_err"] for r in sel),
+                "ms": total("ms"), "plain_ms": total("plain_ms"),
+                "bound_ms": total("bound_ms"),
+                "bound_by": "operations" if ops >= mem else "bytes",
+                "library_ms": total("library_ms"),
+            }
+        table.append(dict({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/%s.cu" % name,
             "replaces": replaces,
-            "launches": (serve if fwd else train)["launches"][wrapper],
             "launches_per_serve_batch":
                 serve["launches"][wrapper] / serve["batches"],
             "launches_per_train_step":
                 train["launches"][wrapper] / train["steps"],
-            "per": "serve forward, batch 8" if fwd
-            else "train step, batch 32",
-            "max_abs_err": max(r["max_abs_err"] for r in sel),
-            "ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": "operations" if ops >= mem else "bytes",
-            "library_ms": total("library_ms"),
-        })
+            "launches_per_decode_step": per_decode}, **entry))
     return table
+
+
+def fmt_opt(v):
+    return "n/a" if v is None else "%.4f" % v
 
 
 def main():
@@ -803,6 +1281,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import cuda_build
+    from mxnet_tpu_torch.ops import cache as kv
     from mxnet_tpu_torch.ops import fused_unit as fu
     from mxnet_tpu_torch.ops import nn
 
@@ -829,7 +1308,7 @@ def main():
     bwd_rows = bwd_kernel_phase(torch, fu, nn, device, opts.seed)
 
     log("[4] serve ResNet-50 224x224 from a checkpoint on %s" % name)
-    serve = serve_phase(torch, mt, fu, nn, opts.seed, opts.requests,
+    serve = serve_phase(torch, mt, fu, nn, kv, opts.seed, opts.requests,
                         opts.clients)
     log("  %d requests from %d clients in %d batches (occupancy %.3f): "
         "latency p50 %.2f ms, p99 %.2f ms, max %.2f ms, %.1f images/s; "
@@ -849,10 +1328,21 @@ def main():
 
     log("[5] train ResNet-50 224x224 through Module.fit on %s, batch %d, "
         "%d steps" % (name, TRAIN_BATCH, opts.train_steps))
-    train = train_phase(torch, mt, fu, nn, opts.seed, opts.train_steps,
+    train = train_phase(torch, mt, fu, nn, kv, opts.seed, opts.train_steps,
                         card)
 
-    table = kernel_table(rows, bwd_rows, serve, train)
+    log("[6] K9/K10 against their plain versions: slots %s, max_len %s, "
+        "d %d, window %d" % (KV_SLOTS, KV_T, DECODER["d"], KV_WINDOW))
+    kv_rows = kv_phase(torch, kv, device, opts.seed)
+
+    log("[7] decode: the attention decoder (vocab %d, d %d, %d blocks, "
+        "max_len %d) through DecodeEngine on %s, %d slots, %d requests, "
+        "k = 0, %s" % (DECODER["vocab"], DECODER["d"], DECODER["layers"],
+                       DECODER["max_len"], name, DECODE_SLOTS,
+                       DECODE_REQUESTS, ", ".join(map(str, SPEC_KS))))
+    decode = decode_phase(torch, mt, fu, nn, kv, opts.seed, card)
+
+    table = kernel_table(rows, bwd_rows, kv_rows, serve, train, decode)
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)),
                     exist_ok=True)
@@ -861,9 +1351,10 @@ def main():
                        "torch": torch.__version__, "cuda": torch.version.cuda,
                        "build_s": build_s, "kernel_rows": rows,
                        "bwd_kernel_rows": bwd_rows, "serve": serve,
-                       "train": train, "kernels": table,
+                       "train": train, "kv_rows": kv_rows,
+                       "decode": decode, "kernels": table,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log("[6] done in %.1f s" % (time.perf_counter() - t_start))
+    log("[8] done in %.1f s" % (time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

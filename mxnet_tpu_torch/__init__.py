@@ -2,12 +2,14 @@
 
 The JAX package ``mxnet_tpu`` stays beside it, unchanged, as the
 reference.  Module names follow the reference's so each counterpart is
-easy to find.  This slice serves a frozen ResNet-50 (Symbol -> Executor ->
+easy to find.  The port serves a frozen ResNet-50 (Symbol -> Executor ->
 Predictor / ServingEngine) and trains it (Module.fit -> Executor forward
 and backward -> SGD) through hand-written CUDA kernels for the fused
 bottleneck units and the 1x1-convolution backward (ops/fused_unit.py,
-ops/nn.py, csrc/).  Entry points run on the first CUDA card unless the
-caller passes ``ctx=cpu()`` (``context=cpu()`` for Module).
+ops/nn.py, csrc/), and serves continuous-batching greedy decode of an
+attention decoder (serving.DecodeEngine -> StepProgram -> the KV-cache
+write kernels of ops/cache.py).  Entry points run on the first CUDA card
+unless the caller passes ``ctx=cpu()`` (``context=cpu()`` for Module).
 """
 __version__ = "0.12.0.torch1"
 
@@ -28,8 +30,9 @@ from . import models
 from . import predict
 from .predict import Predictor, load_checkpoint_predictor
 from . import serving
-from .serving import ServingEngine
+from .serving import ServingEngine, DecodeEngine
 from . import convert
+from . import analysis
 from . import random
 from . import initializer
 from . import initializer as init

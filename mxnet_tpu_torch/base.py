@@ -75,7 +75,9 @@ class Param:
 
     def convert(self, value, name, op_name=""):
         try:
-            if value is None and self.ptype in ("shape", "str_or_none"):
+            if value is None and self.ptype in ("shape", "int_or_none",
+                                                "float_or_none",
+                                                "str_or_none"):
                 return None
             if self.ptype is int:
                 v = int(value) if not isinstance(value, str) \
@@ -88,6 +90,12 @@ class Param:
                 v = str(value)
             elif self.ptype == "shape":
                 v = _parse_tuple(value, int)
+            elif self.ptype == "int_or_none":
+                s = str(value).strip()
+                v = None if s in ("None", "null", "") else int(float(s))
+            elif self.ptype == "float_or_none":
+                s = str(value).strip()
+                v = None if s in ("None", "null", "") else float(s)
             elif self.ptype == "str_or_none":
                 s = str(value)
                 v = None if s in ("None", "null") else s

@@ -1,8 +1,8 @@
 """Runtime configuration: the MXNET_* environment variables this package reads.
 
 Counterpart of ``mxnet_tpu/config.py``, keeping only the variables the
-ResNet-50 serving and training paths read, under the same names and
-defaults.
+ResNet-50 serving and training paths and the decode engine read, under
+the same names and defaults.
 """
 from __future__ import annotations
 
@@ -55,6 +55,35 @@ VARIABLES = {v.name: v for v in [
     _Var("MXNET_SERVE_BATCH_TIMEOUT_MS", float, 2.0,
          "Dynamic-batching window: a partial batch waits at most this "
          "long (from its oldest request's enqueue) for company."),
+    _Var("MXNET_DECODE_SLOTS", int, 8,
+         "Slot-pool capacity of the continuous-batching decode engine "
+         "(serving/decode.py DecodeEngine): the step program runs at this "
+         "batch extent, per-slot state (KV caches) lives on the device at "
+         "this leading dim, and requests join and leave between steps."),
+    _Var("MXNET_DECODE_MAX_LEN", int, 128,
+         "Per-slot sequence capacity of the decode engine: the fixed "
+         "cache layout allocates this many positions per slot up front; "
+         "prompt length + generated tokens may not exceed it (requests "
+         "finish with reason 'length' at the cap)."),
+    _Var("MXNET_DECODE_SPEC_K", int, 0,
+         "Speculative draft-k-verify decoding (serving/decode.py + "
+         "serving/spec.py): with k > 0 and a draft model (DecodeEngine "
+         "draft_sym=), each step drafts k tokens, scores all k+1 "
+         "positions with the target model and commits the accepted "
+         "prefix (exact greedy prefix match: the same tokens as "
+         "greedy_decode).  Accepted cache rows commit through the "
+         "_cache_write_rows kernel when the selection adopts it.  0 = "
+         "the single-token engine.  DecodeEngine(spec_k=) overrides."),
+    _Var("MXNET_SERVE_OPTIMIZE", bool, True,
+         "Run the graph optimizer (analysis/optimize.py; only its "
+         "'select' pass is ported) over the decode engine's step, draft "
+         "and commit graphs.  0 = serve the graphs exactly as handed "
+         "in."),
+    _Var("MXNET_OPT_SELECT_KERNELS", bool, True,
+         "The optimizer's fused-op selection: swap the one-hot-blend "
+         "KV-cache writes (O(max_len*d) per token) for the "
+         "_cache_write_row / _cache_write_rows kernels (O(d)).  Requires "
+         "MXNET_SERVE_OPTIMIZE.  0 = serve the blends."),
     _Var("MXNET_SERVE_DEFAULT_DEADLINE_MS", float, 0.0,
          "Default per-request deadline; requests still queued past it "
          "fail with DeadlineExceededError.  0 = no default deadline."),

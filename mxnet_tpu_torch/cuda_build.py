@@ -40,6 +40,8 @@ KERNELS = {
     "fu_mm_bwd": [_P] * 17 + [_I] * 7 + [_P],
     "fu_c3_bwd2d": [_P] * 17 + [_I] * 8 + [_P],
     "nn_conv1x1_bwd": [_P] * 6 + [_I] * 6 + [_P],
+    "cache_write_row": [_P] * 3 + [_I] * 5 + [_P],
+    "cache_write_rows": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

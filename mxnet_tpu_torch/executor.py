@@ -19,6 +19,8 @@ gets a zero gradient.
 """
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
@@ -31,8 +33,20 @@ __all__ = ["Executor", "build_graph_fn"]
 
 def build_graph_fn(symbol, arg_names, aux_names):
     """Compile a Symbol DAG into
-    ``fn(arg_vals, aux_vals, training) -> (outputs, new_aux)`` over
-    tensors, with each node's attrs normalized once here."""
+    ``fn(arg_vals, aux_vals, training, donated) -> (outputs, new_aux)``
+    over tensors, with each node's attrs normalized once here.
+
+    Any number of outputs and state inputs pass through.  An op that
+    writes an input in place (``OpDef.inplace``, the KV-cache writes)
+    gets that buffer itself only when the graph owns it outright: the
+    entry has no other consumer and is no graph output, and it is either
+    an argument the caller named in ``donated`` (as JAX's donated
+    buffers: the caller reads the returned value, never the old one) or
+    a fresh intermediate (not a view, not a creation op's constant).
+    Otherwise the op gets a copy, so an undonated input never changes.
+    In training the in-place ops take their functional path and nothing
+    is copied.  Input-less creation ops (``_arange``) are constants: each
+    is computed once per device and kept."""
     topo = _topo(symbol._outputs)
     aux_set = set(aux_names)
     plan = []
@@ -44,18 +58,42 @@ def build_graph_fn(symbol, arg_names, aux_names):
                                     if not k.startswith("__")})
             plan.append((n, attrs))
     heads = symbol._outputs
+    uses = collections.Counter((id(i), ix) for n in topo
+                               for (i, ix) in n.inputs)
+    uses.update((id(n), ix) for (n, ix) in heads)
+    consts = {}
 
-    def graph_fn(arg_vals, aux_vals, training=False):
+    def graph_fn(arg_vals, aux_vals, training=False, donated=()):
         env = {}
         aux_env = dict(zip(aux_names, aux_vals))
         argd = dict(zip(arg_names, arg_vals))
+        kept = {id(t) for name, t in argd.items() if name not in donated}
+        kept.update(id(t) for t in aux_vals)
+        device = next((t.device for t in list(arg_vals) + list(aux_vals)
+                       if isinstance(t, torch.Tensor)), None)
         for n, attrs in plan:
             if attrs is None:
                 env[(id(n), 0)] = aux_env[n.name] if n.name in aux_set \
                     else argd[n.name]
                 continue
-            outs = n.op.bound(attrs, training)(
-                *[env[(id(i), ix)] for (i, ix) in n.inputs])
+            ins = [env[(id(i), ix)] for (i, ix) in n.inputs]
+            if not n.inputs:
+                outs = consts.get((id(n), device))
+                if outs is None:
+                    outs = tuple(o.to(device) for o in
+                                 n.op.bound(attrs, training)())
+                    consts[(id(n), device)] = outs
+            else:
+                if n.op.inplace and not training:
+                    for k in n.op.inplace:
+                        src, ix = n.inputs[k]
+                        owned = uses[(id(src), ix)] == 1 and (
+                            src.name in donated if src.op is None
+                            else bool(src.inputs) and ins[k]._base is None
+                            and id(ins[k]) not in kept)
+                        if not owned:
+                            ins[k] = ins[k].clone()
+                outs = n.op.bound(attrs, training)(*ins)
             for i, o in enumerate(outs):
                 env[(id(n), i)] = o
             for in_idx, out_idx in n.op.mutate_aux.items():

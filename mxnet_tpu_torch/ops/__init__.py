@@ -7,3 +7,6 @@ from . import shape_ops     # noqa: F401
 from . import nn            # noqa: F401
 from . import fused_unit    # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import linalg        # noqa: F401
+from . import reduce        # noqa: F401
+from . import cache         # noqa: F401

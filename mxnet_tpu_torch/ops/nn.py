@@ -1,7 +1,8 @@
 """Neural-network layer ops.
 
 Counterpart of the ResNet ops in ``mxnet_tpu/ops/nn.py``: Convolution,
-Pooling, BatchNorm, Activation, FullyConnected and SoftmaxOutput, with
+Pooling, BatchNorm, Activation, FullyConnected and SoftmaxOutput, and the
+attention decoder's Embedding and softmax, with
 the same parameter schemas (so symbol JSON interchanges) and the same
 layouts at the op boundary (NHWC data with OHWI weights when ``layout``
 ends in C, else NCHW/OIHW).  None of these was a Pallas kernel in the
@@ -451,3 +452,30 @@ class _SoftmaxOutput(torch.autograd.Function):
         elif a["normalization"] == "valid":
             grad = grad / (valid if valid is not None else label.numel())
         return grad * a["grad_scale"], torch.zeros_like(label), None
+
+
+# ---------------------------------------------------------------------------
+# Embedding and softmax (the attention decoder's)
+# ---------------------------------------------------------------------------
+
+@register("Embedding", aliases=["embedding", "_contrib_SparseEmbedding"],
+          nin=2, input_names=["data", "weight"],
+          fill_shapes=lambda attrs, s: [
+              s[0], (attrs["input_dim"], attrs["output_dim"])
+              if len(s) > 1 and s[1] is None else s[1]],
+          params={"input_dim": P(int), "output_dim": P(int),
+                  "dtype": P(str, "float32"), "sparse_grad": P(bool, False)})
+def embedding(attrs, data, weight):
+    """Rows of ``weight`` at the ids in ``data``, truncated to int32 and
+    clamped into ``[0, input_dim)`` as the reference does."""
+    idx = data.to(torch.int32).clamp(0, attrs["input_dim"] - 1)
+    return weight[idx.long()]
+
+
+@register("softmax", params={"axis": P(int, -1),
+                             "temperature": P("float_or_none", None)})
+def softmax_op(attrs, x):
+    t = attrs["temperature"]
+    if t:
+        x = x / t
+    return torch.softmax(x, dim=attrs["axis"])

@@ -10,6 +10,11 @@ plain version, so inference never launches anything.
 Output-tuple convention: the impl returns its ``nout`` graph outputs
 first, then one entry per ``mutate_aux`` target; ``mutate_aux`` maps an
 input index to the output index holding that aux input's new value.
+
+``inplace`` maps an input index to the output index that IS that input,
+written in place (the KV-cache writes).  Outside training the executor
+hands such an op a copy of the input unless the graph owns the buffer
+outright (see ``executor.build_graph_fn``).
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ class OpDef:
     def __init__(self, name, impl, params=None, nin=1, nout=1,
                  input_names=None, mode_dependent=False, mutate_aux=None,
                  fill_shapes=None, num_visible_outputs=None, aux_inputs=(),
-                 doc=""):
+                 inplace=None, doc=""):
         self.name = name
         self.impl = impl
         self.params = params or {}
@@ -51,6 +56,7 @@ class OpDef:
         self.num_visible_outputs = (num_visible_outputs if num_visible_outputs
                                     is not None else nout)
         self.aux_inputs = tuple(aux_inputs)
+        self.inplace = inplace or {}
         self.doc = doc or (impl.__doc__ or "")
 
     def normalize(self, attrs):

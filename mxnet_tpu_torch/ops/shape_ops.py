@@ -1,8 +1,13 @@
 """Shape ops (counterpart of ``mxnet_tpu/ops/shape_ops.py``): Reshape with
-MXNet's special codes, and Flatten."""
+MXNet's special codes, Flatten, expand_dims and slice_axis, and the
+creation ops one_hot and _arange that the attention decoder's graphs
+use."""
 import math
 
-from .registry import register, P
+import numpy as np
+import torch
+
+from .registry import register, P, torch_dtype
 from ..base import MXNetError
 
 
@@ -64,3 +69,49 @@ def reshape(attrs, x):
 @register("Flatten", aliases=["flatten"])
 def flatten(attrs, x):
     return x.reshape(x.shape[0], -1)
+
+
+@register("expand_dims", params={"axis": P(int)})
+def expand_dims(attrs, x):
+    return x.unsqueeze(attrs["axis"])
+
+
+@register("slice_axis",
+          params={"axis": P(int), "begin": P(int, 0),
+                  "end": P("int_or_none", None)})
+def slice_axis(attrs, x):
+    sl = [slice(None)] * x.dim()
+    sl[attrs["axis"] % x.dim()] = slice(attrs["begin"], attrs["end"])
+    return x[tuple(sl)]
+
+
+@register("one_hot", input_names=["indices"],
+          params={"depth": P(int), "on_value": P(float, 1.0),
+                  "off_value": P(float, 0.0), "dtype": P(str, "float32")})
+def one_hot(attrs, indices):
+    """Indices are truncated to int32 as ``astype(int32)`` does; an index
+    outside ``[0, depth)`` gives an all-off row."""
+    depth = attrs["depth"]
+    idx = indices.to(torch.int32).unsqueeze(-1)
+    oh = (idx == torch.arange(depth, dtype=torch.int32,
+                              device=indices.device)).to(torch.float32)
+    out = oh * (attrs["on_value"] - attrs["off_value"]) + attrs["off_value"]
+    return out.to(torch_dtype(attrs["dtype"]))
+
+
+@register("_arange", nin=0,
+          params={"start": P(float, 0.0), "stop": P("float_or_none", None),
+                  "step": P(float, 1.0), "repeat": P(int, 1),
+                  "infer_range": P(bool, False),
+                  "dtype": P(str, "float32"),
+                  "ctx": P("str_or_none", None)})
+def _arange(attrs):
+    """A host constant (numpy's arange, as the reference computes it); the
+    executor moves it to the graph's device once and keeps it there."""
+    start, stop = attrs["start"], attrs["stop"]
+    if stop is None:
+        start, stop = 0.0, start
+    out = np.arange(start, stop, attrs["step"], dtype=np.dtype(attrs["dtype"]))
+    if attrs["repeat"] > 1:
+        out = np.repeat(out, attrs["repeat"])
+    return torch.from_numpy(out)

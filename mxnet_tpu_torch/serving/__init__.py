@@ -1,5 +1,8 @@
-"""One-shot serving (counterpart of ``mxnet_tpu/serving``)."""
+"""Serving (counterpart of ``mxnet_tpu/serving``): the one-shot batching
+engine and the continuous-batching decode engine."""
 from .admission import (AdmissionController, Request, QueueFullError,
                         DeadlineExceededError, EngineClosedError)
 from .buckets import BucketPolicy, ProgramCache
 from .engine import ServingEngine
+from .decode import (DecodeEngine, DecodeResult, StepProgram, greedy_decode,
+                     Sampler, GreedySampler)

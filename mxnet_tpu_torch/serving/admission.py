@@ -8,11 +8,14 @@ queue of pending requests in front of the dispatcher.
 - **deadlines**: a request may carry an absolute expiry; every queue
   interaction (and the blocking ``take`` wait) sweeps, so an expired
   request fails with :class:`DeadlineExceededError` instead of taking a
-  batch slot.
+  batch slot — or, when it declared ``on_expire`` (a multi-step decode
+  request), completes with what that handler returns: its partial
+  output.
 - **coalescing pop**: ``take`` blocks until work is there, honours a
   batching window measured from the oldest request's enqueue, and returns
   the oldest request plus every queued request of the same shape group,
-  oldest first, up to ``max_batch``.
+  oldest first, up to ``max_batch``; ``poll`` is its non-blocking form,
+  which the decode scheduler calls between steps.
 
 One condition variable guards the state; client threads produce, the
 engine worker is the single consumer.  Futures fail outside the lock.
@@ -52,15 +55,23 @@ def _fail_future(fut, exc):
 
 class Request(object):
     """One pending request: ``inputs`` maps data name to a per-example
-    host array; ``group`` is the engine's coalescing key."""
-    __slots__ = ("inputs", "group", "future", "t_enqueue", "deadline")
+    host array; ``group`` is the engine's coalescing key.
 
-    def __init__(self, inputs, group, future, deadline=None):
+    ``on_expire(exc)``, when set, turns a deadline expiry from a failure
+    into a completion: the sweep delivers its return value as the
+    future's RESULT (a decode request's partial tokens with the
+    ``expired`` flag); returning None falls back to the exception."""
+    __slots__ = ("inputs", "group", "future", "t_enqueue", "deadline",
+                 "on_expire")
+
+    def __init__(self, inputs, group, future, deadline=None,
+                 on_expire=None):
         self.inputs = inputs
         self.group = group
         self.future = future
         self.t_enqueue = time.monotonic()
         self.deadline = deadline            # absolute time.monotonic()
+        self.on_expire = on_expire
 
     def expired(self, now):
         return self.deadline is not None and now >= self.deadline
@@ -73,6 +84,7 @@ class AdmissionController(object):
         self._queue = collections.deque()
         self._cond = threading.Condition()
         self._closed = False
+        self._woken = False
         self.admitted = 0
         self.rejected = 0
         self.expired = 0
@@ -98,12 +110,15 @@ class AdmissionController(object):
     def take(self, max_batch, window_s):
         """Block until a batch is ready and return the oldest request's
         group (at most ``max_batch``, oldest first); ``None`` once closed
-        and drained."""
+        and drained; an empty list after :meth:`wake`."""
         while True:
             batch, decided = None, False
             with self._cond:
                 failures = self._sweep_locked()
-                if not self._queue:
+                if self._woken:
+                    self._woken = False
+                    decided, batch = True, []
+                elif not self._queue:
                     if self._closed:
                         decided = True
                     else:
@@ -124,6 +139,37 @@ class AdmissionController(object):
             self._deliver(failures)
             if decided:
                 return batch
+
+    def wake(self):
+        """Make the consumer's pending (or next) :meth:`take` return an
+        empty list at once: how the decode engine hands its scheduler
+        thread work that is not a request (warmup)."""
+        with self._cond:
+            self._woken = True
+            self._cond.notify_all()
+
+    def poll(self, max_batch):
+        """Non-blocking :meth:`take`: sweep deadlines, then pop the head
+        request's group at once — possibly an empty list.  A running
+        decode batch admits between steps with this and never blocks on
+        the queue."""
+        if not self._queue:
+            return []
+        with self._cond:
+            failures = self._sweep_locked()
+            batch = []
+            if self._queue:
+                batch = self._pop_group_locked(self._queue[0].group,
+                                               max_batch)
+        self._deliver(failures)
+        return batch
+
+    def sweep(self):
+        """Expire overdue queued requests now (every admit, take and poll
+        also does)."""
+        with self._cond:
+            failures = self._sweep_locked()
+        self._deliver(failures)
 
     def _pop_group_locked(self, group, max_batch):
         taken, keep = [], collections.deque()
@@ -153,8 +199,24 @@ class AdmissionController(object):
 
     @staticmethod
     def _deliver(failures):
+        """Fail futures outside the lock; a deadline expiry of a request
+        with ``on_expire`` resolves it with the handler's result
+        instead."""
         for req, exc in failures:
-            _fail_future(req.future, exc)
+            result = None
+            if req.on_expire is not None and \
+                    isinstance(exc, DeadlineExceededError):
+                try:
+                    result = req.on_expire(exc)
+                except Exception:   # handler bug: fall back to the error
+                    result = None
+            if result is None:
+                _fail_future(req.future, exc)
+            elif not req.future.cancelled():
+                try:
+                    req.future.set_result(result)
+                except Exception:   # lost a cancel() race
+                    pass
 
     def close(self, drain=True):
         """Stop admitting; with ``drain`` the worker keeps taking until the

@@ -1,0 +1,1179 @@
+"""Continuous batching for autoregressive decode: iteration-level
+scheduling over a persistent slot pool.
+
+Counterpart of ``mxnet_tpu/serving/decode.py`` on one device.  A static
+batch holds every finished sequence until the slowest member completes;
+this engine schedules at the *iteration* level instead:
+
+- **one persistent step program** over a fixed slot pool
+  (``MXNET_DECODE_SLOTS`` slots x ``MXNET_DECODE_MAX_LEN`` positions):
+  requests join and leave the running batch BETWEEN steps, and no shape
+  ever changes, so nothing is rebuilt under churn;
+- **device-resident per-slot state**: a ``(slots, max_len, d)`` KV cache
+  per state, written at one position per step, never grown.  The host
+  ships only the per-step token, position and occupancy vectors and
+  receives only the sampled token ids back.  The step donates the state
+  buffers to the graph (as the reference donates them to its compiled
+  step), so the cache writes K9/K10 update them in place;
+- **joining slots** are zeroed row by row, in place, just before the
+  step that first reads them (the reference zeroes whole buffers with a
+  ``where`` inside its compiled step, free there and an
+  O(slots*max_len*d) pass per state here);
+- **masked dead slots** ride along holding whatever a finished request
+  left; every op along the slot axis reads only its own row, so a
+  request's tokens do not depend on its company;
+- **teacher-forced prompts**: a prompt is consumed token by token
+  through the running step batch;
+- **fused-op selection** (``MXNET_SERVE_OPTIMIZE`` +
+  ``MXNET_OPT_SELECT_KERNELS``, both on by default): before any program
+  is built, the optimizer's ``select`` pass swaps the step graph's (and
+  the draft's) one-hot-blend cache writes for ``_cache_write_row`` (K9)
+  and the speculative commit's blend chains for ``_cache_write_rows``
+  (K10).  The reference adopts a selection only through its padding
+  verdict gate, which is not ported: here a selection is adopted whenever
+  the matcher proves the exact blend pattern, and ``stats()`` says so;
+- **speculative draft-k-verify** (``spec_k``, greedy): see
+  ``serving/spec.py``.  The draft and target chains run on working
+  copies of the caches (one copy per cache per speculative step), so the
+  commit writes only the accepted rows into the ORIGINAL buffers, which
+  keep every other row bit for bit;
+- **per-token streaming** (``on_token``), **admission** (bounded queue)
+  and **per-step deadlines**: an expired request, queued or
+  mid-generation, completes with its PARTIAL output.
+
+One scheduler thread does all of the engine's device work, warmup
+included (cuBLAS handles are per thread; a warmup on another thread
+would leave the first live steps to build them again).
+
+Not ported (ROADMAP): replicas and the router, sharding plans, the AOT
+cache, telemetry, fault injection, the supervisor and ``rehabilitate``,
+the analysis preflight and the memory preflight, ``prefill_sym``
+(coalesced bucketed prefill), SSE streams, and the stochastic samplers.
+
+Step-graph contract: ``step_sym`` outputs ``[logits] + next_states`` over
+arguments ``token`` (slot vector of last token ids), the state names from
+``state_info`` (each ``(slots,) + per_slot_shape``), and optionally
+``pos`` (per-slot write position) and ``valid`` (1/0 occupancy).  The
+engine appends a greedy ``argmax`` head so only token ids cross to the
+host.
+"""
+from __future__ import annotations
+
+import collections
+import threading
+import time
+import warnings
+from concurrent.futures import Future, TimeoutError as FutureTimeout
+
+import numpy as np
+import torch
+
+from .. import symbol as sym
+from ..base import MXNetError
+from ..context import default_context
+from ..executor import build_graph_fn
+from ..ops.registry import torch_dtype
+from .admission import (AdmissionController, Request, EngineClosedError,
+                        _fail_future)
+from . import spec as _spec_mod
+
+__all__ = ["DecodeEngine", "DecodeResult", "StepProgram", "greedy_decode",
+           "Sampler", "GreedySampler"]
+
+
+class Sampler(object):
+    """Token-selection head of the decode step.  ``greedy=True`` keeps
+    the in-graph ``argmax`` head.  Only the greedy sampler is ported."""
+    greedy = False
+
+    def describe(self):
+        return {"kind": type(self).__name__}
+
+
+class GreedySampler(Sampler):
+    """The default argmax head, spliced into the step GRAPH itself, so
+    greedy decode is bitwise ``greedy_decode``."""
+    greedy = True
+
+    def describe(self):
+        return {"kind": "greedy"}
+
+
+class DecodeResult(object):
+    """What a decode future resolves to: the generated token ids plus how
+    generation ended.  ``finish_reason`` is ``"eos"``, ``"length"``
+    (max_new_tokens or the slot's max_len), ``"deadline"`` (tokens holds
+    the PARTIAL generation; ``expired`` is True) or ``"closed"`` (engine
+    shut down without drain)."""
+    __slots__ = ("tokens", "finish_reason", "n_steps", "prompt_len")
+
+    def __init__(self, tokens, finish_reason, n_steps=0, prompt_len=0):
+        self.tokens = np.asarray(tokens, dtype=np.int64)
+        self.finish_reason = finish_reason
+        self.n_steps = n_steps
+        self.prompt_len = prompt_len
+
+    @property
+    def expired(self):
+        return self.finish_reason == "deadline"
+
+    def __len__(self):
+        return len(self.tokens)
+
+    def __repr__(self):
+        return ("<DecodeResult %d tokens, %s>"
+                % (len(self.tokens), self.finish_reason))
+
+
+class DecodeRequest(Request):
+    """One decode request: a prompt plus the generation bookkeeping the
+    scheduler mutates as the request moves queue -> slot -> done.
+    ``on_token`` is called with each generated id, in order, from the
+    scheduler thread; a raising callback evicts only its own request."""
+    __slots__ = ("prompt", "max_new", "tokens", "prompt_i", "slot",
+                 "t_join", "n_steps", "on_token")
+
+    def __init__(self, prompt, max_new, future, deadline=None,
+                 on_token=None):
+        super().__init__({}, ("__decode__",), future, deadline=deadline)
+        self.prompt = list(prompt)
+        self.max_new = int(max_new)
+        self.on_token = on_token
+        self.tokens = []            # generated ids (host mirror)
+        self.prompt_i = 0           # next prompt token to teacher-force
+        self.slot = None
+        self.t_join = None
+        self.n_steps = 0
+
+
+class StepProgram(object):
+    """The persistent decode step over a fixed slot pool.
+
+    Wraps ``step_sym`` (outputs ``[logits] + next_states``) with a greedy
+    ``argmax`` head, or, with a :class:`~.spec.SpecConfig`, with the
+    speculative draft-k-verify unroll.  Parameters are placed on the
+    device once; per-slot state lives there between calls as the tensors
+    :meth:`init_states` made.  A step DONATES the state tensors it is
+    given: it may write them in place, and the caller reads the returned
+    dict, never the old one.  ``build_count`` counts the graph functions
+    built (step, draft, commit), all in the constructor."""
+
+    def __init__(self, step_sym, arg_params, aux_params, state_info,
+                 num_slots, token_name="token", pos_name="pos",
+                 valid_name="valid", ctx=None, dtype=np.float32,
+                 sampler=None, spec=None):
+        self._ctx = default_context(ctx)
+        self._device = self._ctx.device
+        self._spec = spec
+        self.num_slots = int(num_slots)
+        self._dtype = np.dtype(dtype)
+        self.sampler = sampler if sampler is not None else GreedySampler()
+        if not self.sampler.greedy:
+            raise MXNetError("only the greedy sampler is ported")
+        self.state_info = [dict(s) for s in state_info]
+        self.state_names = [s["name"] for s in self.state_info]
+        self.token_name = token_name
+        if len(step_sym) != 1 + len(self.state_names):
+            raise MXNetError(
+                "decode step graph has %d outputs; expected 1 (logits) "
+                "+ %d next-state outputs (state_info order)"
+                % (len(step_sym), len(self.state_names)))
+        # the spec program needs per-position raw logits (its accept
+        # logic takes the argmax); the plain step keeps the in-graph head
+        head = step_sym[0] if spec is not None else sym.argmax(
+            step_sym[0], axis=1, name="__decode_sample__")
+        self._serve_sym = sym.Group(
+            [head] + [step_sym[i] for i in range(1, len(step_sym))])
+        arg_names = self._serve_sym.list_arguments()
+        aux_names = self._serve_sym.list_auxiliary_states()
+        if token_name not in arg_names:
+            raise MXNetError("decode step graph has no %r input "
+                             "(token_name); arguments: %s"
+                             % (token_name, arg_names))
+        missing = [n for n in self.state_names if n not in arg_names]
+        if missing:
+            raise MXNetError("decode step graph is missing state "
+                             "input(s) %s" % missing)
+        self.pos_name = pos_name if pos_name in arg_names else None
+        self.valid_name = valid_name if valid_name in arg_names else None
+        feeds = set([token_name] + self.state_names)
+        feeds.update(n for n in (self.pos_name, self.valid_name) if n)
+        self._na = len(arg_names)
+        self._template, self._feed_pos = self._place(
+            list(arg_names) + list(aux_names), feeds, arg_params or {},
+            aux_params or {}, "StepProgram")
+        self._gf = build_graph_fn(self._serve_sym, arg_names, aux_names)
+        self.build_count = 1
+        self._cache_t = []          # (name, T) target cache states
+        self._cache_d = []          # (key, T) draft cache states
+        self.draft_state_keys = []
+        if spec is not None:
+            self._init_spec(spec, pos_name)
+
+    def _place(self, order, feeds, arg_params, aux_params, what):
+        """(flat template with every parameter on the device, {feed name:
+        position in the flat vector})."""
+        lacking = [n for n in order
+                   if n not in feeds and n not in arg_params
+                   and n not in aux_params]
+        if lacking:
+            raise MXNetError("%s: params missing for %s" % (what, lacking))
+        template = [None] * len(order)
+        for i, n in enumerate(order):
+            if n not in feeds:
+                src = arg_params if n in arg_params else aux_params
+                template[i] = src[n].as_in_context(self._ctx)._data
+        return template, {n: order.index(n) for n in feeds}
+
+    def _init_spec(self, dspec, pos_name):
+        dspec.build(self.num_slots, self.state_info, self._dtype)
+        dsym = sym.Group(list(dspec.draft_sym))
+        d_args = dsym.list_arguments()
+        d_auxs = dsym.list_auxiliary_states()
+        if dspec.token_name not in d_args:
+            raise MXNetError("draft graph has no %r input; arguments: %s"
+                             % (dspec.token_name, d_args))
+        d_states = dspec.draft_state_names()
+        missing = [n for n in d_states if n not in d_args]
+        if missing:
+            raise MXNetError("draft graph is missing state input(s) %s"
+                             % missing)
+        if len(dsym) != 1 + len(d_states):
+            raise MXNetError("draft graph has %d outputs; expected 1 "
+                             "(logits) + %d next-state outputs"
+                             % (len(dsym), len(d_states)))
+        self._d_tok = dspec.token_name
+        self._d_pos = dspec.pos_name if dspec.pos_name in d_args else None
+        self._d_valid = (dspec.valid_name if dspec.valid_name in d_args
+                         else None)
+        d_feeds = set([self._d_tok] + d_states)
+        d_feeds.update(n for n in (self._d_pos, self._d_valid) if n)
+        self._d_na = len(d_args)
+        self._d_template, self._d_feed_pos = self._place(
+            list(d_args) + list(d_auxs), d_feeds, dspec.draft_arg_params,
+            dspec.draft_aux_params, "SpecConfig (draft)")
+        self._d_states = d_states
+        self.draft_state_keys = dspec.draft_keys()
+        self._gf_d = build_graph_fn(dsym, d_args, d_auxs)
+        self.build_count += 1
+        for info in self.state_info:
+            if info.get("cache"):
+                if self.pos_name is None:
+                    raise MXNetError(
+                        "state %r is cache-declared but the step graph has "
+                        "no %r input — a positional cache commit needs the "
+                        "write position" % (info["name"], pos_name))
+                self._cache_t.append((info["name"], int(info["shape"][0])))
+        for info in dspec.draft_state_info:
+            if info.get("cache"):
+                if self._d_pos is None:
+                    raise MXNetError("draft state %r is cache-declared but "
+                                     "the draft graph has no %r input"
+                                     % (info["name"], dspec.pos_name))
+                self._cache_d.append((_spec_mod._draft_key(info["name"]),
+                                      int(info["shape"][0])))
+        self._gf_commit = self._commit_args = None
+        if dspec.commit_sym is not None:
+            self._commit_args = dspec.commit_sym.list_arguments()
+            self._gf_commit = build_graph_fn(dspec.commit_sym,
+                                             self._commit_args, [])
+            self.build_count += 1
+
+    # ------------------------------------------------------------- state
+    def _state_infos(self, which="all"):
+        """(engine state key, info) pairs over the requested model half:
+        ``"all"``, ``"target"`` or ``"draft"``."""
+        if which in ("all", "target"):
+            for info in self.state_info:
+                yield info["name"], info
+        if self._spec is not None and which in ("all", "draft"):
+            for info in self._spec.draft_state_info:
+                yield _spec_mod._draft_key(info["name"]), info
+
+    def init_states(self):
+        """Fresh all-zero slot-pool state buffers on this program's
+        device."""
+        out = {}
+        for key, info in self._state_infos():
+            dt = torch_dtype(np.dtype(info.get("dtype") or self._dtype))
+            out[key] = torch.zeros((self.num_slots,) + tuple(info["shape"]),
+                                   dtype=dt, device=self._device)
+        return out
+
+    def write_row(self, states, slot, rows):
+        """Write per-slot state rows (host or device arrays) into ``slot``
+        of every buffer named in ``rows``, in place; returns the state
+        dict."""
+        out = dict(states)
+        with torch.no_grad():
+            for name, row in rows.items():
+                out[name][slot] = torch.as_tensor(
+                    np.asarray(row) if not isinstance(row, torch.Tensor)
+                    else row).to(out[name].dtype)
+        return out
+
+    def zero_row(self, states, slot, which="all"):
+        """Zero one slot's rows in every state buffer of ``which``."""
+        rows = {}
+        for key, info in self._state_infos(which):
+            dt = np.dtype(info.get("dtype") or self._dtype)
+            rows[key] = np.zeros(tuple(info["shape"]), dtype=dt)
+        return self.write_row(states, slot, rows)
+
+    def _zero_joining(self, states, reset):
+        """Zero, in place, the rows of the slots ``reset`` marks (1/0 host
+        vector) in every state buffer: a joining request never inherits
+        the previous occupant's state."""
+        if reset is None:
+            return
+        idx = np.flatnonzero(np.asarray(reset) > 0)
+        if not len(idx):
+            return
+        it = torch.as_tensor(idx, device=self._device)
+        for key, _info in self._state_infos():
+            states[key].index_fill_(0, it, 0)
+
+    def _vec(self, v):
+        return torch.tensor(np.asarray(v, np.float32), device=self._device)
+
+    # -------------------------------------------------------------- step
+    def _run_target(self, tok, pos, valid, cur, donated):
+        flat = list(self._template)
+        flat[self._feed_pos[self.token_name]] = tok
+        if self.pos_name is not None:
+            flat[self._feed_pos[self.pos_name]] = pos
+        if self.valid_name is not None:
+            flat[self._feed_pos[self.valid_name]] = valid
+        for name in self.state_names:
+            flat[self._feed_pos[name]] = cur[name]
+        outs, _ = self._gf(flat[:self._na], flat[self._na:],
+                           donated=donated)
+        return outs[0], {n: outs[1 + i]
+                         for i, n in enumerate(self.state_names)}
+
+    def _run_draft(self, tok, pos, valid, cur, donated):
+        flat = list(self._d_template)
+        flat[self._d_feed_pos[self._d_tok]] = tok
+        if self._d_pos is not None:
+            flat[self._d_feed_pos[self._d_pos]] = pos
+        if self._d_valid is not None:
+            flat[self._d_feed_pos[self._d_valid]] = valid
+        for name, key in zip(self._d_states, self.draft_state_keys):
+            flat[self._d_feed_pos[name]] = cur[key]
+        outs, _ = self._gf_d(flat[:self._d_na], flat[self._d_na:],
+                             donated=donated)
+        return outs[0], {k: outs[1 + i]
+                         for i, k in enumerate(self.draft_state_keys)}
+
+    def step(self, tokens, pos, valid, states, reset=None):
+        """One decode iteration over the whole pool.  ``tokens``/``pos``/
+        ``valid`` are host float32 vectors of length ``num_slots``;
+        ``states`` the buffers from :meth:`init_states` or the previous
+        step (donated).  ``reset`` marks slots (1/0) whose state rows must
+        read as zeros this step.  Returns (sampled ids as a host float
+        vector, new state dict)."""
+        if self._spec is not None:
+            raise MXNetError("this StepProgram runs a speculative "
+                             "draft-k-verify step: dispatch through "
+                             "step_spec()")
+        with torch.no_grad():
+            self._zero_joining(states, reset)
+            sampled, new_states = self._run_target(
+                self._vec(tokens), self._vec(pos), self._vec(valid), states,
+                donated=self.state_names)
+            return sampled.cpu().numpy(), new_states
+
+    def step_spec(self, tokens, pos, valid, spec, states, reset=None):
+        """One speculative iteration over the whole pool: up to ``k + 1``
+        tokens commit per slot.  ``spec`` marks the slots eligible for
+        speculation (generating, past their prompt); the others commit
+        exactly one position.  Returns ``(tokens, counts, new_states)``:
+        a ``(slots, k+1)`` host token matrix, the per-slot committed
+        counts, and the committed state dict.
+
+        The chains run on working copies of the caches (the executor
+        copies an undonated buffer before a cache write), so the commit
+        writes the accepted rows into the original buffers and leaves
+        every other row as it was."""
+        if self._spec is None:
+            raise MXNetError("step_spec() needs a StepProgram built with "
+                             "a SpecConfig")
+        K = self._spec.K
+        cache_t = [n for n, _ in self._cache_t]
+        cache_d = [n for n, k in zip(self._d_states, self.draft_state_keys)
+                   if k in dict(self._cache_d)]
+        with torch.no_grad():
+            self._zero_joining(states, reset)
+            tok0, pos0 = self._vec(tokens), self._vec(pos)
+            valid_t, spec_m = self._vec(valid), self._vec(spec)
+            # draft chain: k proposals plus one state-advancing step
+            xs, d_chain = [tok0], []
+            d_rows = {k: [] for k, _ in self._cache_d}
+            cur = {k: states[k] for k in self.draft_state_keys}
+            for j in range(K):
+                logits, cur = self._run_draft(
+                    xs[j], pos0 + float(j), valid_t, cur,
+                    donated=cache_d if j else ())
+                d_chain.append(cur)
+                for key, T in self._cache_d:
+                    d_rows[key].append(
+                        _spec_mod.gather_row(cur[key], pos0, j, T))
+                if j < K - 1:
+                    xs.append(torch.argmax(logits, dim=1).to(logits.dtype))
+            # target chain: score all K positions
+            t_chain, tlogits = [], []
+            t_rows = {n: [] for n, _ in self._cache_t}
+            cur = {n: states[n] for n in self.state_names}
+            for j in range(K):
+                logits, cur = self._run_target(
+                    xs[j], pos0 + float(j), valid_t, cur,
+                    donated=cache_t if j else ())
+                tlogits.append(logits)
+                t_chain.append(cur)
+                for name, T in self._cache_t:
+                    t_rows[name].append(
+                        _spec_mod.gather_row(cur[name], pos0, j, T))
+            toks, a = _spec_mod.greedy_accept(xs, tlogits)
+            count = torch.where(spec_m > 0, a + 1.0,
+                                torch.ones_like(a))
+            idx = (count - 1.0).to(torch.int32)
+            committed = {}
+            caches = set(dict(self._cache_t)) | set(dict(self._cache_d))
+            for name in self.state_names:
+                if name not in caches:
+                    committed[name] = _spec_mod.commit_select(
+                        [st[name] for st in t_chain], idx)
+            for key in self.draft_state_keys:
+                if key not in caches:
+                    committed[key] = _spec_mod.commit_select(
+                        [st[key] for st in d_chain], idx)
+            if self._gf_commit is not None:
+                cvals = {"__spec_pos__": pos0, "__spec_count__": count}
+                rows = dict(t_rows, **d_rows)
+                for key, _T in self._cache_t + self._cache_d:
+                    cvals["__spec_cache__%s" % key] = states[key]
+                    cvals["__spec_rows__%s" % key] = torch.cat(rows[key],
+                                                               dim=1)
+                outs_c, _ = self._gf_commit(
+                    [cvals[n] for n in self._commit_args], [],
+                    donated=["__spec_cache__%s" % key for key, _T
+                             in self._cache_t + self._cache_d])
+                for i, (key, _T) in enumerate(self._cache_t
+                                              + self._cache_d):
+                    committed[key] = outs_c[i]
+            host = torch.cat([toks, count.to(toks.dtype)[:, None]],
+                             dim=1).cpu().numpy()
+        keys = list(self.state_names) + list(self.draft_state_keys)
+        return host[:, :K], host[:, K], {k: committed[k] for k in keys}
+
+    def probe_step(self):
+        """One dispatch over an all-zero scratch pool with all-zero
+        feeds; touches no live state.  Two programs built from the same
+        graph must return exactly equal outputs here."""
+        z = np.zeros((self.num_slots,), np.float32)
+        states = self.init_states()
+        if self._spec is not None:
+            toks, counts, states = self.step_spec(z, z, z, z, states)
+            outs = [toks, counts]
+        else:
+            sampled, states = self.step(z, z, z, states)
+            outs = [sampled]
+        keys = list(self.state_names) + list(self.draft_state_keys)
+        return outs + [states[k].cpu().numpy() for k in keys]
+
+
+def greedy_decode(program, prompt, max_new_tokens, eos_id=None,
+                  max_len=None):
+    """Reference single-request greedy decode: teacher-force the prompt
+    through ``program`` one token per step, then feed each argmax sample
+    back, alone in slot 0.  The engine is held to this loop's output
+    bitwise, whatever company a request keeps in the slot pool."""
+    states = program.init_states()
+    n = program.num_slots
+    tokens = np.zeros((n,), np.float32)
+    pos = np.zeros((n,), np.float32)
+    valid = np.zeros((n,), np.float32)
+    valid[0] = 1.0
+    prompt = list(prompt)
+    if not prompt:
+        raise MXNetError("greedy_decode needs a non-empty prompt")
+    tokens[0] = prompt[0]
+    out, p, i = [], 0, 1
+    while len(out) < max_new_tokens:
+        if max_len is not None and p >= max_len:
+            break
+        pos[0] = p
+        sampled, states = program.step(tokens, pos, valid, states)
+        p += 1
+        if i < len(prompt):             # still consuming the prompt
+            tokens[0] = prompt[i]
+            i += 1
+            continue
+        tok = int(sampled[0])
+        out.append(tok)
+        tokens[0] = sampled[0]
+        if eos_id is not None and tok == eos_id:
+            break
+    return np.asarray(out, dtype=np.int64)
+
+
+def _percentile(sorted_vals, q):
+    if not sorted_vals:
+        return 0.0
+    return float(sorted_vals[min(len(sorted_vals) - 1,
+                                 int(len(sorted_vals) * q))])
+
+
+class DecodeReplica(object):
+    """The engine's slot pool: the step program, the device-resident
+    per-slot state and the host mirror vectors (counterpart of
+    ``mxnet_tpu/serving/replica.py`` DecodeReplica; the port runs one).
+    Touched only by the scheduler thread."""
+
+    def __init__(self, program):
+        n = program.num_slots
+        self.program = program
+        self.slots = [None] * n
+        self.tokens_np = np.zeros((n,), np.float32)
+        self.pos_np = np.zeros((n,), np.float32)
+        self.valid_np = np.zeros((n,), np.float32)
+        self.reset_np = np.zeros((n,), np.float32)
+        # speculative eligibility: 1 while a slot generates past its
+        # prompt; ineligible slots commit one position per spec step
+        self.spec_np = np.zeros((n,), np.float32)
+        self.states = program.init_states()
+
+    def occupied(self):
+        return [i for i, s in enumerate(self.slots) if s is not None]
+
+
+class DecodeEngine(object):
+    """Continuous-batching autoregressive decode over one frozen step
+    graph (the module docstring has the architecture).
+
+    Parameters
+    ----------
+    step_sym : Symbol with outputs ``[logits] + next_states``.
+    arg_params, aux_params : weights as NDArrays ({name: NDArray}).
+    state_info : list of ``{"name", "shape"[, "dtype"][, "cache"]}`` —
+        per-slot state buffers, in the order the step graph returns
+        their next values; ``"cache": True`` declares a KV cache the
+        speculative commit writes row by row.
+    num_slots, max_len : slot-pool geometry (defaults from
+        ``MXNET_DECODE_SLOTS`` / ``MXNET_DECODE_MAX_LEN``).
+    eos_id : sampling this id ends a request with reason "eos".
+    ctx : the device; the first CUDA card when None (raises without
+        one); ``cpu()`` for the CPU.
+    draft_sym, draft_arg_params, draft_aux_params, draft_state_info,
+    spec_k : speculative draft-k-verify (``spec_k`` defaults to
+        ``MXNET_DECODE_SPEC_K``; 0 = the single-token engine).
+    """
+
+    def __init__(self, step_sym, arg_params, aux_params, state_info,
+                 token_name="token", pos_name="pos", valid_name="valid",
+                 num_slots=None, max_len=None, eos_id=None,
+                 max_queue=None, default_deadline_ms=None, ctx=None,
+                 dtype=np.float32, start=True, sampler=None,
+                 draft_sym=None, draft_arg_params=None,
+                 draft_aux_params=None, draft_state_info=None,
+                 spec_k=None):
+        from .. import config
+        self._ctx = default_context(ctx)
+        if num_slots is None:
+            num_slots = config.get("MXNET_DECODE_SLOTS")
+        if max_len is None:
+            max_len = config.get("MXNET_DECODE_MAX_LEN")
+        if spec_k is None:
+            spec_k = config.get("MXNET_DECODE_SPEC_K")
+        spec_k = int(spec_k)
+        if spec_k < 0:
+            raise MXNetError("spec_k must be >= 0, got %d" % spec_k)
+        if spec_k > 0 and draft_sym is None:
+            raise MXNetError(
+                "spec_k=%d needs a draft model: pass draft_sym= (and its "
+                "params/state_info)" % spec_k)
+        self._spec_k = spec_k if draft_sym is not None else 0
+        self._sampler = sampler if sampler is not None else GreedySampler()
+        if not self._sampler.greedy:
+            raise MXNetError("only the greedy sampler is ported")
+        if max_queue is None:
+            max_queue = config.get("MXNET_SERVE_MAX_QUEUE")
+        if default_deadline_ms is None:
+            default_deadline_ms = config.get(
+                "MXNET_SERVE_DEFAULT_DEADLINE_MS")
+        if num_slots < 1:
+            raise MXNetError("num_slots must be >= 1, got %d" % num_slots)
+        self.num_slots = int(num_slots)
+        self.max_len = int(max_len)
+        self.eos_id = eos_id
+        self._dtype = np.dtype(dtype)
+        self._default_deadline_s = float(default_deadline_ms) / 1e3
+        if self._spec_k:
+            self._check_draft_heads(step_sym, draft_sym, state_info,
+                                    draft_state_info or [], token_name,
+                                    pos_name, valid_name)
+        self.opt_plan = self.selection = self.draft_opt_plan = None
+        if config.get("MXNET_SERVE_OPTIMIZE") \
+                and config.get("MXNET_OPT_SELECT_KERNELS"):
+            step_sym, self.opt_plan, self.selection = self._optimize_step(
+                step_sym, state_info, token_name, pos_name, valid_name,
+                what="step")
+            if self._spec_k:
+                draft_sym, self.draft_opt_plan, _sel = self._optimize_step(
+                    draft_sym, draft_state_info or [], token_name,
+                    pos_name, valid_name, what="draft")
+        self.served_sym = step_sym
+        self.served_draft_sym = draft_sym if self._spec_k else None
+        self._spec_cfg = None
+        if self._spec_k:
+            self._spec_cfg = _spec_mod.SpecConfig(
+                self._spec_k, draft_sym, draft_arg_params=draft_arg_params,
+                draft_aux_params=draft_aux_params,
+                draft_state_info=draft_state_info, token_name=token_name,
+                pos_name=pos_name, valid_name=valid_name)
+            self._spec_cfg.build(self.num_slots, state_info, dtype)
+        self._rep = DecodeReplica(StepProgram(
+            step_sym, arg_params, aux_params, state_info, self.num_slots,
+            token_name=token_name, pos_name=pos_name,
+            valid_name=valid_name, ctx=self._ctx, dtype=dtype,
+            sampler=self._sampler, spec=self._spec_cfg))
+        self._adm = AdmissionController(max_queue=max_queue)
+        self._lock = threading.Lock()
+        self._tasks = collections.deque()
+        self._step_ms = collections.deque(maxlen=4096)
+        self._lat_ms = collections.deque(maxlen=4096)
+        self._steps = self._joins = self._leaves = 0
+        self._evictions = self._tokens_out = self._requests_served = 0
+        self._spec_steps = 0        # dispatches with >= 1 spec slot
+        self._spec_slot_steps = 0   # per-slot spec steps
+        self._spec_drafted = self._spec_accepted = 0
+        self._abort = False
+        self._worker = None
+        if start:
+            self.start()
+
+    @property
+    def program(self):
+        return self._rep.program
+
+    def _check_draft_heads(self, step_sym, draft_sym, state_info,
+                           draft_state_info, token_name, pos_name,
+                           valid_name):
+        """Draft and target must score the SAME vocabulary: acceptance
+        compares them index for index."""
+        def logits_shape(sym_, infos):
+            n = self.num_slots
+            arg_names = set(sym_.list_arguments())
+            shapes = {token_name: (n,)}
+            for info in infos:
+                shapes[info["name"]] = (n,) + tuple(info["shape"])
+            for extra in (pos_name, valid_name):
+                if extra in arg_names:
+                    shapes[extra] = (n,)
+            return tuple(sym_.infer_shape(**shapes)[1][0])
+        try:
+            t_shape = logits_shape(step_sym, state_info)
+            d_shape = logits_shape(draft_sym, draft_state_info)
+        except Exception as e:
+            warnings.warn("DecodeEngine: cannot infer draft/target head "
+                          "shapes (%r); the head-compatibility check is "
+                          "skipped" % (e,))
+            return
+        if t_shape != d_shape:
+            raise MXNetError(
+                "speculative decode: target head scores %s but the draft "
+                "head scores %s — draft and target must share one "
+                "vocabulary" % (t_shape, d_shape))
+
+    def _optimize_step(self, step_sym, state_info, token_name, pos_name,
+                       valid_name, what="step"):
+        """Run the kernel-selection pass over the step graph at the slot
+        pool's shapes.  Returns ``(graph, plan, selection)``, the graph
+        being what StepProgram should run (the input graph on rejection or
+        crash)."""
+        from ..analysis import optimize_graph, SELECT_OPT_PASSES
+        try:
+            n = self.num_slots
+            arg_names = set(step_sym.list_arguments())
+            shapes = {token_name: (n,)}
+            dtypes = {token_name: np.dtype(np.float32)}
+            for info in state_info:
+                shapes[info["name"]] = (n,) + tuple(info["shape"])
+                dtypes[info["name"]] = np.dtype(info.get("dtype")
+                                                or self._dtype)
+            for extra in (pos_name, valid_name):
+                if extra in arg_names:
+                    shapes[extra] = (n,)
+                    dtypes[extra] = np.dtype(np.float32)
+            plan = optimize_graph(step_sym, data_shapes=shapes,
+                                  dtypes=dtypes, passes=SELECT_OPT_PASSES)
+        except Exception as e:    # optimizer crash must never block
+            warnings.warn("DecodeEngine: %s-graph optimization crashed "
+                          "(%r); serving the unmodified graph" % (what, e))
+            return step_sym, None, None
+        if plan.accepted and plan.symbol is not None and plan.rewrites:
+            selection = [{"op": "_cache_write_row", "site": a.node}
+                         for a in plan.actions if a.kind == "select"]
+            return plan.symbol, plan, selection
+        if not plan.accepted:
+            warnings.warn("DecodeEngine: %s-graph optimization rejected "
+                          "(%s); serving the unmodified graph"
+                          % (what, plan.reason))
+        return step_sym, plan, None
+
+    # ---------------------------------------------------------- lifecycle
+    def start(self):
+        if self._adm.closed:
+            raise EngineClosedError(
+                "engine is closed; build a new DecodeEngine")
+        if self._worker is None:
+            self._worker = threading.Thread(target=self._run,
+                                            name="mxnet-decode-worker",
+                                            daemon=True)
+            self._worker.start()
+        return self
+
+    def close(self, drain=True):
+        """Stop admitting.  With ``drain``, queued AND slot-resident
+        requests run to completion first; otherwise queued futures fail
+        with EngineClosedError and in-flight requests resolve with their
+        PARTIAL tokens (finish_reason "closed")."""
+        if not drain:
+            self._abort = True
+        self._adm.close(drain=drain)
+        if self._worker is not None:
+            self._worker.join(timeout=None if drain else 60)
+            if not self._worker.is_alive():
+                self._worker = None
+        elif drain:
+            self._run()     # never started: drain on the caller's thread
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    # ------------------------------------------------------------- client
+    def submit(self, prompt, max_new_tokens=None, deadline_ms=None,
+               on_token=None):
+        """Enqueue one generation request; returns a Future resolving to
+        a :class:`DecodeResult`.
+
+        ``prompt`` is a non-empty sequence of token ids; generation goes
+        on until ``eos_id`` is sampled, ``max_new_tokens`` are out, the
+        slot's ``max_len`` positions fill, or the deadline passes
+        (partial result, ``expired=True``).  ``on_token`` is called with
+        each generated id, in order (the exact prefix of the final
+        tokens), from the scheduler thread; a raising callback fails only
+        its own request."""
+        if self._adm.closed:
+            raise EngineClosedError("decode engine is closed")
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise MXNetError("decode needs a non-empty prompt (feed at "
+                             "least a BOS token)")
+        if len(prompt) >= self.max_len:
+            raise MXNetError(
+                "prompt length %d leaves no room to generate within "
+                "max_len=%d positions" % (len(prompt), self.max_len))
+        cap = self.max_len - len(prompt)
+        if max_new_tokens is None:
+            max_new_tokens = cap
+        max_new_tokens = int(max_new_tokens)
+        if max_new_tokens < 1:
+            raise MXNetError("max_new_tokens must be >= 1")
+        max_new_tokens = min(max_new_tokens, cap)
+        if deadline_ms is None and self._default_deadline_s > 0:
+            deadline_ms = self._default_deadline_s * 1e3
+        deadline = None if not deadline_ms else \
+            time.monotonic() + float(deadline_ms) / 1e3
+        fut = Future()
+        req = DecodeRequest(prompt, max_new_tokens, fut, deadline=deadline,
+                            on_token=on_token)
+        # a deadline hit while queued COMPLETES the request with what it
+        # has (nothing yet), as one hit mid-generation does
+        req.on_expire = lambda exc, r=req: DecodeResult(
+            r.tokens, "deadline", n_steps=r.n_steps,
+            prompt_len=len(r.prompt))
+        self._adm.admit(req)
+        return fut
+
+    def generate(self, prompt, max_new_tokens=None, deadline_ms=None,
+                 timeout=None):
+        """Synchronous convenience wrapper around :meth:`submit`."""
+        return self.submit(prompt, max_new_tokens=max_new_tokens,
+                           deadline_ms=deadline_ms).result(timeout=timeout)
+
+    # ------------------------------------------------------------- worker
+    def _run(self):
+        if self._ctx.device.type == "cuda":
+            torch.cuda.set_device(self._ctx.device)
+        self._single_run(self._rep)
+
+    def _run_tasks(self):
+        while self._tasks:
+            fn, fut = self._tasks.popleft()
+            try:
+                fut.set_result(fn())
+            except Exception as e:
+                fut.set_exception(e)
+
+    def _single_run(self, rep):
+        """One thread admits, seats and steps the slot pool, and runs the
+        engine's other device work (warmup) between steps."""
+        while True:
+            try:
+                self._run_tasks()
+                if self._abort:
+                    for i in rep.occupied():
+                        self._finish_slot(rep, i, "closed")
+                    return
+                occ = rep.occupied()
+                free = self.num_slots - len(occ)
+                if not occ:
+                    batch = self._adm.take(free, 0.0)
+                    if batch is None:
+                        self._run_tasks()
+                        return          # closed and drained
+                    self._join_many(rep, batch)
+                    continue
+                # busy: admit without blocking a step, and keep queued
+                # deadlines honest even when no slot is free
+                if free:
+                    polled = self._adm.poll(free)
+                    if polled:
+                        self._join_many(rep, polled)
+                else:
+                    self._adm.sweep()
+                self._step_once(rep)
+            except Exception as e:      # fail the batch, keep serving
+                for i in rep.occupied():
+                    req = rep.slots[i]
+                    rep.slots[i] = None
+                    rep.valid_np[i] = 0.0
+                    if not req.future.done():
+                        _fail_future(req.future, e)
+                rep.states = rep.program.init_states()
+                for v in (rep.tokens_np, rep.pos_np, rep.reset_np,
+                          rep.spec_np):
+                    v.fill(0.0)
+
+    def _join_many(self, rep, reqs):
+        """Seat admitted requests in free slots BETWEEN steps: mark each
+        slot's state rows for zeroing at the next step, stage the first
+        prompt token, mark the slot valid."""
+        for req in reqs:
+            if not self._seat_slot(rep, req):
+                continue
+            slot = req.slot
+            rep.reset_np[slot] = 1.0
+            rep.tokens_np[slot] = req.prompt[0]
+            rep.pos_np[slot] = 0.0
+            req.prompt_i = 1
+            # spec eligibility starts with the first sampling step, the
+            # one that consumes the last prompt token
+            rep.spec_np[slot] = (1.0 if req.prompt_i >= len(req.prompt)
+                                 else 0.0)
+
+    def _seat_slot(self, rep, req):
+        """Claim a free slot for one admitted request; False when the
+        request was cancelled before seating (counted as a leave)."""
+        if not req.future.set_running_or_notify_cancel():
+            with self._lock:
+                self._leaves += 1
+            return False
+        slot = rep.slots.index(None)
+        req.slot = slot
+        req.t_join = time.perf_counter()
+        rep.slots[slot] = req
+        rep.valid_np[slot] = 1.0
+        rep.spec_np[slot] = 0.0
+        with self._lock:
+            self._joins += 1
+        return True
+
+    def _fail_seated(self, rep, req, exc):
+        """Fail ONE seated request and free its slot; co-residents keep
+        their generations."""
+        slot = req.slot
+        if slot is not None and rep.slots[slot] is req:
+            rep.slots[slot] = None
+            rep.valid_np[slot] = 0.0
+            rep.spec_np[slot] = 0.0
+        with self._lock:
+            self._leaves += 1
+        _fail_future(req.future, exc)
+
+    def _fire_on_token(self, rep, req, tok):
+        """Streaming hook: a raising callback evicts ONLY its own request.
+        Returns False when the request was evicted."""
+        try:
+            req.on_token(int(tok))
+            return True
+        except Exception as e:
+            self._fail_seated(rep, req, e)
+            return False
+
+    def _step_once(self, rep):
+        t0 = time.perf_counter()
+        now = time.monotonic()
+        # per-iteration deadline check: an expired slot-resident request
+        # completes with its partial tokens and frees the slot
+        occ = []
+        for i, req in enumerate(rep.slots):
+            if req is None:
+                continue
+            if req.deadline is not None and now >= req.deadline:
+                self._finish_slot(rep, i, "deadline")
+            else:
+                occ.append(i)
+        if not occ:
+            return
+        if self._spec_k:
+            toks_mat, counts, rep.states = rep.program.step_spec(
+                rep.tokens_np, rep.pos_np, rep.valid_np, rep.spec_np,
+                rep.states, reset=rep.reset_np)
+            rep.reset_np.fill(0.0)
+            new_tokens = self._advance_spec(rep, occ, toks_mat, counts)
+        else:
+            sampled, rep.states = rep.program.step(
+                rep.tokens_np, rep.pos_np, rep.valid_np, rep.states,
+                reset=rep.reset_np)
+            rep.reset_np.fill(0.0)      # consumed: rows are zeroed now
+            sampled_l = sampled.tolist()
+            new_tokens = 0
+            for i in occ:
+                req = rep.slots[i]
+                req.n_steps += 1
+                rep.pos_np[i] += 1.0
+                if req.prompt_i < len(req.prompt):
+                    # teacher forcing: the sample is discarded, the next
+                    # prompt token rides the next step
+                    rep.tokens_np[i] = req.prompt[req.prompt_i]
+                    req.prompt_i += 1
+                else:
+                    tok = sampled_l[i]
+                    req.tokens.append(int(tok))
+                    rep.tokens_np[i] = tok
+                    new_tokens += 1
+                    if req.on_token is not None \
+                            and not self._fire_on_token(rep, req, tok):
+                        continue    # evicted by its own callback
+                self._check_finish(rep, i)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            self._steps += 1
+            self._tokens_out += new_tokens
+            self._step_ms.append(dt_ms)
+
+    def _advance_spec(self, rep, occ, toks_mat, counts):
+        """The variable-width slot advance: slot ``i`` committed
+        ``counts[i]`` positions and ``toks_mat[i, :counts[i]]`` holds its
+        accepted tokens in order.  Emission truncates at eos / max_new /
+        max_len (a truncated slot always finishes); ``on_token`` fires
+        once per emitted token, in order."""
+        toks_l = toks_mat.tolist()
+        counts_l = counts.tolist()
+        new_tokens = drafted = accepted = spec_slots = 0
+        for i in occ:
+            req = rep.slots[i]
+            req.n_steps += 1
+            if req.prompt_i < len(req.prompt):
+                # teacher forcing: one position committed; stage the next
+                # prompt token
+                rep.pos_np[i] += 1.0
+                rep.tokens_np[i] = req.prompt[req.prompt_i]
+                req.prompt_i += 1
+                if req.prompt_i >= len(req.prompt):
+                    rep.spec_np[i] = 1.0
+                self._check_finish(rep, i)
+                continue
+            c = int(counts_l[i])
+            spec_slots += 1
+            drafted += self._spec_k
+            accepted += c - 1
+            cap = min(c, req.max_new - len(req.tokens),
+                      self.max_len - int(rep.pos_np[i]))
+            rep.pos_np[i] += float(c)
+            evicted = False
+            last = None
+            for jj in range(cap):
+                tok = int(toks_l[i][jj])
+                req.tokens.append(tok)
+                new_tokens += 1
+                if req.on_token is not None \
+                        and not self._fire_on_token(rep, req, tok):
+                    evicted = True
+                    break
+                last = tok
+                if self.eos_id is not None and tok == self.eos_id:
+                    break
+            if evicted:
+                continue
+            if last is not None:
+                rep.tokens_np[i] = float(last)
+            self._check_finish(rep, i)
+        if spec_slots:
+            with self._lock:
+                self._spec_steps += 1
+                self._spec_slot_steps += spec_slots
+                self._spec_drafted += drafted
+                self._spec_accepted += accepted
+        return new_tokens
+
+    def _check_finish(self, rep, slot):
+        req = rep.slots[slot]
+        if req is None or not req.tokens:
+            return
+        if self.eos_id is not None and req.tokens[-1] == self.eos_id:
+            self._finish_slot(rep, slot, "eos")
+        elif len(req.tokens) >= req.max_new:
+            self._finish_slot(rep, slot, "length")
+        elif rep.pos_np[slot] >= self.max_len:
+            # no position left to consume the staged token at
+            self._finish_slot(rep, slot, "length")
+
+    def _finish_slot(self, rep, slot, reason):
+        """Leave the batch between steps: deliver the result and mark the
+        slot dead; its state rows stay as stale values until the next
+        join zeroes them."""
+        req = rep.slots[slot]
+        rep.slots[slot] = None
+        for v in (rep.valid_np, rep.tokens_np, rep.pos_np, rep.spec_np):
+            v[slot] = 0.0
+        res = DecodeResult(req.tokens, reason, n_steps=req.n_steps,
+                           prompt_len=len(req.prompt))
+        if not req.future.cancelled():
+            try:
+                req.future.set_result(res)
+            except Exception:
+                pass
+        with self._lock:
+            self._leaves += 1
+            self._requests_served += 1
+            if reason == "deadline":
+                self._evictions += 1
+            self._lat_ms.append((time.monotonic() - req.t_enqueue) * 1e3)
+
+    # ------------------------------------------------------------ observe
+    def _on_scheduler(self, fn):
+        """Run ``fn`` on the scheduler thread (between steps) and return
+        its result; inline when the scheduler is not running."""
+        w = self._worker
+        if w is None or not w.is_alive() \
+                or w is threading.current_thread():
+            return fn()
+        fut = Future()
+        self._tasks.append((fn, fut))
+        self._adm.wake()
+        while True:
+            try:
+                return fut.result(timeout=0.1)
+            except FutureTimeout:
+                if not w.is_alive():    # it exited before taking the task
+                    self._run_tasks()
+
+    def warmup(self):
+        """Run the step program twice over a scratch pool, on the
+        scheduler thread, so live traffic finds every kernel built and
+        every library handle made.  Returns the number of step programs
+        built (one per engine; churn builds none)."""
+        return self._on_scheduler(self._warm)
+
+    def _warm(self):
+        z = np.zeros((self.num_slots,), np.float32)
+        prog = self._rep.program
+        states = prog.zero_row(prog.init_states(), 0)
+        for _ in range(2):
+            if self._spec_k:
+                _t, _c, states = prog.step_spec(z, z, z, z, states)
+            else:
+                _s, states = prog.step(z, z, z, states)
+        if self._ctx.device.type == "cuda":
+            torch.cuda.synchronize(self._ctx.device)
+        return self.programs_built
+
+    @property
+    def programs_built(self):
+        """Graph functions the engine's step program built (step, draft,
+        commit).  The reference counts XLA traces here; the port builds
+        its programs once, at construction, and a test pins that churn
+        builds none."""
+        return self._rep.program.build_count
+
+    def _spec_stats(self):
+        """The ``stats()["decode"]["spec"]`` block — caller holds
+        ``self._lock``.  ``accept_rate`` is accepted/drafted;
+        ``tokens_per_step`` counts committed tokens per slot per
+        speculative step (1.0 floor, k+1 ceiling)."""
+        if not self._spec_k:
+            return {"enabled": False, "k": 0}
+        drafted = self._spec_drafted
+        return {
+            "enabled": True,
+            "k": self._spec_k,
+            "steps": self._spec_steps,
+            "drafted": drafted,
+            "accepted": self._spec_accepted,
+            "rejected": drafted - self._spec_accepted,
+            "accept_rate": (self._spec_accepted / float(drafted)
+                            if drafted else None),
+            "tokens_per_step": ((self._spec_accepted
+                                 + self._spec_slot_steps)
+                                / float(self._spec_slot_steps)
+                                if self._spec_slot_steps else None),
+            "commit_selection": self._spec_cfg.selection,
+            "commit_accepted": (bool(self._spec_cfg.commit_plan.accepted)
+                                if self._spec_cfg.commit_plan is not None
+                                else None),
+        }
+
+    def stats(self):
+        """Admission counters plus the ``decode`` block: slot-pool
+        geometry and occupancy, step/token/join/leave/eviction counts,
+        the selection and its gate, and per-step and end-to-end latency
+        percentiles (ms)."""
+        snap = self._adm.stats()
+        plan = self.opt_plan
+        with self._lock:
+            step = sorted(self._step_ms)
+            lat = sorted(self._lat_ms)
+            snap["decode"] = {
+                "slots": self.num_slots,
+                "slots_occupied": len(self._rep.occupied()),
+                "max_len": self.max_len,
+                "device": str(self._ctx.device),
+                "steps": self._steps,
+                "tokens_generated": self._tokens_out,
+                "joins": self._joins,
+                "leaves": self._leaves,
+                "evictions": self._evictions,
+                "requests_served": self._requests_served,
+                "programs_built": self.programs_built,
+                "sampler": self._sampler.describe(),
+                "optimizer": {
+                    "accepted": (bool(plan.accepted) if plan is not None
+                                 else None),
+                    "rewrites": (len(plan.rewrites) if plan is not None
+                                 and plan.accepted else 0),
+                    "reason": plan.reason if plan is not None else None,
+                    "selection": self.selection,
+                    "gate": plan.gate if plan is not None else None,
+                },
+                "spec": self._spec_stats(),
+                "step_ms": {
+                    "count": len(step),
+                    "mean": float(np.mean(step)) if step else 0.0,
+                    "p50": _percentile(step, 0.50),
+                    "p99": _percentile(step, 0.99),
+                },
+                "latency_ms": {
+                    "count": len(lat),
+                    "mean": float(np.mean(lat)) if lat else 0.0,
+                    "p50": _percentile(lat, 0.50),
+                    "p99": _percentile(lat, 0.99),
+                },
+            }
+        return snap

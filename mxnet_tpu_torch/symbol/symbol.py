@@ -11,12 +11,15 @@ from __future__ import annotations
 
 import json
 
+import numpy as np
+
 from ..base import MXNetError, NameManager, AttrScope, attrs_to_strings, \
     _parse_tuple
 from ..ops import get_op
 from ..ops.registry import OpDef
 
-__all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json"]
+__all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
+           "copy_graph"]
 
 
 class SymNode:
@@ -73,6 +76,10 @@ class Symbol:
     def __len__(self):
         return len(self._outputs)
 
+    def __getitem__(self, index):
+        """Output ``index`` as a Symbol of its own."""
+        return Symbol([self._outputs[index]])
+
     # -- listing -----------------------------------------------------------
     def list_outputs(self):
         names = []
@@ -117,7 +124,7 @@ class Symbol:
                 known[n] = tuple(s)
         known.update({k: tuple(v) for k, v in kwargs.items()
                       if v is not None})
-        shapes = _infer_graph(self._outputs, known)
+        shapes = infer_graph_env(self._outputs, known)[0]
         topo = _topo(self._outputs)
         aux = self._aux_nodes()
         arg_shapes = [shapes.get((id(n), 0)) for n in topo
@@ -142,11 +149,35 @@ class Symbol:
                              % (missing, blocked))
         return arg_shapes, out_shapes, aux_shapes
 
-    # -- composition --------------------------------------------------------
-    def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise TypeError("cannot add Symbol and %s" % type(other))
-        return _create("elemwise_add", [self, other], {})
+    # -- arithmetic composition ----------------------------------------------
+    def _binary(self, other, op, scalar_op, reverse=False):
+        if isinstance(other, Symbol):
+            a, b = (other, self) if reverse else (self, other)
+            return _create(op, [a, b], {})
+        if isinstance(other, (int, float, np.number, bool)):
+            return _create(scalar_op, [self], {"scalar": float(other)})
+        raise TypeError("cannot combine Symbol with %s" % type(other))
+
+    def __add__(self, o):
+        return self._binary(o, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        if isinstance(o, (int, float, np.number, bool)):
+            return _create("_rminus_scalar", [self], {"scalar": float(o)})
+        return self._binary(o, "elemwise_sub", "_minus_scalar", reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __gt__(self, o):
+        return self._binary(o, "greater", "_greater_scalar")
 
     # -- serialization ------------------------------------------------------
     def tojson(self):
@@ -193,14 +224,32 @@ class Symbol:
         return Executor(self, ctx, args, None, grad_req, aux)
 
 
-def _infer_graph(heads, known_shapes):
-    """Forward fixed point over the DAG: variables seed shapes, each op's
+def copy_graph(symbol):
+    """Structural deep copy of the DAG behind ``symbol``: (clone,
+    {id(old node): new node}).  Edits to the clone never touch the
+    source graph."""
+    mapping = {}
+    for n in _topo(symbol._outputs):
+        mapping[id(n)] = SymNode(n.op, n.name, dict(n.attrs),
+                                 [(mapping[id(i)], ix)
+                                  for (i, ix) in n.inputs])
+    return Symbol([(mapping[id(n)], ix) for (n, ix) in symbol._outputs]), \
+        mapping
+
+
+def infer_graph_env(heads, known_shapes, known_dtypes=None):
+    """Forward fixed point over the DAG: variables seed shapes (and
+    dtypes, float32 unless ``known_dtypes`` names one), each op's
     ``fill_shapes`` completes its parameter shapes, then the op runs on
-    meta tensors for its output shapes and dtypes."""
+    meta tensors for its output shapes and dtypes.  Returns
+    ({(id(node), out_idx): shape}, {...: torch dtype})."""
+    from ..ops.registry import torch_dtype
     topo = _topo(heads)
     shapes, dtypes = {}, {}
     for n in topo:
         if n.op is None:
+            dtypes[(id(n), 0)] = torch_dtype(
+                (known_dtypes or {}).get(n.name) or "float32")
             if n.name in known_shapes:
                 shapes[(id(n), 0)] = tuple(known_shapes[n.name])
             elif "__shape__" in n.attrs:
@@ -236,7 +285,7 @@ def _infer_graph(heads, known_shapes):
             progressed = True
         if not progressed:
             break
-    return shapes
+    return shapes, dtypes
 
 
 # ---------------------------------------------------------------------------

@@ -94,3 +94,26 @@ def test_contexts_name_torch_devices():
     assert mt.gpu(1).device == torch.device("cuda", 1)
     assert mt.Context.of(torch.device("cuda", 1)) == mt.gpu(1)
     assert not hasattr(mt, "tpu")
+
+
+def _decode_step():
+    """The smallest decode step: logits = FC(Embedding(token)), no state."""
+    emb = mt.sym.Embedding(mt.sym.Variable("token"), input_dim=4,
+                           output_dim=4, name="emb")
+    logits = mt.sym.FullyConnected(emb, num_hidden=4, name="fc")
+    eye = mt.nd.array(np.eye(4, dtype=np.float32))
+    params = {"emb_weight": eye, "fc_weight": eye,
+              "fc_bias": mt.nd.array(np.zeros(4, np.float32))}
+    return mt.sym.Group([logits]), params
+
+
+def test_decode_engine_wants_a_card_unless_given_cpu(no_card):
+    step, params = _decode_step()
+    with pytest.raises(mt.MXNetError, match="ctx=cpu"):
+        mt.DecodeEngine(step, params, {}, [], num_slots=2, max_len=8)
+    with pytest.raises(mt.MXNetError, match="ctx=cpu"):
+        mt.serving.StepProgram(step, params, {}, [], 2)
+    with mt.DecodeEngine(step, params, {}, [], num_slots=2, max_len=8,
+                         ctx=mt.cpu()) as eng:
+        res = eng.generate([2], max_new_tokens=3, timeout=30)
+    assert list(res.tokens) == [2, 2, 2]    # the identity model repeats

@@ -1,5 +1,6 @@
-"""The CUDA kernels of the fused bottleneck unit (K1-K3, K5, K6) and the
-1x1-convolution backward (K8) against their plain PyTorch versions.
+"""The CUDA kernels of the fused bottleneck unit (K1-K3, K5, K6), the
+1x1-convolution backward (K8) and the KV-cache writes (K9, K10) against
+their plain PyTorch versions.
 
 The tests marked ``cuda`` need a card and skip where there is none. This
 file imports neither JAX nor the JAX package, so on a machine that has no
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import cache as kv
 from mxnet_tpu_torch.ops import fused_unit as fu
 from mxnet_tpu_torch.ops import nn
 
@@ -215,3 +217,63 @@ def test_backward_kernels_repeat_bitwise_on_card(cuda_device):
     for kernel, _plain, args in _bwd_calls(case, t):
         for a, b in zip(kernel(*args), kernel(*args)):
             assert torch.equal(a, b), kernel.__name__
+
+
+# K9/K10: (slots, T, tail): the decoder's width d = 200 (16-byte rows in
+# every dtype), the CPU tests' width, and an odd float16 row (scalar path)
+KV_CASES = [(8, 128, (200,)), (4, 32, (16,)), (3, 9, (7,)), (2, 5, (3, 4))]
+
+
+def _kv_inputs(case, device, dtype, k=3):
+    n, T, tail = case
+    g = torch.Generator().manual_seed(n * 100 + T)
+    cache = torch.randn((n, T) + tail, generator=g).to(dtype).to(device)
+    row = torch.randn((n,) + tail, generator=g).to(device)
+    rows = torch.randn((n, k) + tail, generator=g).to(device)
+    # edges: position 0, T-1, a window straddling the end, out of range
+    pos = torch.tensor([[0, T - 1, T - 2, T + 3, -2, 1, T // 2, 3][i % 8]
+                        for i in range(n)], dtype=torch.float32)
+    count = torch.tensor([i % (k + 1) for i in range(n)],
+                         dtype=torch.float32)
+    return cache, row, rows, pos.to(device), count.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("case", KV_CASES)
+def test_cache_writes_match_plain_bitwise_on_card(cuda_device, case, dtype):
+    """The whole cache after K9 and after K10 equals the plain version's,
+    bit for bit, with float32 and int32 positions; each launch counts."""
+    dt = getattr(torch, dtype)
+    cache, row, rows, pos, count = _kv_inputs(case, cuda_device, dt)
+    for p in (pos, pos.to(torch.int32)):
+        before = kv.cache_write_row.launches
+        got = kv.cache_write_row(cache.clone(), row, p)
+        want = kv.cache_write_row_plain(cache.clone(), row, p)
+        torch.cuda.synchronize()
+        assert kv.cache_write_row.launches == before + 1
+        assert torch.equal(got, want)
+        before = kv.cache_write_rows.launches
+        got = kv.cache_write_rows(cache.clone(), rows, p, count)
+        want = kv.cache_write_rows_plain(cache.clone(), rows, p, count)
+        torch.cuda.synchronize()
+        assert kv.cache_write_rows.launches == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cache_writes_in_place_and_repeat_on_card(cuda_device):
+    cache, row, rows, pos, count = _kv_inputs((8, 128, (200,)), cuda_device,
+                                              torch.float32)
+    a, b = cache.clone(), cache.clone()
+    assert kv.cache_write_row(a, row, pos) is a
+    assert kv.cache_write_rows(a, rows, pos, count) is a
+    kv.cache_write_row(b, row, pos)
+    kv.cache_write_rows(b, rows, pos, count)
+    assert torch.equal(a, b)
+    with pytest.raises(MXNetError, match="rows have shape"):
+        kv.cache_write_row(a, row[:, :10], pos)
+    with pytest.raises(MXNetError, match="index vector"):
+        kv.cache_write_rows(a, rows, pos[:3], count)
+    with pytest.raises(MXNetError, match="not supported"):
+        kv.cache_write_row(a.double(), row, pos)

@@ -158,6 +158,100 @@ def test_flatten():
 
 
 # ---------------------------------------------------------------------------
+# The attention decoder's ops (step, draft and commit graphs), forward
+# ---------------------------------------------------------------------------
+
+def _ids(rng, n, hi):
+    """Token ids and positions arrive as float32, as in the decode graphs,
+    with a fractional and an out-of-range value among them."""
+    v = rng.integers(0, hi, n).astype(np.float32)
+    v[0], v[-1] = hi - 1 + 0.7, hi + 3
+    return v
+
+
+def test_embedding():
+    rng = np.random.default_rng(21)
+    _check("Embedding", dict(input_dim=12, output_dim=5), _ids(rng, 7, 12),
+           _rand(rng, 12, 5), tol=0)
+
+
+@pytest.mark.parametrize("axis", [1, -1])
+def test_softmax(axis):
+    rng = np.random.default_rng(22)
+    x = _rand(rng, 4, 16, scale=4.0)
+    x[:, 9:] = -1e9                     # masked positions, as the decoder's
+    # torch and XLA evaluate exp and the sum in other orders: 1e-6
+    _check("softmax", dict(axis=axis), x, tol=1e-6)
+
+
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
+                                   (False, True)])
+def test_batch_dot(ta, tb):
+    rng = np.random.default_rng(23)
+    a = _rand(rng, 4, 16, 8) if not ta else _rand(rng, 4, 8, 16)
+    b = _rand(rng, 4, 8, 1) if not tb else _rand(rng, 4, 1, 8)
+    _check("batch_dot", dict(transpose_a=ta, transpose_b=tb), a, b)
+
+
+def test_argmax_takes_the_first_index_on_ties():
+    rng = np.random.default_rng(24)
+    x = np.round(_rand(rng, 6, 9), 0)   # many ties
+    x[2] = 1.0
+    for attrs in (dict(axis=1), dict(axis=0, keepdims=True), {}):
+        _check("argmax", attrs, x, tol=0)
+
+
+@pytest.mark.parametrize("attrs", [dict(depth=16),
+                                   dict(depth=8, on_value=2.0,
+                                        off_value=-1.0, dtype="float16")])
+def test_one_hot(attrs):
+    _check("one_hot", attrs, _ids(np.random.default_rng(25), 6, 16) - 2.0,
+           tol=0)
+
+
+@pytest.mark.parametrize("attrs", [dict(start=0, stop=32),
+                                   dict(start=5), dict(start=1, stop=4,
+                                                       step=0.5, repeat=2)])
+def test_arange(attrs):
+    _check("_arange", attrs, tol=0)
+
+
+@pytest.mark.parametrize("op,attrs,shape", [
+    ("expand_dims", dict(axis=1), (4, 8)),
+    ("expand_dims", dict(axis=2), (4, 8)),
+    ("expand_dims", dict(axis=-1), (4, 8)),
+    ("slice_axis", dict(axis=1, begin=2, end=3), (4, 5, 8)),
+    ("slice_axis", dict(axis=-1, begin=1), (4, 5, 8)),
+    ("reshape", dict(shape=(0, 16)), (4, 16, 1)),
+    ("reshape", dict(shape=(-1, 1)), (4,)),
+])
+def test_shape_ops(op, attrs, shape):
+    _check(op, attrs, _rand(np.random.default_rng(26), *shape), tol=0)
+
+
+@pytest.mark.parametrize("op,shapes", [
+    ("elemwise_sub", [(3, 4), (3, 4)]),
+    ("elemwise_mul", [(3, 4), (3, 4)]),
+    ("broadcast_mul", [(3, 16, 8), (3, 16, 1)]),
+    ("broadcast_lesser_equal", [(1, 16), (3, 1)]),
+    ("greater", [(3, 4), (3, 4)]),
+])
+def test_binary_ops(op, shapes):
+    rng = np.random.default_rng(27)
+    ins = [np.round(_rand(rng, *s, scale=3.0), 0) for s in shapes]
+    _check(op, {}, *ins, tol=0)
+
+
+@pytest.mark.parametrize("op,scalar", [
+    ("_plus_scalar", 3.0), ("_minus_scalar", 0.25), ("_rminus_scalar", 1.0),
+    ("_mul_scalar", 1.0 / np.sqrt(200)), ("_mul_scalar", -1e9),
+    ("_greater_scalar", 1.0)])
+def test_scalar_ops(op, scalar):
+    x = np.round(_rand(np.random.default_rng(28), 4, 6, scale=2.0), 1)
+    _check(op, dict(scalar=scalar), x, tol=0)
+
+
+# ---------------------------------------------------------------------------
 # Training: forward in training mode and gradients against jax.vjp
 # ---------------------------------------------------------------------------
 
