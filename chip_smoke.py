@@ -13,29 +13,35 @@ Phases (none catches its own failure; there is no CPU path):
 3. kernels against their plain PyTorch versions on the card, in float32
    and bfloat16, with kernel, plain and library times beside the least
    time the card could take: K1 ``fu_mm_fwd`` (with and without
-   statistics), K2 ``fu_mm_skip_fwd`` and K3 ``fu_c3_fwd2d`` at the four
-   ResNet-50 stage shapes at batch 8; K5 ``fu_mm_bwd`` (conv3's final and
-   conv1's deferred shapes) and K6 ``fu_c3_bwd2d`` at the four stage
-   shapes and K8 ``nn_conv1x1_bwd`` at its three 224x224 sites, at batch
-   32, each also launched twice on the same inputs to show equal bits;
+   statistics), K2 ``fu_mm_skip_fwd``, K3 ``fu_c3_fwd2d`` and K4
+   ``fu_c3_fwd4d`` (with and without statistics) at the four ResNet-50
+   stage shapes at batch 8; K5 ``fu_mm_bwd`` (conv3's final and conv1's
+   deferred shapes), K6 ``fu_c3_bwd2d`` and K7 ``fu_c3_bwd4d`` at the four
+   stage shapes and K8 ``nn_conv1x1_bwd`` at its three 224x224 sites, at
+   batch 32; each also launched twice on the same inputs to show equal
+   bits;
 4. serve: ResNet-50 (224x224, 1000 classes, NHWC, fused units, weights
    from ``--seed``) saved as a checkpoint, loaded by
    ``ServingEngine.from_checkpoint`` on cuda:0, warmed up, and sent
-   ``--requests`` requests from ``--clients`` threads; every answer is held
-   against the same graph run through the kernels' plain versions, and
-   the forward kernels must have launched 12 times (the 12 fused units)
-   per dispatched batch and the backward kernels not at all;
+   ``--requests`` requests from ``--clients`` threads, once with the
+   units' 3x3 in the row layout (K3) and once under
+   MXNET_FUSED_UNIT_C3=4d (K4); every answer is held against the same
+   graph run through the kernels' plain versions, and the forward
+   kernels of the mode must have launched 12 times (the 12 fused units)
+   per dispatched batch and every other kernel not at all;
 5. train: the same ResNet-50 through ``Module.fit`` on cuda:0 for
    ``--train-steps`` SGD steps at batch 32 on one seeded batch with random
-   labels, with MXNET_CONV1X1_FUSED_BWD=1.  The main path (cuDNN free to
-   choose) must launch K1 12, K2 12, K3 12, K5 24, K6 12 and K8 3 times
-   per step, keep every loss and parameter finite and lower the loss; it
-   gives the step time, images/s, peak memory and one profiled step.
-   Then, with cuDNN deterministic, runs from the same weights through the
-   kernels, MXNET_FUSED_UNIT_C3=xla, the plain versions on the batch
-   reversed and two faults planted at K6's launch are each held against
-   the plain versions' run by the losses and step 1's gradients: every
-   sound run must pass and every fault must fail;
+   labels, with MXNET_CONV1X1_FUSED_BWD=1, once per mode.  The main path
+   (cuDNN free to choose) must launch K1 12, K2 12, K3 12, K5 24, K6 12 and
+   K8 3 times per step (4d: K4 and K7 in place of K3 and K6), keep every
+   loss and parameter finite and lower the loss; it gives the step time,
+   images/s, peak memory and one profiled step.  Then, with cuDNN
+   deterministic, runs from the same weights through the kernels,
+   MXNET_FUSED_UNIT_C3=xla, the plain versions on the batch reversed and
+   three faults planted at K6's and K7's launch are each held against the
+   plain versions' run by the losses and step 1's gradients (the two
+   main-path runs too): every sound run must pass and every fault must
+   fail;
 6. the KV-cache writes K9 ``cache_write_row`` and K10 ``cache_write_rows``
    against their plain versions at 8 and 64 slots, max_len 128 and 2048,
    d 200, in float32, float16 and bfloat16, with edge positions, windows
@@ -53,7 +59,18 @@ Phases (none catches its own failure; there is no CPU path):
    and K9 and K10 must launch exactly as the graphs imply per step.
    Tokens/s, step p50/p99, accept rate and tokens per step, and one
    profiled step at k = 0 and 4;
-8. the kernel table as one JSON line, then the result line
+8. the imperative path: ``mt.nd._contrib_FusedBottleneckUnit`` at the
+   four stage shapes at batch 32 under ``autograd.record()`` and
+   ``backward()`` in 4d mode: K1, K2, K4, K5 (twice) and K7 once per
+   unit, and the output and ten gradients bit-equal to the same unit
+   through ``Symbol.bind`` and ``Executor.backward``;
+9. rtc (K11): CUDA C++ written at run time (``RTC_SOURCE``) compiled by
+   ``rtc.CudaModule`` and installed by ``rtc.register_kernel_op``:
+   ``add_one`` over 16M float32 through ``mt.nd``, a bound symbol and a
+   second thread, bit-equal to ``x + 1``, and a swish pair registered
+   with ``vjp=`` whose gradient through ``Executor.backward`` is held
+   against torch autograd on the formula; timed beside ``x + 1``;
+10. the kernel table (K1-K11) as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -84,14 +101,52 @@ TRAIN_BATCH = 32
 K8_SITES = [("stage3_unit1_conv3", 14 * 14, 256, 1024),
             ("stage4_unit1_conv1", 14 * 14, 1024, 512),
             ("stage4_unit1_conv3", 7 * 7, 512, 2048)]
-# the kernels a served (eval) forward launches, 12 times a batch; the
-# backward kernels must not launch there
-SERVE_KERNELS = ("mm_fwd", "c3_fwd2d", "mm_skip_fwd")
+# the kernels a served (eval) forward launches, 12 times a batch, with the
+# unit's middle conv in its row layout (MXNET_FUSED_UNIT_C3 auto) and on
+# 4D tiles (4d); every other kernel must not launch there
+SERVE_KERNELS = {"2d": ("mm_fwd", "c3_fwd2d", "mm_skip_fwd"),
+                 "4d": ("mm_fwd", "c3_fwd4d", "mm_skip_fwd")}
 # launches of each kernel per training step: 12 fused units (K5 twice in
-# each), K8's three sites, and no cache write
-TRAIN_LAUNCHES = {"mm_fwd": 12, "mm_skip_fwd": 12, "c3_fwd2d": 12,
-                  "mm_bwd": 24, "c3_bwd2d": 12, "conv1x1_bwd": 3,
-                  "cache_write_row": 0, "cache_write_rows": 0}
+# each), K8's three sites; every other kernel (the other 3x3 pair, the
+# cache writes, runtime kernels) none
+TRAIN_LAUNCHES = {
+    "2d": {"mm_fwd": 12, "mm_skip_fwd": 12, "c3_fwd2d": 12, "mm_bwd": 24,
+           "c3_bwd2d": 12, "conv1x1_bwd": 3},
+    "4d": {"mm_fwd": 12, "mm_skip_fwd": 12, "c3_fwd4d": 12, "mm_bwd": 24,
+           "c3_bwd4d": 12, "conv1x1_bwd": 3}}
+# launches of each kernel for one imperative fused unit, forward and
+# backward, in 4d mode
+UNIT_LAUNCHES = {"mm_fwd": 1, "c3_fwd4d": 1, "mm_skip_fwd": 1, "mm_bwd": 2,
+                 "c3_bwd4d": 1}
+# K11: runtime-written kernels, compiled by rtc.CudaModule: the twin of
+# the reference's Pallas add_one (tests/test_custom_sparse.py) and a swish
+# forward / backward pair registered with vjp=
+RTC_SOURCE = r"""
+extern "C" __global__ void add_one(const float* x, float* y, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] + 1.0f;
+}
+extern "C" __global__ void swish_fwd(const float* x, float* y, float* s,
+                                     float beta, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    float v = 1.0f / (1.0f + expf(-beta * x[i]));
+    s[i] = v;
+    y[i] = x[i] * v;
+  }
+}
+extern "C" __global__ void swish_bwd(const float* x, const float* s,
+                                     const float* g, float* dx, float beta,
+                                     int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) dx[i] = g[i] * (s[i] + beta * x[i] * s[i] * (1.0f - s[i]));
+}
+"""
+RTC_N = 1 << 24                 # add_one over 16M float32
+RTC_SWISH_SHAPE = (64, 1024)
+# swish's gradient through the Executor against torch autograd on the
+# formula: the same f32 expression, expf against torch's sigmoid
+RTC_SWISH_RTOL = 1e-6
 # The attention decoder of perf/decode_bench.py build_spec_models at the
 # widths of the repo's language-model configuration (models/lstm_lm.py,
 # PTB: vocab 10000, d 200), the benchmark's depth and tail scale, and the
@@ -236,11 +291,27 @@ def kernel_phase(torch, fu, device, seed):
                  (r * cq + c * cq + 2 * r * c) * es + vec * cq,
                  lambda: torch.addmm(x, a2, w3t)),
             ]
+            y4 = y1.reshape(BATCH, side, side, cq)
+            for variant, stats in (("stats", True), ("", False)):
+                cases.append((
+                    "fu_c3_fwd4d", variant, fu.c3_fwd4d, fu.c3_fwd4d_plain,
+                    (y4, w2, sc2, sh2, stats),
+                    2 * c3_pairs(BATCH, side) * cq * cq,
+                    (2 * r * cq + 9 * cq * cq) * es + vec * cq,
+                    lambda: F.conv2d(a2_nchw, w2_oihw, padding=1)))
             for name, variant, kern, plain, args, flops, nbytes, lib in cases:
                 got, want = kern(*args), plain(*args)
+                again = kern(*args)
                 torch.cuda.synchronize()
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
+                again = again if isinstance(again, tuple) else (again,)
+                if not all(torch.equal(p, q) for p, q in zip(got, again)
+                           if p is not None):
+                    raise AssertionError("%s %s stage %d %s: two launches "
+                                         "on the same inputs differ" % (
+                                             name, variant, stage + 1,
+                                             dname))
                 err = rel_err(got[0], want[0])
                 abs_err = float((got[0].float() - want[0].float()).abs().max())
                 if err > TOL[dname]:
@@ -299,7 +370,8 @@ def bwd_kernel_phase(torch, fu, nn, device, seed):
         cases += [("fu_mm_bwd", "final", stage + 1, units, r, cq, c, side),
                   ("fu_mm_bwd", "deferred", stage + 1, units, r, c, cq,
                    side),
-                  ("fu_c3_bwd2d", "", stage + 1, units, r, cq, cq, side)]
+                  ("fu_c3_bwd2d", "", stage + 1, units, r, cq, cq, side),
+                  ("fu_c3_bwd4d", "", stage + 1, units, r, cq, cq, side)]
     for name, hw, ci, co in K8_SITES:
         cases.append(("nn_conv1x1_bwd", name, None, 1,
                       TRAIN_BATCH * hw, ci, co, None))
@@ -343,8 +415,14 @@ def bwd_kernel_phase(torch, fu, nn, device, seed):
                 else:
                     w = randn(co, 3, 3, ci, scale=(9 * ci) ** -0.5).to(dt)
                     n = TRAIN_BATCH
-                    args = (g, yraw, fin, x, w) + vecs + (n, side, side)
-                    kern, plain = fu.c3_bwd2d, fu.c3_bwd2d_plain
+                    if kname == "fu_c3_bwd4d":
+                        nhwc = (n, side, side, -1)
+                        args = (g.reshape(nhwc), yraw.reshape(nhwc), fin,
+                                x.reshape(nhwc), w) + vecs
+                        kern, plain = fu.c3_bwd4d, fu.c3_bwd4d_plain
+                    else:
+                        args = (g, yraw, fin, x, w) + vecs + (n, side, side)
+                        kern, plain = fu.c3_bwd2d, fu.c3_bwd2d_plain
                     flops = 4 * c3_pairs(n, side) * ci * co
                     nbytes += 9 * co * ci * (es + 4)
                     a4 = a.reshape(n, side, side, ci).permute(0, 3, 1, 2)
@@ -413,8 +491,9 @@ def plain_kernels(fu, nn):
     reference side of the serve and train checks, and only that."""
     with contextlib.ExitStack() as stack:
         for mod, name in [(fu, "mm_fwd"), (fu, "c3_fwd2d"),
-                          (fu, "mm_skip_fwd"), (fu, "mm_bwd"),
-                          (fu, "c3_bwd2d"), (nn, "conv1x1_bwd")]:
+                          (fu, "c3_fwd4d"), (fu, "mm_skip_fwd"),
+                          (fu, "mm_bwd"), (fu, "c3_bwd2d"),
+                          (fu, "c3_bwd4d"), (nn, "conv1x1_bwd")]:
             stack.enter_context(replaced(mod, name,
                                          getattr(mod, name + "_plain")))
         yield
@@ -486,11 +565,17 @@ def profile_calls(torch, fn, reps):
 
 
 def kernel_wrappers(fu, nn, kv):
-    """Every kernel wrapper of the port: K1-K3, K5, K6, K8, K9, K10."""
-    return fu.KERNEL_WRAPPERS + (nn.conv1x1_bwd,) + kv.KERNEL_WRAPPERS
+    """Every launch counter of the port: K1-K7, K8, K9, K10, and K11
+    (``rtc.CudaKernel``, all runtime-written kernels)."""
+    from mxnet_tpu_torch import rtc
+    return (fu.KERNEL_WRAPPERS + (nn.conv1x1_bwd,) + kv.KERNEL_WRAPPERS
+            + (rtc.CudaKernel,))
 
 
-def serve_phase(torch, mt, fu, nn, kv, seed, n_requests, n_clients):
+def serve_phase(torch, mt, fu, nn, kv, seed, n_requests, n_clients,
+                mode="2d"):
+    """Serve with the unit's middle conv as ``mode`` selects (2d: K3, 4d:
+    K4; the caller sets MXNET_FUSED_UNIT_C3)."""
     import numpy as np
     shape = (224, 224, 3)
     sym = mt.models.get_resnet_symbol(
@@ -532,7 +617,7 @@ def serve_phase(torch, mt, fu, nn, kv, seed, n_requests, n_clients):
     outs = np.stack([f.result() for f in futures])
     assert st["requests_served"] == n_requests, st
     for name, n in launches.items():
-        want = 12 * st["batches"] if name in SERVE_KERNELS else 0
+        want = 12 * st["batches"] if name in SERVE_KERNELS[mode] else 0
         if n != want:
             raise AssertionError("%s launched %d times for %d batches, not "
                                  "%d" % (name, n, st["batches"], want))
@@ -663,20 +748,36 @@ def _fin_swapped(launch):
 
 
 def _dw_zeroed(launch):
-    """K6 launched and its weight gradient dropped."""
+    """K6 or K7 launched and its weight gradient dropped."""
     def faulty(name, *args):
         launch(name, *args)
-        if name == "fu_c3_bwd2d":
+        if name in ("fu_c3_bwd2d", "fu_c3_bwd4d"):
             args[15].zero_()
     return faulty
 
 
 # known faults on the kernel path, planted where fused_unit launches K6
-# (arguments g, y_raw, c1, u0, u1, x, w, sc, sh, xs, xh, dP, partials,
-# db, dg, dW, ...), each of which the train check must reject: the
-# control that shows the check can fail
-PLANTED_FAULTS = {"fault: K6 u0/u1 swapped": _fin_swapped,
-                  "fault: K6 dW zeroed": _dw_zeroed}
+# or K7 (arguments g, y_raw, c1, u0, u1, x, w, sc, sh, xs, xh, dP,
+# partials, db, dg, dW, ...), each of which the train check must reject:
+# the control that shows the check can fail.  name -> (plant,
+# MXNET_FUSED_UNIT_C3)
+PLANTED_FAULTS = {"fault: K6 u0/u1 swapped": (_fin_swapped, "auto"),
+                  "fault: K6 dW zeroed": (_dw_zeroed, "auto"),
+                  "fault: K7 dW zeroed": (_dw_zeroed, "4d")}
+
+
+@contextlib.contextmanager
+def c3_mode(mode):
+    """MXNET_FUSED_UNIT_C3=mode inside the block ('auto': unset)."""
+    saved = os.environ.pop("MXNET_FUSED_UNIT_C3", None)
+    if mode != "auto":
+        os.environ["MXNET_FUSED_UNIT_C3"] = mode
+    try:
+        yield
+    finally:
+        os.environ.pop("MXNET_FUSED_UNIT_C3", None)
+        if saved is not None:
+            os.environ["MXNET_FUSED_UNIT_C3"] = saved
 
 
 def fit_run(torch, mt, sym, args, aux, x, y, steps):
@@ -726,6 +827,22 @@ def train_reading(per_step, grads, ref_per_step, ref_grads):
                        and per_param[worst] <= PARAM_RTOL)}
 
 
+def _launch_check(what, launches, per_step, steps):
+    """Every counter at ``per_step`` times ``steps``, 0 where not named."""
+    for name, n in launches.items():
+        want = per_step.get(name, 0) * steps
+        if n != want:
+            raise AssertionError("%s: %s launched %d times in %d steps, not "
+                                 "%d per step" % (what, name, n, steps,
+                                                  per_step.get(name, 0)))
+
+
+def _median(vals):
+    vals = sorted(vals)
+    mid = len(vals) // 2
+    return vals[mid] if len(vals) % 2 else 0.5 * (vals[mid - 1] + vals[mid])
+
+
 def train_phase(torch, mt, fu, nn, kv, seed, steps, card):
     import numpy as np
     sym = mt.models.get_resnet_symbol(
@@ -737,31 +854,39 @@ def train_phase(torch, mt, fu, nn, kv, seed, steps, card):
     x = rng.standard_normal((TRAIN_BATCH, 224, 224, 3)).astype(np.float32)
     y = rng.integers(0, 1000, TRAIN_BATCH).astype(np.float32)
     wrappers = kernel_wrappers(fu, nn, kv)
+    batch = next(iter(mt.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH)))
     os.environ["MXNET_CONV1X1_FUSED_BWD"] = "1"
+    paths = {}
     try:
-        # the main path as a user runs it, cuDNN free to choose: counted,
-        # timed and profiled
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        for k in wrappers:
-            k.launches = 0
-        t0 = time.perf_counter()
-        main, main_grads, mod = fit_run(torch, mt, sym, args, aux, x, y,
-                                        steps)
-        launches = {k.__name__: k.launches for k in wrappers}
-        peak = torch.cuda.max_memory_allocated()
-        final_args, final_aux = mod.get_params()
-        finite = all(bool(torch.isfinite(v._data).all())
-                     for v in list(final_args.values())
-                     + list(final_aux.values()))
-        batch = next(iter(mt.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH)))
+        # the main path as a user runs it, cuDNN free to choose, with the
+        # unit's middle conv in its row layout (K3/K6) and on 4D tiles
+        # (K4/K7, MXNET_FUSED_UNIT_C3=4d): each counted, timed and
+        # profiled, its counters set to 0 just before it
+        for mode in ("2d", "4d"):
+            with c3_mode("4d" if mode == "4d" else "auto"):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                for k in wrappers:
+                    k.launches = 0
+                t0 = time.perf_counter()
+                main, main_grads, mod = fit_run(torch, mt, sym, args, aux, x,
+                                                y, steps)
+                launches = {k.__name__: k.launches for k in wrappers}
+                peak = torch.cuda.max_memory_allocated()
+                final_args, final_aux = mod.get_params()
+                finite = all(bool(torch.isfinite(v._data).all())
+                             for v in list(final_args.values())
+                             + list(final_aux.values()))
 
-        def step():
-            mod.forward_backward(batch)
-            mod.update()
-        prof = profile_calls(torch, step, 2)
-        del mod, final_args, final_aux
-        torch.cuda.empty_cache()
+                def step():
+                    mod.forward_backward(batch)
+                    mod.update()
+                prof = profile_calls(torch, step, 2)
+                del mod, final_args, final_aux
+                torch.cuda.empty_cache()
+            paths[mode] = dict(main=main, grads=main_grads,
+                               launches=launches, peak=peak, finite=finite,
+                               prof=prof, first_step_s=main[0][2] - t0)
 
         # the check: every run from the same weights with cuDNN
         # deterministic, held against the plain versions' run
@@ -775,14 +900,11 @@ def train_phase(torch, mt, fu, nn, kv, seed, steps, card):
                 steps)[:2]
         runs["kernels"] = fit_run(torch, mt, sym, args, aux, x, y,
                                   steps)[:2]
-        os.environ["MXNET_FUSED_UNIT_C3"] = "xla"
-        try:
+        with c3_mode("xla"):
             runs["MXNET_FUSED_UNIT_C3=xla"] = fit_run(
                 torch, mt, sym, args, aux, x, y, steps)[:2]
-        finally:
-            os.environ.pop("MXNET_FUSED_UNIT_C3")
-        for name, plant in PLANTED_FAULTS.items():
-            with replaced(fu, "launch", plant(fu.launch)):
+        for name, (plant, mode) in PLANTED_FAULTS.items():
+            with c3_mode(mode), replaced(fu, "launch", plant(fu.launch)):
                 runs[name] = fit_run(torch, mt, sym, args, aux, x, y,
                                      steps)[:2]
         torch.cuda.empty_cache()
@@ -791,49 +913,56 @@ def train_phase(torch, mt, fu, nn, kv, seed, steps, card):
         torch.backends.cudnn.deterministic = False
 
     ref = runs.pop("plain")
-    losses = [s[0] for s in main]
     readings = {name: train_reading(*run, *ref) for name, run in runs.items()}
-    readings["main path (cuDNN free)"] = train_reading(main, main_grads,
-                                                       *ref)
+    readings["main path (cuDNN free)"] = train_reading(
+        paths["2d"]["main"], paths["2d"]["grads"], *ref)
+    readings["MXNET_FUSED_UNIT_C3=4d (cuDNN free)"] = train_reading(
+        paths["4d"]["main"], paths["4d"]["grads"], *ref)
     log("  plain run's losses %s" % fmt([s[0] for s in ref[0]]))
     for name, r in readings.items():
-        log("  %-34s loss rel diff %s; step-1 gradient rel err %.3e, "
+        log("  %-36s loss rel diff %s; step-1 gradient rel err %.3e, "
             "worst parameter %.3e (%s)"
             % (name, fmt(r["loss_rel_diff"], "%.2e"), r["grad_rel_err"],
                r["param_rel_err"], r["param_worst"]))
-    step_ms = sorted(1e3 * (b[2] - a[2]) for a, b in zip(main, main[1:]))
-    median = step_ms[len(step_ms) // 2] if len(step_ms) % 2 else \
-        0.5 * (step_ms[len(step_ms) // 2 - 1] + step_ms[len(step_ms) // 2])
-    log("  main path: losses %s; accuracy %s; launches in %d steps: %s"
-        % (fmt(losses), [s[1] for s in main], steps, launches))
-    log("  median step (2..%d) %.2f ms, %.1f images/s, first step %.2f s, "
-        "max_memory_allocated %.2f GB [%s]" % (
-            steps, median, TRAIN_BATCH * 1e3 / median, main[0][2] - t0,
-            peak / 1e9, card))
-    log_profile("one training step", prof, card)
-
-    for name, per in TRAIN_LAUNCHES.items():
-        if launches[name] != per * steps:
-            raise AssertionError("%s launched %d times in %d steps, not %d "
-                                 "per step" % (name, launches[name], steps,
-                                               per))
-    if not (finite and np.isfinite(losses).all()):
-        raise AssertionError("non-finite loss or parameter: losses %s"
-                             % losses)
+    out = {"steps": steps, "batch": TRAIN_BATCH,
+           "plain_losses": [s[0] for s in ref[0]], "checks": readings}
+    for mode, pth in paths.items():
+        main = pth["main"]
+        losses = [s[0] for s in main]
+        step_ms = sorted(1e3 * (b[2] - a[2]) for a, b in zip(main, main[1:]))
+        median = _median(step_ms)
+        log("  %s path: losses %s; accuracy %s; launches in %d steps: %s"
+            % (mode, fmt(losses), [s[1] for s in main], steps,
+               pth["launches"]))
+        log("  %s path: median step (2..%d) %.2f ms, %.1f images/s, first "
+            "step %.2f s, max_memory_allocated %.2f GB [%s]" % (
+                mode, steps, median, TRAIN_BATCH * 1e3 / median,
+                pth["first_step_s"], pth["peak"] / 1e9, card))
+        log_profile("one training step, %s" % mode, pth["prof"], card)
+        _launch_check("train, %s" % mode, pth["launches"],
+                      TRAIN_LAUNCHES[mode], steps)
+        if not (pth["finite"] and np.isfinite(losses).all()):
+            raise AssertionError("%s: non-finite loss or parameter: losses "
+                                 "%s" % (mode, losses))
+        if not losses[-1] < losses[0]:
+            raise AssertionError("%s: the loss did not fall: %s"
+                                 % (mode, losses))
+        rec = {"losses": losses, "accuracies": [s[1] for s in main],
+               "launches": pth["launches"], "step_ms_2_to_n": step_ms,
+               "median_step_ms": median,
+               "images_per_s": TRAIN_BATCH * 1e3 / median,
+               "first_step_s": pth["first_step_s"],
+               "max_memory_allocated": pth["peak"],
+               "profile_step": pth["prof"]}
+        if mode == "2d":
+            out.update(rec)
+        else:
+            out["4d"] = rec
     for name, r in readings.items():
         if r["passes"] == name.startswith("fault"):
             raise AssertionError("%s %s the train check: %s" % (
                 name, "passed" if r["passes"] else "failed", r))
-    if not losses[-1] < losses[0]:
-        raise AssertionError("the loss did not fall: %s" % losses)
-    return {"steps": steps, "batch": TRAIN_BATCH, "losses": losses,
-            "plain_losses": [s[0] for s in ref[0]],
-            "accuracies": [s[1] for s in main], "launches": launches,
-            "checks": readings,
-            "step_ms_2_to_n": step_ms, "median_step_ms": median,
-            "images_per_s": TRAIN_BATCH * 1e3 / median,
-            "first_step_s": main[0][2] - t0,
-            "max_memory_allocated": peak, "profile_step": prof}
+    return out
 
 
 def kv_phase(torch, kv, device, seed):
@@ -1170,34 +1299,280 @@ def profile_decode_step(torch, mt, target, t_info, draft, d_info, params, k):
     return prof
 
 
+def _unit_inputs(rng, n, side, c):
+    """Seeded inputs of one fused unit in the op's order: NHWC data, the
+    nine parameters (He-scaled weights) and the six moving statistics."""
+    cq = c // 4
+
+    def r(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype("float32")
+
+    def pos(k):
+        return rng.uniform(0.5, 1.5, k).astype("float32")
+    return [r(n, side, side, c), pos(c), r(c, scale=0.1),
+            r(cq, 1, 1, c, scale=(2.0 / c) ** 0.5), pos(cq),
+            r(cq, scale=0.1), r(cq, 3, 3, cq, scale=(2.0 / (9 * cq)) ** 0.5),
+            pos(cq), r(cq, scale=0.1), r(c, 1, 1, cq, scale=(2.0 / cq) ** 0.5),
+            r(c, scale=0.1), pos(c), r(cq, scale=0.1), pos(cq),
+            r(cq, scale=0.1), pos(cq)]
+
+
+def imperative_phase(torch, mt, fu, nn, kv, seed, card):
+    """The fused unit at the four ResNet-50 stage shapes at batch 32
+    through the imperative frontend in 4d mode: ``mt.nd.
+    _contrib_FusedBottleneckUnit`` under ``autograd.record()``, then
+    ``backward()``.  Launches counted; output and the ten gradients held
+    bit for bit against the same unit bound as a symbol through
+    ``Executor.backward`` (the same kernels in the same order)."""
+    import numpy as np
+    wrappers = kernel_wrappers(fu, nn, kv)
+    rng = np.random.default_rng(seed + 13)
+    cases = [(c, _unit_inputs(rng, TRAIN_BATCH, side, c))
+             for (_hw, c, _u), side in zip(STAGES, STAGE_HW)]
+    results = []
+    with c3_mode("4d"), mt.gpu(0):
+        staged = [(c, [mt.nd.array(a) for a in ins]) for c, ins in cases]
+        torch.cuda.synchronize()
+        for k in wrappers:
+            k.launches = 0
+        t0 = time.perf_counter()
+        for c, arrs in staged:
+            for a in arrs[:10]:
+                a.attach_grad()
+            with mt.autograd.record():
+                out = mt.nd._contrib_FusedBottleneckUnit(
+                    *arrs, num_filter=c, layout="NHWC")
+            out.backward()
+            results.append((out, arrs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in wrappers}
+        # the same units bound as symbols
+        rows = []
+        for (c, ins), (out, arrs), side in zip(cases, results, STAGE_HW):
+            sym = mt.sym._contrib_FusedBottleneckUnit(
+                mt.sym.Variable("data"), num_filter=c, layout="NHWC",
+                name="unit")
+            names = sym.list_arguments()
+            ex = sym.bind(mt.gpu(0), {n: mt.nd.array(a)
+                                      for n, a in zip(names, ins)},
+                          aux_states={n: mt.nd.array(a) for n, a in zip(
+                              sym.list_auxiliary_states(), ins[10:])})
+            ex_out = ex.forward(is_train=True)[0]
+            ex.backward()
+            torch.cuda.synchronize()
+            pairs = [("output", out, ex_out)] + [
+                (n, a.grad, ex.grad_dict[n]) for n, a in zip(names, arrs)]
+            differ = [n for n, p, q in pairs
+                      if not torch.equal(p._data, q._data)]
+            finite = all(bool(torch.isfinite(p._data).all())
+                         for _n, p, _q in pairs)
+            rows.append({"stage": len(rows) + 1, "c": c, "side": side,
+                         "differ": differ, "finite": finite})
+            log("  stage %d (%d x %d x %d x %d): output and %d gradients "
+                "%s the Executor's" % (len(rows), TRAIN_BATCH, side, side, c,
+                                       len(pairs) - 1,
+                                       "bit-equal to" if not differ else
+                                       "DIFFER from"))
+            del ex, ex_out
+    log("  4 units forward and backward in %.3f s of host wall; launches %s "
+        "[%s]" % (wall, launches, card))
+    _launch_check("imperative, 4d", launches, UNIT_LAUNCHES, len(cases))
+    bad = [r for r in rows if r["differ"] or not r["finite"]]
+    if bad:
+        raise AssertionError("the imperative unit differs from the "
+                             "Executor's: %s" % bad)
+    c, arrs = staged[0]
+
+    def unit_step():
+        with mt.autograd.record():
+            out = mt.nd._contrib_FusedBottleneckUnit(
+                *arrs, num_filter=c, layout="NHWC")
+        out.backward()
+    with c3_mode("4d"):
+        prof = profile_calls(torch, unit_step, 3)
+    log_profile("one imperative stage-1 unit, forward and backward", prof,
+                card)
+    return {"units": len(cases), "batch": TRAIN_BATCH, "launches": launches,
+            "wall_s": wall, "stages": rows, "profile_stage1_unit": prof}
+
+
+def rtc_phase(torch, mt, fu, nn, kv, seed, card):
+    """K11: CUDA C++ written at run time (RTC_SOURCE), compiled by
+    ``rtc.CudaModule`` and installed by ``rtc.register_kernel_op``.
+    ``add_one`` over 16M float32 through ``mt.nd``, a bound symbol and
+    ``mt.nd`` from a second thread, each bit-equal to ``x + 1``; the swish
+    pair (``vjp=``) through ``Executor.backward`` against torch autograd
+    on the formula.  Launches counted; timed beside ``x + 1`` and the
+    bound."""
+    import numpy as np
+    wrappers = kernel_wrappers(fu, nn, kv)
+    t0 = time.perf_counter()
+    module = mt.rtc.CudaModule(RTC_SOURCE,
+                               exports=("add_one", "swish_fwd", "swish_bwd"))
+    compile_s = time.perf_counter() - t0
+    k_add = module.get_kernel("add_one", "const float *x, float *y, int n")
+    k_fwd = module.get_kernel(
+        "swish_fwd", "const float *x, float *y, float *s, float beta, int n")
+    k_bwd = module.get_kernel(
+        "swish_bwd", "const float *x, const float *s, const float *g, "
+        "float *dx, float beta, int n")
+
+    def dims(n):
+        return ((n + 255) // 256,), (256,)
+
+    def on_card(t):
+        return t.device.type == "cuda"
+
+    def add_one(x):
+        if not on_card(x):          # shape inference (meta), or the CPU
+            return x + 1.0
+        y = torch.empty_like(x)
+        k_add.launch([x, y, x.numel()], mt.Context.of(x.device),
+                     *dims(x.numel()))
+        return y
+
+    def swish_fwd(x, beta=1.0):
+        if not on_card(x):
+            s = torch.sigmoid(beta * x)
+            return x * s, (x, s)
+        x = x.contiguous()
+        y, s = torch.empty_like(x), torch.empty_like(x)
+        k_fwd.launch([x, y, s, beta, x.numel()], mt.Context.of(x.device),
+                     *dims(x.numel()))
+        return y, (x, s)
+
+    def swish_bwd(res, g, beta=1.0):
+        x, s = res
+        g = g.contiguous()
+        dx = torch.empty_like(x)
+        k_bwd.launch([x, s, g, dx, beta, x.numel()], mt.Context.of(x.device),
+                     *dims(x.numel()))
+        return (dx,)
+
+    mt.rtc.register_kernel_op("rtc_add_one", add_one)
+    mt.rtc.register_kernel_op(
+        "rtc_swish", lambda x, beta=1.0: swish_fwd(x, beta)[0],
+        vjp=(swish_fwd, swish_bwd), params={"beta": mt.ops.P(float, 1.0)})
+    rng = np.random.default_rng(seed + 17)
+    x_np = rng.standard_normal(RTC_N).astype(np.float32)
+    xs_np = rng.standard_normal(RTC_SWISH_SHAPE).astype(np.float32)
+    g_np = rng.standard_normal(RTC_SWISH_SHAPE).astype(np.float32)
+    beta = 1.5
+    with mt.gpu(0):
+        x = mt.nd.array(x_np)
+        xs, g = mt.nd.array(xs_np), mt.nd.array(g_np)
+        torch.cuda.synchronize()
+        # the main path, counted
+        for k in wrappers:
+            k.launches = 0
+        y_nd = mt.nd.rtc_add_one(x)
+        ex = mt.sym.rtc_add_one(mt.sym.Variable("data")).bind(
+            mt.gpu(0), {"data": x})
+        y_sym = ex.forward()[0]
+        other = {}
+
+        def second_thread():
+            other["y"] = mt.nd.rtc_add_one(x)
+            torch.cuda.synchronize()
+        th = threading.Thread(target=second_thread)
+        th.start()
+        th.join(timeout=300)
+        assert not th.is_alive()
+        sex = mt.sym.rtc_swish(mt.sym.Variable("data"), beta=beta).bind(
+            mt.gpu(0), {"data": xs})
+        s_out = sex.forward(is_train=True)[0]
+        sex.backward(out_grads=[g])
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in wrappers}
+    want = x._data + 1.0
+    equal = {"nd": torch.equal(y_nd._data, want),
+             "symbol": torch.equal(y_sym._data, want),
+             "second thread": "y" in other
+             and torch.equal(other["y"]._data, want)}
+    max_abs_err = max(float((y._data - want).abs().max())
+                      for y in (y_nd, y_sym, other.get("y", y_nd)))
+    xt = xs._data.detach().clone().requires_grad_(True)
+    ref = xt * torch.sigmoid(beta * xt)
+    ref.backward(g._data)
+    swish_err = rel_err(s_out._data, ref.detach())
+    swish_grad_err = rel_err(sex.grad_dict["data"]._data, xt.grad)
+    log("  CudaModule compiled 3 kernels in %.2f s; add_one bit-equal to x "
+        "+ 1: %s; swish forward rel err %.2e, gradient rel err %.2e; "
+        "launches %s" % (compile_s, equal, swish_err, swish_grad_err,
+                         launches["CudaKernel"]))
+    _launch_check("rtc", launches, {"CudaKernel": 5}, 1)
+    if not all(equal.values()):
+        raise AssertionError("add_one differs from x + 1: %s" % equal)
+    if swish_grad_err > RTC_SWISH_RTOL or swish_err > RTC_SWISH_RTOL:
+        raise AssertionError("swish through the runtime kernels: forward "
+                             "%.3g, gradient %.3g over %.3g" % (
+                                 swish_err, swish_grad_err, RTC_SWISH_RTOL))
+    prof = profile_calls(torch, lambda: mt.nd.rtc_add_one(x), 5)
+    log_profile("one mt.nd.rtc_add_one over 16M float32", prof, card)
+    buf = torch.empty_like(x._data)
+    n = RTC_N
+    ms = time_ms(torch, lambda: k_add.launch(
+        [x._data, buf, n], mt.gpu(0), *dims(n)))
+    plain_ms = time_ms(torch, lambda: x._data + 1.0)
+    library_ms = time_ms(torch, lambda: torch.add(x._data, 1.0))
+    nbytes = 2 * 4 * n
+    row = {"n": n, "compile_s": compile_s, "bitwise_equal": equal,
+           "swish_rel_err": swish_err, "swish_grad_rel_err": swish_grad_err,
+           "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
+           "bound_ms": 1e3 * nbytes / HBM_BYTES_S, "bound_by": "bytes",
+           "profile_nd_call": prof}
+    log("  add_one over %d float32: kernel %.4f ms  plain %.4f ms  x + 1 "
+        "%.4f ms  bound %.4f ms (bytes) [%s]" % (
+            n, ms, plain_ms, library_ms, row["bound_ms"], card))
+    return row
+
+
 _SOURCES = {
     "fu_mm_fwd": ("mm_fwd", "mxnet_tpu/ops/fused_unit.py:376"),
     "fu_c3_fwd2d": ("c3_fwd2d", "mxnet_tpu/ops/fused_unit.py:457"),
+    "fu_c3_fwd4d": ("c3_fwd4d", "mxnet_tpu/ops/fused_unit.py:419"),
     "fu_mm_skip_fwd": ("mm_skip_fwd", "mxnet_tpu/ops/fused_unit.py:400"),
     "fu_mm_bwd": ("mm_bwd", "mxnet_tpu/ops/fused_unit.py:523"),
     "fu_c3_bwd2d": ("c3_bwd2d", "mxnet_tpu/ops/fused_unit.py:483"),
+    "fu_c3_bwd4d": ("c3_bwd4d", "mxnet_tpu/ops/fused_unit.py:568"),
     "nn_conv1x1_bwd": ("conv1x1_bwd", "mxnet_tpu/ops/nn.py:212"),
     "cache_write_row": ("cache_write_row", "mxnet_tpu/ops/cache.py:84"),
     "cache_write_rows": ("cache_write_rows", "mxnet_tpu/ops/cache.py:163"),
+    "rtc_add_one": ("CudaKernel", "mxnet_tpu/rtc.py:23"),
 }
+FWD_WRAPPERS = ("mm_fwd", "c3_fwd2d", "c3_fwd4d", "mm_skip_fwd")
 
 
-def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode):
-    """One entry per kernel.  K1-K3: times per ResNet-50 forward at batch
+def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
+    """One entry per kernel.  K1-K4: times per ResNet-50 forward at batch
     8 (each stage's shape weighted by its number of fused units) and
-    launches in the serve phase; K5, K6, K8: times per training step at
-    batch 32 and launches in the train phase; K9, K10: times of one launch
-    at the decode engine's shape (8 slots, max_len 128, d 200) and
-    launches in the decode runs at k = 0, 2 and 4 together.  All float32;
-    errors are the largest over the shapes.  Every entry also gives its
-    launches per serve batch, per training step and per decode step."""
+    launches in the serve phase of their mode (K4: 4d); K5-K8: times per
+    training step at batch 32 and launches in the train phase of their
+    mode (K7: 4d); K9, K10: times of one launch at the decode engine's
+    shape (8 slots, max_len 128, d 200) and launches in the decode runs
+    at k = 0, 2 and 4 together; K11: one add_one launch over 16M float32
+    and launches in the rtc phase.  All float32; errors are the largest
+    over the shapes.  Every entry also gives its launches per serve batch
+    and training step in both modes, per decode step, per imperative unit
+    and in the rtc phase."""
     table = []
     for name, (wrapper, replaces) in _SOURCES.items():
         decode_launches = sum(r["launches"][wrapper]
                               for r in decode["runs"].values())
         per_decode = {name: r["launches"][wrapper] / r["steps"]
                       for name, r in decode["runs"].items()}
-        if wrapper in ("cache_write_row", "cache_write_rows"):
+        source = "mxnet_tpu_torch/csrc/%s.cu" % name
+        if wrapper == "CudaKernel":
+            source = "mxnet_tpu_torch/rtc.py"
+            entry = {"launches": rtc["launches"][wrapper],
+                     "per": "one add_one launch, %d float32" % rtc["n"],
+                     "kernel_source": "chip_smoke.py RTC_SOURCE"}
+            entry.update((k, rtc[k]) for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"))
+        elif wrapper in ("cache_write_row", "cache_write_rows"):
             sel = [r for r in kv_rows if r["kernel"] == wrapper]
             main = [r for r in sel if r["slots"] == DECODE_SLOTS
                     and r["T"] == DECODER["max_len"]
@@ -1218,23 +1593,27 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode):
                 "blend_ms_max_len_%d" % max(KV_T): long_t["blend_ms"],
             }
         else:
-            fwd = wrapper in SERVE_KERNELS
+            fwd = wrapper in FWD_WRAPPERS
+            mode = "4d" if wrapper in ("c3_fwd4d", "c3_bwd4d") else "2d"
             if fwd:
                 sel = [r for r in rows if r["kernel"] == name
                        and not r["variant"] and r["dtype"] == "float32"]
                 weight = "units_per_forward"
+                run = serve[mode]
             else:
                 sel = [r for r in bwd_rows if r["kernel"] == name
                        and r["dtype"] == "float32"]
                 weight = "units_per_step"
+                run = train if mode == "2d" else train["4d"]
             total = lambda key: sum(r[key] * r[weight]  # noqa: E731
                                     for r in sel)
             ops = total("flops") / PEAK_FLOPS["float32"]
             mem = total("bytes") / HBM_BYTES_S
             entry = {
-                "launches": (serve if fwd else train)["launches"][wrapper],
-                "per": "serve forward, batch 8" if fwd
-                else "train step, batch 32",
+                "launches": run["launches"][wrapper],
+                "per": ("serve forward, batch 8" if fwd
+                        else "train step, batch 32")
+                + (", MXNET_FUSED_UNIT_C3=4d" if mode == "4d" else ""),
                 "max_abs_err": max(r["max_abs_err"] for r in sel),
                 "ms": total("ms"), "plain_ms": total("plain_ms"),
                 "bound_ms": total("bound_ms"),
@@ -1242,14 +1621,20 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode):
                 "library_ms": total("library_ms"),
             }
         table.append(dict({
-            "name": name, "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/%s.cu" % name,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches_per_serve_batch":
-                serve["launches"][wrapper] / serve["batches"],
+                serve["2d"]["launches"][wrapper] / serve["2d"]["batches"],
+            "launches_per_serve_batch_4d":
+                serve["4d"]["launches"][wrapper] / serve["4d"]["batches"],
             "launches_per_train_step":
                 train["launches"][wrapper] / train["steps"],
-            "launches_per_decode_step": per_decode}, **entry))
+            "launches_per_train_step_4d":
+                train["4d"]["launches"][wrapper] / train["steps"],
+            "launches_per_decode_step": per_decode,
+            "launches_per_imperative_unit":
+                imp["launches"][wrapper] / imp["units"],
+            "launches_in_rtc_phase": rtc["launches"][wrapper]}, **entry))
     return table
 
 
@@ -1307,27 +1692,35 @@ def main():
     rows = kernel_phase(torch, fu, device, opts.seed)
     bwd_rows = bwd_kernel_phase(torch, fu, nn, device, opts.seed)
 
-    log("[4] serve ResNet-50 224x224 from a checkpoint on %s" % name)
-    serve = serve_phase(torch, mt, fu, nn, kv, opts.seed, opts.requests,
-                        opts.clients)
-    log("  %d requests from %d clients in %d batches (occupancy %.3f): "
-        "latency p50 %.2f ms, p99 %.2f ms, max %.2f ms, %.1f images/s; "
-        "max |prob - plain| %.3g; launches %s [%s]" % (
-            serve["requests"], serve["clients"], serve["batches"],
-            serve["batch_occupancy"], serve["latency_p50_ms"],
-            serve["latency_p99_ms"], serve["latency_max_ms"],
-            serve["images_per_s"],
-            serve["max_abs_err"], serve["launches"], card))
-    steady, prof = serve["steady"], serve["profile_batch8"]
-    log("  same traffic again: %d batches, latency p50 %.2f ms, p99 %.2f "
-        "ms, max %.2f ms, %.1f images/s [%s]" % (
-            steady["batches"], steady["latency_p50_ms"],
-            steady["latency_p99_ms"], steady["latency_max_ms"],
-            steady["images_per_s"], card))
-    log_profile("one batch-8 forward", prof, card)
+    serve = {}
+    for mode in ("2d", "4d"):
+        log("[4%s] serve ResNet-50 224x224 from a checkpoint on %s, the "
+            "units' 3x3 %s" % ("a" if mode == "2d" else "b", name,
+                               "in the row layout (K3)" if mode == "2d"
+                               else "on 4D tiles (K4, "
+                               "MXNET_FUSED_UNIT_C3=4d)"))
+        with c3_mode("4d" if mode == "4d" else "auto"):
+            sv = serve[mode] = serve_phase(torch, mt, fu, nn, kv, opts.seed,
+                                           opts.requests, opts.clients,
+                                           mode)
+        log("  %d requests from %d clients in %d batches (occupancy %.3f): "
+            "latency p50 %.2f ms, p99 %.2f ms, max %.2f ms, %.1f images/s; "
+            "max |prob - plain| %.3g; launches %s [%s]" % (
+                sv["requests"], sv["clients"], sv["batches"],
+                sv["batch_occupancy"], sv["latency_p50_ms"],
+                sv["latency_p99_ms"], sv["latency_max_ms"],
+                sv["images_per_s"], sv["max_abs_err"], sv["launches"], card))
+        steady, prof = sv["steady"], sv["profile_batch8"]
+        log("  same traffic again: %d batches, latency p50 %.2f ms, p99 %.2f "
+            "ms, max %.2f ms, %.1f images/s [%s]" % (
+                steady["batches"], steady["latency_p50_ms"],
+                steady["latency_p99_ms"], steady["latency_max_ms"],
+                steady["images_per_s"], card))
+        log_profile("one batch-8 forward, %s" % mode, prof, card)
 
     log("[5] train ResNet-50 224x224 through Module.fit on %s, batch %d, "
-        "%d steps" % (name, TRAIN_BATCH, opts.train_steps))
+        "%d steps, the units' 3x3 in the row layout (K3/K6) and on 4D tiles "
+        "(K4/K7)" % (name, TRAIN_BATCH, opts.train_steps))
     train = train_phase(torch, mt, fu, nn, kv, opts.seed, opts.train_steps,
                         card)
 
@@ -1342,7 +1735,17 @@ def main():
                        DECODE_REQUESTS, ", ".join(map(str, SPEC_KS))))
     decode = decode_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    table = kernel_table(rows, bwd_rows, kv_rows, serve, train, decode)
+    log("[8] the imperative path: mt.nd._contrib_FusedBottleneckUnit at "
+        "the four stage shapes at batch %d under autograd.record(), 4d, "
+        "against the Executor" % TRAIN_BATCH)
+    imp = imperative_phase(torch, mt, fu, nn, kv, opts.seed, card)
+
+    log("[9] rtc: CUDA C++ written at run time through rtc.CudaModule and "
+        "register_kernel_op")
+    rtc = rtc_phase(torch, mt, fu, nn, kv, opts.seed, card)
+
+    table = kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp,
+                         rtc)
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)),
                     exist_ok=True)
@@ -1352,9 +1755,10 @@ def main():
                        "build_s": build_s, "kernel_rows": rows,
                        "bwd_kernel_rows": bwd_rows, "serve": serve,
                        "train": train, "kv_rows": kv_rows,
-                       "decode": decode, "kernels": table,
+                       "decode": decode, "imperative": imp, "rtc": rtc,
+                       "kernels": table,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log("[8] done in %.1f s" % (time.perf_counter() - t_start))
+    log("[10] done in %.1f s" % (time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -8,18 +8,22 @@ and backward -> SGD) through hand-written CUDA kernels for the fused
 bottleneck units and the 1x1-convolution backward (ops/fused_unit.py,
 ops/nn.py, csrc/), and serves continuous-batching greedy decode of an
 attention decoder (serving.DecodeEngine -> StepProgram -> the KV-cache
-write kernels of ops/cache.py).  Entry points run on the first CUDA card
-unless the caller passes ``ctx=cpu()`` (``context=cpu()`` for Module).
+write kernels of ops/cache.py).  The imperative frontend (``nd.<op>``,
+``autograd``) runs the same ops eagerly, and ``rtc`` compiles CUDA C++ at
+run time and registers ops.  Entry points run on the first CUDA card
+unless the caller passes ``ctx=cpu()`` (``context=cpu()`` for Module) or
+opens a ``with cpu():`` scope.
 """
 __version__ = "0.12.0.torch1"
 
 from .base import MXNetError
 from . import config
-from .context import Context, cpu, gpu
+from .context import Context, cpu, gpu, current_context
 from . import ops
 from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
+from . import autograd
 from . import symbol
 from . import symbol as sym
 from .symbol import Symbol
@@ -43,3 +47,5 @@ from . import io
 from . import callback
 from . import module
 from . import module as mod
+from . import rtc
+from . import test_utils

@@ -36,10 +36,11 @@ VARIABLES = {v.name: v for v in [
          "plain graph.  0 = fuse every eligible unit."),
     _Var("MXNET_FUSED_UNIT_C3", str, "auto",
          "Middle-conv path inside fused units (ops/fused_unit.py): "
-         "'auto' and '2d' run the hand-written 3x3 kernel at every width; "
-         "'xla' runs the middle conv as a plain torch convolution segment "
-         "instead (the name is kept from the reference package); '4d' "
-         "selects a kernel that is not yet ported and raises."),
+         "'auto' and '2d' run the hand-written row-layout 3x3 kernels "
+         "(K3, K6) at every width; '4d' runs the hand-written 4D-tile 3x3 "
+         "kernels (K4, K7) at every width; 'xla' runs the middle conv as a "
+         "plain torch convolution segment instead (the name is kept from "
+         "the reference package)."),
     _Var("MXNET_CONV1X1_FUSED_BWD", bool, False,
          "Compute a channels-last stride-1 1x1 convolution's dgrad and "
          "wgrad in one hand-written CUDA kernel (ops/nn.py conv1x1_bwd) "

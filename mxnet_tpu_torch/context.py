@@ -1,21 +1,29 @@
 """Device contexts: ``cpu()`` and ``gpu(i)`` name a ``torch.device``.
 
 Counterpart of ``mxnet_tpu/context.py``.  ``gpu(i)`` is CUDA card ``i``;
-there is no ``tpu()``.  ``default_context()`` is what the entry points
-use when the caller passes no ``ctx``: the first card, and an error when
-there is none — a caller that wants the CPU says so with ``ctx=cpu()``.
+there is no ``tpu()``.  ``with ctx:`` makes ``ctx`` the current context
+of the thread, as in the reference.  ``current_context()`` is the
+innermost such scope, else the first card, and an error when there is
+none; ``default_context(ctx)`` is what the entry points use: the caller's
+``ctx``, else ``current_context()``.  A caller that wants the CPU says so
+with ``ctx=cpu()`` or ``with cpu():``.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "default_context"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "default_context"]
 
 
 class Context:
-    """A device context; hashable and comparable."""
+    """A device context; hashable and comparable, and usable with ``with``
+    to set the current context of this thread."""
+
+    _scope = threading.local()
 
     def __init__(self, device_type, device_id=0):
         if device_type not in ("cpu", "gpu"):
@@ -44,6 +52,16 @@ class Context:
 
     __repr__ = __str__
 
+    def __enter__(self):
+        stack = getattr(Context._scope, "stack", None)
+        if stack is None:
+            stack = Context._scope.stack = []
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        Context._scope.stack.pop()
+
     @staticmethod
     def of(device):
         """The context of a ``torch.device``."""
@@ -60,11 +78,19 @@ def gpu(device_id=0):
     return Context("gpu", device_id)
 
 
-def default_context(ctx=None):
-    """``ctx`` itself, else ``gpu(0)``; raises when no card is present."""
-    if ctx is not None:
-        return ctx
+def current_context():
+    """The innermost ``with ctx:`` scope of this thread, else ``gpu(0)``;
+    raises when that is wanted and no card is present."""
+    stack = getattr(Context._scope, "stack", None)
+    if stack:
+        return stack[-1]
     if not torch.cuda.is_available():
-        raise MXNetError("no CUDA device is available; pass ctx=cpu() to "
-                         "run on the CPU")
+        raise MXNetError("no CUDA device is available; pass ctx=cpu() or "
+                         "open a `with mxnet_tpu_torch.cpu():` scope to run "
+                         "on the CPU")
     return gpu(0)
+
+
+def default_context(ctx=None):
+    """``ctx`` itself, else ``current_context()``."""
+    return ctx if ctx is not None else current_context()

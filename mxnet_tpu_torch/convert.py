@@ -41,7 +41,7 @@ def load_params(fname, device=None, dtype=None):
     """Read a ``prefix-%04d.params`` file (either package's) into
     (arg_params, aux_params) NDArrays."""
     args, aux = {}, {}
-    for k, v in nd.load(fname).items():
+    for k, v in nd.load(fname, ctx=cpu()).items():
         tp, name = k.split(":", 1)
         (args if tp == "arg" else aux)[name] = v.asnumpy()
     return params_from_numpy(args, aux, device, dtype)

@@ -10,6 +10,11 @@ starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import: a kernel is built the first time a wrapper
 launches it, or up front through ``build()``.
+
+A second route serves kernels written at run time (``rtc.CudaModule``):
+``build_cubin`` compiles a source string with ``nvcc -cubin`` for
+``sm_90a`` into ``build/rtc/<sha of source and options>.cubin``, which
+the CUDA driver loads as a module.
 """
 from __future__ import annotations
 
@@ -23,11 +28,11 @@ import time
 
 from .base import MXNetError
 
-__all__ = ["KERNELS", "build", "load", "build_dir"]
+__all__ = ["KERNELS", "build", "load", "build_dir", "build_cubin"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
-_COMMON = ["fu_gemm.cuh", "fu_bwd.cuh"]
+_COMMON = ["fu_gemm.cuh", "fu_bwd.cuh", "fu_conv4d.cuh"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,8 +42,10 @@ KERNELS = {
     "fu_mm_skip_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fu_c3_fwd2d": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _P],
+    "fu_c3_fwd4d": [_P] * 8 + [_I] * 9 + [_P],
     "fu_mm_bwd": [_P] * 17 + [_I] * 7 + [_P],
     "fu_c3_bwd2d": [_P] * 17 + [_I] * 8 + [_P],
+    "fu_c3_bwd4d": [_P] * 17 + [_I] * 10 + [_P],
     "nn_conv1x1_bwd": [_P] * 6 + [_I] * 6 + [_P],
     "cache_write_row": [_P] * 3 + [_I] * 5 + [_P],
     "cache_write_rows": [_P] * 4 + [_I] * 7 + [_P],
@@ -54,6 +61,10 @@ build_log = {}      # name -> (seconds, nvcc stderr) of builds this process ran
 
 def build_dir():
     return os.path.join(os.path.dirname(_PKG), "build", "kernels")
+
+
+def rtc_dir():
+    return os.path.join(os.path.dirname(_PKG), "build", "rtc")
 
 
 def _nvcc():
@@ -117,3 +128,38 @@ def load(name):
             fn.restype = ctypes.c_int
             _loaded[name] = fn
     return fn
+
+
+CUBIN_FLAGS = ["-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3"]
+
+
+def build_cubin(source, options=()):
+    """Compile the CUDA C++ ``source`` (with extra nvcc ``options``) into
+    a cubin for sm_90a, once per source and options; returns its path.
+    Raises MXNetError with nvcc's output when it fails."""
+    options = [str(o) for o in options]
+    h = hashlib.sha256("\0".join([source] + CUBIN_FLAGS + options)
+                       .encode()).hexdigest()[:24]
+    path = os.path.join(rtc_dir(), h + ".cubin")
+    if os.path.exists(path):
+        return path
+    nvcc = _nvcc()
+    os.makedirs(rtc_dir(), exist_ok=True)
+    tmp = "%s.tmp%d" % (path, os.getpid())
+    src = tmp + ".cu"
+    with open(src, "w") as f:
+        f.write(source)
+    try:
+        proc = subprocess.run([nvcc] + CUBIN_FLAGS + options
+                              + ["-o", tmp, src], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise MXNetError("nvcc failed to compile the runtime "
+                             "kernel:\n%s%s" % (proc.stdout, proc.stderr))
+        os.replace(tmp, path)
+    finally:
+        for f in (src, tmp):
+            if os.path.exists(f):
+                os.remove(f)
+    return path

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError
+from .context import cpu
 from .ndarray import NDArray, array
 from . import random as _random
 
@@ -145,12 +146,13 @@ class NDArrayIter(DataIter):
         return self.cursor < self.num_data
 
     def _batch(self, source):
+        # host-side staging: Module copies the batch to its device
         lo, hi = self.cursor, self.cursor + self.batch_size
         if hi <= self.num_data:
-            return [array(v[lo:hi]) for _, v in source]
+            return [array(v[lo:hi], ctx=cpu()) for _, v in source]
         pad = hi - self.num_data
-        return [array(np.concatenate([v[lo:self.num_data], v[:pad]]))
-                for _, v in source]
+        return [array(np.concatenate([v[lo:self.num_data], v[:pad]]),
+                      ctx=cpu()) for _, v in source]
 
     def getdata(self):
         return self._batch(self.data)

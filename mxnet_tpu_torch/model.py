@@ -46,7 +46,8 @@ def load_checkpoint(prefix, epoch):
     """(symbol, arg_params, aux_params), the params as CPU NDArrays."""
     symbol = sym.load("%s-symbol.json" % prefix)
     arg_params, aux_params = {}, {}
-    for k, v in nd.load("%s-%04d.params" % (prefix, epoch)).items():
+    for k, v in nd.load("%s-%04d.params" % (prefix, epoch),
+                           ctx=cpu()).items():
         tp, name = k.split(":", 1)
         if tp == "arg":
             arg_params[name] = v

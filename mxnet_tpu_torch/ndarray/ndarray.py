@@ -1,27 +1,104 @@
 """NDArray: a thin handle over a ``torch.Tensor`` on a context.
 
-Counterpart of the parts of ``mxnet_tpu/ndarray/ndarray.py`` the serving
-and training paths use: creation, ``asnumpy``, ``as_in_context``,
-``copyto``, ``copy``, indexing and assignment, shape and dtype, and the
-SGD updates with ``out=`` (in place, as the reference writes them).
+Counterpart of ``mxnet_tpu/ndarray/ndarray.py``: creation, ``asnumpy``,
+``as_in_context``, ``copyto``, ``copy``, indexing and assignment, shape
+and dtype, the arithmetic operators, the SGD updates with ``out=`` (in
+place, as the reference writes them), ``attach_grad`` / ``grad`` /
+``backward`` for ``autograd``, and ``invoke``, the imperative dispatch
+that every generated ``mt.nd.<op>`` calls.
+
+An array made without ``ctx`` (``array``, ``zeros``, an op without array
+inputs) lands on ``current_context()``: the innermost ``with ctx:``
+scope, else the first card.  ``invoke`` runs the op eagerly on its
+inputs' device; while ``autograd.is_recording()`` it runs with torch's
+gradient recording on, so the result carries its graph, and mode-dependent
+ops see ``training=autograd.is_training()``.
 """
 from __future__ import annotations
+
+import numbers
 
 import numpy as np
 import torch
 
-from ..context import Context, cpu
-from ..ops.registry import torch_dtype
+from ..base import MXNetError
+from ..context import Context, current_context
+from ..ops.registry import OpDef, get_op, torch_dtype
 
-__all__ = ["NDArray", "array", "zeros", "zeros_like", "sgd_update",
-           "sgd_mom_update"]
+__all__ = ["NDArray", "array", "zeros", "zeros_like", "invoke",
+           "sgd_update", "sgd_mom_update"]
+
+
+def _ctx_of(c):
+    """A Context from a Context or its string form (``"gpu(0)"``)."""
+    if c is None or isinstance(c, Context):
+        return c
+    dt, rest = str(c).split("(", 1)
+    return Context(dt, int(rest.rstrip(")")))
+
+
+def invoke(op, inputs, attrs=None, out=None):
+    """Run op ``op`` (a name or an OpDef) on NDArrays ``inputs`` with
+    ``attrs`` (normalized by the OpDef); returns its visible output(s), or
+    writes them into ``out`` (in place when autograd is not recording and
+    the buffer fits; else the handle takes the result).  Aux inputs an op
+    updates (BatchNorm's moving statistics) are updated in place.  The
+    device is the inputs', else the ``ctx`` attr, else
+    ``current_context()``."""
+    from .. import autograd
+    opdef = op if isinstance(op, OpDef) else get_op(op)
+    attrs = dict(attrs or {})
+    ctx = _ctx_of(attrs.pop("ctx", None))
+    if ctx is not None and "ctx" in opdef.params:
+        attrs["ctx"] = str(ctx)
+    attrs = opdef.normalize(attrs)
+    for i in inputs:
+        if isinstance(i, NDArray):
+            ctx = i.context
+            break
+    if ctx is None:
+        ctx = current_context()
+    tensors = []
+    for i in inputs:
+        if not isinstance(i, NDArray):
+            raise MXNetError("%s: inputs must be NDArrays, got %s"
+                             % (opdef.name, type(i).__name__))
+        tensors.append(i._data)
+    recording = autograd.is_recording()
+    training = autograd.is_training()
+    if not training:
+        # an in-place op (a KV-cache write) works on a copy: an imperative
+        # call never changes its inputs
+        for k in opdef.inplace:
+            tensors[k] = tensors[k].clone()
+    with torch.set_grad_enabled(recording):
+        outs = opdef.bound(attrs, training)(*tensors)
+    if not inputs:
+        outs = tuple(o.to(ctx.device) for o in outs)
+    for in_idx, out_idx in opdef.mutate_aux.items():
+        if in_idx < len(inputs):
+            inputs[in_idx]._data = outs[out_idx].detach()
+    nvis = opdef.num_visible_outputs
+    if callable(nvis):
+        nvis = nvis(attrs)
+    vis = [NDArray(o) for o in outs[:nvis]]
+    if out is not None:
+        targets = out if isinstance(out, (list, tuple)) else [out]
+        for t, v in zip(targets, vis):
+            t._assign(v._data, recording)
+        return out
+    if nvis == 0:
+        return None
+    return vis[0] if nvis == 1 else vis
 
 
 class NDArray:
-    __slots__ = ("_data",)
+    __slots__ = ("_data", "_grad", "_grad_req", "__weakref__")
 
     def __init__(self, tensor):
         self._data = tensor
+        self._grad = None
+        self._grad_req = "null"
 
     @property
     def shape(self):
@@ -34,6 +111,36 @@ class NDArray:
     @property
     def context(self):
         return Context.of(self._data.device)
+
+    @property
+    def grad(self):
+        """The gradient buffer ``attach_grad`` made, filled by
+        ``autograd.backward``."""
+        return self._grad
+
+    def attach_grad(self, grad_req="write"):
+        """Make this array an autograd variable with a zero gradient
+        buffer; ``grad_req`` is write, add or null."""
+        from .. import autograd
+        autograd.mark_variables([self], [NDArray(torch.zeros_like(
+            self._data.detach()))], grad_req)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        from .. import autograd
+        autograd.backward([self], None if out_grad is None else [out_grad],
+                          retain_graph=retain_graph, train_mode=train_mode)
+
+    def _assign(self, tensor, recording=False):
+        """Write ``tensor`` into this array: in place when it fits and no
+        gradient is recorded through it, else by taking the tensor."""
+        t = self._data
+        if not recording and not t.requires_grad \
+                and t.shape == tensor.shape and t.dtype == tensor.dtype \
+                and t.device == tensor.device:
+            with torch.no_grad():
+                t.copy_(tensor)
+        else:
+            self._data = tensor
 
     def __getitem__(self, key):
         return NDArray(self._data[key])
@@ -64,10 +171,11 @@ class NDArray:
         """Copy into another NDArray (in place, keeping its device and
         dtype) or onto a context (a new NDArray)."""
         if isinstance(other, NDArray):
-            other._data.copy_(self._data)
+            with torch.no_grad():
+                other._data.copy_(self._data)
             return other
         if isinstance(other, Context):
-            return NDArray(self._data.to(other.device, copy=True))
+            return NDArray(self._data.detach().to(other.device, copy=True))
         raise TypeError("copyto does not support type %s" % type(other))
 
     def as_in_context(self, context):
@@ -75,14 +183,53 @@ class NDArray:
             return self
         return self.copyto(context)
 
+    # -- arithmetic: the reference's operators, through invoke ------------
+    def _binary(self, other, op, scalar_op, reverse_scalar_op=None,
+                reverse=False):
+        if isinstance(other, NDArray):
+            a, b = (other, self) if reverse else (self, other)
+            return invoke(op, [a, b])
+        if isinstance(other, numbers.Number):
+            name = reverse_scalar_op if reverse else scalar_op
+            return invoke(name, [self], {"scalar": float(other)})
+        return NotImplemented
+
+    def __add__(self, o):
+        return self._binary(o, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._binary(o, "elemwise_sub", "_minus_scalar",
+                            "_rminus_scalar", reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "elemwise_div", "_div_scalar",
+                            "_rdiv_scalar", reverse=True)
+
+    def __neg__(self):
+        return invoke("_mul_scalar", [self], {"scalar": -1.0})
+
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)),
                                      self.context)
 
 
 def array(source, ctx=None, dtype=None):
-    """NDArray from a numpy array (or anything numpy can take); float64
-    input becomes float32, as in the reference."""
+    """NDArray from a numpy array (or anything numpy can take) on ``ctx``,
+    else on ``current_context()``; float64 input becomes float32, as in
+    the reference."""
     if isinstance(source, NDArray):
         source = source.asnumpy()
     a = np.asarray(source)
@@ -91,17 +238,18 @@ def array(source, ctx=None, dtype=None):
     t = torch.from_numpy(np.ascontiguousarray(a))
     if dtype is not None:
         t = t.to(torch_dtype(dtype))
-    return NDArray(t.to((ctx or cpu()).device))
+    return NDArray(t.to((ctx or current_context()).device))
 
 
 def zeros(shape, ctx=None, dtype=None):
+    """Zeros on ``ctx``, else on ``current_context()``."""
     return NDArray(torch.zeros(tuple(shape),
                                dtype=torch_dtype(dtype or np.float32),
-                               device=(ctx or cpu()).device))
+                               device=(ctx or current_context()).device))
 
 
 def zeros_like(arr):
-    return NDArray(torch.zeros_like(arr._data))
+    return NDArray(torch.zeros_like(arr._data.detach()))
 
 
 def _update_target(weight, out):

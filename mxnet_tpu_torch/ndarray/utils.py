@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..context import current_context
 from .ndarray import NDArray, array
 
 __all__ = ["save", "load"]
@@ -31,6 +32,9 @@ def save(fname, data):
 
 
 def load(fname, ctx=None):
+    """Arrays saved by ``save`` (or by the JAX package), on ``ctx``, else on
+    ``current_context()``."""
+    ctx = ctx or current_context()
     with np.load(fname, allow_pickle=False) as z:
         listlike = bool(z["__mxtpu_list__"]) if "__mxtpu_list__" in z \
             else False

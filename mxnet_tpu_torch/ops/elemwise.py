@@ -1,7 +1,8 @@
 """Elementwise ops (counterpart of ``mxnet_tpu/ops/elemwise.py``): the
 binary arithmetic and comparison ops and the scalar forms that the
-ResNet residual add and the attention decoder's step, draft and commit
-graphs use, under the reference's primary names and aliases.  Binary ops
+ResNet residual add, the attention decoder's step, draft and commit
+graphs and the NDArray operators (+ - * /) use, under the reference's
+primary names and aliases.  Binary ops
 broadcast; a comparison returns 1/0 in its left operand's dtype."""
 from .registry import register, P
 
@@ -25,6 +26,12 @@ def mul(attrs, a, b):
     return a * b
 
 
+@register("_div", aliases=["broadcast_div", "div", "elemwise_div"],
+          nin=2, input_names=["lhs", "rhs"])
+def div(attrs, a, b):
+    return a / b
+
+
 @register("greater", aliases=["broadcast_greater", "_greater"],
           nin=2, input_names=["lhs", "rhs"])
 def greater(attrs, a, b):
@@ -43,6 +50,8 @@ _SCALAR = {
     "_minus_scalar": lambda x, s: x - s,
     "_rminus_scalar": lambda x, s: s - x,
     "_mul_scalar": lambda x, s: x * s,
+    "_div_scalar": lambda x, s: x / s,
+    "_rdiv_scalar": lambda x, s: s / x,
     "_greater_scalar": lambda x, s: (x > s).to(x.dtype),
 }
 

@@ -12,14 +12,19 @@ prologue, so the normalized activations never reach device memory:
 
 Activations flow as (rows, C) with rows = n*h*w, the reference's 2D row
 layout.  Weights stay in their OHWI checkpoint layout: the kernels read
-(Co, Ci) and (Co, 3, 3, Ci) directly.
+(Co, Ci) and (Co, 3, 3, Ci) directly.  MXNET_FUSED_UNIT_C3=4d runs the
+middle conv through the reference's other pair of 3x3 kernels instead, K4
+``c3_fwd4d`` and K7 ``c3_bwd4d``, on the NHWC view of the same tensors
+(spatial tiles with their halo in shared memory).  The reference gates
+those by TPU scoped-VMEM budgets and sends some stages to XLA; the port
+runs them at every width, as it does K3 and K6.
 
 In training mode K1 and K3 also return the batch statistics of their
 output, and the unit is a ``torch.autograd.Function`` whose backward runs
 the chain in reverse through two more kernels:
 
 - K5 ``mm_bwd``       dgrad + wgrad of a 1x1 conv (conv3, then conv1)
-- K6 ``c3_bwd2d``     dgrad + wgrad of the 3x3 conv (conv2)
+- K6 ``c3_bwd2d``     dgrad + wgrad of the 3x3 conv (conv2; K7 in 4d mode)
 
 each of which finalizes the next BatchNorm's backward in its prologue,
 masks by the recomputed ReLU and takes its own BatchNorm's reductions in
@@ -46,6 +51,7 @@ from .. import config
 
 EPS_DEFAULT = 2e-5
 _ROW_BLOCK = 64     # BM in fu_gemm.cuh: rows per block of the stats partials
+_TILE = 8           # TH = TW in fu_conv4d.cuh: K4's and K7's spatial tiles
 
 
 # ---------------------------------------------------------------------------
@@ -77,12 +83,12 @@ def mm_skip_fwd_plain(x2d, w, sc, sh, skip2d):
     return (acc + skip2d.float()).to(x2d.dtype)
 
 
-def c3_fwd2d_plain(x2d, w, sc, sh, n, h, w_, with_stats=False):
-    """Plain version of K3: nine shifted products over the zero-padded
-    activation (padding after the prologue, as in the reference)."""
-    ci = x2d.shape[1]
-    a = _prologue(x2d, sc, sh).reshape(n, h, w_, ci)
-    ap = F.pad(a, (0, 0, 1, 1, 1, 1))
+def c3_fwd4d_plain(x4d, w, sc, sh, with_stats=False):
+    """Plain version of K4: nine shifted products over the zero-padded
+    activation of NHWC x (padding after the prologue, as in the
+    reference); y in x's NHWC shape."""
+    n, h, w_, ci = x4d.shape
+    ap = F.pad(_prologue(x4d, sc, sh), (0, 0, 1, 1, 1, 1))
     wf = w.float()
     acc = None
     for dh in range(3):
@@ -90,7 +96,15 @@ def c3_fwd2d_plain(x2d, w, sc, sh, n, h, w_, with_stats=False):
             patch = ap[:, dh:dh + h, dw:dw + w_, :].reshape(-1, ci)
             part = torch.matmul(patch, wf[:, dh, dw, :].t())
             acc = part if acc is None else acc + part
-    return (acc.to(x2d.dtype),) + _stats(acc, with_stats)
+    return ((acc.to(x4d.dtype).reshape(n, h, w_, -1),)
+            + _stats(acc, with_stats))
+
+
+def c3_fwd2d_plain(x2d, w, sc, sh, n, h, w_, with_stats=False):
+    """Plain version of K3: K4's function on the (rows, C) view."""
+    y, s, ss = c3_fwd4d_plain(x2d.reshape(n, h, w_, x2d.shape[1]), w, sc,
+                              sh, with_stats)
+    return y.reshape(x2d.shape[0], -1), s, ss
 
 
 def _finalize_g(g2d, yraw2d, fin):
@@ -121,16 +135,18 @@ def mm_bwd_plain(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh):
     return dp, torch.matmul(g.t(), _prologue(x2d, sc, sh)), db, dg
 
 
-def c3_bwd2d_plain(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_):
-    """Plain version of K6: (dP (R, Ci), dW (Co, 3, 3, Ci) f32, sum dP,
-    sum dP * xhat).  Tap (dh, dw) pairs output row p with input row
-    p + (dh, dw): its wgrad sums g[p]^T a[p + tap] and its dgrad adds
-    g[q - tap] @ w_tap to input row q, zero-padded at the image edges."""
-    co, ci = g2d.shape[1], x2d.shape[1]
-    g = _finalize_g(g2d, yraw2d, fin)
-    gp = F.pad(g.reshape(n, h, w_, co), (0, 0, 1, 1, 1, 1))
-    ap = F.pad(_prologue(x2d, sc, sh).reshape(n, h, w_, ci),
-               (0, 0, 1, 1, 1, 1))
+def c3_bwd4d_plain(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh):
+    """Plain version of K7: (dP in x's NHWC shape, dW (Co, 3, 3, Ci) f32,
+    sum dP, sum dP * xhat).  Tap (dh, dw) pairs output pixel p with input
+    pixel p + (dh - 1, dw - 1): its wgrad sums g[p]^T a[p + tap] and its
+    dgrad adds g[q - tap] @ w_tap to input pixel q, with g and a zero
+    outside the image."""
+    n, h, w_, co = g4d.shape
+    ci = x4d.shape[-1]
+    g = _finalize_g(g4d, yraw4d, fin)
+    gp = F.pad(g, (0, 0, 1, 1, 1, 1))
+    ap = F.pad(_prologue(x4d, sc, sh), (0, 0, 1, 1, 1, 1))
+    g = g.reshape(-1, co)
     wf = w.float()
     dw = torch.empty((co, 3, 3, ci), dtype=torch.float32, device=g.device)
     da = None
@@ -141,8 +157,18 @@ def c3_bwd2d_plain(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_):
             gpatch = gp[:, 2 - th:2 - th + h, 2 - tw:2 - tw + w_, :]
             part = torch.matmul(gpatch.reshape(-1, co), wf[:, th, tw, :])
             da = part if da is None else da + part
-    dp, db, dg = _bwd_epilogue(da, x2d, sc, sh, xs, xh)
-    return dp, dw, db, dg
+    dp, db, dg = _bwd_epilogue(da, x4d.reshape(-1, ci), sc, sh, xs, xh)
+    return dp.reshape(x4d.shape), dw, db, dg
+
+
+def c3_bwd2d_plain(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_):
+    """Plain version of K6: K7's function on the (rows, C) views, dP
+    (R, Ci)."""
+    def view(t):
+        return None if t is None else t.reshape(n, h, w_, t.shape[1])
+    dp, dw, db, dg = c3_bwd4d_plain(view(g2d), view(yraw2d), fin,
+                                    view(x2d), w, sc, sh, xs, xh)
+    return dp.reshape(x2d.shape), dw, db, dg
 
 
 # ---------------------------------------------------------------------------
@@ -367,7 +393,128 @@ def c3_bwd2d(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_):
 
 c3_bwd2d.launches = 0
 
-KERNEL_WRAPPERS = (mm_fwd, c3_fwd2d, mm_skip_fwd, mm_bwd, c3_bwd2d)
+
+def _tiles(h, w_):
+    """(tiles per image row, tiles per image) of K4's and K7's spatial
+    tiles."""
+    tiles_w = -(-w_ // _TILE)
+    return tiles_w, -(-h // _TILE) * tiles_w
+
+
+def _wgrad4d_split(tiles, co, ci):
+    """(splits, chunk) of K7's wgrad sum over ``tiles`` spatial tiles: about
+    256 blocks of its 64 x 32 (x 9 taps) weight-gradient tiles and at least
+    4 spatial tiles a chunk, from the shapes alone, so that the sum order
+    (and the result) never depends on the device."""
+    blocks = -(-co // 64) * -(-ci // 32)
+    splits = max(1, min(-(-256 // blocks), tiles // 4))
+    chunk = -(-tiles // splits)
+    return -(-tiles // chunk), chunk
+
+
+def c3_fwd4d(x4d, w, sc, sh, with_stats=False):
+    """K4: 3x3 / stride 1 / pad 1 convolution of relu(x*sc + sh) for NHWC
+    x (N, H, W, Ci), weight (Co, 3, 3, Ci) OHWI; y (N, H, W, Co), and with
+    with_stats the per-channel sum and sum of squares of the f32
+    accumulator, else (y, None, None).
+
+    Replaces mxnet_tpu/ops/fused_unit.py ``_k_conv3_fwd`` (``_c3_fwd``,
+    pallas_call "fu_c3_fwd"), the MXNET_FUSED_UNIT_C3=4d path.  Bound on
+    the H100: arithmetic (9 taps of 2*N*H*W*Ci*Co); the design stages each
+    8x8 spatial tile's halo once, through the prologue and with zeros
+    outside the image, and walks the nine taps out of shared memory, at
+    every width (csrc/fu_conv4d.cuh)."""
+    if on_host(x4d):
+        return c3_fwd4d_plain(x4d, w, sc, sh, with_stats)
+    if x4d.ndim != 4:
+        raise MXNetError("c3_fwd4d: x must be NHWC, got shape %s"
+                         % (tuple(x4d.shape),))
+    n, h, w_, ci = x4d.shape
+    co = w.shape[0]
+    if tuple(w.shape[1:]) != (3, 3, ci) or sc.shape != (ci,) \
+            or sh.shape != (ci,):
+        raise MXNetError("c3_fwd4d: shapes x %s w %s disagree"
+                         % (tuple(x4d.shape), tuple(w.shape)))
+    check("c3_fwd4d", x4d.dtype, x4d.device, x=x4d, w=w, sc=sc, sh=sh)
+    check_dims("c3_fwd4d", ci, co)
+    tiles_w, tiles_img = _tiles(h, w_)
+    dev = x4d.device
+    y = torch.empty((n, h, w_, co), dtype=x4d.dtype, device=dev)
+    part = s = ss = None
+    if with_stats:
+        part = torch.empty((2, n * tiles_img, co), dtype=torch.float32,
+                           device=dev)
+        s = torch.empty(co, dtype=torch.float32, device=dev)
+        ss = torch.empty(co, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        launch("fu_c3_fwd4d", x4d, w, sc, sh, y, part, s, ss, n, h, w_, ci,
+               co, tiles_w, tiles_img, int(x4d.dtype == torch.bfloat16),
+               int(with_stats), stream(dev))
+    c3_fwd4d.launches += 1
+    return y, s, ss
+
+
+c3_fwd4d.launches = 0
+
+
+def c3_bwd4d(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh):
+    """K7: the backward of y = conv3x3(relu(x*sc + sh)) for NHWC x (N, H,
+    W, Ci), weight (Co, 3, 3, Ci) OHWI, from the deferred cotangent g (N,
+    H, W, Co) with ``fin = (c1, u0, u1)`` (finalized as in ``mm_bwd``, and
+    zero outside the image).  Returns dP (N, H, W, Ci) in x's dtype, dW
+    (Co, 3, 3, Ci) f32, and the f32 sums of dP and of dP*(x*xs + xh).
+
+    Replaces mxnet_tpu/ops/fused_unit.py ``_k_conv3_bwd`` (``_c3_bwd``,
+    pallas_call "fu_c3_bwd"), which returns dW as (3, 3, Ci, Co).  Bound on
+    the H100: arithmetic (9 taps of 4*N*H*W*Ci*Co); dgrad stages each 8x8
+    tile's finalized cotangent halo once and sums the rotated taps out of
+    shared memory, reading the OHWI weight in place; wgrad walks spatial
+    tiles with the activation halo in shared memory, its sum split into
+    chunks fixed by the shapes and added in order (csrc/fu_conv4d.cuh)."""
+    if on_host(x4d):
+        return c3_bwd4d_plain(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh)
+    if x4d.ndim != 4:
+        raise MXNetError("c3_bwd4d: x must be NHWC, got shape %s"
+                         % (tuple(x4d.shape),))
+    n, h, w_, ci = x4d.shape
+    co = w.shape[0]
+    if tuple(w.shape[1:]) != (3, 3, ci) or g4d.shape != (n, h, w_, co) \
+            or any(v.shape != (ci,) for v in (sc, sh, xs, xh)):
+        raise MXNetError("c3_bwd4d: shapes g %s x %s w %s disagree"
+                         % (tuple(g4d.shape), tuple(x4d.shape),
+                            tuple(w.shape)))
+    if fin is None or yraw4d is None or yraw4d.shape != g4d.shape \
+            or any(v.shape != (co,) for v in fin):
+        raise MXNetError("c3_bwd4d: the 3x3's cotangent is always deferred: "
+                         "it needs y_raw %s and three (%d,) vectors"
+                         % (tuple(g4d.shape), co))
+    check("c3_bwd4d", x4d.dtype, x4d.device, g=g4d, yraw=yraw4d, c1=fin[0],
+          u0=fin[1], u1=fin[2], x=x4d, w=w, sc=sc, sh=sh, xs=xs, xh=xh)
+    check_dims("c3_bwd4d", ci, co)
+    tiles_w, tiles_img = _tiles(h, w_)
+    splits, chunk = _wgrad4d_split(n * tiles_img, co, ci)
+    dev = x4d.device
+    dp = torch.empty(x4d.shape, dtype=x4d.dtype, device=dev)
+    part = torch.empty((2, n * tiles_img, ci), dtype=torch.float32,
+                       device=dev)
+    db = torch.empty(ci, dtype=torch.float32, device=dev)
+    dg = torch.empty(ci, dtype=torch.float32, device=dev)
+    dw = torch.empty((co, 3, 3, ci), dtype=torch.float32, device=dev)
+    wpart = torch.empty((splits, co, 9 * ci), dtype=torch.float32,
+                        device=dev) if splits > 1 else None
+    with torch.cuda.device(dev):
+        launch("fu_c3_bwd4d", g4d, yraw4d, fin[0], fin[1], fin[2], x4d, w,
+               sc, sh, xs, xh, dp, part, db, dg, dw, wpart, n, h, w_, ci, co,
+               tiles_w, tiles_img, splits, chunk,
+               int(x4d.dtype == torch.bfloat16), stream(dev))
+    c3_bwd4d.launches += 1
+    return dp, dw, db, dg
+
+
+c3_bwd4d.launches = 0
+
+KERNEL_WRAPPERS = (mm_fwd, c3_fwd2d, c3_fwd4d, mm_skip_fwd, mm_bwd, c3_bwd2d,
+                   c3_bwd4d)
 
 
 # ---------------------------------------------------------------------------
@@ -379,10 +526,6 @@ def _c3_mode():
     if mode not in ("auto", "2d", "4d", "xla"):
         raise MXNetError("MXNET_FUSED_UNIT_C3 must be one of "
                          "auto/2d/4d/xla, got %r" % mode)
-    if mode == "4d":
-        raise MXNetError("MXNET_FUSED_UNIT_C3=4d selects the 4D 3x3 kernels "
-                         "(fu_c3_fwd, fu_c3_bwd), which are not yet ported; "
-                         "use auto, 2d or xla")
     return mode
 
 
@@ -455,12 +598,18 @@ def _fused_unit_chain(eps, n, h, w_, data, g1, b1, w1, g2, b2, w2, g3, b3,
     mu1, var1 = _stats_from_sums(s1, ss1, rows) if training \
         else fixed_stats[:2]
     sc2, sh2 = _bn_vectors(mu1, var1, g2, b2, eps)[:2]
-    if _c3_mode() == "xla":
+    mode = _c3_mode()
+    if mode == "xla":
         y2 = _c3_fwd_segment(y1.reshape(n, h, w_, cq), w2, sc2, sh2)
         y2 = y2.reshape(rows, cq)
         if training:
             yf = y2.float()
             s2, ss2 = yf.sum(0), (yf * yf).sum(0)
+    elif mode == "4d":
+        # the NHWC view of the contiguous (rows, C) tensors: no copy
+        y2, s2, ss2 = c3_fwd4d(y1.reshape(n, h, w_, cq), w2, sc2, sh2,
+                               training)
+        y2 = y2.reshape(rows, cq)
     else:
         y2, s2, ss2 = c3_fwd2d(y1, w2, sc2, sh2, n, h, w_, training)
     mu2, var2 = _stats_from_sums(s2, ss2, rows) if training \
@@ -505,9 +654,17 @@ class _FusedUnitCore(torch.autograd.Function):
                                     xh2)
         # conv2: bn3's backward finalized in the prologue
         fin3 = _finalize_vectors(g3, inv2, mu2, db3, dg3, rows)
-        c3_bwd = _c3_bwd_segment if _c3_mode() == "xla" else c3_bwd2d
-        dp2, dw2, db2, dg2 = c3_bwd(dp3, y2, fin3, y1, w2, sc2, sh2, xs1,
-                                    xh1, n, h, w_)
+        mode = _c3_mode()
+        if mode == "4d":
+            nhwc = (n, h, w_, -1)
+            dp2, dw2, db2, dg2 = c3_bwd4d(
+                dp3.reshape(nhwc), y2.reshape(nhwc), fin3, y1.reshape(nhwc),
+                w2, sc2, sh2, xs1, xh1)
+            dp2 = dp2.reshape(rows, -1)
+        else:
+            c3_bwd = _c3_bwd_segment if mode == "xla" else c3_bwd2d
+            dp2, dw2, db2, dg2 = c3_bwd(dp3, y2, fin3, y1, w2, sc2, sh2,
+                                        xs1, xh1, n, h, w_)
         # conv1: bn2's backward finalized in the prologue
         fin2 = _finalize_vectors(g2, inv1, mu1, db2, dg2, rows)
         dp1, dw1, db1, dg1 = mm_bwd(dp2, y1, fin2, x2d, w1, sc1, sh1, xs0,

@@ -23,8 +23,8 @@ import torch
 
 from ..base import Param, normalize_attrs, MXNetError
 
-__all__ = ["OpDef", "register", "get_op", "list_ops", "P", "invoke",
-           "torch_dtype"]
+__all__ = ["OpDef", "register", "register_opdef", "get_op", "list_ops",
+           "P", "invoke", "torch_dtype"]
 
 _REGISTRY = {}
 _ALIASES = {}
@@ -111,13 +111,20 @@ class OpDef:
 def register(name, aliases=(), **kwargs):
     """Decorator: register an impl as an operator."""
     def deco(impl):
-        opdef = OpDef(name, impl, **kwargs)
-        _REGISTRY[name] = opdef
-        _ALIASES[name] = name
-        for a in aliases:
-            _ALIASES[a] = name
+        register_opdef(OpDef(name, impl, **kwargs), aliases)
         return impl
     return deco
+
+
+def register_opdef(opdef, aliases=()):
+    """Register a built OpDef under its name and ``aliases`` (run-time
+    registration, ``rtc.register_kernel_op``).  As in the reference, a
+    name or alias registered again points at the newest OpDef."""
+    _REGISTRY[opdef.name] = opdef
+    _ALIASES[opdef.name] = opdef.name
+    for a in aliases:
+        _ALIASES[a] = opdef.name
+    return opdef
 
 
 def get_op(name):

@@ -206,7 +206,8 @@ def test_step_matches_jax(models, monkeypatch):
     args = dict(m["params"], token=tokens, pos=pos, **states)
     jex = jsym.bind(mj.cpu(), {k: mj.nd.array(v) for k, v in args.items()})
     jlogits = jex.forward()[0].asnumpy()
-    tex = tsym.bind(mt.cpu(), {k: mt.nd.array(v) for k, v in args.items()})
+    tex = tsym.bind(mt.cpu(), {k: mt.nd.array(v, ctx=mt.cpu())
+                                for k, v in args.items()})
     logits = tex.forward()[0].asnumpy()
     _close(logits, jlogits)
     assert _margin(logits) > 1e3 * TOL

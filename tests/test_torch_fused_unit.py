@@ -166,24 +166,56 @@ def test_unit_c3_xla_mode_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize("mode", ["4d", "bogus"])
 def test_unit_unported_c3_modes_raise(monkeypatch, mode):
+    """MXNET_FUSED_UNIT_C3=4d runs the middle conv through K4 (its plain
+    version here) and matches the JAX op in its 4d mode; an unknown mode
+    raises."""
     monkeypatch.setenv("MXNET_FUSED_UNIT_C3", mode)
     n, h, w, c = CASES[0]
-    ins = [np.zeros((n, h, w, c), np.float32)] \
-        + _unit_inputs(_case_rng(CASES[0]), c)
-    with pytest.raises(MXNetError, match="MXNET_FUSED_UNIT_C3"):
-        invoke("_contrib_FusedBottleneckUnit", _unit_attrs(c, "4d", h, w),
-               *[torch.from_numpy(a) for a in ins])
+    rng = _case_rng(CASES[0])
+    ins = [rng.standard_normal((n, h, w, c)).astype(np.float32)] \
+        + _unit_inputs(rng, c)
+    attrs = _unit_attrs(c, "4d", h, w)
+    if mode == "bogus":
+        with pytest.raises(MXNetError, match="MXNET_FUSED_UNIT_C3"):
+            invoke("_contrib_FusedBottleneckUnit", attrs,
+                   *[torch.from_numpy(a) for a in ins])
+        return
+    before = (tfu.c3_fwd4d.launches, tfu.c3_fwd2d.launches)
+    ref = jfu.fused_bottleneck_unit(dict(attrs, _training=False),
+                                    *[jnp.asarray(a) for a in ins])
+    out = invoke("_contrib_FusedBottleneckUnit", attrs,
+                 *[torch.from_numpy(a) for a in ins])
+    _close(out[0], ref[0])
+    # CPU tensors take the plain versions: no launch is counted
+    assert (tfu.c3_fwd4d.launches, tfu.c3_fwd2d.launches) == before
 
 
 def test_unit_training_mode_raises(monkeypatch):
-    """Training through the 4D 3x3 kernels (K4/K7) is not yet ported."""
+    """Training under MXNET_FUSED_UNIT_C3=4d (K4 forward, K7 backward)
+    against the JAX op's 4d training in its interpret mode: output, the
+    six write-backs and the ten gradients, at the shape of
+    tests/test_fused_unit.py's 4d case."""
     monkeypatch.setenv("MXNET_FUSED_UNIT_C3", "4d")
-    n, h, w, c = CASES[0]
-    ins = [np.zeros((n, h, w, c), np.float32)] \
-        + _unit_inputs(_case_rng(CASES[0]), c)
-    with pytest.raises(MXNetError, match="not yet ported"):
-        invoke("_contrib_FusedBottleneckUnit", _unit_attrs(c, "4d", h, w),
-               *[torch.from_numpy(a) for a in ins], training=True)
+    _check_training_unit(CASES[0])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_c3_fwd4d_plain_matches_pallas(case):
+    n, h, w, _ = case
+    cq = case[-1] // 4
+    _, y1, _, w2, _, _, _, sc2, sh2 = _kernel_inputs(case)
+    x4 = y1.reshape(n, h, w, cq)
+    yj, sj, ssj = jfu._c3_fwd(jnp.asarray(x4), jfu._w4(jnp.asarray(w2)),
+                              jnp.asarray(sc2), jnp.asarray(sh2),
+                              jnp.float32)
+    args = [torch.from_numpy(a) for a in (x4, w2, sc2, sh2)]
+    yt, st, sst = tfu.c3_fwd4d(*args, with_stats=True)
+    assert yt.shape == (n, h, w, cq)
+    _close_rel(yt, yj)
+    _close_stats(st, sst, sj, ssj)
+    yt, st, sst = tfu.c3_fwd4d(*args, with_stats=False)
+    _close_rel(yt, yj)
+    assert st is None and sst is None
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +284,29 @@ def test_c3_bwd2d_plain_matches_pallas(case):
     t = torch.from_numpy
     out = tfu.c3_bwd2d(t(g), t(yraw), tuple(map(t, fin)), t(x), t(w2),
                        *map(t, vecs), n, h, w)
+    _close_rel(out[0], ref[0])
+    _close_rel(out[1].permute(1, 2, 3, 0), ref[1])
+    _close_rel(out[2], ref[2])
+    _close_rel(out[3], ref[3])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_c3_bwd4d_plain_matches_pallas(case):
+    """K7's plain version against _c3_bwd in interpret mode; the port's dW
+    is (Co, 3, 3, Ci), the reference's (3, 3, Ci, Co)."""
+    n, h, w, c = case
+    cq = c // 4
+    g, yraw, fin, x, vecs = _bwd_inputs(case, cq, cq)
+    g, yraw, x = (a.reshape(n, h, w, cq) for a in (g, yraw, x))
+    w2 = (_case_rng(case).standard_normal((cq, 3, 3, cq)) * 0.1) \
+        .astype(np.float32)
+    ref = jfu._c3_bwd(jnp.asarray(g), jnp.asarray(yraw),
+                      tuple(map(jnp.asarray, fin)), jnp.asarray(x),
+                      jfu._w4(jnp.asarray(w2)), *map(jnp.asarray, vecs),
+                      jnp.float32)
+    t = torch.from_numpy
+    out = tfu.c3_bwd4d(t(g), t(yraw), tuple(map(t, fin)), t(x), t(w2),
+                       *map(t, vecs))
     _close_rel(out[0], ref[0])
     _close_rel(out[1].permute(1, 2, 3, 0), ref[1])
     _close_rel(out[2], ref[2])

@@ -84,7 +84,8 @@ def test_entry_points_with_cpu_ctx_run_without_a_card(no_card):
     mod = mt.mod.Module(sym, label_names=None, context=mt.cpu())
     mod.bind([("data", (1, 3))], for_training=False)
     mod.init_params()
-    mod.forward(mt.io.DataBatch([mt.nd.array([[-1.0, 0.0, 2.0]])]))
+    mod.forward(mt.io.DataBatch([mt.nd.array([[-1.0, 0.0, 2.0]],
+                                             ctx=mt.cpu())]))
     np.testing.assert_array_equal(mod.get_outputs()[0].asnumpy(),
                                   [[0.0, 0.0, 2.0]])
 
@@ -101,9 +102,9 @@ def _decode_step():
     emb = mt.sym.Embedding(mt.sym.Variable("token"), input_dim=4,
                            output_dim=4, name="emb")
     logits = mt.sym.FullyConnected(emb, num_hidden=4, name="fc")
-    eye = mt.nd.array(np.eye(4, dtype=np.float32))
+    eye = mt.nd.array(np.eye(4, dtype=np.float32), ctx=mt.cpu())
     params = {"emb_weight": eye, "fc_weight": eye,
-              "fc_bias": mt.nd.array(np.zeros(4, np.float32))}
+              "fc_bias": mt.nd.array(np.zeros(4, np.float32), ctx=mt.cpu())}
     return mt.sym.Group([logits]), params
 
 
@@ -117,3 +118,29 @@ def test_decode_engine_wants_a_card_unless_given_cpu(no_card):
                          ctx=mt.cpu()) as eng:
         res = eng.generate([2], max_new_tokens=3, timeout=30)
     assert list(res.tokens) == [2, 2, 2]    # the identity model repeats
+
+
+def test_imperative_entry_points_want_a_card_unless_given_cpu(no_card,
+                                                             tmp_path):
+    """nd.array, nd.zeros, nd.load, an op without array inputs and
+    CudaModule raise without a card and a ctx; ctx=cpu() or a
+    ``with mt.cpu():`` scope runs them on the CPU."""
+    with pytest.raises(mt.MXNetError, match="ctx=cpu"):
+        mt.nd.array([1.0, 2.0])
+    with pytest.raises(mt.MXNetError, match="ctx=cpu"):
+        mt.nd.zeros((2,))
+    f = str(tmp_path / "w.params")
+    mt.nd.save(f, {"w": mt.nd.zeros((2,), ctx=mt.cpu())})
+    with pytest.raises(mt.MXNetError, match="ctx=cpu"):
+        mt.nd.load(f)
+    with pytest.raises(mt.MXNetError, match="ctx=cpu"):
+        mt.nd._arange(start=0, stop=3)
+    with pytest.raises(mt.MXNetError, match="CUDA card"):
+        mt.rtc.CudaModule('extern "C" __global__ void k() {}')
+    assert mt.nd.zeros((2,), ctx=mt.cpu()).context == mt.cpu()
+    with mt.cpu():
+        r = mt.nd._arange(start=0, stop=3)
+        y = mt.nd.Activation(mt.nd.array([-1.0, 2.0]), act_type="relu")
+        w = mt.nd.load(f)["w"]
+    assert r.context == y.context == w.context == mt.cpu()
+    np.testing.assert_array_equal(y.asnumpy(), [0.0, 2.0])

@@ -1,6 +1,7 @@
-"""The CUDA kernels of the fused bottleneck unit (K1-K3, K5, K6), the
-1x1-convolution backward (K8) and the KV-cache writes (K9, K10) against
-their plain PyTorch versions.
+"""The CUDA kernels of the fused bottleneck unit (K1-K7), the
+1x1-convolution backward (K8), the KV-cache writes (K9, K10) and kernels
+written at run time through ``rtc.CudaModule`` (K11) against their plain
+PyTorch versions.
 
 The tests marked ``cuda`` need a card and skip where there is none. This
 file imports neither JAX nor the JAX package, so on a machine that has no
@@ -277,3 +278,162 @@ def test_cache_writes_in_place_and_repeat_on_card(cuda_device):
         kv.cache_write_rows(a, rows, pos[:3], count)
     with pytest.raises(MXNetError, match="not supported"):
         kv.cache_write_row(a.double(), row, pos)
+
+
+def test_4d_wrappers_on_meta_tensors_take_plain_version():
+    """K4 and K7 on meta tensors (shape inference): NHWC shapes, OHWI
+    weight gradient, no launch."""
+    before = (fu.c3_fwd4d.launches, fu.c3_bwd4d.launches)
+    m = lambda *s: torch.empty(s, device="meta")  # noqa: E731
+    y, s, ss = fu.c3_fwd4d(m(2, 7, 5, 64), m(32, 3, 3, 64), m(64), m(64),
+                           True)
+    assert y.shape == (2, 7, 5, 32) and s.shape == ss.shape == (32,)
+    assert fu.c3_fwd4d(m(2, 7, 5, 64), m(32, 3, 3, 64), m(64), m(64))[1] \
+        is None
+    dp, dw, db, dg = fu.c3_bwd4d(m(2, 7, 5, 32), m(2, 7, 5, 32),
+                                 (m(32),) * 3, m(2, 7, 5, 64),
+                                 m(32, 3, 3, 64), *(m(64),) * 4)
+    assert dp.shape == (2, 7, 5, 64) and dw.shape == (32, 3, 3, 64)
+    assert db.shape == dg.shape == (64,)
+    assert (fu.c3_fwd4d.launches, fu.c3_bwd4d.launches) == before
+
+
+def _4d_calls(case, device, dt):
+    """K4 (with and without statistics) and K7 on one case's 3x3 shapes."""
+    n, h, w, c = case
+    cq = c // 4
+    _, y1, _, w2, _, _, _, sc2, sh2 = _inputs(case, device, dt)
+    t = _bwd_inputs(case, device, dt)
+    nhwc = (n, h, w, cq)
+    vq = (t["scq"], t["shq"], t["xsq"], t["xhq"])
+    return [
+        (fu.c3_fwd4d, fu.c3_fwd4d_plain,
+         (y1.reshape(nhwc), w2, sc2, sh2, True)),
+        (fu.c3_fwd4d, fu.c3_fwd4d_plain,
+         (y1.reshape(nhwc), w2, sc2, sh2, False)),
+        (fu.c3_bwd4d, fu.c3_bwd4d_plain,
+         (t["dpn"].reshape(nhwc), t["y2"].reshape(nhwc), t["finq"],
+          t["y1"].reshape(nhwc), t["w2"]) + vq),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES)
+def test_4d_kernels_match_plain_on_card(cuda_device, case, dtype):
+    """K4 and K7 against their plain versions: outputs at the forward
+    tolerances, K7's dW, db and dg at the backward ones."""
+    dt = getattr(torch, dtype)
+    for kernel, plain, args in _4d_calls(case, cuda_device, dt):
+        before = kernel.launches
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for i, (g, r) in enumerate(zip(got, want)):
+            if r is None:
+                assert g is None
+                continue
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert g.device == cuda_device
+            tol = CARD_TOL[dt] if i == 0 or kernel is fu.c3_fwd4d \
+                else BWD_TOL[dt]
+            if kernel is fu.c3_fwd4d and i:
+                tol = 1e-4                  # f32 sums over every pixel
+            scale = float(r.float().abs().max())
+            err = float((g.float() - r.float()).abs().max()) / scale
+            assert err <= tol, (kernel.__name__, i, err)
+
+
+@pytest.mark.cuda
+def test_4d_kernels_repeat_bitwise_on_card(cuda_device):
+    """No atomics, a wgrad split fixed by the shapes: the same bits twice
+    at ResNet-50's stage-1 shape at batch 2."""
+    for kernel, _plain, args in _4d_calls((2, 56, 56, 256), cuda_device,
+                                          torch.float32):
+        for a, b in zip(kernel(*args), kernel(*args)):
+            if a is not None:
+                assert torch.equal(a, b), kernel.__name__
+
+
+RTC_SOURCE = r"""
+extern "C" __global__ void add_one(const float* x, float* y, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] + 1.0f;
+}
+extern "C" __global__ void swish_fwd(const float* x, float* y, float* s,
+                                     float beta, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    float v = 1.0f / (1.0f + expf(-beta * x[i]));
+    s[i] = v;
+    y[i] = x[i] * v;
+  }
+}
+extern "C" __global__ void swish_bwd(const float* x, const float* s,
+                                     const float* g, float* dx, float beta,
+                                     int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) dx[i] = g[i] * (s[i] + beta * x[i] * s[i] * (1.0f - s[i]));
+}
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_module_add_one_and_swish_on_card(cuda_device):
+    """K11: add_one bit-equal to x + 1 from this thread and another, and a
+    swish pair registered with vjp= whose gradient matches torch autograd
+    on the formula."""
+    import threading
+    import mxnet_tpu_torch as mt
+    mod = mt.rtc.CudaModule(RTC_SOURCE, exports=["add_one"])
+    add_one = mod.get_kernel("add_one", "const float *x, float *y, int n")
+    n = 1000003
+    x = torch.randn(n, device=cuda_device)
+    outs = [torch.empty_like(x) for _ in range(2)]
+
+    def run(y):
+        add_one.launch([x, y, n], mt.gpu(0), ((n + 255) // 256,), (256,))
+        torch.cuda.synchronize()
+    run(outs[0])
+    th = threading.Thread(target=run, args=(outs[1],))
+    th.start()
+    th.join(timeout=120)
+    assert not th.is_alive()
+    for y in outs:
+        assert torch.equal(y, x + 1)
+    fwd = mod.get_kernel("swish_fwd", "const float *x, float *y, float *s, "
+                                      "float beta, int n")
+    bwd = mod.get_kernel("swish_bwd", "const float *x, const float *s, "
+                                      "const float *g, float *dx, "
+                                      "float beta, int n")
+
+    def swish_fwd(a, beta=1.0):
+        y, s = torch.empty_like(a), torch.empty_like(a)
+        if a.device.type != "cuda":
+            return y, (a, s)                # shape inference (meta)
+        fwd.launch([a, y, s, beta, a.numel()], mt.gpu(0),
+                   ((a.numel() + 255) // 256,), (256,))
+        return y, (a, s)
+
+    def swish_bwd(res, g, beta=1.0):
+        a, s = res
+        dx = torch.empty_like(a)
+        bwd.launch([a, s, g.contiguous(), dx, beta, a.numel()], mt.gpu(0),
+                   ((a.numel() + 255) // 256,), (256,))
+        return (dx,)
+    mt.rtc.register_kernel_op("card_swish",
+                              lambda a, beta=1.0: swish_fwd(a, beta)[0],
+                              vjp=(swish_fwd, swish_bwd),
+                              params={"beta": mt.ops.P(float, 1.0)})
+    xs = torch.randn(37, 50, device=cuda_device)
+    g = torch.randn(37, 50, device=cuda_device)
+    ex = mt.sym.card_swish(mt.sym.Variable("data"), beta=1.5).bind(
+        mt.gpu(0), {"data": mt.nd.NDArray(xs.clone())})
+    ex.forward(is_train=True)
+    ex.backward(out_grads=[mt.nd.NDArray(g)])
+    xt = xs.clone().requires_grad_(True)
+    (xt * torch.sigmoid(1.5 * xt)).backward(g)
+    got = ex.grad_dict["data"]._data
+    assert float((got - xt.grad).abs().max()) \
+        <= 1e-6 * float(xt.grad.abs().max())
+

@@ -108,13 +108,14 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 
 
 def test_ndarray_save_load_list_and_dict(tmp_path):
-    a = mt.nd.array(np.arange(6, dtype=np.float32).reshape(2, 3))
-    b = mt.nd.zeros((4,))
+    a = mt.nd.array(np.arange(6, dtype=np.float32).reshape(2, 3),
+                    ctx=mt.cpu())
+    b = mt.nd.zeros((4,), ctx=mt.cpu())
     f = str(tmp_path / "x.params")
     mt.nd.save(f, [a, b])
     got = mj.nd.load(f)
     assert isinstance(got, list) and len(got) == 2
     np.testing.assert_array_equal(got[0].asnumpy(), a.asnumpy())
     mj.nd.save(f, {"w": mj.nd.array(np.ones((2, 2), np.float32))})
-    back = mt.nd.load(f)
+    back = mt.nd.load(f, ctx=mt.cpu())
     assert list(back) == ["w"] and back["w"].shape == (2, 2)

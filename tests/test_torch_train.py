@@ -77,8 +77,9 @@ def test_executor_gradients_match_jax(net, fused_1x1_bwd):
     execs = [jsym.simple_bind(mj.cpu(), grad_req="write", **shapes),
              tsym.simple_bind(mt.cpu(), grad_req="write", **shapes)]
     for ex, pkg in zip(execs, (mj, mt)):
-        ex.copy_params_from({k: pkg.nd.array(v) for k, v in args.items()},
-                            {k: pkg.nd.array(v) for k, v in aux.items()})
+        ex.copy_params_from(
+            {k: pkg.nd.array(v, ctx=pkg.cpu()) for k, v in args.items()},
+            {k: pkg.nd.array(v, ctx=pkg.cpu()) for k, v in aux.items()})
         # the order Module.fit uses: forward, backward, then the outputs
         ex.forward(is_train=True, **feed)
         ex.backward()
@@ -108,8 +109,8 @@ def _fit(pkg, sym, args, aux, x, y, ctx):
     mod.fit(pkg.io.NDArrayIter(x, y, batch_size=BATCH),
             eval_metric=["acc", "ce"], optimizer="sgd",
             optimizer_params=SGD, kvstore="local", num_epoch=1,
-            arg_params={k: pkg.nd.array(v) for k, v in args.items()},
-            aux_params={k: pkg.nd.array(v) for k, v in aux.items()},
+            arg_params={k: pkg.nd.array(v, ctx=ctx) for k, v in args.items()},
+            aux_params={k: pkg.nd.array(v, ctx=ctx) for k, v in aux.items()},
             batch_end_callback=[on_batch,
                                 pkg.callback.Speedometer(BATCH, 1)])
     return np.array(steps), after_first, mod
@@ -155,6 +156,34 @@ def test_module_fit_matches_jax_and_checkpoints_interchange(
                                           want[k].asnumpy())
 
 
+def test_4d_training_checkpoint_gives_the_jax_4d_eval_output(
+        net, tmp_path, monkeypatch):
+    """Train under MXNET_FUSED_UNIT_C3=4d in the port (K4/K7, their plain
+    versions here), save the checkpoint, load it with the JAX package's
+    load_checkpoint and run both packages' 4d eval forward on it: the
+    same probabilities within 2e-5 of the largest (float32 sums in
+    another order through the net)."""
+    monkeypatch.setenv("MXNET_FUSED_UNIT_C3", "4d")
+    jsym, tsym, args, aux, x, y = net
+    _steps, _first, tmod = _fit(mt, tsym, args, aux, x, y, mt.cpu())
+    prefix = str(tmp_path / "small_4d")
+    tmod.save_checkpoint(prefix, 3)
+    sym, jargs, jaux = mj.model.load_checkpoint(prefix, 3)
+    targs, taux = tmod.get_params()
+    assert sym.tojson() == tsym.tojson()
+    shapes = {"data": (BATCH, 64, 64, 3), "softmax_label": (BATCH,)}
+    feed = dict(data=x[:BATCH], softmax_label=y[:BATCH])
+    jex = sym.simple_bind(mj.cpu(), grad_req="null", **shapes)
+    jex.copy_params_from(jargs, jaux)
+    want = jex.forward(is_train=False, **feed)[0].asnumpy()
+    tex = tsym.simple_bind(mt.cpu(), grad_req="null", **shapes)
+    tex.copy_params_from(targs, taux)
+    got = tex.forward(is_train=False, **feed)[0].asnumpy()
+    assert np.isfinite(got).all() and got.shape == (BATCH, 10)
+    err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    assert err <= 2e-5, err
+
+
 def test_ndarray_iter_pads_and_shuffles_from_the_seed():
     x = np.arange(10, dtype=np.float32).reshape(5, 2)
     y = np.arange(5, dtype=np.float32)
@@ -182,7 +211,7 @@ def test_initializer_dispatches_on_names_from_the_seed():
     draws = []
     for _ in range(2):
         mt.random.seed(5)
-        arrs = {k: mt.nd.zeros(s) for k, s in shapes.items()}
+        arrs = {k: mt.nd.zeros(s, ctx=mt.cpu()) for k, s in shapes.items()}
         for k, a in arrs.items():
             mt.init.Xavier(magnitude=2)(mt.init.InitDesc(k), a)
         draws.append(arrs["fc_weight"].asnumpy())
@@ -209,8 +238,8 @@ def test_executor_grad_req_add_accumulates_and_null_skips():
     ex = net.simple_bind(mt.cpu(), grad_req=reqs, **shapes)
     assert "data" not in ex.grad_dict and "softmax_label" not in ex.grad_dict
     weight = rng.standard_normal((3, 5))
-    ex.copy_params_from({"fc_weight": mt.nd.array(weight),
-                         "bn_gamma": mt.nd.array(np.ones(5))})
+    ex.copy_params_from({"fc_weight": mt.nd.array(weight, ctx=mt.cpu()),
+                         "bn_gamma": mt.nd.array(np.ones(5), ctx=mt.cpu())})
     feed = dict(data=rng.standard_normal((4, 5)).astype(np.float32),
                 softmax_label=np.array([0, 1, 2, 1], np.float32))
     grads, means = [], []
