@@ -19,7 +19,8 @@ Phases (none catches its own failure; there is no CPU path):
    deferred shapes), K6 ``fu_c3_bwd2d`` and K7 ``fu_c3_bwd4d`` at the four
    stage shapes and K8 ``nn_conv1x1_bwd`` at its three 224x224 sites, at
    batch 32; each also launched twice on the same inputs to show equal
-   bits;
+   bits, and its TFLOP/s logged (K1 and K5 run on the tensor cores,
+   ``csrc/fu_mma.cuh``; the rest on CUDA cores);
 4. serve: ResNet-50 (224x224, 1000 classes, NHWC, fused units, weights
    from ``--seed``) saved as a checkpoint, loaded by
    ``ServingEngine.from_checkpoint`` on cuda:0, warmed up, and sent
@@ -38,7 +39,7 @@ Phases (none catches its own failure; there is no CPU path):
    images/s, peak memory and one profiled step.  Then, with cuDNN
    deterministic, runs from the same weights through the kernels,
    MXNET_FUSED_UNIT_C3=xla, the plain versions on the batch reversed and
-   three faults planted at K6's and K7's launch are each held against the
+   four faults planted at K5's, K6's and K7's launch are each held against the
    plain versions' run by the losses and step 1's gradients (the two
    main-path runs too): every sound run must pass and every fault must
    fail;
@@ -75,7 +76,9 @@ Phases (none catches its own failure; there is no CPU path):
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so float32 means float32 on both
-sides of every comparison.  ``--json`` also writes every measurement to
+sides of every comparison; K1 and K5 compute their float32 products on the
+tensor cores through 3xTF32, which keeps float32's accuracy (the same
+tolerances hold them).  ``--json`` also writes every measurement to
 a file.
 """
 import argparse
@@ -160,9 +163,13 @@ SPEC_KS = (2, 4)
 # K9/K10 shapes: the engine's slot pool and a 64-slot one, its max_len and
 # a long context, the decoder's d; K10's window is the widest, k + 1 = 5
 KV_SLOTS, KV_T, KV_WINDOW = (8, 64), (128, 2048), 5
-# H100 SXM peaks (NVIDIA data sheet, dense): FP32 outside the tensor cores,
-# bf16 in them, and HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM peaks (NVIDIA data sheet, dense), the least time bounds take: bf16
+# in the tensor cores, and HBM3 bandwidth.  float32 products at float32's
+# accuracy: 3xTF32 on the tensor cores (each f32 value split into two TF32
+# terms, three TF32 products per f32 product, as K1 and K5 compute them),
+# 495 / 3 = 165 TFLOP/s, faster than FFMA's 67; every f32 product row
+# (K1-K8) is bounded at that rate, so no kernel can read above its bound
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 HBM_BYTES_S = 3.35e12
 # f32: the same f32 products summed in another order.  bf16: outputs are
 # rounded once to bf16 (2^-8 relative) from f32 sums that differ in their
@@ -179,10 +186,12 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 # only.  Step 1's gradient carries the whole backward, through
 # BatchNorm+ReLU chains that amplify the rounding of another sum order:
 # GRAD_RTOL holds |g - g_plain| / |g_plain| over all parameters as one
-# vector, PARAM_RTOL the same ratio of the worst single parameter.  On the
-# H100 (PERF.md, PR 2) the sound runs (the kernels, cuDNN free to choose,
+# vector, PARAM_RTOL the same ratio of the worst single parameter.  On an
+# NVIDIA H100 80GB HBM3 at 700 W the sound runs (the kernels, cuDNN free,
 # MXNET_FUSED_UNIT_C3=xla, the plain versions on the batch reversed) read
-# at most 1.40e-2 and 1.75e-2, the planted faults at least 0.257 and 1.0.
+# at most 1.40e-2 and 1.75e-2 with the FFMA kernels and 1.54e-2 and
+# 1.86e-2 with K1 and K5 on the tensor cores (PERF.md, Findings), the
+# planted faults at least 0.257 and 1.0.
 # The losses of steps 2..N drift apart by up to 8.2e-3 in the sound runs
 # and by no more in the faults' (2.4e-3 and 8.7e-3): LOSS_RTOL only
 # bounds that drift and does not tell a fault from the rounding.
@@ -343,12 +352,14 @@ def kernel_phase(torch, fu, device, seed):
                     "bound_by": ("operations" if flops / PEAK_FLOPS[dname]
                                  >= nbytes / HBM_BYTES_S else "bytes"),
                 }
+                row["tflops"] = flops / row["ms"] / 1e9
                 rows.append(row)
                 log("  %-14s %-5s stage %d %-8s rel_err %.2e  kernel %.4f ms"
-                    "  plain %.4f ms  library %.4f ms  bound %.4f ms (%s)"
+                    " (%.1f TFLOP/s)  plain %.4f ms  library %.4f ms  bound "
+                    "%.4f ms (%s)"
                     % (name, variant, stage + 1, dname, err, row["ms"],
-                       row["plain_ms"], row["library_ms"], row["bound_ms"],
-                       row["bound_by"]))
+                       row["tflops"], row["plain_ms"], row["library_ms"],
+                       row["bound_ms"], row["bound_by"]))
     return rows
 
 
@@ -464,13 +475,14 @@ def bwd_kernel_phase(torch, fu, nn, device, seed):
                 "bound_by": ("operations" if flops / PEAK_FLOPS[dname]
                              >= nbytes / HBM_BYTES_S else "bytes"),
             }
+            row["tflops"] = flops / row["ms"] / 1e9
             rows.append(row)
-            log("  %-14s %-18s %-8s rel_err %s  kernel %.4f ms  plain "
-                "%.4f ms  library %.4f ms  bound %.4f ms (%s)"
+            log("  %-14s %-18s %-8s rel_err %s  kernel %.4f ms (%.1f "
+                "TFLOP/s)  plain %.4f ms  library %.4f ms  bound %.4f ms (%s)"
                 % (kname, variant or "stage %d" % stage, dname,
                    "/".join("%.1e" % e for e in errs), row["ms"],
-                   row["plain_ms"], row["library_ms"], row["bound_ms"],
-                   row["bound_by"]))
+                   row["tflops"], row["plain_ms"], row["library_ms"],
+                   row["bound_ms"], row["bound_by"]))
     return rows
 
 
@@ -747,23 +759,26 @@ def _fin_swapped(launch):
     return faulty
 
 
-def _dw_zeroed(launch):
-    """K6 or K7 launched and its weight gradient dropped."""
-    def faulty(name, *args):
-        launch(name, *args)
-        if name in ("fu_c3_bwd2d", "fu_c3_bwd4d"):
-            args[15].zero_()
-    return faulty
+def _dw_zeroed(*names):
+    """The kernels ``names`` launched and their weight gradient dropped."""
+    def plant(launch):
+        def faulty(name, *args):
+            launch(name, *args)
+            if name in names:
+                args[15].zero_()
+        return faulty
+    return plant
 
 
-# known faults on the kernel path, planted where fused_unit launches K6
-# or K7 (arguments g, y_raw, c1, u0, u1, x, w, sc, sh, xs, xh, dP,
+# known faults on the kernel path, planted where fused_unit launches K5,
+# K6 or K7 (arguments g, y_raw, c1, u0, u1, x, w, sc, sh, xs, xh, dP,
 # partials, db, dg, dW, ...), each of which the train check must reject:
 # the control that shows the check can fail.  name -> (plant,
 # MXNET_FUSED_UNIT_C3)
 PLANTED_FAULTS = {"fault: K6 u0/u1 swapped": (_fin_swapped, "auto"),
-                  "fault: K6 dW zeroed": (_dw_zeroed, "auto"),
-                  "fault: K7 dW zeroed": (_dw_zeroed, "4d")}
+                  "fault: K6 dW zeroed": (_dw_zeroed("fu_c3_bwd2d"), "auto"),
+                  "fault: K7 dW zeroed": (_dw_zeroed("fu_c3_bwd4d"), "4d"),
+                  "fault: K5 dW zeroed": (_dw_zeroed("fu_mm_bwd"), "auto")}
 
 
 @contextlib.contextmanager
@@ -1556,7 +1571,8 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
     and launches in the rtc phase.  All float32; errors are the largest
     over the shapes.  Every entry also gives its launches per serve batch
     and training step in both modes, per decode step, per imperative unit
-    and in the rtc phase."""
+    and in the rtc phase; K1-K8 also their bfloat16 times (kernel, library
+    and bound) at the same shapes."""
     table = []
     for name, (wrapper, replaces) in _SOURCES.items():
         decode_launches = sum(r["launches"][wrapper]
@@ -1596,17 +1612,19 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
             fwd = wrapper in FWD_WRAPPERS
             mode = "4d" if wrapper in ("c3_fwd4d", "c3_bwd4d") else "2d"
             if fwd:
-                sel = [r for r in rows if r["kernel"] == name
-                       and not r["variant"] and r["dtype"] == "float32"]
+                every = [r for r in rows if r["kernel"] == name
+                         and not r["variant"]]
                 weight = "units_per_forward"
                 run = serve[mode]
             else:
-                sel = [r for r in bwd_rows if r["kernel"] == name
-                       and r["dtype"] == "float32"]
+                every = [r for r in bwd_rows if r["kernel"] == name]
                 weight = "units_per_step"
                 run = train if mode == "2d" else train["4d"]
-            total = lambda key: sum(r[key] * r[weight]  # noqa: E731
-                                    for r in sel)
+            sel = [r for r in every if r["dtype"] == "float32"]
+            sel16 = [r for r in every if r["dtype"] == "bfloat16"]
+
+            def total(key, rs=sel):
+                return sum(r[key] * r[weight] for r in rs)
             ops = total("flops") / PEAK_FLOPS["float32"]
             mem = total("bytes") / HBM_BYTES_S
             entry = {
@@ -1619,6 +1637,9 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
                 "bound_ms": total("bound_ms"),
                 "bound_by": "operations" if ops >= mem else "bytes",
                 "library_ms": total("library_ms"),
+                "bf16_ms": total("ms", sel16),
+                "bf16_library_ms": total("library_ms", sel16),
+                "bf16_bound_ms": total("bound_ms", sel16),
             }
         table.append(dict({
             "name": name, "route": "cuda", "source": source,

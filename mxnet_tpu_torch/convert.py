@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .context import cpu
+from .context import cpu, current_context
 from . import ndarray as nd
 
 __all__ = ["params_from_numpy", "params_to_numpy", "load_params",
@@ -24,8 +24,10 @@ __all__ = ["params_from_numpy", "params_to_numpy", "load_params",
 
 def params_from_numpy(arg_params, aux_params, device=None, dtype=None):
     """({name: array}, {name: array}) -> ({name: NDArray}, {...}) on
-    ``device`` (a Context; default CPU), cast to ``dtype`` when given."""
-    ctx = device or cpu()
+    ``device`` (a Context), else on ``current_context()`` (the card, or the
+    innermost ``with mt.cpu():`` scope; raises without a card), cast to
+    ``dtype`` when given."""
+    ctx = device or current_context()
     conv = lambda d: {k: nd.array(np.asarray(v), ctx=ctx, dtype=dtype)  # noqa: E731
                       for k, v in d.items()}
     return conv(arg_params), conv(aux_params or {})
@@ -39,7 +41,8 @@ def params_to_numpy(arg_params, aux_params):
 
 def load_params(fname, device=None, dtype=None):
     """Read a ``prefix-%04d.params`` file (either package's) into
-    (arg_params, aux_params) NDArrays."""
+    (arg_params, aux_params) NDArrays on ``device``, else on
+    ``current_context()``."""
     args, aux = {}, {}
     for k, v in nd.load(fname, ctx=cpu()).items():
         tp, name = k.split(":", 1)

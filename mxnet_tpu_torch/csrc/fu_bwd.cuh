@@ -1,5 +1,6 @@
-// Shared tile loops of the backward kernels: K5 (fu_mm_bwd.cu), K6
-// (fu_c3_bwd2d.cu) and K8 (nn_conv1x1_bwd.cu).
+// Shared tile loops of the backward kernels K6 (fu_c3_bwd2d.cu) and K8
+// (nn_conv1x1_bwd.cu); K5 (fu_mm_bwd.cu) runs on the tensor-core loop of
+// fu_mma.cuh, which adds its split wgrad partials with split_reduce_kernel.
 //
 // A convolution y = conv(act(x), w) with x (R, Ci), y (R, Co) and the weight
 // in OHWI, (Co, TAPS, Ci) with TAPS = 1 (1x1) or 9 (3x3 / stride 1 / pad 1),
@@ -11,7 +12,7 @@
 //
 // where off_t = dh * W + dw is the tap's row shift and a term counts only
 // where the shifted (h, w) lies inside the image (zero padding).  For a 1x1
-// there is one tap with off = 0.  The fused kernels (K5, K6) also
+// there is one tap with off = 0.  The fused kernel (K6) also
 //   - finalize g while staging it: g = T(c1 * g_in + u0 + u1 * y_raw) in f32,
 //     rounded to the data type T before any product (the consumer
 //     BatchNorm's backward, deferred into this kernel as three per-channel
@@ -22,7 +23,7 @@
 //     sum dP * (x * xs + xh) from the f32 dP before it is rounded.
 // K8 is the same two products with none of that: dx = T(dy @ w), dw = dy^T x.
 // The arithmetic and the rounding points are those of the reference kernels
-// (mxnet_tpu/ops/fused_unit.py _k_matmul_bwd / _k_conv3_bwd_2d, ops/nn.py
+// (mxnet_tpu/ops/fused_unit.py _k_conv3_bwd_2d, ops/nn.py
 // _fused1x1_bwd_pallas).
 //
 // Design.  The TPU kernels keep the whole weight and its f32 gradient
@@ -32,7 +33,7 @@
 // tilings, both on the forward's tile loop (fu_gemm.cuh: 64 x 64 output
 // tiles, 256 threads with 4 x 4 f32 accumulators, 16-deep double-buffered k
 // tiles, FFMA on CUDA cores):
-//   - dgrad tiles the output (R, Ci) with K = TAPS * Co, like K1/K3; its
+//   - dgrad tiles the output (R, Ci) with K = TAPS * Co, like K3; its
 //     epilogue holds the ReLU mask and writes per-row-block partial BN sums,
 //     which a second kernel adds in row-block order;
 //   - wgrad tiles the output (Co, TAPS * Ci), which is the OHWI weight

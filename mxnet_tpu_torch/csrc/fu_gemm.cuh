@@ -1,11 +1,12 @@
-// Shared tile loop of the fused bottleneck-unit forward kernels
-// (fu_mm_fwd.cu, fu_mm_skip_fwd.cu, fu_c3_fwd2d.cu).
+// Shared tile loop of the fused bottleneck-unit forward kernels K2
+// (fu_mm_skip_fwd.cu) and K3 (fu_c3_fwd2d.cu); K1 (fu_mm_fwd.cu) runs on
+// the tensor-core loop of fu_mma.cuh.
 //
-// All three compute  y[r, n] = sum_k act(x)[r, k] * w[n, k]  (+ skip[r, n])
+// Both compute  y[r, n] = sum_k act(x)[r, k] * w[n, k]  (+ skip[r, n])
 // where act(x) = T(relu(x * sc + sh)) is the BatchNorm+ReLU prologue of the
 // consumer, evaluated in f32 and rounded to the data type T before the
 // product, exactly as the reference kernels do (mxnet_tpu/ops/fused_unit.py
-// _k_matmul_fwd / _k_matmul_skip_fwd / _k_conv3_fwd_2d).  The weight is read
+// _k_matmul_skip_fwd / _k_conv3_fwd_2d).  The weight is read
 // in the convolution's native OHWI layout, which is (N, K) row-major for a
 // 1x1 (K = Ci) and for a 3x3 (K = 9 * Ci, tap-major) alike, so no transposed
 // copy of a weight is ever made.

@@ -37,20 +37,24 @@ f32 accumulation, one rounding of the output), a launch counter
 (``<wrapper>.launches``) and a note on what it replaces.  A wrapper uses
 the plain version only for tensors on the CPU or the meta device; for a
 CUDA tensor it launches the kernel or raises.  The CUDA sources are
-``mxnet_tpu_torch/csrc/fu_*.cu`` (tiling and bound: ``fu_gemm.cuh``,
-``fu_bwd.cuh``).
+``mxnet_tpu_torch/csrc/fu_*.cu`` (tiling and bound: ``fu_mma.cuh`` for K1
+and K5 on the tensor cores, ``fu_gemm.cuh``, ``fu_bwd.cuh`` and
+``fu_conv4d.cuh`` for the others).  ``mm_fwd_tf32x3`` and
+``mm_bwd_tf32x3`` emulate K1's and K5's float32 arithmetic (3xTF32 over
+the same split of the summed axis) for the CPU tests; nothing on the
+path calls them.
 """
 import torch
 import torch.nn.functional as F
 
 from .registry import register, P
-from ._cuda import (check, check_dims, launch, on_host, stream,
-                    wgrad_buffers)
+from ._cuda import (check, check_dims, launch, mma_plan, mma_wgrad_plan,
+                    on_host, stream, wgrad_buffers)
 from ..base import MXNetError
 from .. import config
 
 EPS_DEFAULT = 2e-5
-_ROW_BLOCK = 64     # BM in fu_gemm.cuh: rows per block of the stats partials
+_ROW_BLOCK = 64     # BM in fu_gemm.cuh: K3's and K6's stats partials' rows
 _TILE = 8           # TH = TW in fu_conv4d.cuh: K4's and K7's spatial tiles
 
 
@@ -135,6 +139,63 @@ def mm_bwd_plain(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh):
     return dp, torch.matmul(g.t(), _prologue(x2d, sc, sh)), db, dg
 
 
+def _tf32(t):
+    """The f32 values of ``t`` rounded to TF32 as ``cvt.rna.tf32.f32``
+    rounds them: to nearest on the 13 dropped mantissa bits, ties away
+    from zero, on the int32 view (a carry runs into the exponent)."""
+    i = t.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, splits, chunk, passes=3):
+    """a (m, k) @ b (k, n) as K1's and K5's tile loop computes it in
+    float32 (csrc/fu_mma.cuh): each value split into hi = tf32(v) and lo =
+    tf32(v - hi); each of the ``splits`` chunks of ``chunk`` k summed from
+    zero in k steps of 8 (one m16n8k8 MMA), a_lo b_hi + a_hi b_lo +
+    a_hi b_hi in that order; the chunks' partials added in chunk order.
+    ``passes=1`` keeps a_hi b_hi alone (one TF32 pass)."""
+    a, b = a.float(), b.float()
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    k = a.shape[1]
+    total = None
+    for z in range(splits):
+        acc = a.new_zeros((a.shape[0], b.shape[1]))
+        for k0 in range(z * chunk, min(k, (z + 1) * chunk), 8):
+            ks = slice(k0, k0 + 8)
+            if passes == 3:
+                acc = acc + torch.matmul(al[:, ks], bh[ks])
+                acc = acc + torch.matmul(ah[:, ks], bl[ks])
+            acc = acc + torch.matmul(ah[:, ks], bh[ks])
+        total = acc if total is None else total + acc
+    return total
+
+
+def mm_fwd_tf32x3(x2d, w, sc, sh, with_stats=False, passes=3):
+    """K1's float32 arithmetic on the CPU: ``mm_fwd_plain`` with the
+    product taken as ``_mm_tf32`` over K1's split (``mma_plan``)."""
+    w2 = w.reshape(w.shape[0], -1)
+    _, _, splits, chunk = mma_plan(x2d.shape[0], w2.shape[0], w2.shape[1])
+    acc = _mm_tf32(_prologue(x2d, sc, sh), w2.t(), splits, chunk, passes)
+    return (acc.to(x2d.dtype),) + _stats(acc, with_stats)
+
+
+def mm_bwd_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, passes=3):
+    """K5's float32 arithmetic on the CPU: ``mm_bwd_plain`` with the dgrad
+    and the wgrad taken as ``_mm_tf32`` over K5's splits (``mma_plan``,
+    ``mma_wgrad_plan``)."""
+    rows, ci = x2d.shape
+    w2 = w.reshape(w.shape[0], -1)
+    co = w2.shape[0]
+    g = _finalize_g(g2d, yraw2d, fin)
+    _, _, dsplits, dchunk = mma_plan(rows, ci, co)
+    _, _, wsplits, wchunk = mma_wgrad_plan(co, ci, rows)
+    dp, db, dg = _bwd_epilogue(_mm_tf32(g, w2, dsplits, dchunk, passes),
+                               x2d, sc, sh, xs, xh)
+    dw = _mm_tf32(g.t(), _prologue(x2d, sc, sh), wsplits, wchunk, passes)
+    return dp, dw, db, dg
+
+
 def c3_bwd4d_plain(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh):
     """Plain version of K7: (dP in x's NHWC shape, dW (Co, 3, 3, Ci) f32,
     sum dP, sum dP * xhat).  Tap (dh, dw) pairs output pixel p with input
@@ -182,16 +243,36 @@ def _stats_buffers(rows, n, device):
             torch.empty(n, dtype=torch.float32, device=device))
 
 
+def mm_fwd_buffers(rows, ci, co, with_stats, device, f32=True):
+    """K1's launch plan (bm, bn, splits, chunk) for x (rows, ci) in f32 or
+    bf16 and co output channels, and the scratch it implies: (plan, split
+    partials (splits, rows, co) or None, statistics partials (2, row
+    tiles, co), sum, sum of squares; the last three None without
+    statistics)."""
+    plan = mma_plan(rows, co, ci, f32)
+    fp = dict(dtype=torch.float32, device=device)
+    ws = torch.empty((plan[2], rows, co), **fp) if plan[2] > 1 else None
+    if not with_stats:
+        return plan, ws, None, None, None
+    return (plan, ws, torch.empty((2, -(-rows // plan[0]), co), **fp),
+            torch.empty(co, **fp), torch.empty(co, **fp))
+
+
 def mm_fwd(x2d, w, sc, sh, with_stats=False):
     """K1: y = relu(x*sc + sh) @ w^T for x (R, Ci), w (Co, Ci) or
     (Co, 1, 1, Ci); with_stats also returns the per-channel sum and sum of
     squares of the f32 accumulator, else (y, None, None).
 
     Replaces mxnet_tpu/ops/fused_unit.py ``_k_matmul_fwd`` (``_mm_fwd``,
-    pallas_call "fu_mm_fwd").  Bound on the H100: FP32/bf16 arithmetic
-    at ResNet-50 widths (2*R*Ci*Co operations against R*(Ci+Co) elements
-    moved); the design stages the normalized tile once into shared memory
-    and keeps a 4x4 f32 accumulator per thread (csrc/fu_gemm.cuh)."""
+    pallas_call "fu_mm_fwd").  Bound on the H100: arithmetic at ResNet-50
+    widths (2*R*Ci*Co operations against R*(Ci+Co) elements moved), which
+    the tensor cores serve: bf16 MMA directly, float32 through 3xTF32
+    (three TF32 products per f32 product: 165 TFLOP/s of f32-accurate
+    products against FFMA's 67, H100 SXM data sheet).  The design
+    (csrc/fu_mma.cuh) stages the normalized tile once into shared memory,
+    takes its output tile and the split of Ci from ``mma_plan`` (shapes
+    only, so the bits are fixed) and adds split partials and statistics in
+    a fixed order."""
     if on_host(x2d):
         return mm_fwd_plain(x2d, w, sc, sh, with_stats)
     rows, ci = x2d.shape
@@ -204,12 +285,12 @@ def mm_fwd(x2d, w, sc, sh, with_stats=False):
     check("mm_fwd", x2d.dtype, x2d.device, x=x2d, w=w2, sc=sc, sh=sh)
     check_dims("mm_fwd", ci, co)
     y = torch.empty((rows, co), dtype=x2d.dtype, device=x2d.device)
-    part = s = ss = None
-    if with_stats:
-        part, s, ss = _stats_buffers(rows, co, x2d.device)
+    plan, ws, part, s, ss = mm_fwd_buffers(rows, ci, co, with_stats,
+                                           x2d.device,
+                                           x2d.dtype == torch.float32)
     with torch.cuda.device(x2d.device):
-        launch("fu_mm_fwd", x2d, w2, sc, sh, y, part, s, ss, rows, ci, co,
-               int(x2d.dtype == torch.bfloat16), int(with_stats),
+        launch("fu_mm_fwd", x2d, w2, sc, sh, y, part, s, ss, ws, rows, ci,
+               co, int(x2d.dtype == torch.bfloat16), int(with_stats), *plan,
                stream(x2d.device))
     mm_fwd.launches += 1
     return y, s, ss
@@ -295,6 +376,24 @@ def _check_fin(name, fin, yraw2d, rows, co):
                          "three (%d,) vectors" % (name, rows, co, co))
 
 
+def mm_bwd_buffers(rows, ci, co, device, f32=True):
+    """K5's launch plans for x (rows, ci) and g (rows, co) in f32 or bf16,
+    the dgrad's ``mma_plan(rows, ci, co)`` and the wgrad's
+    ``mma_wgrad_plan(co, ci, rows)``, and the buffers they imply: (dgrad
+    plan, wgrad plan, BN-sum partials (2, row tiles, ci), db, dg, dgrad
+    split partials (splits, rows, ci) or None, dW (co, ci), wgrad split
+    partials (splits, co, ci) or None), all f32."""
+    dplan = mma_plan(rows, ci, co, f32)
+    wplan = mma_wgrad_plan(co, ci, rows)
+    fp = dict(dtype=torch.float32, device=device)
+    dws = torch.empty((dplan[2], rows, ci), **fp) if dplan[2] > 1 else None
+    wpart = torch.empty((wplan[2], co, ci), **fp) if wplan[2] > 1 else None
+    return (dplan, wplan,
+            torch.empty((2, -(-rows // dplan[0]), ci), **fp),
+            torch.empty(ci, **fp), torch.empty(ci, **fp), dws,
+            torch.empty((co, ci), **fp), wpart)
+
+
 def mm_bwd(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh):
     """K5: the backward of y = relu(x*sc + sh) @ w^T for x (R, Ci), w
     (Co, Ci) or (Co, 1, 1, Ci), from the cotangent g (R, Co).  With ``fin
@@ -306,11 +405,14 @@ def mm_bwd(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh):
 
     Replaces mxnet_tpu/ops/fused_unit.py ``_k_matmul_bwd`` (``_mm_bwd``,
     pallas_call "fu_mm_bwd"), which returns dW transposed.  Bound on the
-    H100: arithmetic (4*R*Ci*Co operations: dgrad and wgrad); the design
-    (csrc/fu_bwd.cuh) recomputes the finalize and the prologue while
+    H100: arithmetic (4*R*Ci*Co operations: dgrad and wgrad), which the
+    tensor cores serve (bf16 MMA, float32 through 3xTF32).  The design
+    (csrc/fu_mma.cuh) recomputes the finalize and the prologue while
     staging tiles, so neither the finalized cotangent nor the activation is
-    written, splits the wgrad's sum over R into a fixed number of chunks,
-    and adds every partial (dW and the sums) in a fixed order."""
+    written; reads the OHWI weight and g^T in place from MN-major tiles;
+    splits the dgrad's sum over Co where the SMs would idle and the
+    wgrad's over R (``mm_bwd_buffers``: shapes only); and adds every
+    partial (dP, dW and the sums) in a fixed order."""
     if on_host(x2d):
         return mm_bwd_plain(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh)
     rows, ci = x2d.shape
@@ -329,15 +431,14 @@ def mm_bwd(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh):
     check_dims("mm_bwd", ci, co)
     dev = x2d.device
     dp = torch.empty((rows, ci), dtype=x2d.dtype, device=dev)
-    part, db, dg = _stats_buffers(rows, ci, dev)
-    dw, wpart, splits, chunk = wgrad_buffers(rows, co, ci, dev)
+    dplan, wplan, part, db, dg, dws, dw, wpart = mm_bwd_buffers(
+        rows, ci, co, dev, x2d.dtype == torch.float32)
     c1, u0, u1 = fin if fin is not None else (None, None, None)
     with torch.cuda.device(dev):
         launch("fu_mm_bwd", g2d, yraw2d if fin is not None else None, c1,
                u0, u1, x2d, w2, sc, sh, xs, xh, dp, part, db, dg, dw, wpart,
-               rows, ci, co, splits, chunk,
-               int(x2d.dtype == torch.bfloat16), int(fin is not None),
-               stream(dev))
+               dws, rows, ci, co, int(x2d.dtype == torch.bfloat16),
+               int(fin is not None), *dplan, *wplan, stream(dev))
     mm_bwd.launches += 1
     return dp, dw, db, dg
 

@@ -76,7 +76,7 @@ def models():
 
 
 def _nd(params):
-    return mt.convert.params_from_numpy(params, {})[0]
+    return mt.convert.params_from_numpy(params, {}, device=mt.cpu())[0]
 
 
 def _ops(symbol):

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: no module of ``mxnet_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and its entry points run
-on the card unless the caller asks for the CPU."""
+"""The PyTorch port stands alone: no module of ``mxnet_tpu_torch`` and
+neither ``chip_smoke.py`` nor ``chip_mma_probe.py`` imports JAX or the JAX
+package, and its entry points run on the card unless the caller asks for
+the CPU."""
 import ast
 import os
 
@@ -21,6 +22,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "chip_mma_probe.py")
 
 
 def _imported_roots(path):
@@ -144,3 +146,29 @@ def test_imperative_entry_points_want_a_card_unless_given_cpu(no_card,
         w = mt.nd.load(f)["w"]
     assert r.context == y.context == w.context == mt.cpu()
     np.testing.assert_array_equal(y.asnumpy(), [0.0, 2.0])
+
+
+def test_params_from_numpy_wants_a_card_unless_given_cpu(no_card):
+    """Without ``device`` the arrays go to ``current_context()``: an error
+    without a card, the CPU inside ``with mt.cpu():`` or with
+    device=mt.cpu()."""
+    args = {"w": np.ones((2, 3), np.float32)}
+    aux = {"m": np.zeros(3, np.float32)}
+    with pytest.raises(mt.MXNetError, match="ctx=cpu"):
+        mt.convert.params_from_numpy(args, aux)
+    a, x = mt.convert.params_from_numpy(args, aux, device=mt.cpu())
+    assert a["w"].context == x["m"].context == mt.cpu()
+    with mt.cpu():
+        a, x = mt.convert.params_from_numpy(args, aux)
+    assert a["w"].context == x["m"].context == mt.cpu()
+    np.testing.assert_array_equal(a["w"].asnumpy(), args["w"])
+
+
+@pytest.mark.cuda
+def test_params_from_numpy_defaults_to_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a, x = mt.convert.params_from_numpy({"w": np.ones((2, 3), np.float32)},
+                                        {"m": np.zeros(3, np.float32)})
+    assert a["w"].context == x["m"].context == mt.gpu(0)
+    assert a["w"]._data.device == torch.device("cuda", 0)

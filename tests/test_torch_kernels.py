@@ -220,6 +220,107 @@ def test_backward_kernels_repeat_bitwise_on_card(cuda_device):
             assert torch.equal(a, b), kernel.__name__
 
 
+# K1 and K5 on the tensor-core tiles (csrc/fu_mma.cuh), as (rows, ci, co):
+# rows that are no multiple of any tile, channels of 4 mod 8 and 4 mod 16
+# (36, 100) where a k step is 8 (tf32) or 16 (bf16), a split of the wgrad's
+# rows (3000) and of K1's and K5's dgrad channels (ResNet-50 stage 4 at
+# batch 8: 392 rows, 2048 and 512 channels)
+MMA_CASES = [(50, 36, 100), (3000, 100, 36), (392, 2048, 512)]
+
+
+def _mma_calls(case, device, dtype):
+    rows, ci, co = case
+    g = torch.Generator().manual_seed(rows + 7 * ci + 31 * co)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g)  # noqa: E731
+                               * scale).to(device)
+    x, gc, yraw = r(rows, ci).to(dtype), r(rows, co).to(dtype), \
+        r(rows, co).to(dtype)
+    w = r(co, 1, 1, ci, scale=ci ** -0.5).to(dtype)
+    wt = r(ci, 1, 1, co, scale=co ** -0.5).to(dtype)
+    sc, sh, xs, xh = r(ci).abs() + 0.5, r(ci) * 0.3, r(ci).abs() + 0.5, \
+        r(ci) * 0.3
+    fin = (r(co).abs() + 0.5, r(co) * 0.1, r(co) * 0.1)
+    return [(fu.mm_fwd, fu.mm_fwd_plain, (x, w, sc, sh, True)),
+            (fu.mm_fwd, fu.mm_fwd_plain, (gc, wt, r(co).abs() + 0.5,
+                                          r(co) * 0.3, False)),
+            (fu.mm_bwd, fu.mm_bwd_plain, (gc, None, None, x, w, sc, sh, xs,
+                                          xh)),
+            (fu.mm_bwd, fu.mm_bwd_plain, (gc, yraw, fin, x, w, sc, sh, xs,
+                                          xh))]
+
+
+def test_mma_cases_cover_ragged_and_split_plans():
+    from mxnet_tpu_torch.ops import _cuda
+    plans = [(_cuda.mma_plan(rows, co, ci), _cuda.mma_plan(rows, ci, co),
+              _cuda.mma_wgrad_plan(co, ci, rows))
+             for rows, ci, co in MMA_CASES]
+    assert any(p[0][2] > 1 for p in plans)       # K1 split
+    assert any(p[1][2] > 1 for p in plans)       # K5 dgrad split
+    assert any(p[2][2] > 1 for p in plans)       # K5 wgrad split
+    assert any(ci % 16 == 4 and co % 8 == 4 for _, ci, co in MMA_CASES)
+    assert any(rows % 64 for rows, _, _ in MMA_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MMA_CASES)
+def test_mma_kernels_match_plain_and_repeat_on_card(cuda_device, case,
+                                                    dtype):
+    """K1 (with and without statistics) and K5 (final and deferred) on
+    ragged and split shapes: within the tolerances above of their plain
+    versions, and the same bits from a second launch."""
+    dt = getattr(torch, dtype)
+    for kernel, plain, args in _mma_calls(case, cuda_device, dt):
+        before = kernel.launches
+        got, want, again = kernel(*args), plain(*args), kernel(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        for i, (g, r, a) in enumerate(zip(got, want, again)):
+            if r is None:
+                assert g is None and a is None
+                continue
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert torch.equal(g, a), (kernel.__name__, i)
+            tol = CARD_TOL[dt] if i == 0 or kernel is fu.mm_fwd \
+                else BWD_TOL[dt]
+            scale = float(r.float().abs().max())
+            err = float((g.float() - r.float()).abs().max()) / scale
+            assert err <= tol, (kernel.__name__, i, err)
+
+
+@pytest.mark.cuda
+def test_tf32_emulation_matches_the_card_bitwise(cuda_device):
+    """fused_unit._tf32 (the CPU tests' model of K1's and K5's split)
+    against cvt.rna.tf32.f32 on the card, bit for bit, over a million
+    values across the exponent range, ties and signed zeros; the
+    instruction leaves the low 13 bits zero, as fu_mma.cuh assumes."""
+    import mxnet_tpu_torch as mt
+    mod = mt.rtc.CudaModule(r"""
+extern "C" __global__ void cvt_tf32(const float* x, int* y, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    unsigned r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x[i]));
+    y[i] = (int)r;
+  }
+}""")
+    kern = mod.get_kernel("cvt_tf32", "const float *x, int *y, int n")
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(1 << 20, generator=g) * torch.pow(
+        10.0, torch.randint(-30, 30, (1 << 20,), generator=g).float())
+    ties = torch.tensor([0x3F801000, 0xBF801000, 0x3FFFF000, 0, 1 << 31],
+                        dtype=torch.int64).to(torch.int32).view(torch.float32)
+    x = torch.cat([x, ties])
+    n = x.numel()
+    y = torch.empty(n, dtype=torch.int32, device=cuda_device)
+    xd = x.to(cuda_device)
+    kern.launch([xd, y, n], mt.gpu(0), ((n + 255) // 256,), (256,))
+    torch.cuda.synchronize()
+    got = y.cpu()
+    assert bool(((got & 0x1FFF) == 0).all())
+    assert torch.equal(got, fu._tf32(x).view(torch.int32))
+
+
 # K9/K10: (slots, T, tail): the decoder's width d = 200 (16-byte rows in
 # every dtype), the CPU tests' width, and an odd float16 row (scalar path)
 KV_CASES = [(8, 128, (200,)), (4, 32, (16,)), (3, 9, (7,)), (2, 5, (3, 4))]
