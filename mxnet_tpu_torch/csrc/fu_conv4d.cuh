@@ -50,11 +50,11 @@
 // Bound: at ResNet-50 widths these are well above the H100's FP32 ridge
 // point, so arithmetic bounds them (2 * 9 * Ci * Co FLOP per output pixel per
 // product).  This first version uses FFMA on CUDA cores with f32 staging in
-// both dtypes, as K3 / K6 do; bf16 runs at the f32 rate, far from its
-// tensor-core bound.
+// both dtypes, as K2 and K3 do; bf16 runs at the f32 rate, far from its
+// tensor-core bound (K6, the row-layout twin of K7, runs on fu_mma.cuh).
 #pragma once
 
-#include "fu_bwd.cuh"
+#include "fu_gemm.cuh"
 
 namespace fu4 {
 
@@ -410,7 +410,7 @@ int launch_bwd(const Args& p, cudaStream_t st) {
   err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return (int)err;
   const size_t n = (size_t)p.Co * 9 * p.Ci;
-  fub::split_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+  fu::split_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
       p.wpart, p.dw, p.splits, n);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
 // Shared tile loop of the fused bottleneck-unit forward kernels K2
 // (fu_mm_skip_fwd.cu) and K3 (fu_c3_fwd2d.cu); K1 (fu_mm_fwd.cu) runs on
-// the tensor-core loop of fu_mma.cuh.
+// the tensor-core loop of fu_mma.cuh.  Its namespace also holds what every
+// kernel shares: the T <-> f32 conversions and the ordered reductions of
+// per-block partials (statistics, split-K weight gradients).
 //
 // Both compute  y[r, n] = sum_k act(x)[r, k] * w[n, k]  (+ skip[r, n])
 // where act(x) = T(relu(x * sc + sh)) is the BatchNorm+ReLU prologue of the
@@ -254,6 +256,18 @@ static __global__ void stats_reduce_kernel(const float* __restrict__ part,
   }
   s[c] = a;
   ss[c] = b;
+}
+
+// out[e] = sum_s part[s][e], in s order: the split-K weight gradients of
+// fu_mma.cuh (K5, K6, K8) and fu_conv4d.cuh (K7)
+static __global__ void split_reduce_kernel(const float* __restrict__ part,
+                                           float* __restrict__ out,
+                                           int splits, size_t n) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int i = 0; i < splits; ++i) s += part[(size_t)i * n + e];
+  out[e] = s;
 }
 
 // Launch one forward (plus the stats reduction when with_stats); returns

@@ -1,16 +1,36 @@
-// Tensor-core tile loop of K1 (fu_mm_fwd.cu) and K5 (fu_mm_bwd.cu).
+// Tensor-core tile loop of K1 (fu_mm_fwd.cu), K5 (fu_mm_bwd.cu), K6
+// (fu_c3_bwd2d.cu) and K8 (nn_conv1x1_bwd.cu).
 //
 // One templated GEMM  C[m, n] = sum_k A[m, k] * B[k, n]  with f32
 // accumulation in the tensor cores (mma.sync), whose operands are staged
 // from device memory through an optional per-element transform:
-//   - X_RAW       the value as stored;
-//   - X_PROLOGUE  T(relu(v * v0[ch] + v1[ch]))        K1's and K5's act(x);
-//   - X_FINALIZE  T(v0[ch] * v + v1[ch] + v2[ch] * y) K5's deferred g,
-// each step rounded as the plain versions compute it (fu_gemm.cuh,
-// fu_bwd.cuh), where ch is the operand's channel: k for an operand stored
-// K-major (k contiguous: K1's x and w, K5's g in its dgrad), m or n for one
-// stored MN-major (K5's OHWI weight in its dgrad, g^T and act(x) in its
-// wgrad).  The weights are read in place in their OHWI layout.
+//   - X_RAW       the value as stored (K8's operands);
+//   - X_PROLOGUE  T(relu(v * v0[ch] + v1[ch]))        K1's, K5's, K6's act(x);
+//   - X_FINALIZE  T(v0[ch] * v + v1[ch] + v2[ch] * y) K5's, K6's deferred g,
+// each step rounded as the plain versions compute it (ops/fused_unit.py),
+// where ch is the operand's channel: k for an operand stored K-major (k
+// contiguous: K1's x and w, g in a dgrad), m or n for one stored MN-major
+// (the OHWI weight in a dgrad, g^T and act(x) in a wgrad).  The weights are
+// read in place in their OHWI layout.
+//
+// Gathers: where an operand's elements lie, for K6's 3x3 / stride 1 / pad 1
+// over whole images kept as (rows, C), rows = (n, h, w), with k or n = (t,
+// c), c < gc, for tap t = 3 * (dh + 1) + (dw + 1):
+//   - G_SHIFT_K  K-major A of the dgrad: (m, (t, c)) at row m - (dh*W + dw),
+//                zero where pixel (h - dh, w - dw) leaves the image;
+//   - G_SHIFT_N  MN-major B of the wgrad: (k, (t, c)) at row k + (dh*W + dw),
+//                zero where pixel (h + dh, w + dw) leaves the image;
+//   - G_OHWI     MN-major B of the dgrad, the (Co, 3, 3, Ci) weight read in
+//                place: ((t, o), n) at w[(o * 9 + t) * Ci + n].
+// A gather moves each quad's source address and narrows its validity,
+// nothing else (gc % 4 == 0 keeps a quad inside one tap, and its cp.async
+// source aligned).  Off the image a quad is zeroed after the transform, as
+// past the edges, since neither finalize(0) nor relu(sh) is zero.  A
+// K-major thread keeps its rows across k tiles, so their image edges are
+// found once a block; an MN-major thread's k rows change every tile, and
+// `issue` finds their pixels by multiply-high division, outside the
+// multiply phase; the validity of the quads in flight rides in one
+// register from `issue` to `transform`.
 //
 // Arithmetic.  bf16 operands go straight to mma.m16n8k16 (bf16 products
 // are exact in f32).  f32 operands go through 3xTF32: each value v is split
@@ -48,20 +68,20 @@
 // third of bf16's), and the staging rewrite adds 25-60% to it
 // (chip_mma_probe.py; PERF.md, Findings).
 //
-// Split K.  A call whose tile grid leaves most of the 132 SMs idle (K1's
-// and K5's dgrad at stages 2-4, every wgrad, where K = rows) cuts K into
-// `splits` chunks: each block writes its f32 partial tile, and a second
-// kernel adds the partials in chunk order and applies the epilogue.  The
-// epilogues (K1: T(y) and the statistics of the f32 sum; K5's dgrad: the
-// ReLU mask, T(dP) and the BatchNorm sums of the f32 dP) take per-column
-// sums over each BM-row tile in a fixed order into a (2, row tiles, N)
-// buffer that col_sums_kernel adds in a fixed order with 32 loads in
-// flight per column (fu::stats_reduce_kernel's one serial thread per
-// column crawls through stage 1's 784-1568 row tiles).  No float atomics
-// anywhere: two launches on the same inputs give the same bits.
+// Split K.  A call whose tile grid leaves most of the 132 SMs idle (K1's,
+// K5's and K6's dgrad at stages 2-4, every wgrad, where K = rows) cuts K
+// into `splits` chunks: each block writes its f32 partial tile, and a
+// second kernel adds the partials in chunk order and applies the epilogue.
+// The epilogues (K1: T(y) and the statistics of the f32 sum; K5's and K6's
+// dgrad: the ReLU mask, T(dP) and the BatchNorm sums of the f32 dP) take
+// per-column sums over each BM-row tile in a fixed order into a (2, row
+// tiles, N) buffer that col_sums_kernel adds in a fixed order with 32
+// loads in flight per column (fu::stats_reduce_kernel's one serial thread
+// per column crawls through stage 1's 784-1568 row tiles).  No float
+// atomics anywhere: two launches on the same inputs give the same bits.
 #pragma once
 
-#include "fu_bwd.cuh"
+#include "fu_gemm.cuh"
 
 namespace fmma {
 
@@ -73,9 +93,11 @@ enum Xform { X_RAW = 0, X_PROLOGUE = 1, X_FINALIZE = 2 };
 // where k runs in device memory: K_MAJOR element (i, k) at p[i * ld + k],
 // MN_MAJOR element (i, k) at p[k * ld + i]
 enum Major { K_MAJOR = 0, MN_MAJOR = 1 };
-// EPI_Y: K1's T(y) (+ statistics); EPI_DP: K5's masked T(dP) and BN sums;
-// EPI_F32: the f32 sum itself (K5's dW)
+// EPI_Y: K1's T(y) (+ statistics), K8's dx; EPI_DP: K5's and K6's masked
+// T(dP) and BN sums; EPI_F32: the f32 sum itself (the weight gradients)
 enum Epi { EPI_Y = 0, EPI_DP = 1, EPI_F32 = 2 };
+// where an operand's elements lie (see the gathers above)
+enum Gather { G_NONE = 0, G_SHIFT_K = 1, G_SHIFT_N = 2, G_OHWI = 3 };
 
 struct Operand {
   const void* p;     // T
@@ -84,6 +106,7 @@ struct Operand {
   const float* v1;
   const float* v2;
   int ld;            // row stride of p, elements
+  int gc, H, W;      // gathers: channels of one tap; the images' H and W
 };
 
 struct Gemm {
@@ -250,16 +273,37 @@ __device__ __forceinline__ float4 ld_vec4(const float* p, int ch) {
   return __ldg(reinterpret_cast<const float4*>(p + ch));
 }
 
+// n / d by one multiply-high with m = ceil(2^32 / d) (0 for d = 1), exact
+// while n * d < 2^32, which the wrappers check
+struct Div {
+  int d;
+  unsigned m;
+  __device__ __forceinline__ void set(int dd) {
+    d = dd;
+    m = dd > 1 ? 0xFFFFFFFFu / (unsigned)dd + 1u : 0u;
+  }
+  __device__ __forceinline__ int operator()(int n) const {
+    return m ? (int)__umulhi((unsigned)n, m) : n;
+  }
+};
+
+// the image-edge bits of a pixel: h == 0, h == H - 1, w == 0, w == W - 1
+__device__ __forceinline__ unsigned edge_bits(int h, int w, int H, int W) {
+  return (unsigned)(h == 0) | (unsigned)(h == H - 1) << 1
+         | (unsigned)(w == 0) << 2 | (unsigned)(w == W - 1) << 3;
+}
+
 // One operand tile, NQ quads of four consecutive elements per thread.
 // In a stage the operand has one or two planes: f32 keeps tf32 hi and lo
 // (the raw value, and y_raw for X_FINALIZE, land in them first); bf16 the
 // value, and y_raw beside it for X_FINALIZE.  `issue` starts the copies of
-// a tile (zeros past the edges); `transform` rewrites this thread's own
-// quads of a landed tile in place: the operand's transform and rounding,
-// then for f32 the split into hi and lo, once per element.  A thread's
-// quads lie STEP smem rows apart: rows of the tile (K-major) or k
-// (MN-major).  `rows` is M or N, [k0, kend) the block's k range.
-template <typename T, int MAJ, int X, int R>
+// a tile (zeros past the edges) into ring slot `slot` of the tiles in
+// flight; `transform` rewrites this thread's own quads of the oldest landed
+// tile in place: the operand's transform and rounding, then for f32 the
+// split into hi and lo, once per element.  A thread's quads lie STEP smem
+// rows apart: rows of the tile (K-major) or k (MN-major).  `rows` is M or
+// N, [k0, kend) the block's k range, G the operand's gather.
+template <typename T, int MAJ, int X, int R, int G = G_NONE>
 struct Loader {
   using L = Lay<T, MAJ, R>;
   static constexpr bool F32 = sizeof(T) == 4;
@@ -274,20 +318,58 @@ struct Loader {
   static_assert(THREADS % QPR == 0, "quads per row");
 
   static constexpr int NV = X == X_RAW ? 0 : X == X_PROLOGUE ? 2 : 3;
+  // the gathers that test the image, and so carry each quad's validity
+  static constexpr bool SHIFT = G == G_SHIFT_K || G == G_SHIFT_N;
+  static_assert(G == G_NONE || (G == G_SHIFT_K) == (MAJ == K_MAJOR),
+                "G_SHIFT_K gathers a K-major operand, the others MN-major");
+  static_assert(!SHIFT || L::NQ <= 8, "a tile's validity bits fill a byte");
 
   const int a, b;   // smem row of quad 0, and its element within the row
   // the transform's vectors at this thread's four channels: those of the
   // next tile (K-major, fetched a tile ahead) or of its rows (MN-major)
   float4 vec[NV > 0 ? NV : 1];
+  Div byc, byw, byh;     // gathers: division by gc, W and H
+  unsigned edges = 0;    // G_SHIFT_K: edge_bits of each of its rows, 4 a row
+  unsigned pend = 0;     // SHIFT: each tile in flight's quad validity, a
+                         // byte per ring slot, the oldest lowest
+  int c = 0, th = 0, tw = 0, shift = 0;   // G_SHIFT_N: this thread's column
+                         // (t, c): c, the tap's dh and dw, and dh * W + dw
 
   __device__ __forceinline__ explicit Loader(int tid)
       : a(tid / QPR), b((tid % QPR) * 4) {}
 
+  // what a gather knows once a block: the divisors, and the pixels of a
+  // K-major thread's rows (G_SHIFT_K) or the tap of an MN-major thread's
+  // column (G_SHIFT_N)
+  __device__ __forceinline__ void setup(const Operand& o, int row0) {
+    if constexpr (G != G_NONE) byc.set(o.gc);
+    if constexpr (SHIFT) {
+      byw.set(o.W);
+      byh.set(o.H);
+    }
+    if constexpr (G == G_SHIFT_K) {
+#pragma unroll
+      for (int i = 0; i < L::NQ; ++i) {
+        const int m = row0 + a + i * STEP, q = byw(m);
+        edges |= edge_bits(q - byh(q) * o.H, m - q * o.W, o.H, o.W) << 4 * i;
+      }
+    }
+    if constexpr (G == G_SHIFT_N) {
+      const int n = row0 + b, t = byc(n);
+      c = n - t * o.gc;
+      th = t / 3 - 1;
+      tw = t % 3 - 1;
+      shift = th * o.W + tw;
+    }
+  }
+
   // the vectors of the tile at k0 (K-major), or of the block's rows
   __device__ __forceinline__ void fetch_vecs(const Operand& o, int row0,
                                              int rows, int k0, int kend) {
-    const int ch = MAJ == K_MAJOR ? k0 + b : row0 + b;
+    int ch = MAJ == K_MAJOR ? k0 + b : row0 + b;
     const bool v = MAJ == K_MAJOR ? ch < kend : ch < rows;
+    if constexpr (G == G_SHIFT_K) ch -= byc(ch) * o.gc;
+    if constexpr (G == G_SHIFT_N) ch = c;
     const float* src[3] = {o.v0, o.v1, o.v2};
 #pragma unroll
     for (int j = 0; j < NV; ++j)
@@ -305,26 +387,52 @@ struct Loader {
   }
 
   __device__ __forceinline__ void issue(const Operand& o, int row0, int rows,
-                                        int k0, int kend,
-                                        unsigned char* s) const {
+                                        int k0, int kend, unsigned char* s,
+                                        int slot) {
     const T* src = static_cast<const T*>(o.p);
     const T* ysrc = static_cast<const T*>(o.y);
-    const size_t base = MAJ == K_MAJOR
-        ? (size_t)(row0 + a) * o.ld + k0 + b
-        : (size_t)(k0 + a) * o.ld + row0 + b;
+    long long base = MAJ == K_MAJOR
+        ? (long long)(row0 + a) * o.ld + k0 + b
+        : (long long)(k0 + a) * o.ld + row0 + b;
+    unsigned forbid = 0, bits = 0;
+    if constexpr (G == G_SHIFT_K) {
+      // every quad of this thread is at k0 + b: one tap, one shift
+      const int k = k0 + b, t = byc(k), dh = t / 3 - 1, dw = t % 3 - 1;
+      base = (long long)(row0 + a - (dh * o.W + dw)) * o.ld + k - t * o.gc;
+      forbid = (unsigned)(dh > 0) | (unsigned)(dh < 0) << 1
+               | (unsigned)(dw > 0) << 2 | (unsigned)(dw < 0) << 3;
+    }
 #pragma unroll
     for (int i = 0; i < L::NQ; ++i) {
-      const bool v = ok(i, row0, rows, k0, kend);
-      const size_t off = v ? base + (size_t)i * STEP * o.ld : 0;
+      bool v = ok(i, row0, rows, k0, kend);
+      long long off = base + (long long)i * STEP * o.ld;
+      if constexpr (G == G_SHIFT_K) v = v && !((edges >> 4 * i) & forbid);
+      if constexpr (G == G_SHIFT_N) {
+        const int r = k0 + a + i * STEP, q = byw(r);
+        const int h = q - byh(q) * o.H, w = r - q * o.W;
+        v = v && (unsigned)(h + th) < (unsigned)o.H
+            && (unsigned)(w + tw) < (unsigned)o.W;
+        off = (long long)(r + shift) * o.ld + c;
+      }
+      if constexpr (G == G_OHWI) {
+        const int k = k0 + a + i * STEP, t = byc(k);
+        off = ((long long)(k - t * o.gc) * 9 + t) * o.ld + row0 + b;
+      }
+      if (!v) off = 0;
       cp_async<QB>(smem_u32(s + at(i)), src + off, v);
       if constexpr (X == X_FINALIZE)
         cp_async<QB>(smem_u32(s + L::BYTES + at(i)), ysrc + off, v);
+      bits |= (unsigned)v << i;
     }
+    if constexpr (SHIFT) pend |= bits << 8 * slot;
   }
 
   __device__ __forceinline__ void transform(const Operand& o, int row0,
                                             int rows, int k0, int kend,
-                                            unsigned char* s) const {
+                                            unsigned char* s) {
+    // the validity `issue` found for this tile's quads (SHIFT)
+    const unsigned okb = pend;
+    if constexpr (SHIFT) pend >>= 8;
     if constexpr (REWRITE) {
       // every quad is read before the first is written back: the
       // compiler cannot move a shared-memory load past a store that might
@@ -359,7 +467,7 @@ struct Loader {
             f[j] = __fadd_rn(__fadd_rn(__fmul_rn(v0[j], f[j]), v1[j]),
                              __fmul_rn(v2[j], y[j]));
         }
-        if (!ok(i, row0, rows, k0, kend)) {
+        if (SHIFT ? !((okb >> i) & 1u) : !ok(i, row0, rows, k0, kend)) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) f[j] = 0.f;
         }
@@ -523,7 +631,7 @@ __device__ __forceinline__ void stats_tile(const Gemm& p,
 }
 
 template <typename T, int BM, int BN, int AMAJ, int AX, int BMAJ, int BX,
-          int EPI>
+          int EPI, int AG, int BG>
 __global__ void __launch_bounds__(THREADS, 2)
 mma_kernel(const __grid_constant__ Gemm p) {
   constexpr int WARPS_M = (BM == 128 && BN == 128) ? 2 : (BM == 128 ? 4 : 2);
@@ -533,8 +641,8 @@ mma_kernel(const __grid_constant__ Gemm p) {
   constexpr int BK = Ty<T>::BK, KSTEPS = BK / Ty<T>::KS;
   constexpr bool F32 = sizeof(T) == 4;
   using RG = Ring<T, BM, BN, AMAJ, AX, BMAJ, BX>;
-  using LdA = Loader<T, AMAJ, AX, BM>;
-  using LdB = Loader<T, BMAJ, BX, BN>;
+  using LdA = Loader<T, AMAJ, AX, BM, AG>;
+  using LdB = Loader<T, BMAJ, BX, BN, BG>;
   constexpr int NS = RG::NS;
   constexpr int PA = Lay<T, AMAJ, BM>::BYTES;   // hi to lo plane
   constexpr int PB = Lay<T, BMAJ, BN>::BYTES;
@@ -549,14 +657,17 @@ mma_kernel(const __grid_constant__ Gemm p) {
   const int ntiles = (kend - kbeg + BK - 1) / BK;
   LdA lda(tid);
   LdB ldb(tid);
+  lda.setup(p.a, m0);
+  ldb.setup(p.b, n0);
   lda.fetch_vecs(p.a, m0, p.M, kbeg, kend);
   ldb.fetch_vecs(p.b, n0, p.N, kbeg, kend);
 
-  auto issue = [&](int t) {
+  // tile t into its stage; `slot` is its place among the tiles in flight
+  auto issue = [&](int t, int slot) {
     unsigned char* st = ring + (t % NS) * RG::STAGE;
     const int k0 = kbeg + t * BK;
-    lda.issue(p.a, m0, p.M, k0, kend, st);
-    ldb.issue(p.b, n0, p.N, k0, kend, st + RG::A);
+    lda.issue(p.a, m0, p.M, k0, kend, st, slot);
+    ldb.issue(p.b, n0, p.N, k0, kend, st + RG::A, slot);
   };
 
   float acc[MT][NT][4];
@@ -569,7 +680,7 @@ mma_kernel(const __grid_constant__ Gemm p) {
 
 #pragma unroll
   for (int t = 0; t < NS - 1; ++t) {
-    if (t < ntiles) issue(t);
+    if (t < ntiles) issue(t, t);
     cp_async_commit();
   }
   for (int t = 0; t < ntiles; ++t) {
@@ -584,7 +695,7 @@ mma_kernel(const __grid_constant__ Gemm p) {
     // every thread's tile t is in place, and every thread is done with
     // tile t - 1, whose stage the next copies overwrite
     __syncthreads();
-    if (t + NS - 1 < ntiles) issue(t + NS - 1);
+    if (t + NS - 1 < ntiles) issue(t + NS - 1, NS - 2);
     cp_async_commit();
     // the next tile's K-major vectors load while this tile is multiplied
     if constexpr (AMAJ == K_MAJOR && AX != X_RAW)
@@ -774,10 +885,10 @@ static int col_sums(const Gemm& p, int bm, float* s, float* ss,
 // static of a template with external linkage is one object in the whole
 // process, shared by every library that instantiates it)
 template <typename T, int BM, int BN, int AMAJ, int AX, int BMAJ, int BX,
-          int EPI>
+          int EPI, int AG, int BG>
 static int launch_tile(const Gemm& p, cudaStream_t st) {
   using RG = Ring<T, BM, BN, AMAJ, AX, BMAJ, BX>;
-  auto kern = mma_kernel<T, BM, BN, AMAJ, AX, BMAJ, BX, EPI>;
+  auto kern = mma_kernel<T, BM, BN, AMAJ, AX, BMAJ, BX, EPI, AG, BG>;
   static bool sized = false;   // once per instantiation (one device)
   if (!sized) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -797,30 +908,34 @@ static int launch_tile(const Gemm& p, cudaStream_t st) {
 }
 
 // The GEMM on a (bm, bn) tile; an unknown tile is cudaErrorInvalidValue.
-template <typename T, int AMAJ, int AX, int BMAJ, int BX, int EPI>
+template <typename T, int AMAJ, int AX, int BMAJ, int BX, int EPI, int AG,
+          int BG>
 static int launch_any(const Gemm& p, int bm, int bn, cudaStream_t st) {
   // f32 plans and weight gradients take no 128 x 128 tile
   if constexpr (sizeof(T) == 2 && EPI != EPI_F32) {
     if (bm == 128 && bn == 128)
-      return launch_tile<T, 128, 128, AMAJ, AX, BMAJ, BX, EPI>(p, st);
+      return launch_tile<T, 128, 128, AMAJ, AX, BMAJ, BX, EPI, AG, BG>(p,
+                                                                       st);
   }
   if (bm == 128 && bn == 64)
-    return launch_tile<T, 128, 64, AMAJ, AX, BMAJ, BX, EPI>(p, st);
+    return launch_tile<T, 128, 64, AMAJ, AX, BMAJ, BX, EPI, AG, BG>(p, st);
   if (bm == 64 && bn == 128)
-    return launch_tile<T, 64, 128, AMAJ, AX, BMAJ, BX, EPI>(p, st);
+    return launch_tile<T, 64, 128, AMAJ, AX, BMAJ, BX, EPI, AG, BG>(p, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The GEMM with p.splits chunks of p.chunk k, then, when split, the ordered
-// split reduction (EPI_F32) or split epilogue.  Returns the first launch
-// error.
-template <typename T, int AMAJ, int AX, int BMAJ, int BX, int EPI>
+// split reduction (EPI_F32) or split epilogue; AG and BG are the operands'
+// gathers.  Returns the first launch error.
+template <typename T, int AMAJ, int AX, int BMAJ, int BX, int EPI,
+          int AG = G_NONE, int BG = G_NONE>
 static int gemm(const Gemm& p, int bm, int bn, cudaStream_t st) {
-  const int err = launch_any<T, AMAJ, AX, BMAJ, BX, EPI>(p, bm, bn, st);
+  const int err = launch_any<T, AMAJ, AX, BMAJ, BX, EPI, AG, BG>(p, bm, bn,
+                                                                 st);
   if (err != cudaSuccess || p.splits == 1) return err;
   if constexpr (EPI == EPI_F32) {
     const size_t n = (size_t)p.M * p.N;
-    fub::split_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+    fu::split_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
         p.ws, static_cast<float*>(p.out), p.splits, n);
   } else {
     const dim3 grid((p.N + 15) / 16, (p.M + bm - 1) / bm);

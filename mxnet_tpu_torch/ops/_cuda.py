@@ -1,5 +1,7 @@
 """How an op module validates, allocates for and launches a hand-written
-CUDA kernel: shared by ``fused_unit`` (K1-K7) and ``nn`` (K8).
+CUDA kernel: shared by ``fused_unit`` (K1-K7) and ``nn`` (K8), with the
+tile and split plans of the tensor-core loop that K1, K5, K6 and K8 run
+on (``csrc/fu_mma.cuh``).
 
 A wrapper asks ``on_host`` first and, for a CPU or meta tensor, runs its
 plain version; for a CUDA tensor it checks its operands with ``check`` and
@@ -68,32 +70,11 @@ def stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def wgrad_split(rows, m, n):
-    """(splits, chunk) of the wgrad's reduction over ``rows`` for an
-    (m, n) weight gradient: about 256 blocks of 64 x 64 tiles and at least
-    1024 rows a chunk, from the shapes alone, so that the sum order (and
-    the result) never depends on the device."""
-    tiles = -(-m // 64) * -(-n // 64)
-    splits = max(1, min(-(-256 // tiles), rows // 1024))
-    chunk = -(-rows // splits)
-    chunk = -(-chunk // 16) * 16
-    return -(-rows // chunk), chunk
-
-
-def wgrad_buffers(rows, m, n, device):
-    """(dW (m, n) f32, partials or None, splits, chunk)."""
-    splits, chunk = wgrad_split(rows, m, n)
-    dw = torch.empty((m, n), dtype=torch.float32, device=device)
-    wpart = torch.empty((splits, m, n), dtype=torch.float32,
-                        device=device) if splits > 1 else None
-    return dw, wpart, splits, chunk
-
-
-# The tensor-core tile loop of K1 and K5 (csrc/fu_mma.cuh): output tiles of
-# 128 x 128, 128 x 64 or 64 x 128 and a split of the summed axis, chosen
-# from the shapes and the element size alone so that the sum order (and
-# the result) never depends on the device.  MMA_BLOCKS is the block count a
-# plan aims at: one per SM of an H100 SXM.
+# The tensor-core tile loop of K1, K5, K6 and K8 (csrc/fu_mma.cuh): output
+# tiles of 128 x 128, 128 x 64 or 64 x 128 and a split of the summed axis,
+# chosen from the shapes and the element size alone so that the sum order
+# (and the result) never depends on the device.  MMA_BLOCKS is the block
+# count a plan aims at: one per SM of an H100 SXM.
 MMA_BLOCKS = 132
 MMA_TILES = ((128, 128), (128, 64), (64, 128))
 MMA_K_ALIGN = 64        # chunks are whole 128-byte k tiles of either dtype
@@ -121,9 +102,9 @@ def _chunked(k, splits):
 
 def mma_plan(m, n, k, f32=True):
     """(bm, bn, splits, chunk) of an (m, n) product over k channels (K1,
-    K5's dgrad) in f32 or bf16: the k range is halved while each chunk
-    keeps at least 256 channels and the blocks number fewer than one an SM
-    (bf16) or two (f32).  Two blocks share an SM, so 196 blocks leave 64
+    the dgrads of K5, K6 and K8) in f32 or bf16: the k range is halved
+    while each chunk keeps at least 256 channels and the blocks number
+    fewer than one an SM (bf16) or two (f32).  Two blocks share an SM, so 196 blocks leave 64
     SMs with twice the work of the other 68; in f32 a further split pays
     for its partials, in bf16, whose 128 x 128 tiles split into twice the
     partials, it did not (PERF.md, Findings)."""
@@ -137,10 +118,11 @@ def mma_plan(m, n, k, f32=True):
 
 
 def mma_wgrad_plan(m, n, rows):
-    """(bm, bn, splits, chunk) of K5's (m, n) weight gradient summed over
-    ``rows``, in either dtype: about two blocks per SM, at least 512 rows a
-    chunk, and no 128 x 128 tile (its two MN-major operands, one through
-    the finalize, need more registers than two blocks an SM leave)."""
+    """(bm, bn, splits, chunk) of an (m, n) weight gradient summed over
+    ``rows`` (K5, K6, K8), in either dtype: about two blocks per SM, at
+    least 512 rows a chunk, and no 128 x 128 tile (its two MN-major
+    operands, one through the finalize, need more registers than two
+    blocks an SM leave)."""
     bm, bn = mma_tiles(m, n)
     tiles = _cdiv(m, bm) * _cdiv(n, bn)
     splits = max(1, min(_cdiv(2 * MMA_BLOCKS, tiles), rows // 512))

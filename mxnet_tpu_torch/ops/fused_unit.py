@@ -37,24 +37,25 @@ f32 accumulation, one rounding of the output), a launch counter
 (``<wrapper>.launches``) and a note on what it replaces.  A wrapper uses
 the plain version only for tensors on the CPU or the meta device; for a
 CUDA tensor it launches the kernel or raises.  The CUDA sources are
-``mxnet_tpu_torch/csrc/fu_*.cu`` (tiling and bound: ``fu_mma.cuh`` for K1
-and K5 on the tensor cores, ``fu_gemm.cuh``, ``fu_bwd.cuh`` and
-``fu_conv4d.cuh`` for the others).  ``mm_fwd_tf32x3`` and
-``mm_bwd_tf32x3`` emulate K1's and K5's float32 arithmetic (3xTF32 over
-the same split of the summed axis) for the CPU tests; nothing on the
-path calls them.
+``mxnet_tpu_torch/csrc/fu_*.cu`` (tiling and bound: ``fu_mma.cuh`` for K1,
+K5 and K6 on the tensor cores, K6's tap shifts gathered as it stages its
+operands; ``fu_gemm.cuh`` and ``fu_conv4d.cuh`` for the others).
+``mm_fwd_tf32x3``, ``mm_bwd_tf32x3``, ``c3_bwd2d_tf32x3`` and
+``conv1x1_bwd_tf32x3`` emulate the float32 arithmetic of K1, K5, K6 and
+K8 (``ops/nn.py``) (3xTF32 over the same split of the summed axis) for
+the CPU tests; nothing on the path calls them.
 """
 import torch
 import torch.nn.functional as F
 
 from .registry import register, P
 from ._cuda import (check, check_dims, launch, mma_plan, mma_wgrad_plan,
-                    on_host, stream, wgrad_buffers)
+                    on_host, stream)
 from ..base import MXNetError
 from .. import config
 
 EPS_DEFAULT = 2e-5
-_ROW_BLOCK = 64     # BM in fu_gemm.cuh: K3's and K6's stats partials' rows
+_ROW_BLOCK = 64     # BM in fu_gemm.cuh: K3's stats partials' rows
 _TILE = 8           # TH = TW in fu_conv4d.cuh: K4's and K7's spatial tiles
 
 
@@ -194,6 +195,53 @@ def mm_bwd_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, passes=3):
                                x2d, sc, sh, xs, xh)
     dw = _mm_tf32(g.t(), _prologue(x2d, sc, sh), wsplits, wchunk, passes)
     return dp, dw, db, dg
+
+
+def _taps(t4, sign):
+    """(rows, 9 * C) from NHWC t4 in K6's k order: column block t = 3 * (dh
+    + 1) + (dw + 1) holds t4 at pixel (h + sign * dh, w + sign * dw), zero
+    where that leaves the image."""
+    n, h, w_, c = t4.shape
+    tp = F.pad(t4, (0, 0, 1, 1, 1, 1))
+    cols = [tp[:, 1 + sign * dh:1 + sign * dh + h,
+               1 + sign * dw:1 + sign * dw + w_, :]
+            for dh in (-1, 0, 1) for dw in (-1, 0, 1)]
+    return torch.cat(cols, dim=-1).reshape(n * h * w_, 9 * c)
+
+
+def c3_bwd2d_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_,
+                    passes=3):
+    """K6's float32 arithmetic on the CPU: ``c3_bwd2d_plain`` as K6 takes
+    it, the dgrad fin(g)' (R, 9 Co) @ w' (9 Co, Ci) with fin(g)'[r, (t, o)]
+    = fin(g)[r - off_t, o] and w'[(t, o), i] = w[o, t, i], the wgrad
+    fin(g)^T @ a' (R, 9 Ci) with a'[r, (t, i)] = act(x)[r + off_t, i], each
+    taken as ``_mm_tf32`` over K6's splits (``c3_bwd2d_buffers``)."""
+    rows, ci = x2d.shape
+    co = w.shape[0]
+    g = _finalize_g(g2d, yraw2d, fin)
+    _, _, dsplits, dchunk = mma_plan(rows, ci, 9 * co)
+    _, _, wsplits, wchunk = mma_wgrad_plan(co, 9 * ci, rows)
+    w9 = w.permute(1, 2, 0, 3).reshape(9 * co, ci)
+    da = _mm_tf32(_taps(g.reshape(n, h, w_, co), -1), w9, dsplits, dchunk,
+                  passes)
+    dp, db, dg = _bwd_epilogue(da, x2d, sc, sh, xs, xh)
+    a9 = _taps(_prologue(x2d, sc, sh).reshape(n, h, w_, ci), 1)
+    dw = _mm_tf32(g.t(), a9, wsplits, wchunk, passes)
+    return dp, dw.reshape(co, 3, 3, ci), db, dg
+
+
+def conv1x1_bwd_tf32x3(x2d, dy2d, w, passes=3):
+    """K8's float32 arithmetic on the CPU: ``nn.conv1x1_bwd_plain`` with
+    dx = dy @ w and dW = dy^T x taken as ``_mm_tf32`` over K8's splits
+    (``nn.conv1x1_bwd_buffers``)."""
+    rows, ci = x2d.shape
+    w2 = w.reshape(w.shape[0], -1)
+    co = w2.shape[0]
+    _, _, dsplits, dchunk = mma_plan(rows, ci, co)
+    _, _, wsplits, wchunk = mma_wgrad_plan(co, ci, rows)
+    dx = _mm_tf32(dy2d, w2, dsplits, dchunk, passes).to(x2d.dtype)
+    dw = _mm_tf32(dy2d.t(), x2d, wsplits, wchunk, passes)
+    return dx, dw.reshape(w.shape).to(w.dtype)
 
 
 def c3_bwd4d_plain(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh):
@@ -376,22 +424,29 @@ def _check_fin(name, fin, yraw2d, rows, co):
                          "three (%d,) vectors" % (name, rows, co, co))
 
 
-def mm_bwd_buffers(rows, ci, co, device, f32=True):
-    """K5's launch plans for x (rows, ci) and g (rows, co) in f32 or bf16,
-    the dgrad's ``mma_plan(rows, ci, co)`` and the wgrad's
-    ``mma_wgrad_plan(co, ci, rows)``, and the buffers they imply: (dgrad
-    plan, wgrad plan, BN-sum partials (2, row tiles, ci), db, dg, dgrad
-    split partials (splits, rows, ci) or None, dW (co, ci), wgrad split
-    partials (splits, co, ci) or None), all f32."""
-    dplan = mma_plan(rows, ci, co, f32)
-    wplan = mma_wgrad_plan(co, ci, rows)
+def mm_bwd_buffers(rows, ci, co, device, f32=True, taps=1):
+    """K5's (taps = 1) or K6's (taps = 9) launch plans for x (rows, ci) and
+    g (rows, co) in f32 or bf16, the dgrad's ``mma_plan(rows, ci, taps *
+    co)`` and the wgrad's ``mma_wgrad_plan(co, taps * ci, rows)``, and the
+    buffers they imply: (dgrad plan, wgrad plan, BN-sum partials (2, row
+    tiles, ci), db, dg, dgrad split partials (splits, rows, ci) or None, dW
+    (co, taps * ci), wgrad split partials (splits, co, taps * ci) or None),
+    all f32."""
+    dplan = mma_plan(rows, ci, taps * co, f32)
+    wplan = mma_wgrad_plan(co, taps * ci, rows)
     fp = dict(dtype=torch.float32, device=device)
     dws = torch.empty((dplan[2], rows, ci), **fp) if dplan[2] > 1 else None
-    wpart = torch.empty((wplan[2], co, ci), **fp) if wplan[2] > 1 else None
+    wpart = torch.empty((wplan[2], co, taps * ci), **fp) \
+        if wplan[2] > 1 else None
     return (dplan, wplan,
             torch.empty((2, -(-rows // dplan[0]), ci), **fp),
             torch.empty(ci, **fp), torch.empty(ci, **fp), dws,
-            torch.empty((co, ci), **fp), wpart)
+            torch.empty((co, taps * ci), **fp), wpart)
+
+
+def c3_bwd2d_buffers(rows, ci, co, device, f32=True):
+    """K6's plans and buffers: ``mm_bwd_buffers`` over its nine taps."""
+    return mm_bwd_buffers(rows, ci, co, device, f32, taps=9)
 
 
 def mm_bwd(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh):
@@ -456,11 +511,16 @@ def c3_bwd2d(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_):
 
     Replaces mxnet_tpu/ops/fused_unit.py ``_k_conv3_bwd_2d``
     (``_c3_bwd2d``, pallas_call "fu_c3_bwd2d"), which returns dW as
-    (3, 3, Ci, Co).  Bound on the H100: arithmetic (9 taps of 4*R*Ci*Co);
-    the dgrad reads each tap's neighbour row directly with zeros outside
-    the image (no rolled copy, no mask tensor), the wgrad tiles the OHWI
-    gradient with the taps folded into its columns, and it runs at every
-    width (csrc/fu_bwd.cuh)."""
+    (3, 3, Ci, Co).  Bound on the H100: arithmetic (9 taps of 4*R*Ci*Co),
+    which the tensor cores serve (bf16 MMA, float32 through 3xTF32) on
+    K5's loop (csrc/fu_mma.cuh).  Its two products sum over k = (tap,
+    channel): the dgrad stages each tap's neighbour row of the finalized
+    cotangent and the wgrad each tap's neighbour row of the activation,
+    with zeros outside the image, as they stage their tiles (no rolled
+    copy, no mask tensor); the dgrad reads the OHWI weight in place and
+    the wgrad's output tile is the OHWI gradient.  Plans and scratch come
+    from ``c3_bwd2d_buffers`` (shapes only); every partial is added in a
+    fixed order.  It runs at every width."""
     if on_host(x2d):
         return c3_bwd2d_plain(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n,
                               h, w_)
@@ -479,14 +539,21 @@ def c3_bwd2d(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_):
     check("c3_bwd2d", x2d.dtype, x2d.device, g=g2d, yraw=yraw2d, c1=fin[0],
           u0=fin[1], u1=fin[2], x=x2d, w=w, sc=sc, sh=sh, xs=xs, xh=xh)
     check_dims("c3_bwd2d", ci, co)
+    # the gathers divide row and channel indices by multiply-high, exact
+    # while index * divisor < 2^32
+    c = max(ci, co)
+    if (rows + 128) * max(h, w_) >= 2 ** 32 or (9 * c + 128) * c >= 2 ** 32:
+        raise MXNetError("c3_bwd2d: %d rows of %dx%d images at %d channels "
+                         "overflow the kernel's 32-bit index division"
+                         % (rows, h, w_, c))
     dev = x2d.device
     dp = torch.empty((rows, ci), dtype=x2d.dtype, device=dev)
-    part, db, dg = _stats_buffers(rows, ci, dev)
-    dw, wpart, splits, chunk = wgrad_buffers(rows, co, 9 * ci, dev)
+    dplan, wplan, part, db, dg, dws, dw, wpart = c3_bwd2d_buffers(
+        rows, ci, co, dev, x2d.dtype == torch.float32)
     with torch.cuda.device(dev):
         launch("fu_c3_bwd2d", g2d, yraw2d, fin[0], fin[1], fin[2], x2d, w,
-               sc, sh, xs, xh, dp, part, db, dg, dw, wpart, rows, ci, co, h,
-               w_, splits, chunk, int(x2d.dtype == torch.bfloat16),
+               sc, sh, xs, xh, dp, part, db, dg, dw, wpart, dws, rows, ci,
+               co, h, w_, int(x2d.dtype == torch.bfloat16), *dplan, *wplan,
                stream(dev))
     c3_bwd2d.launches += 1
     return dp, dw.reshape(co, 3, 3, ci), db, dg

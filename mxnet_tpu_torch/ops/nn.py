@@ -18,8 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from .registry import register, P
-from ._cuda import (check, check_dims, launch, on_host, stream,
-                    wgrad_buffers)
+from ._cuda import (check, check_dims, launch, mma_plan, mma_wgrad_plan,
+                    on_host, stream)
 from .. import config
 from ..base import MXNetError
 
@@ -139,6 +139,20 @@ def conv1x1_bwd_plain(x2d, dy2d, w):
     return dx, dw.reshape(w.shape).to(w.dtype)
 
 
+def conv1x1_bwd_buffers(rows, ci, co, device, f32=True):
+    """K8's launch plans for x (rows, ci) and dy (rows, co) in f32 or bf16,
+    the dgrad's ``mma_plan(rows, ci, co)`` and the wgrad's
+    ``mma_wgrad_plan(co, ci, rows)``, and the f32 buffers they imply:
+    (dgrad plan, wgrad plan, dgrad split partials (splits, rows, ci) or
+    None, dW (co, ci), wgrad split partials (splits, co, ci) or None)."""
+    dplan = mma_plan(rows, ci, co, f32)
+    wplan = mma_wgrad_plan(co, ci, rows)
+    fp = dict(dtype=torch.float32, device=device)
+    dws = torch.empty((dplan[2], rows, ci), **fp) if dplan[2] > 1 else None
+    wpart = torch.empty((wplan[2], co, ci), **fp) if wplan[2] > 1 else None
+    return dplan, wplan, dws, torch.empty((co, ci), **fp), wpart
+
+
 def conv1x1_bwd(x2d, dy2d, w):
     """K8: the backward of a 1x1 convolution y = x @ w^T with x (R, Ci), w
     (Co, Ci) or (Co, 1, 1, Ci), from dy (R, Co): (dx = dy @ w (R, Ci) in
@@ -147,9 +161,12 @@ def conv1x1_bwd(x2d, dy2d, w):
 
     Replaces mxnet_tpu/ops/nn.py ``_fused1x1_bwd_pallas``.  Bound on the
     H100: arithmetic (4*R*Ci*Co operations) at the transition units'
-    widths; it is K5's two products without finalize, prologue, mask or
-    sums, on K5's tiles (csrc/nn_conv1x1_bwd.cu, csrc/fu_bwd.cuh), with
-    the wgrad's sum over R in fixed chunks added in a fixed order."""
+    widths, which the tensor cores serve (bf16 MMA, float32 through
+    3xTF32); it is K5's two products without finalize, prologue, mask or
+    sums, on K5's loop (csrc/nn_conv1x1_bwd.cu, csrc/fu_mma.cuh): the
+    weight and dy^T read in place from MN-major tiles, plans and scratch
+    from ``conv1x1_bwd_buffers`` (shapes only), every split's partials
+    added in a fixed order."""
     if on_host(x2d):
         return conv1x1_bwd_plain(x2d, dy2d, w)
     rows, ci = x2d.shape
@@ -163,10 +180,11 @@ def conv1x1_bwd(x2d, dy2d, w):
     check_dims("conv1x1_bwd", ci, co)
     dev = x2d.device
     dx = torch.empty((rows, ci), dtype=x2d.dtype, device=dev)
-    dw, wpart, splits, chunk = wgrad_buffers(rows, co, ci, dev)
+    dplan, wplan, dws, dw, wpart = conv1x1_bwd_buffers(
+        rows, ci, co, dev, x2d.dtype == torch.float32)
     with torch.cuda.device(dev):
-        launch("nn_conv1x1_bwd", x2d, dy2d, w2, dx, dw, wpart, rows, ci, co,
-               splits, chunk, int(x2d.dtype == torch.bfloat16),
+        launch("nn_conv1x1_bwd", x2d, dy2d, w2, dx, dw, wpart, dws, rows,
+               ci, co, int(x2d.dtype == torch.bfloat16), *dplan, *wplan,
                stream(dev))
     conv1x1_bwd.launches += 1
     return dx, dw.reshape(w.shape).to(w.dtype)
