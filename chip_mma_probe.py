@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of K1 and K5's tensor-core tile loop goes, on one card.
+"""Where the time of the tensor-core tile loop of K1, K5, K6 and K8 goes,
+on one card.
 
     python3 chip_mma_probe.py [--json PATH]
 
 1. The kernels each launch of K1 (``fused_unit.mm_fwd``, with statistics,
-   at ResNet-50's four stage shapes at batch 8) and K5 (``mm_bwd``, final
-   and deferred, at batch 32) runs, with their device time from
-   torch.profiler: the GEMM, the split epilogue or reduction, the
-   statistics' column sums.
+   at ResNet-50's four stage shapes at batch 8), K5 (``mm_bwd``, final
+   and deferred, at batch 32), K6 (``c3_bwd2d``, at batch 32) and K8
+   (``nn.conv1x1_bwd``, at its three sites at batch 32) runs, with their
+   device time from torch.profiler: the GEMMs, the split epilogue or
+   reduction, the statistics' column sums.
 2. A phase profile of the loop itself: ``csrc/fu_mma.cuh`` copied into
    ``build/probe/`` with ``clock64`` and ``%globaltimer`` reads added
    around its phases (waiting for a tile's copies, the in-place transform,
@@ -33,8 +35,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # the instrumentation: (text of fu_mma.cuh, text that replaces it)
 PROBES = [
-    ('#include "fu_bwd.cuh"',
-     '#include "../../mxnet_tpu_torch/csrc/fu_bwd.cuh"'),
+    ('#include "fu_gemm.cuh"',
+     '#include "../../mxnet_tpu_torch/csrc/fu_gemm.cuh"'),
     ('  int M, N, K, chunk, splits, stats;\n};',
      '  int M, N, K, chunk, splits, stats;\n  unsigned long long* prof;\n};'),
     ('''  for (int t = 0; t < ntiles; ++t) {
@@ -127,8 +129,8 @@ extern "C" int probe_k1(const void* x, const void* w, const void* sc,
 '''
 
 
-def kernel_split(torch, cs, fu, dev, out):
-    """Device time of every kernel a K1 or K5 launch runs."""
+def kernel_split(torch, cs, fu, nn, dev, out):
+    """Device time of every kernel a K1, K5, K6 or K8 launch runs."""
     gen = torch.Generator().manual_seed(0)
 
     def rn(*s, scale=1.0):
@@ -136,42 +138,58 @@ def kernel_split(torch, cs, fu, dev, out):
 
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
-        for (hw, c, _), batch in [(st, cs.BATCH) for st in cs.STAGES] + [
-                (st, cs.TRAIN_BATCH) for st in cs.STAGES]:
+        stages = [(st, cs.BATCH, side) for st, side in zip(cs.STAGES,
+                                                            cs.STAGE_HW)]
+        stages += [(st, cs.TRAIN_BATCH, side)
+                   for st, side in zip(cs.STAGES, cs.STAGE_HW)]
+        for (hw, c, _), batch, side in stages:
             r, cq = batch * hw, c // 4
-            calls = []
+            calls = []          # (name, rows, call)
             if batch == cs.BATCH:
                 x = rn(r, c).to(dt)
                 w = rn(cq, 1, 1, c, scale=c ** -0.5).to(dt)
                 v = (rn(c).abs() + 0.5, rn(c, scale=0.1))
-                calls.append(("K1 stats", lambda x=x, w=w, v=v:
+                calls.append(("K1 stats", r, lambda x=x, w=w, v=v:
                               fu.mm_fwd(x, w, *v, True)))
             else:
                 for variant, ci, co in (("final", cq, c),
-                                        ("deferred", c, cq)):
+                                        ("deferred", c, cq), ("K6", cq, cq)):
                     x = rn(r, ci).to(dt)
                     g = rn(r, co).to(dt)
-                    w = rn(co, 1, 1, ci, scale=ci ** -0.5).to(dt)
                     v = (rn(ci).abs() + 0.5, rn(ci, scale=0.1),
                          rn(ci).abs() + 0.5, rn(ci, scale=0.1))
                     fin = yraw = None
-                    if variant == "deferred":
+                    if variant != "final":
                         fin = (rn(co).abs() + 0.5, rn(co, scale=0.1),
                                rn(co, scale=0.1))
                         yraw = rn(r, co).to(dt)
-                    calls.append(("K5 " + variant,
+                    if variant == "K6":
+                        w = rn(co, 3, 3, ci, scale=(9 * ci) ** -0.5).to(dt)
+                        calls.append(("K6", r, lambda a=(g, yraw, fin, x, w)
+                                      + v + (batch, side, side):
+                                      fu.c3_bwd2d(*a)))
+                        continue
+                    w = rn(co, 1, 1, ci, scale=ci ** -0.5).to(dt)
+                    calls.append(("K5 " + variant, r,
                                   lambda a=(g, yraw, fin, x, w) + v:
                                   fu.mm_bwd(*a)))
-            for name, fn in calls:
+            if batch == cs.TRAIN_BATCH and side == cs.STAGE_HW[-1]:
+                for site, shw, ci, co in cs.K8_SITES:
+                    rows = cs.TRAIN_BATCH * shw
+                    a8 = (rn(rows, ci).to(dt), rn(rows, co).to(dt),
+                          rn(co, 1, 1, ci, scale=ci ** -0.5).to(dt))
+                    calls.append(("K8 " + site, rows,
+                                  lambda a=a8: nn.conv1x1_bwd(*a)))
+            for name, rows, fn in calls:
                 prof = cs.profile_calls(torch, fn, 5)
-                row = {"kernel": name, "dtype": dname, "rows": r, "c": c,
+                row = {"kernel": name, "dtype": dname, "rows": rows, "c": c,
                        "device_ms": prof["device_busy_ms"],
                        "parts_ms": prof["top_device_ms"]}
                 out.append(row)
                 cs.log("  %-11s %-8s rows %6d C %4d: %.4f ms = %s" % (
-                    name, dname, r, c, row["device_ms"], ", ".join(
-                        "%s %.4f" % (k.split("(")[0].split("<")[0]
-                                     .replace("void ", ""), ms)
+                    name, dname, rows, c, row["device_ms"], ", ".join(
+                        "%s %.4f" % (k.split("(")[0].replace("void ", ""),
+                                     ms)
                         for k, ms in row["parts_ms"])))
 
 
@@ -284,12 +302,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as cs
     from mxnet_tpu_torch.ops import fused_unit as fu
+    from mxnet_tpu_torch.ops import nn
     card = cs.card_line()
     cs.log(card)
     dev = torch.device("cuda", 0)
     split, phases = [], []
-    cs.log("[1] kernels of each K1 / K5 launch (torch.profiler)")
-    kernel_split(torch, cs, fu, dev, split)
+    cs.log("[1] kernels of each K1 / K5 / K6 / K8 launch (torch.profiler)")
+    kernel_split(torch, cs, fu, nn, dev, split)
     cs.log("[2] phases of the tile loop (instrumented copy of fu_mma.cuh)")
     phase_profile(torch, cs, dev, phases)
     if opts.json:

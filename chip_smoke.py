@@ -19,8 +19,9 @@ Phases (none catches its own failure; there is no CPU path):
    deferred shapes), K6 ``fu_c3_bwd2d`` and K7 ``fu_c3_bwd4d`` at the four
    stage shapes and K8 ``nn_conv1x1_bwd`` at its three 224x224 sites, at
    batch 32; each also launched twice on the same inputs to show equal
-   bits, and its TFLOP/s logged (K1 and K5 run on the tensor cores,
-   ``csrc/fu_mma.cuh``; the rest on CUDA cores);
+   bits, and its TFLOP/s logged (K1, K5, K6 and K8 run on the tensor
+   cores, ``csrc/fu_mma.cuh``; the rest on CUDA cores); K5-K8 and their
+   library calls also timed with the L2 cache flushed before each call;
 4. serve: ResNet-50 (224x224, 1000 classes, NHWC, fused units, weights
    from ``--seed``) saved as a checkpoint, loaded by
    ``ServingEngine.from_checkpoint`` on cuda:0, warmed up, and sent
@@ -39,10 +40,10 @@ Phases (none catches its own failure; there is no CPU path):
    images/s, peak memory and one profiled step.  Then, with cuDNN
    deterministic, runs from the same weights through the kernels,
    MXNET_FUSED_UNIT_C3=xla, the plain versions on the batch reversed and
-   four faults planted at K5's, K6's and K7's launch are each held against the
-   plain versions' run by the losses and step 1's gradients (the two
-   main-path runs too): every sound run must pass and every fault must
-   fail;
+   five faults planted at K5's, K6's, K7's and K8's launch are each held
+   against the plain versions' run by the losses and step 1's gradients
+   (the two main-path runs too): every sound run must pass and every fault
+   must fail;
 6. the KV-cache writes K9 ``cache_write_row`` and K10 ``cache_write_rows``
    against their plain versions at 8 and 64 slots, max_len 128 and 2048,
    d 200, in float32, float16 and bfloat16, with edge positions, windows
@@ -76,8 +77,9 @@ Phases (none catches its own failure; there is no CPU path):
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so float32 means float32 on both
-sides of every comparison; K1 and K5 compute their float32 products on the
-tensor cores through 3xTF32, which keeps float32's accuracy (the same
+sides of every comparison; K1, K5, K6 and K8 compute their float32
+products on the tensor cores through 3xTF32, which keeps float32's
+accuracy (the same
 tolerances hold them).  ``--json`` also writes every measurement to
 a file.
 """
@@ -166,7 +168,8 @@ KV_SLOTS, KV_T, KV_WINDOW = (8, 64), (128, 2048), 5
 # H100 SXM peaks (NVIDIA data sheet, dense), the least time bounds take: bf16
 # in the tensor cores, and HBM3 bandwidth.  float32 products at float32's
 # accuracy: 3xTF32 on the tensor cores (each f32 value split into two TF32
-# terms, three TF32 products per f32 product, as K1 and K5 compute them),
+# terms, three TF32 products per f32 product, as K1, K5, K6 and K8 compute
+# them),
 # 495 / 3 = 165 TFLOP/s, faster than FFMA's 67; every f32 product row
 # (K1-K8) is bounded at that rate, so no kernel can read above its bound
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
@@ -190,8 +193,10 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 # NVIDIA H100 80GB HBM3 at 700 W the sound runs (the kernels, cuDNN free,
 # MXNET_FUSED_UNIT_C3=xla, the plain versions on the batch reversed) read
 # at most 1.40e-2 and 1.75e-2 with the FFMA kernels and 1.54e-2 and
-# 1.86e-2 with K1 and K5 on the tensor cores (PERF.md, Findings), the
-# planted faults at least 0.257 and 1.0.
+# 1.86e-2 with K1, K5, K6 and K8 on the tensor cores (PERF.md, Findings);
+# the planted faults in K5-K7 at least 0.257 and 1.0, and K8's, which
+# drops three of the 157 parameters' gradients, 4.87e-2 and 1.0:
+# PARAM_RTOL is what rejects it.
 # The losses of steps 2..N drift apart by up to 8.2e-3 in the sound runs
 # and by no more in the faults' (2.4e-3 and 8.7e-3): LOSS_RTOL only
 # bounds that drift and does not tell a fault from the rounding.
@@ -213,6 +218,11 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     return out[0].strip()
+
+
+# a read of 256 MB, five times the H100's 50 MB L2, evicts what a kernel
+# left there
+FLUSH_BYTES = 256 << 20
 
 
 def time_ms(torch, fn, reps=20, rounds=3):
@@ -239,6 +249,14 @@ def time_ms(torch, fn, reps=20, rounds=3):
     ms = start.elapsed_time(end) / (rounds * reps)
     del graph
     return ms
+
+
+def time_ms_cold(torch, fn, flush, reps=20, rounds=3):
+    """Device time of one ``fn()`` that finds the L2 cache cold: ``reps``
+    pairs of ``flush.sum()`` and ``fn()`` in one CUDA graph, less the same
+    graph of the flushes alone, each timed as ``time_ms`` times."""
+    both = time_ms(torch, lambda: (flush.sum(), fn()), reps, rounds)
+    return both - time_ms(torch, flush.sum, reps, rounds)
 
 
 def rel_err(got, want):
@@ -364,9 +382,14 @@ def kernel_phase(torch, fu, device, seed):
 
 
 def bwd_kernel_phase(torch, fu, nn, device, seed):
-    """K5, K6 and K8 against their plain versions at ResNet-50's training
-    shapes (batch 32), with a bitwise repeat of each launch."""
+    """K5, K6, K7 and K8 against their plain versions at ResNet-50's
+    training shapes (batch 32), with a bitwise repeat of each launch.  K5,
+    K6 and K8 run on the tensor cores (``csrc/fu_mma.cuh``: bf16 MMA, f32
+    through 3xTF32), K7 on CUDA cores.  Each kernel and its library call
+    are timed warm (``time_ms``) and with the L2 cache flushed before each
+    call (``time_ms_cold``)."""
     gen = torch.Generator(device="cpu").manual_seed(seed + 7)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=device)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(device)
@@ -469,6 +492,9 @@ def bwd_kernel_phase(torch, fu, nn, device, seed):
                 "ms": time_ms(torch, lambda: kern(*args)),
                 "plain_ms": time_ms(torch, lambda: plain(*args)),
                 "library_ms": time_ms(torch, lib),
+                "ms_l2_flushed": time_ms_cold(torch, lambda: kern(*args),
+                                              flush),
+                "library_ms_l2_flushed": time_ms_cold(torch, lib, flush),
                 "flops": flops, "bytes": nbytes,
                 "bound_ms": 1e3 * max(flops / PEAK_FLOPS[dname],
                                       nbytes / HBM_BYTES_S),
@@ -478,10 +504,12 @@ def bwd_kernel_phase(torch, fu, nn, device, seed):
             row["tflops"] = flops / row["ms"] / 1e9
             rows.append(row)
             log("  %-14s %-18s %-8s rel_err %s  kernel %.4f ms (%.1f "
-                "TFLOP/s)  plain %.4f ms  library %.4f ms  bound %.4f ms (%s)"
+                "TFLOP/s), L2 flushed %.4f  plain %.4f ms  library %.4f ms, "
+                "L2 flushed %.4f  bound %.4f ms (%s)"
                 % (kname, variant or "stage %d" % stage, dname,
                    "/".join("%.1e" % e for e in errs), row["ms"],
-                   row["tflops"], row["plain_ms"], row["library_ms"],
+                   row["tflops"], row["ms_l2_flushed"], row["plain_ms"],
+                   row["library_ms"], row["library_ms_l2_flushed"],
                    row["bound_ms"], row["bound_by"]))
     return rows
 
@@ -759,26 +787,34 @@ def _fin_swapped(launch):
     return faulty
 
 
+# where each backward kernel's launch passes its f32 weight gradient: K5,
+# K6 and K7 take (g, y_raw, c1, u0, u1, x, w, sc, sh, xs, xh, dP,
+# partials, db, dg, dW, ...), K8 (x, dy, w, dx, dW, ...)
+DW_ARG = {"fu_mm_bwd": 15, "fu_c3_bwd2d": 15, "fu_c3_bwd4d": 15,
+          "nn_conv1x1_bwd": 4}
+
+
 def _dw_zeroed(*names):
     """The kernels ``names`` launched and their weight gradient dropped."""
     def plant(launch):
         def faulty(name, *args):
             launch(name, *args)
             if name in names:
-                args[15].zero_()
+                args[DW_ARG[name]].zero_()
         return faulty
     return plant
 
 
 # known faults on the kernel path, planted where fused_unit launches K5,
-# K6 or K7 (arguments g, y_raw, c1, u0, u1, x, w, sc, sh, xs, xh, dP,
-# partials, db, dg, dW, ...), each of which the train check must reject:
+# K6 or K7 and nn launches K8, each of which the train check must reject:
 # the control that shows the check can fail.  name -> (plant,
 # MXNET_FUSED_UNIT_C3)
 PLANTED_FAULTS = {"fault: K6 u0/u1 swapped": (_fin_swapped, "auto"),
                   "fault: K6 dW zeroed": (_dw_zeroed("fu_c3_bwd2d"), "auto"),
                   "fault: K7 dW zeroed": (_dw_zeroed("fu_c3_bwd4d"), "4d"),
-                  "fault: K5 dW zeroed": (_dw_zeroed("fu_mm_bwd"), "auto")}
+                  "fault: K5 dW zeroed": (_dw_zeroed("fu_mm_bwd"), "auto"),
+                  "fault: K8 dW zeroed": (_dw_zeroed("nn_conv1x1_bwd"),
+                                          "auto")}
 
 
 @contextlib.contextmanager
@@ -919,7 +955,8 @@ def train_phase(torch, mt, fu, nn, kv, seed, steps, card):
             runs["MXNET_FUSED_UNIT_C3=xla"] = fit_run(
                 torch, mt, sym, args, aux, x, y, steps)[:2]
         for name, (plant, mode) in PLANTED_FAULTS.items():
-            with c3_mode(mode), replaced(fu, "launch", plant(fu.launch)):
+            with c3_mode(mode), replaced(fu, "launch", plant(fu.launch)), \
+                    replaced(nn, "launch", plant(nn.launch)):
                 runs[name] = fit_run(torch, mt, sym, args, aux, x, y,
                                      steps)[:2]
         torch.cuda.empty_cache()
@@ -1572,7 +1609,8 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
     over the shapes.  Every entry also gives its launches per serve batch
     and training step in both modes, per decode step, per imperative unit
     and in the rtc phase; K1-K8 also their bfloat16 times (kernel, library
-    and bound) at the same shapes."""
+    and bound) at the same shapes, and K5-K8 their kernel and library
+    times in both dtypes with the L2 cache flushed before each call."""
     table = []
     for name, (wrapper, replaces) in _SOURCES.items():
         decode_launches = sum(r["launches"][wrapper]
@@ -1641,6 +1679,10 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
                 "bf16_library_ms": total("library_ms", sel16),
                 "bf16_bound_ms": total("bound_ms", sel16),
             }
+            if not fwd:
+                entry.update((pre + key, total(key, rs)) for pre, rs in (
+                    ("", sel), ("bf16_", sel16)) for key in (
+                        "ms_l2_flushed", "library_ms_l2_flushed"))
         table.append(dict({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -229,7 +229,8 @@ class NDArray:
 def array(source, ctx=None, dtype=None):
     """NDArray from a numpy array (or anything numpy can take) on ``ctx``,
     else on ``current_context()``; float64 input becomes float32, as in
-    the reference."""
+    the reference.  Always a copy, as in the reference: an in-place update
+    of the NDArray never writes into the source."""
     if isinstance(source, NDArray):
         source = source.asnumpy()
     a = np.asarray(source)
@@ -238,7 +239,7 @@ def array(source, ctx=None, dtype=None):
     t = torch.from_numpy(np.ascontiguousarray(a))
     if dtype is not None:
         t = t.to(torch_dtype(dtype))
-    return NDArray(t.to((ctx or current_context()).device))
+    return NDArray(t.to((ctx or current_context()).device, copy=True))
 
 
 def zeros(shape, ctx=None, dtype=None):

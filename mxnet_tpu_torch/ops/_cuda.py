@@ -104,10 +104,10 @@ def mma_plan(m, n, k, f32=True):
     """(bm, bn, splits, chunk) of an (m, n) product over k channels (K1,
     the dgrads of K5, K6 and K8) in f32 or bf16: the k range is halved
     while each chunk keeps at least 256 channels and the blocks number
-    fewer than one an SM (bf16) or two (f32).  Two blocks share an SM, so 196 blocks leave 64
-    SMs with twice the work of the other 68; in f32 a further split pays
-    for its partials, in bf16, whose 128 x 128 tiles split into twice the
-    partials, it did not (PERF.md, Findings)."""
+    fewer than one an SM (bf16) or two (f32).  Two blocks share an SM, so
+    196 blocks leave 64 SMs with twice the work of the other 68; in f32 a
+    further split pays for its partials, in bf16, whose 128 x 128 tiles
+    split into twice the partials, it did not (PERF.md, Findings)."""
     bm, bn = mma_tiles(m, n, f32)
     tiles = _cdiv(m, bm) * _cdiv(n, bn)
     target = MMA_BLOCKS * (2 if f32 else 1)

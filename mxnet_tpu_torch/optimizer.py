@@ -14,6 +14,7 @@ import pickle
 import numpy as np
 
 from .base import MXNetError
+from .context import cpu
 from .ndarray import NDArray, array, zeros_like, sgd_update, sgd_mom_update
 
 __all__ = ["Optimizer", "SGD", "Updater", "get_updater", "create",
@@ -138,6 +139,17 @@ class SGD(Optimizer):
             sgd_update(weight, grad, out=weight, **kwargs)
 
 
+def _map_state(fn, kind, state):
+    """``fn`` applied to every ``kind`` leaf of an optimizer state: one
+    such leaf, None, or a tuple or list of states (the reference's
+    ``to_nd``, ``to_np`` and ``sync_state_context``)."""
+    if isinstance(state, kind):
+        return fn(state)
+    if isinstance(state, (tuple, list)):
+        return type(state)(_map_state(fn, kind, s) for s in state)
+    return state
+
+
 class Updater:
     """Per-index optimizer state, applied by ``updater(index, grad,
     weight)``; ``get_states``/``set_states`` serialize it."""
@@ -149,25 +161,27 @@ class Updater:
     def __call__(self, index, grad, weight):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
-        state = self.states[index]
-        if isinstance(state, NDArray) and state.context != weight.context:
-            # loaded by set_states on the host
-            state = self.states[index] = state.as_in_context(weight.context)
+        # set_states loads on the host: each state moves to its weight's
+        # context at first use
+        state = self.states[index] = _map_state(
+            lambda s: s.as_in_context(weight.context), NDArray,
+            self.states[index])
         self.optimizer.update(index, weight, grad, state)
 
     def get_states(self, dump_optimizer=False):
-        states = {k: v.asnumpy() if isinstance(v, NDArray) else v
+        states = {k: _map_state(NDArray.asnumpy, NDArray, v)
                   for k, v in self.states.items()}
         return pickle.dumps((states, self.optimizer) if dump_optimizer
                             else states)
 
     def set_states(self, states):
         """Load what ``get_states`` wrote (pickle: only this program's
-        own files)."""
+        own files) onto the host, whatever the current context."""
         states = pickle.loads(states)
         if isinstance(states, tuple) and len(states) == 2:
             states, self.optimizer = states
-        self.states = {k: array(v) if isinstance(v, np.ndarray) else v
+        self.states = {k: _map_state(lambda a: array(a, ctx=cpu()),
+                                     np.ndarray, v)
                        for k, v in states.items()}
 
 

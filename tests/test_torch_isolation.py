@@ -164,6 +164,21 @@ def test_params_from_numpy_wants_a_card_unless_given_cpu(no_card):
     np.testing.assert_array_equal(a["w"].asnumpy(), args["w"])
 
 
+def test_updater_set_states_loads_on_the_host_without_a_card(no_card):
+    """Optimizer states written by get_states load onto the CPU with no
+    card and no ``with mt.cpu():``, and move to the weight's context at
+    its next update."""
+    w = mt.nd.array(np.ones((2, 3), np.float32), ctx=mt.cpu())
+    g = mt.nd.array(np.full((2, 3), 0.5, np.float32), ctx=mt.cpu())
+    u = mt.optimizer.get_updater(mt.optimizer.SGD(momentum=0.9))
+    u(0, g, w)
+    v = mt.optimizer.get_updater(mt.optimizer.SGD(momentum=0.9))
+    v.set_states(u.get_states())
+    assert v.states[0].context == mt.cpu()
+    v(0, g, w)
+    assert v.states[0].context == w.context == mt.cpu()
+
+
 @pytest.mark.cuda
 def test_params_from_numpy_defaults_to_the_card():
     if not torch.cuda.is_available():

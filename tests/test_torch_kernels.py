@@ -220,10 +220,10 @@ def test_backward_kernels_repeat_bitwise_on_card(cuda_device):
             assert torch.equal(a, b), kernel.__name__
 
 
-# K1 and K5 on the tensor-core tiles (csrc/fu_mma.cuh), as (rows, ci, co):
-# rows that are no multiple of any tile, channels of 4 mod 8 and 4 mod 16
-# (36, 100) where a k step is 8 (tf32) or 16 (bf16), a split of the wgrad's
-# rows (3000) and of K1's and K5's dgrad channels (ResNet-50 stage 4 at
+# K1, K5 and K8 on the tensor-core tiles (csrc/fu_mma.cuh), as (rows, ci,
+# co): rows that are no multiple of any tile, channels of 4 mod 8 and 4 mod
+# 16 (36, 100) where a k step is 8 (tf32) or 16 (bf16), a split of the
+# wgrad's rows (3000) and of the dgrad's channels (ResNet-50 stage 4 at
 # batch 8: 392 rows, 2048 and 512 channels)
 MMA_CASES = [(50, 36, 100), (3000, 100, 36), (392, 2048, 512)]
 
@@ -286,6 +286,75 @@ def test_mma_kernels_match_plain_and_repeat_on_card(cuda_device, case,
             scale = float(r.float().abs().max())
             err = float((g.float() - r.float()).abs().max()) / scale
             assert err <= tol, (kernel.__name__, i, err)
+
+
+# K6 on the tensor-core tiles, as (n, h, w, ci, co): channels of 36 and 100,
+# rows off every tile, a split of its dgrad's k = (tap, o) (stage 3's
+# width at batch 1) and of its wgrad's rows (1568 rows)
+C3_MMA_CASES = [(2, 5, 7, 36, 100), (3, 6, 7, 100, 36), (1, 14, 14, 256, 256),
+                (2, 28, 28, 36, 100)]
+
+
+def _k6_k8_calls(device, dtype):
+    """K6 at C3_MMA_CASES and K8 at MMA_CASES, on inputs from a seed."""
+    calls = []
+    for n, h, w, ci, co in C3_MMA_CASES:
+        rows = n * h * w
+        g = torch.Generator().manual_seed(rows + 7 * ci + 31 * co)
+        r = lambda *s, scale=1.0: (torch.randn(  # noqa: E731
+            *s, generator=g) * scale).to(device)
+        args = (r(rows, co).to(dtype), r(rows, co).to(dtype),
+                (r(co).abs() + 0.5, r(co) * 0.1, r(co) * 0.1),
+                r(rows, ci).to(dtype),
+                r(co, 3, 3, ci, scale=(9 * ci) ** -0.5).to(dtype),
+                r(ci).abs() + 0.5, r(ci) * 0.3, r(ci).abs() + 0.5,
+                r(ci) * 0.3, n, h, w)
+        calls.append((fu.c3_bwd2d, fu.c3_bwd2d_plain, args))
+    for rows, ci, co in MMA_CASES:
+        g = torch.Generator().manual_seed(rows + 7 * ci + 31 * co + 1)
+        r = lambda *s, scale=1.0: (torch.randn(  # noqa: E731
+            *s, generator=g) * scale).to(device).to(dtype)
+        calls.append((nn.conv1x1_bwd, nn.conv1x1_bwd_plain,
+                      (r(rows, ci), r(rows, co),
+                       r(co, 1, 1, ci, scale=ci ** -0.5))))
+    return calls
+
+
+def test_k6_k8_cases_cover_ragged_and_split_plans():
+    from mxnet_tpu_torch.ops import _cuda
+    k6 = [(_cuda.mma_plan(n * h * w, ci, 9 * co),
+           _cuda.mma_wgrad_plan(co, 9 * ci, n * h * w))
+          for n, h, w, ci, co in C3_MMA_CASES]
+    k8 = [(_cuda.mma_plan(rows, ci, co), _cuda.mma_wgrad_plan(co, ci, rows))
+          for rows, ci, co in MMA_CASES]
+    for plans in (k6, k8):
+        assert any(d[2] > 1 for d, _ in plans)    # dgrad split
+        assert any(w[2] > 1 for _, w in plans)    # wgrad split
+    assert any(ci % 16 == 4 and co % 8 == 4 for _, _, _, ci, co in
+               C3_MMA_CASES)
+    assert all(n * h * w % 64 for n, h, w, _, _ in C3_MMA_CASES[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k6_k8_on_mma_match_plain_and_repeat_on_card(cuda_device, dtype):
+    """K6 and K8 on the tensor-core loop at ragged and split shapes:
+    within the tolerances above of their plain versions, and the same bits
+    from a second launch."""
+    dt = getattr(torch, dtype)
+    for kernel, plain, args in _k6_k8_calls(cuda_device, dt):
+        before = kernel.launches
+        got, want, again = kernel(*args), plain(*args), kernel(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        for i, (g, r, a) in enumerate(zip(got, want, again)):
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert torch.equal(g, a), (kernel.__name__, i)
+            tol = CARD_TOL[dt] if i == 0 or kernel is nn.conv1x1_bwd \
+                else BWD_TOL[dt]
+            scale = float(r.float().abs().max())
+            err = float((g.float() - r.float()).abs().max()) / scale
+            assert err <= tol, (kernel.__name__, args[-3:], i, err)
 
 
 @pytest.mark.cuda

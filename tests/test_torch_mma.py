@@ -1,14 +1,17 @@
-"""K1's and K5's tensor-core arithmetic and tiling, emulated on the CPU.
+"""The tensor-core arithmetic and tiling of K1, K5, K6 and K8, emulated on
+the CPU.
 
 The CUDA kernels (csrc/fu_mma.cuh) compute float32 products as 3xTF32 on
 the tensor cores, over output tiles and splits of the summed axis chosen
 in Python from the shapes alone.  Here:
 
 - ``_tf32`` rounds as ``cvt.rna.tf32.f32`` on crafted bit patterns;
-- ``mm_fwd_tf32x3`` / ``mm_bwd_tf32x3``, which walk the kernels' splits
-  in their order, against the JAX package's ``_mm_fwd`` / ``_mm_bwd`` (in
-  interpret mode, as its own tests run them) at ResNet-50's stage-4 depth,
-  within chip_smoke.py's float32 tolerance; a single TF32 pass fails it;
+- ``mm_fwd_tf32x3`` / ``mm_bwd_tf32x3`` / ``c3_bwd2d_tf32x3`` /
+  ``conv1x1_bwd_tf32x3``, which walk the kernels' k order and splits in
+  their order, against the JAX package's ``_mm_fwd`` / ``_mm_bwd`` /
+  ``_c3_bwd2d`` / ``_fused1x1_bwd_pallas`` (in interpret mode, as its own
+  tests run them) at ResNet-50's widths, within chip_smoke.py's float32
+  tolerance; a single TF32 pass fails it;
 - the tile and split plans: pure functions of the shapes at every
   main-path shape, and the scratch the wrappers allocate from them.
 
@@ -25,8 +28,10 @@ import torch
 import jax.numpy as jnp
 
 from mxnet_tpu.ops import fused_unit as jfu
+from mxnet_tpu.ops.nn import _fused1x1_bwd_pallas
 from mxnet_tpu_torch.ops import _cuda
 from mxnet_tpu_torch.ops import fused_unit as tfu
+from mxnet_tpu_torch.ops import nn as tnn
 
 torch.set_num_threads(1)
 
@@ -165,26 +170,92 @@ def test_mm_bwd_tf32x3_matches_pallas(deferred, passes):
         assert errs[0] > TOL, errs
 
 
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "one-pass"])
+@pytest.mark.parametrize("case", [(2, 7, 7, 256), (2, 28, 28, 64)],
+                         ids=["stage3-width", "wgrad-split"])
+def test_c3_bwd2d_tf32x3_matches_pallas(case, passes):
+    """K6 at stage 3's width (its dgrad split 8 ways over k = (tap, o))
+    and at stage 1's width on 1568 rows (its wgrad split over the rows):
+    3xTF32 within the float32 tolerance in every output, one TF32 pass
+    outside it in dP.  The port's dW is (Co, 3, 3, Ci), the reference's
+    (3, 3, Ci, Co)."""
+    n, h, w, c = case
+    rows = n * h * w
+    assert _cuda.mma_plan(rows, c, 9 * c)[2] > 1 \
+        or _cuda.mma_wgrad_plan(c, 9 * c, rows)[2] > 1
+    rng = _rng()
+    r = lambda *s, scale=1.0: (rng.standard_normal(s)  # noqa: E731
+                               * scale).astype(np.float32)
+    g, yraw, x = r(rows, c), r(rows, c), r(rows, c)
+    w2 = r(c, 3, 3, c, scale=(9 * c) ** -0.5)
+    fin = (rng.uniform(0.5, 1.5, c).astype(np.float32), r(c, scale=0.1),
+           r(c, scale=0.1))
+    vecs = (rng.uniform(0.5, 1.5, c).astype(np.float32), r(c, scale=0.3),
+            rng.uniform(0.5, 1.5, c).astype(np.float32), r(c, scale=0.3))
+    j = jnp.asarray
+    ref = jfu._c3_bwd2d(j(g), j(yraw), tuple(map(j, fin)), j(x),
+                        jfu._w4(j(w2)), *map(j, vecs), n, h, w, jnp.float32)
+    t = torch.from_numpy
+    out = tfu.c3_bwd2d_tf32x3(t(g), t(yraw), tuple(map(t, fin)), t(x),
+                              t(w2), *map(t, vecs), n, h, w, passes=passes)
+    errs = [_rel(out[0], ref[0]), _rel(out[1].permute(1, 2, 3, 0), ref[1]),
+            _rel(out[2], ref[2]), _rel(out[3], ref[3])]
+    if passes == 3:
+        assert max(errs) <= TOL, errs
+    else:
+        assert errs[0] > TOL, errs
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "one-pass"])
+@pytest.mark.parametrize("rows,ci,co", [(256, 512, 2048), (1024, 256, 1024)],
+                         ids=["stage4-site", "wgrad-split"])
+def test_conv1x1_bwd_tf32x3_matches_pallas(rows, ci, co, passes):
+    """K8 at its stage-4 site's widths (its dgrad split over Co) and at
+    its stage-3 site's on 1024 rows (its wgrad split): 3xTF32 within the
+    float32 tolerance in dx and dW, one TF32 pass outside it in dx."""
+    rng = _rng()
+    x = rng.standard_normal((rows, ci)).astype(np.float32)
+    dy = rng.standard_normal((rows, co)).astype(np.float32)
+    w = (rng.standard_normal((co, ci)) * ci ** -0.5).astype(np.float32)
+    dx_ref, dw_ref = _fused1x1_bwd_pallas(jnp.asarray(x), jnp.asarray(dy),
+                                          jnp.asarray(w))
+    t = torch.from_numpy
+    dx, dw = tfu.conv1x1_bwd_tf32x3(t(x), t(dy), t(w).reshape(co, 1, 1, ci),
+                                    passes=passes)
+    errs = [_rel(dx, dx_ref), _rel(dw.reshape(co, ci), dw_ref)]
+    if passes == 3:
+        assert max(errs) <= TOL, errs
+    else:
+        assert errs[0] > TOL, errs
+
+
 def _main_path_shapes():
-    """(kernel, rows, ci, co) of every K1 and K5 launch on the main path:
-    the fused units of ResNet-50 at its four stages; K1 (rows, C, C/4)
-    served at batch 8 and trained at batch 32, K5 trained (and driven
-    imperatively) at batch 32 at conv3 (rows, C/4, C) and conv1 (rows, C,
-    C/4)."""
-    for hw, c, _ in SMOKE.STAGES:
+    """(kernel, rows, ci, co, side) of every K1, K5, K6 and K8 launch on
+    the main path: the fused units of ResNet-50 at its four stages; K1
+    (rows, C, C/4) served at batch 8 and trained at batch 32, K5 trained
+    (and driven imperatively) at batch 32 at conv3 (rows, C/4, C) and
+    conv1 (rows, C, C/4), K6 trained at batch 32 at conv2 (rows, C/4,
+    C/4) on side x side images; K8 at its three transition sites."""
+    for (hw, c, _), side in zip(SMOKE.STAGES, SMOKE.STAGE_HW):
         for batch in (SMOKE.BATCH, SMOKE.TRAIN_BATCH):
-            yield "K1", batch * hw, c, c // 4
+            yield "K1", batch * hw, c, c // 4, side
         rows = SMOKE.TRAIN_BATCH * hw
-        yield "K5", rows, c // 4, c
-        yield "K5", rows, c, c // 4
+        yield "K5", rows, c // 4, c, side
+        yield "K5", rows, c, c // 4, side
+        yield "K6", rows, c // 4, c // 4, side
+    for _, hw, ci, co in SMOKE.K8_SITES:
+        yield "K8", SMOKE.TRAIN_BATCH * hw, ci, co, None
 
 
-def _plans(kernel, rows, ci, co, f32):
+def _plans(kernel, rows, ci, co, side, f32):
     """The (m, n, k) and plan of each product the kernel launches."""
     if kernel == "K1":
         return [((rows, co, ci), _cuda.mma_plan(rows, co, ci, f32))]
-    return [((rows, ci, co), _cuda.mma_plan(rows, ci, co, f32)),
-            ((co, ci, rows), _cuda.mma_wgrad_plan(co, ci, rows))]
+    taps = 9 if kernel == "K6" else 1
+    return [((rows, ci, taps * co), _cuda.mma_plan(rows, ci, taps * co,
+                                                    f32)),
+            ((co, taps * ci, rows), _cuda.mma_wgrad_plan(co, taps * ci,
+                                                         rows))]
 
 
 @pytest.mark.parametrize("f32", [True, False], ids=["float32", "bfloat16"])
@@ -212,11 +283,12 @@ def _launch_captured(monkeypatch):
     """The wrappers' CUDA path on meta tensors, each launch captured
     instead of made."""
     calls = []
-    monkeypatch.setattr(tfu, "on_host", lambda t: False)
-    monkeypatch.setattr(tfu, "check", lambda *a, **k: None)
-    monkeypatch.setattr(tfu, "stream", lambda dev: None)
-    monkeypatch.setattr(tfu, "launch", lambda name, *a: calls.append(
-        (name, a)))
+    for mod in (tfu, tnn):
+        monkeypatch.setattr(mod, "on_host", lambda t: False)
+        monkeypatch.setattr(mod, "check", lambda *a, **k: None)
+        monkeypatch.setattr(mod, "stream", lambda dev: None)
+        monkeypatch.setattr(mod, "launch", lambda name, *a: calls.append(
+            (name, a)))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     yield calls
@@ -225,29 +297,56 @@ def _launch_captured(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_wrappers_allocate_the_plans_scratch(monkeypatch, dtype):
-    """At every main-path shape, the scratch and plan K1's and K5's
-    wrappers pass to the kernel are those mm_fwd_buffers and
-    mm_bwd_buffers give for the shapes."""
+    """At every main-path shape, the scratch and plan the wrappers of K1,
+    K5, K6 and K8 pass to the kernel are those mm_fwd_buffers,
+    mm_bwd_buffers, c3_bwd2d_buffers and conv1x1_bwd_buffers give for the
+    shapes."""
     f32 = dtype == torch.float32
 
     def m(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device="meta")
 
+    def same(got, want):
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert g.shape == w.shape
+                assert g.dtype == torch.float32
+
     with _launch_captured(monkeypatch) as calls:
-        for _, rows, ci, co in _main_path_shapes():
+        for kernel, rows, ci, co, side in _main_path_shapes():
             v = m(ci, dt=torch.float32)
+            if kernel == "K6":
+                fin = (m(co, dt=torch.float32),) * 3
+                dp, dw, _, _ = tfu.c3_bwd2d(
+                    m(rows, co), m(rows, co), fin, m(rows, ci),
+                    m(co, 3, 3, ci), v, v, v, v, SMOKE.TRAIN_BATCH, side,
+                    side)
+                name, a = calls.pop()
+                dplan, wplan, part, db, dg, dws, dwb, wpart = \
+                    tfu.c3_bwd2d_buffers(rows, ci, co, "meta", f32)
+                assert name == "fu_c3_bwd2d"
+                assert a[24:28] == dplan and a[28:32] == wplan
+                assert a[18:23] == (rows, ci, co, side, side)
+                same(a[12:18], (part, db, dg, dwb, wpart, dws))
+                assert dw.shape == (co, 3, 3, ci)
+                continue
+            if kernel == "K8":
+                tnn.conv1x1_bwd(m(rows, ci), m(rows, co), m(co, 1, 1, ci))
+                name, a = calls.pop()
+                dplan, wplan, dws, dwb, wpart = tnn.conv1x1_bwd_buffers(
+                    rows, ci, co, "meta", f32)
+                assert name == "nn_conv1x1_bwd"
+                assert a[11:15] == dplan and a[15:19] == wplan
+                same(a[4:7], (dwb, wpart, dws))
+                continue
             for stats in (True, False):
                 tfu.mm_fwd(m(rows, ci), m(co, 1, 1, ci), v, v, stats)
                 name, a = calls.pop()
                 plan, ws, part, s, ss = tfu.mm_fwd_buffers(
                     rows, ci, co, stats, "meta", f32)
                 assert name == "fu_mm_fwd" and a[14:18] == plan
-                for got, want in zip((a[5], a[6], a[7], a[8]),
-                                     (part, s, ss, ws)):
-                    assert (got is None) == (want is None)
-                    if want is not None:
-                        assert got.shape == want.shape
-                        assert got.dtype == torch.float32
+                same((a[5], a[6], a[7], a[8]), (part, s, ss, ws))
             fin = (m(co, dt=torch.float32),) * 3
             for f, yraw in ((None, None), (fin, m(rows, co))):
                 tfu.mm_bwd(m(rows, co), yraw, f, m(rows, ci),
@@ -257,10 +356,5 @@ def test_wrappers_allocate_the_plans_scratch(monkeypatch, dtype):
                     tfu.mm_bwd_buffers(rows, ci, co, "meta", f32)
                 assert name == "fu_mm_bwd"
                 assert a[23:27] == dplan and a[27:31] == wplan
-                for got, want in zip(a[12:18], (part, db, dg, dw, wpart,
-                                                dws)):
-                    assert (got is None) == (want is None)
-                    if want is not None:
-                        assert got.shape == want.shape
-                        assert got.dtype == torch.float32
+                same(a[12:18], (part, db, dg, dw, wpart, dws))
         assert not calls
