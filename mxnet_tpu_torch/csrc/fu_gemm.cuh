@@ -1,23 +1,17 @@
-// Shared tile loop of the fused bottleneck-unit forward kernels K2
-// (fu_mm_skip_fwd.cu) and K3 (fu_c3_fwd2d.cu); K1 (fu_mm_fwd.cu) runs on
-// the tensor-core loop of fu_mma.cuh.  Its namespace also holds what every
-// kernel shares: the T <-> f32 conversions and the ordered reductions of
-// per-block partials (statistics, split-K weight gradients).
+// The FFMA tile loop of K2 (fu_mm_skip_fwd.cu), the fused bottleneck
+// unit's closing 1x1 convolution and residual add; K1, K3, K5, K6 and K8 run
+// on the tensor-core loop of fu_mma.cuh, K7 on fu_halo.cuh.  Its namespace
+// also holds what every kernel shares: the T <-> f32 conversions and the
+// ordered reductions of per-block partials (statistics, split-K weight
+// gradients).
 //
-// Both compute  y[r, n] = sum_k act(x)[r, k] * w[n, k]  (+ skip[r, n])
+// It computes  y[r, n] = sum_k act(x)[r, k] * w[n, k] + skip[r, n]
 // where act(x) = T(relu(x * sc + sh)) is the BatchNorm+ReLU prologue of the
 // consumer, evaluated in f32 and rounded to the data type T before the
-// product, exactly as the reference kernels do (mxnet_tpu/ops/fused_unit.py
-// _k_matmul_skip_fwd / _k_conv3_fwd_2d).  The weight is read
-// in the convolution's native OHWI layout, which is (N, K) row-major for a
-// 1x1 (K = Ci) and for a 3x3 (K = 9 * Ci, tap-major) alike, so no transposed
-// copy of a weight is ever made.
-//
-// For the 3x3 (MODE == C3) the K axis walks the nine taps: each thread stages
-// four consecutive k, which lie in one tap (Ci is a multiple of 4), and each
-// output row r = (n, h, w) reads input row r + dh * W + dw, or zero where
-// (h + dh, w + dw) leaves the image — the zero padding is applied after the
-// prologue, as in the reference.  Rows past R, channels past N and k past K
+// product, exactly as the reference kernel does (mxnet_tpu/ops/
+// fused_unit.py _k_matmul_skip_fwd).  The weight is read in the
+// convolution's native OHWI layout, which is (N, K) row-major for a 1x1, so
+// no transposed copy is made.  Rows past R, channels past N and k past K
 // stage zeros, so any R and any K, N that are multiples of 4 work.
 //
 // Design (what bounds it, and what the tiling does about it): at ResNet-50
@@ -28,15 +22,9 @@
 // accumulator in registers, and 16-deep K tiles are double-buffered in
 // shared memory with the next tile's global loads in flight while the
 // current one is multiplied.  The prologue is applied once per element as the
-// tile is staged, never in the inner loop.  bf16 is staged as f32 and runs
-// at the same FFMA rate, far from its tensor-core bound (where the smaller
-// calls are bound by bytes instead): mma/wgmma tiles are the next step.
-//
-// Batch statistics (with_stats) are the per-channel sum and sum of squares
-// of the f32 accumulator (not of the stored y), as in the reference.  Each
-// block reduces its 64 rows in a fixed order into a (row_blocks, N) partial
-// buffer, and a second kernel sums the partials in row-block order: no float
-// atomics, so the result is the same on every run.
+// tile is staged, never in the inner loop, and the residual add rides the
+// epilogue.  bf16 is staged as f32 and runs at the same FFMA rate: the
+// tensor-core loop is the next step (PERF.md, the redesign order).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,8 +38,6 @@ constexpr int BN = 64;       // output channels per block
 constexpr int BK = 16;       // K depth per shared-memory tile
 constexpr int THREADS = 256;
 constexpr int PAD = 4;       // shared-memory row padding (floats)
-
-enum Mode { MM = 0, MM_SKIP = 1, C3 = 2 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -94,23 +80,20 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   *reinterpret_cast<uint2*>(p) = t;
 }
 
-// x: (R, XC) with XC = K (MM, MM_SKIP) or C (C3; K = 9 * C); XC, N % 4 == 0
-// w: (N, K) row-major;  sc, sh: (XC,) f32;  skip, y: (R, N)
-// part: (2, gridDim.y, N) f32 per-block sums when STATS
-template <typename T, int MODE, bool STATS>
+// x: (R, K), w: (N, K) row-major, K and N % 4 == 0;  sc, sh: (K,) f32;
+// skip, y: (R, N)
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
             const float* __restrict__ sc, const float* __restrict__ sh,
-            const T* __restrict__ skip, T* __restrict__ y,
-            float* __restrict__ part, int R, int K, int N, int C, int H,
-            int W) {
+            const T* __restrict__ skip, T* __restrict__ y, int R, int K,
+            int N) {
   __shared__ __align__(16) float As[2][BK][BM + PAD];
   __shared__ __align__(16) float Bs[2][BK][BN + PAD];
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-  const int xc = (MODE == C3) ? C : K;
 
   // staging coordinates: one row of the A tile and one row of w (= one
   // output channel), four consecutive k each
@@ -118,11 +101,6 @@ gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int lk = (tid & 3) * 4;
   const int arow = row0 + lr;
   const bool arow_ok = arow < R;
-  int ah = 0, aw = 0;
-  if (MODE == C3) {
-    aw = arow % W;
-    ah = (arow / W) % H;
-  }
   const bool wrow_ok = col0 + lr < N;
   const T* wrow = w + (size_t)(col0 + lr) * K;
 
@@ -130,25 +108,14 @@ gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   auto load_tile = [&](int k0) {
     const int kk = k0 + lk;
     const bool k_ok = kk < K;
-    int src = arow;
-    int kc = kk;
-    bool ok = arow_ok && k_ok;
-    if (MODE == C3) {
-      const int tap = kk / C;
-      const int dh = tap / 3 - 1, dw = tap % 3 - 1;
-      const int hh = ah + dh, ww = aw + dw;
-      ok = ok && hh >= 0 && hh < H && ww >= 0 && ww < W;
-      src = arow + dh * W + dw;
-      kc = kk - tap * C;
-    }
-    if (ok) {
+    if (arow_ok && k_ok) {
       float v[4];
-      load4(x + (size_t)src * xc + kc, v);
+      load4(x + (size_t)arow * K + kk, v);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         // separate roundings for the product and the sum, as the plain
         // version computes them
-        const float z = __fadd_rn(__fmul_rn(v[j], sc[kc + j]), sh[kc + j]);
+        const float z = __fadd_rn(__fmul_rn(v[j], sc[kk + j]), sh[kk + j]);
         areg[j] = to_f(from_f<T>(fmaxf(z, 0.f)));
       }
     } else {
@@ -208,41 +175,17 @@ gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int r = row0 + ty * 4 + i;
     if (r < R && c < N) {
       float v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
-      if (MODE == MM_SKIP) {
-        float s4[4];
-        load4(skip + (size_t)r * N + c, s4);
+      float s4[4];
+      load4(skip + (size_t)r * N + c, s4);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(v[j], s4[j]);
-      }
+      for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(v[j], s4[j]);
       store4(y + (size_t)r * N + c, v);
-    }
-  }
-
-  if (STATS) {
-    // rows past R staged zeros, so their accumulators add nothing
-    __shared__ float red[2][THREADS / 16][BN];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float s = 0.f, ss = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s += acc[i][j];
-        ss += acc[i][j] * acc[i][j];
-      }
-      red[0][ty][tx * 4 + j] = s;
-      red[1][ty][tx * 4 + j] = ss;
-    }
-    __syncthreads();
-    const int which = tid / BN, col = tid % BN;
-    if (tid < 2 * BN && col0 + col < N) {
-      float s = 0.f;
-      for (int q = 0; q < THREADS / 16; ++q) s += red[which][q][col];
-      part[((size_t)which * gridDim.y + blockIdx.y) * N + col0 + col] = s;
     }
   }
 }
 
 // s[c] = sum_b part[0][b][c], ss[c] = sum_b part[1][b][c], in b order
+// (K4's statistics)
 static __global__ void stats_reduce_kernel(const float* __restrict__ part,
                                            float* __restrict__ s,
                                            float* __restrict__ ss, int nrb,
@@ -259,7 +202,7 @@ static __global__ void stats_reduce_kernel(const float* __restrict__ part,
 }
 
 // out[e] = sum_s part[s][e], in s order: the split-K weight gradients of
-// fu_mma.cuh (K5, K6, K8) and fu_conv4d.cuh (K7)
+// fu_mma.cuh (K5, K6, K8) and fu_halo.cuh (K7)
 static __global__ void split_reduce_kernel(const float* __restrict__ part,
                                            float* __restrict__ out,
                                            int splits, size_t n) {
@@ -270,34 +213,17 @@ static __global__ void split_reduce_kernel(const float* __restrict__ part,
   out[e] = s;
 }
 
-// Launch one forward (plus the stats reduction when with_stats); returns
-// cudaGetLastError() so the caller sees a refused launch.
-template <typename T, int MODE>
+// Launch K2's forward; returns cudaGetLastError() so the caller sees a
+// refused launch.
+template <typename T>
 int launch(const void* x, const void* w, const void* sc, const void* sh,
-           const void* skip, void* y, void* part, void* s, void* ss, int R,
-           int K, int N, int C, int H, int W, int with_stats,
+           const void* skip, void* y, int R, int K, int N,
            cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (R + BM - 1) / BM);
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  const float* sct = static_cast<const float*>(sc);
-  const float* sht = static_cast<const float*>(sh);
-  const T* skt = static_cast<const T*>(skip);
-  T* yt = static_cast<T*>(y);
-  if constexpr (MODE != MM_SKIP) {
-    if (with_stats) {
-      float* pt = static_cast<float*>(part);
-      gemm_kernel<T, MODE, true><<<grid, THREADS, 0, stream>>>(
-          xt, wt, sct, sht, skt, yt, pt, R, K, N, C, H, W);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      stats_reduce_kernel<<<(N + 127) / 128, 128, 0, stream>>>(
-          pt, static_cast<float*>(s), static_cast<float*>(ss), grid.y, N);
-      return (int)cudaGetLastError();
-    }
-  }
-  gemm_kernel<T, MODE, false><<<grid, THREADS, 0, stream>>>(
-      xt, wt, sct, sht, skt, yt, nullptr, R, K, N, C, H, W);
+  gemm_kernel<T><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const float*>(sc), static_cast<const float*>(sh),
+      static_cast<const T*>(skip), static_cast<T*>(y), R, K, N);
   return (int)cudaGetLastError();
 }
 

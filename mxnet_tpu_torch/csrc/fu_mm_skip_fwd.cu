@@ -12,10 +12,6 @@ extern "C" int fu_mm_skip_fwd(const void* x, const void* w, const void* sc,
                               int R, int K, int N, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return fu::launch<__nv_bfloat16, fu::MM_SKIP>(x, w, sc, sh, skip, y,
-                                                  nullptr, nullptr, nullptr,
-                                                  R, K, N, 0, 0, 0, 0, st);
-  return fu::launch<float, fu::MM_SKIP>(x, w, sc, sh, skip, y, nullptr,
-                                        nullptr, nullptr, R, K, N, 0, 0, 0,
-                                        0, st);
+    return fu::launch<__nv_bfloat16>(x, w, sc, sh, skip, y, R, K, N, st);
+  return fu::launch<float>(x, w, sc, sh, skip, y, R, K, N, st);
 }

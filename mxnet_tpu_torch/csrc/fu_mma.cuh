@@ -1,11 +1,13 @@
-// Tensor-core tile loop of K1 (fu_mm_fwd.cu), K5 (fu_mm_bwd.cu), K6
-// (fu_c3_bwd2d.cu) and K8 (nn_conv1x1_bwd.cu).
+// Tensor-core tile loop of K1 (fu_mm_fwd.cu), K3 (fu_c3_fwd2d.cu), K5
+// (fu_mm_bwd.cu), K6 (fu_c3_bwd2d.cu) and K8 (nn_conv1x1_bwd.cu); its
+// pieces (fragments, 3xTF32 split, cp.async ring, epilogues, reductions)
+// also carry K7's halo-resident loop (fu_halo.cuh).
 //
 // One templated GEMM  C[m, n] = sum_k A[m, k] * B[k, n]  with f32
 // accumulation in the tensor cores (mma.sync), whose operands are staged
 // from device memory through an optional per-element transform:
 //   - X_RAW       the value as stored (K8's operands);
-//   - X_PROLOGUE  T(relu(v * v0[ch] + v1[ch]))        K1's, K5's, K6's act(x);
+//   - X_PROLOGUE  T(relu(v * v0[ch] + v1[ch]))        K1's, K3's, K5's, K6's act(x);
 //   - X_FINALIZE  T(v0[ch] * v + v1[ch] + v2[ch] * y) K5's, K6's deferred g,
 // each step rounded as the plain versions compute it (ops/fused_unit.py),
 // where ch is the operand's channel: k for an operand stored K-major (k
@@ -13,11 +15,13 @@
 // (the OHWI weight in a dgrad, g^T and act(x) in a wgrad).  The weights are
 // read in place in their OHWI layout.
 //
-// Gathers: where an operand's elements lie, for K6's 3x3 / stride 1 / pad 1
-// over whole images kept as (rows, C), rows = (n, h, w), with k or n = (t,
-// c), c < gc, for tap t = 3 * (dh + 1) + (dw + 1):
-//   - G_SHIFT_K  K-major A of the dgrad: (m, (t, c)) at row m - (dh*W + dw),
+// Gathers: where an operand's elements lie, for K3's and K6's 3x3 / stride
+// 1 / pad 1 over whole images kept as (rows, C), rows = (n, h, w), with k or
+// n = (t, c), c < gc, for tap t = 3 * (dh + 1) + (dw + 1):
+//   - G_SHIFT_K  K-major A of K6's dgrad: (m, (t, c)) at row m - (dh*W + dw),
 //                zero where pixel (h - dh, w - dw) leaves the image;
+//   - G_SHIFT_KP K-major A of K3: (m, (t, c)) at row m + (dh*W + dw), zero
+//                where pixel (h + dh, w + dw) leaves the image;
 //   - G_SHIFT_N  MN-major B of the wgrad: (k, (t, c)) at row k + (dh*W + dw),
 //                zero where pixel (h + dh, w + dw) leaves the image;
 //   - G_OHWI     MN-major B of the dgrad, the (Co, 3, 3, Ci) weight read in
@@ -97,7 +101,8 @@ enum Major { K_MAJOR = 0, MN_MAJOR = 1 };
 // T(dP) and BN sums; EPI_F32: the f32 sum itself (the weight gradients)
 enum Epi { EPI_Y = 0, EPI_DP = 1, EPI_F32 = 2 };
 // where an operand's elements lie (see the gathers above)
-enum Gather { G_NONE = 0, G_SHIFT_K = 1, G_SHIFT_N = 2, G_OHWI = 3 };
+enum Gather { G_NONE = 0, G_SHIFT_K = 1, G_SHIFT_N = 2, G_OHWI = 3,
+              G_SHIFT_KP = 4 };
 
 struct Operand {
   const void* p;     // T
@@ -293,6 +298,48 @@ __device__ __forceinline__ unsigned edge_bits(int h, int w, int H, int W) {
          | (unsigned)(w == 0) << 2 | (unsigned)(w == W - 1) << 3;
 }
 
+// One landed quad rewritten in place at s: its four values (words w, and
+// y_raw's words yw for X_FINALIZE) through the transform at the channel
+// vectors v0..v2, zeros where !valid, then rounded to T (bf16) or split
+// into tf32 hi (at s) and lo (at s + plane) (f32).
+template <typename T, int X>
+__device__ __forceinline__ void rewrite_quad(unsigned char* s, int plane,
+                                             uint32_t (&w)[Ty<T>::QW],
+                                             const uint32_t (&yw)[Ty<T>::QW],
+                                             const float (&v0)[4],
+                                             const float (&v1)[4],
+                                             const float (&v2)[4],
+                                             bool valid) {
+  constexpr int QW = Ty<T>::QW;
+  float f[4];
+  unpack<T>(w, f);
+  if constexpr (X == X_PROLOGUE) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[j] = fmaxf(__fadd_rn(__fmul_rn(f[j], v0[j]), v1[j]), 0.f);
+  } else if constexpr (X == X_FINALIZE) {
+    float y[4];
+    unpack<T>(yw, y);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[j] = __fadd_rn(__fadd_rn(__fmul_rn(v0[j], f[j]), v1[j]),
+                       __fmul_rn(v2[j], y[j]));
+  }
+  if (!valid) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) f[j] = 0.f;
+  }
+  if constexpr (sizeof(T) == 4) {
+    uint32_t lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split_tf32(f[j], w[j], lo[j]);
+    st_words<QW>(s + plane, lo);
+  } else {
+    pack<T>(f, w);
+  }
+  st_words<QW>(s, w);
+}
+
 // One operand tile, NQ quads of four consecutive elements per thread.
 // In a stage the operand has one or two planes: f32 keeps tf32 hi and lo
 // (the raw value, and y_raw for X_FINALIZE, land in them first); bf16 the
@@ -318,10 +365,12 @@ struct Loader {
   static_assert(THREADS % QPR == 0, "quads per row");
 
   static constexpr int NV = X == X_RAW ? 0 : X == X_PROLOGUE ? 2 : 3;
-  // the gathers that test the image, and so carry each quad's validity
-  static constexpr bool SHIFT = G == G_SHIFT_K || G == G_SHIFT_N;
-  static_assert(G == G_NONE || (G == G_SHIFT_K) == (MAJ == K_MAJOR),
-                "G_SHIFT_K gathers a K-major operand, the others MN-major");
+  // the K-major tap gathers (K6's dgrad, K3), and those that test the
+  // image, and so carry each quad's validity
+  static constexpr bool KSHIFT = G == G_SHIFT_K || G == G_SHIFT_KP;
+  static constexpr bool SHIFT = KSHIFT || G == G_SHIFT_N;
+  static_assert(G == G_NONE || KSHIFT == (MAJ == K_MAJOR),
+                "G_SHIFT_K(P) gather a K-major operand, the others MN-major");
   static_assert(!SHIFT || L::NQ <= 8, "a tile's validity bits fill a byte");
 
   const int a, b;   // smem row of quad 0, and its element within the row
@@ -329,7 +378,7 @@ struct Loader {
   // next tile (K-major, fetched a tile ahead) or of its rows (MN-major)
   float4 vec[NV > 0 ? NV : 1];
   Div byc, byw, byh;     // gathers: division by gc, W and H
-  unsigned edges = 0;    // G_SHIFT_K: edge_bits of each of its rows, 4 a row
+  unsigned edges = 0;    // KSHIFT: edge_bits of each of its rows, 4 a row
   unsigned pend = 0;     // SHIFT: each tile in flight's quad validity, a
                          // byte per ring slot, the oldest lowest
   int c = 0, th = 0, tw = 0, shift = 0;   // G_SHIFT_N: this thread's column
@@ -339,7 +388,7 @@ struct Loader {
       : a(tid / QPR), b((tid % QPR) * 4) {}
 
   // what a gather knows once a block: the divisors, and the pixels of a
-  // K-major thread's rows (G_SHIFT_K) or the tap of an MN-major thread's
+  // K-major thread's rows (KSHIFT) or the tap of an MN-major thread's
   // column (G_SHIFT_N)
   __device__ __forceinline__ void setup(const Operand& o, int row0) {
     if constexpr (G != G_NONE) byc.set(o.gc);
@@ -347,7 +396,7 @@ struct Loader {
       byw.set(o.W);
       byh.set(o.H);
     }
-    if constexpr (G == G_SHIFT_K) {
+    if constexpr (KSHIFT) {
 #pragma unroll
       for (int i = 0; i < L::NQ; ++i) {
         const int m = row0 + a + i * STEP, q = byw(m);
@@ -368,7 +417,7 @@ struct Loader {
                                              int rows, int k0, int kend) {
     int ch = MAJ == K_MAJOR ? k0 + b : row0 + b;
     const bool v = MAJ == K_MAJOR ? ch < kend : ch < rows;
-    if constexpr (G == G_SHIFT_K) ch -= byc(ch) * o.gc;
+    if constexpr (KSHIFT) ch -= byc(ch) * o.gc;
     if constexpr (G == G_SHIFT_N) ch = c;
     const float* src[3] = {o.v0, o.v1, o.v2};
 #pragma unroll
@@ -395,18 +444,21 @@ struct Loader {
         ? (long long)(row0 + a) * o.ld + k0 + b
         : (long long)(k0 + a) * o.ld + row0 + b;
     unsigned forbid = 0, bits = 0;
-    if constexpr (G == G_SHIFT_K) {
-      // every quad of this thread is at k0 + b: one tap, one shift
-      const int k = k0 + b, t = byc(k), dh = t / 3 - 1, dw = t % 3 - 1;
-      base = (long long)(row0 + a - (dh * o.W + dw)) * o.ld + k - t * o.gc;
-      forbid = (unsigned)(dh > 0) | (unsigned)(dh < 0) << 1
-               | (unsigned)(dw > 0) << 2 | (unsigned)(dw < 0) << 3;
+    if constexpr (KSHIFT) {
+      // every quad of this thread is at k0 + b: one tap, one shift (sh,
+      // sw), the source pixel's offset from the output pixel: -(dh, dw) in
+      // K6's dgrad, +(dh, dw) in K3
+      const int k = k0 + b, t = byc(k), sg = G == G_SHIFT_K ? -1 : 1;
+      const int sh = sg * (t / 3 - 1), sw = sg * (t % 3 - 1);
+      base = (long long)(row0 + a + sh * o.W + sw) * o.ld + k - t * o.gc;
+      forbid = (unsigned)(sh < 0) | (unsigned)(sh > 0) << 1
+               | (unsigned)(sw < 0) << 2 | (unsigned)(sw > 0) << 3;
     }
 #pragma unroll
     for (int i = 0; i < L::NQ; ++i) {
       bool v = ok(i, row0, rows, k0, kend);
       long long off = base + (long long)i * STEP * o.ld;
-      if constexpr (G == G_SHIFT_K) v = v && !((edges >> 4 * i) & forbid);
+      if constexpr (KSHIFT) v = v && !((edges >> 4 * i) & forbid);
       if constexpr (G == G_SHIFT_N) {
         const int r = k0 + a + i * STEP, q = byw(r);
         const int h = q - byh(q) * o.H, w = r - q * o.W;
@@ -452,35 +504,11 @@ struct Loader {
                            vec[NV - 1 > 0 ? NV - 1 : 0].z,
                            vec[NV - 1 > 0 ? NV - 1 : 0].w};
 #pragma unroll
-      for (int i = 0; i < L::NQ; ++i) {
-        float f[4];
-        unpack<T>(w[i], f);
-        if constexpr (X == X_PROLOGUE) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            f[j] = fmaxf(__fadd_rn(__fmul_rn(f[j], v0[j]), v1[j]), 0.f);
-        } else if constexpr (X == X_FINALIZE) {
-          float y[4];
-          unpack<T>(yw[i], y);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            f[j] = __fadd_rn(__fadd_rn(__fmul_rn(v0[j], f[j]), v1[j]),
-                             __fmul_rn(v2[j], y[j]));
-        }
-        if (SHIFT ? !((okb >> i) & 1u) : !ok(i, row0, rows, k0, kend)) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) f[j] = 0.f;
-        }
-        if constexpr (F32) {
-          uint32_t lo[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) split_tf32(f[j], w[i][j], lo[j]);
-          st_words<QW>(s + L::BYTES + at(i), lo);
-        } else {
-          pack<T>(f, w[i]);
-        }
-        st_words<QW>(s + at(i), w[i]);
-      }
+      for (int i = 0; i < L::NQ; ++i)
+        rewrite_quad<T, X>(s + at(i), L::BYTES, w[i],
+                           yw[X == X_FINALIZE ? i : 0], v0, v1, v2,
+                           SHIFT ? ((okb >> i) & 1u) != 0
+                                 : ok(i, row0, rows, k0, kend));
     }
   }
 };
@@ -579,6 +607,41 @@ __device__ __forceinline__ float epi(const Gemm& p, int c, float xv, float v,
   return v;
 }
 
+// The eight warps of a BM x BN block tile: WARPS_M x WARPS_N warps of
+// MT x NT m16n8 fragments each (128 x 128: 2 x 4 warps of 64 x 32; 128 x
+// 64: 4 x 2 of 32 x 32; 64 x 128: 2 x 4 of 32 x 32).
+template <int BM, int BN>
+struct WarpTiling {
+  static constexpr int WARPS_M = (BM == 128 && BN == 128) ? 2
+                                 : (BM == 128 ? 4 : 2);
+  static constexpr int WARPS_N = 8 / WARPS_M;
+  static constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;
+  static constexpr int MT = WTM / 16, NT = WTN / 8;
+};
+
+// One k step of 3xTF32: each accumulator takes a_lo b_hi, a_hi b_lo,
+// a_hi b_hi in that order; the passes run outermost, so neighbouring MMAs
+// are independent.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_tf32x3(float (&acc)[MT][NT][4],
+                                           const uint32_t (&ah)[MT][4],
+                                           const uint32_t (&al)[MT][4],
+                                           const uint32_t (&bh)[NT][2],
+                                           const uint32_t (&bl)[NT][2]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah[i], bh[j][0], bh[j][1]);
+}
+
 // Stages of the shared-memory ring: as many (4, 3 or 2) as let two blocks
 // share an SM, and never fewer than two.
 template <typename T, int BM, int BN, int AMAJ, int AX, int BMAJ, int BX>
@@ -630,14 +693,77 @@ __device__ __forceinline__ void stats_tile(const Gemm& p,
   }
 }
 
+// The epilogue of a block's BM x BN output tile at (m0, n0), held as
+// m16n8 fragments acc[MT][NT] by each warp at (wm0, wn0): the f32
+// partial of split blockIdx.z (EPI_F32, or any split plan), else T(y) or
+// the masked T(dP) with their statistics into p.spart (row tile
+// blockIdx.y).  Shared by mma_kernel and K7's halo dgrad (fu_halo.cuh).
+template <typename T, int BM, int BN, int EPI, int WARPS_M, int WARPS_N,
+          int MT, int NT>
+__device__ __forceinline__ void tile_epilogue(const Gemm& p,
+                                              const float (&acc)[MT][NT][4],
+                                              int m0, int n0, int wm0,
+                                              int wn0, int warp, int lane) {
+  // fragment (i, j) holds rows g, g + 8 and columns 2t, 2t + 1
+  const int g = lane >> 2, tq = lane & 3;
+  const bool partial = EPI == EPI_F32 || p.splits > 1;
+  const bool stats = !partial && (EPI == EPI_DP || p.stats);
+  float* pout = EPI == EPI_F32 && p.splits == 1 ? static_cast<float*>(p.out)
+                                                : p.ws;
+  pout += (size_t)blockIdx.z * p.M * p.N;
+  float cs[NT][2], css[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    cs[j][0] = cs[j][1] = css[j][0] = css[j][1] = 0.f;
+  // EPI_DP reads the raw input at every output element: a row block's
+  // loads are issued before its first store (which the compiler could not
+  // move them past), so they are in flight together
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    float2 xin[2][NT];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int r = m0 + wm0 + i * 16 + g + 8 * h;
+        const int c = n0 + wn0 + j * 8 + 2 * tq;
+        xin[h][j] = EPI == EPI_DP && !partial && r < p.M && c < p.N
+            ? ld_pair<T>(p.x, (size_t)r * p.N + c) : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + wm0 + i * 16 + g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = n0 + wn0 + j * 8 + 2 * tq;
+        if (r >= p.M || c >= p.N) continue;   // N % 4 == 0: c + 1 < N too
+        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        const size_t off = (size_t)r * p.N + c;
+        if (partial) {
+          *reinterpret_cast<float2*>(pout + off) = make_float2(v0, v1);
+        } else {
+          if constexpr (EPI != EPI_F32) {
+            v0 = epi<EPI>(p, c, xin[h][j].x, v0, cs[j][0], css[j][0]);
+            v1 = epi<EPI>(p, c + 1, xin[h][j].y, v1, cs[j][1], css[j][1]);
+          }
+          st_pair<T>(p.out, off, v0, v1);
+        }
+      }
+    }
+  }
+  if constexpr (EPI != EPI_F32) {
+    if (!stats) return;   // uniform over the block
+    stats_tile<BN, WARPS_M, WARPS_N, NT>(p, cs, css, warp, g, tq, wn0, n0);
+  }
+}
+
 template <typename T, int BM, int BN, int AMAJ, int AX, int BMAJ, int BX,
           int EPI, int AG, int BG>
 __global__ void __launch_bounds__(THREADS, 2)
 mma_kernel(const __grid_constant__ Gemm p) {
-  constexpr int WARPS_M = (BM == 128 && BN == 128) ? 2 : (BM == 128 ? 4 : 2);
-  constexpr int WARPS_N = 8 / WARPS_M;
-  constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;
-  constexpr int MT = WTM / 16, NT = WTN / 8;
+  using WT = WarpTiling<BM, BN>;
+  constexpr int WARPS_M = WT::WARPS_M, WARPS_N = WT::WARPS_N;
+  constexpr int WTM = WT::WTM, WTN = WT::WTN, MT = WT::MT, NT = WT::NT;
   constexpr int BK = Ty<T>::BK, KSTEPS = BK / Ty<T>::KS;
   constexpr bool F32 = sizeof(T) == 4;
   using RG = Ring<T, BM, BN, AMAJ, AX, BMAJ, BX>;
@@ -718,30 +844,13 @@ mma_kernel(const __grid_constant__ Gemm p) {
         }
       }
       if constexpr (F32) {
-        // each accumulator takes a_lo b_hi, a_hi b_lo, a_hi b_hi in that
-        // order; the passes run outermost, so neighbouring MMAs are
-        // independent
         uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           frag_a<T, AMAJ, BM>(sa, wm0 + i * 16, ks, lane, ah[i]);
           frag_a<T, AMAJ, BM>(sa + PA, wm0 + i * 16, ks, lane, al[i]);
         }
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-            mma_tf32(acc[i][j], al[i], bh[j][0], bh[j][1]);
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-            mma_tf32(acc[i][j], ah[i], bl[j][0], bl[j][1]);
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-            mma_tf32(acc[i][j], ah[i], bh[j][0], bh[j][1]);
+        mma_tf32x3(acc, ah, al, bh, bl);
       } else {
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
@@ -755,57 +864,9 @@ mma_kernel(const __grid_constant__ Gemm p) {
     }
   }
 
-  // epilogue: fragment (i, j) holds rows g, g + 8 and columns 2t, 2t + 1
-  const int g = lane >> 2, tq = lane & 3;
-  const bool partial = EPI == EPI_F32 || p.splits > 1;
-  const bool stats = !partial && (EPI == EPI_DP || p.stats);
-  float* pout = EPI == EPI_F32 && p.splits == 1 ? static_cast<float*>(p.out)
-                                                : p.ws;
-  pout += (size_t)blockIdx.z * p.M * p.N;
-  float cs[NT][2], css[NT][2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    cs[j][0] = cs[j][1] = css[j][0] = css[j][1] = 0.f;
-  // EPI_DP reads the raw input at every output element: a row block's
-  // loads are issued before its first store (which the compiler could not
-  // move them past), so they are in flight together
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    float2 xin[2][NT];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int r = m0 + wm0 + i * 16 + g + 8 * h;
-        const int c = n0 + wn0 + j * 8 + 2 * tq;
-        xin[h][j] = EPI == EPI_DP && !partial && r < p.M && c < p.N
-            ? ld_pair<T>(p.x, (size_t)r * p.N + c) : make_float2(0.f, 0.f);
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m0 + wm0 + i * 16 + g + 8 * h;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c = n0 + wn0 + j * 8 + 2 * tq;
-        if (r >= p.M || c >= p.N) continue;   // N % 4 == 0: c + 1 < N too
-        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        const size_t off = (size_t)r * p.N + c;
-        if (partial) {
-          *reinterpret_cast<float2*>(pout + off) = make_float2(v0, v1);
-        } else {
-          if constexpr (EPI != EPI_F32) {
-            v0 = epi<EPI>(p, c, xin[h][j].x, v0, cs[j][0], css[j][0]);
-            v1 = epi<EPI>(p, c + 1, xin[h][j].y, v1, cs[j][1], css[j][1]);
-          }
-          st_pair<T>(p.out, off, v0, v1);
-        }
-      }
-    }
-  }
-  if constexpr (EPI != EPI_F32) {
-    if (!stats) return;   // uniform over the block
-    stats_tile<BN, WARPS_M, WARPS_N, NT>(p, cs, css, warp, g, tq, wn0, n0);
-  }
+  tile_epilogue<T, BM, BN, EPI, WARPS_M, WARPS_N, MT, NT>(p, acc, m0, n0,
+                                                        wm0, wn0, warp,
+                                                        lane);
 }
 
 // The split-K epilogue: out = epilogue(sum_z ws[z]) in z order, with the

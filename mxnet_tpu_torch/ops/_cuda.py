@@ -1,7 +1,7 @@
 """How an op module validates, allocates for and launches a hand-written
 CUDA kernel: shared by ``fused_unit`` (K1-K7) and ``nn`` (K8), with the
-tile and split plans of the tensor-core loop that K1, K5, K6 and K8 run
-on (``csrc/fu_mma.cuh``).
+tile and split plans of the tensor-core loops: ``csrc/fu_mma.cuh`` (K1,
+K3, K5, K6, K8) and its halo-resident form ``csrc/fu_halo.cuh`` (K7).
 
 A wrapper asks ``on_host`` first and, for a CPU or meta tensor, runs its
 plain version; for a CUDA tensor it checks its operands with ``check`` and
@@ -70,7 +70,7 @@ def stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-# The tensor-core tile loop of K1, K5, K6 and K8 (csrc/fu_mma.cuh): output
+# The tensor-core tile loop of K1, K3, K5, K6 and K8 (csrc/fu_mma.cuh): output
 # tiles of 128 x 128, 128 x 64 or 64 x 128 and a split of the summed axis,
 # chosen from the shapes and the element size alone so that the sum order
 # (and the result) never depends on the device.  MMA_BLOCKS is the block
@@ -102,7 +102,7 @@ def _chunked(k, splits):
 
 def mma_plan(m, n, k, f32=True):
     """(bm, bn, splits, chunk) of an (m, n) product over k channels (K1,
-    the dgrads of K5, K6 and K8) in f32 or bf16: the k range is halved
+    K3, the dgrads of K5, K6 and K8) in f32 or bf16: the k range is halved
     while each chunk keeps at least 256 channels and the blocks number
     fewer than one an SM (bf16) or two (f32).  Two blocks share an SM, so
     196 blocks leave 64 SMs with twice the work of the other 68; in f32 a
@@ -127,3 +127,60 @@ def mma_wgrad_plan(m, n, rows):
     tiles = _cdiv(m, bm) * _cdiv(n, bn)
     splits = max(1, min(_cdiv(2 * MMA_BLOCKS, tiles), rows // 512))
     return (bm, bn) + _chunked(rows, splits)
+
+
+# K7's halo-resident loops (csrc/fu_halo.cuh).  A band of pixels of the
+# (n, h, w) row layout reads, over all nine taps, a halo of rows around it:
+# one window of band + 2W + 2 rows, or three of band + 2 where W > band + 2.
+HALO_ROW_BYTES = 144        # a K-major halo row: 128 bytes of k + padding
+# dynamic shared memory that leaves two blocks an SM (228 KB, less 1 KB
+# reserved a block and the 2 KB of statistics scratch each)
+SMEM_TWO_BLOCKS = 111 * 1024
+HALO_WGRAD_TILE = 32        # the wgrad block's o and i (nine warps, a tap each)
+
+
+def halo_rows(band, w_):
+    """Rows of the halo of a band of ``band`` pixels over images w_ wide."""
+    return min(band + 2 * w_ + 2, 3 * (band + 2))
+
+
+def halo_dgrad_smem(bm, bn, w_, f32=True):
+    """Dynamic shared memory of K7's dgrad on a (bm, bn) tile: a two-stage
+    ring of (k tile x bn) weight slices (f32: hi and lo planes) and the
+    halo of bm pixels, with a zero row, in two planes."""
+    stage = (256 if f32 else 128) * (bn + 8)
+    return 2 * stage + 2 * (halo_rows(bm, w_) + 1) * HALO_ROW_BYTES
+
+
+def halo_dgrad_plan(rows, ci, co, w_, f32=True):
+    """(bm, bn, splits, chunk) of K7's dgrad dP (rows, ci) summed over co
+    channels and nine taps, on images w_ wide: ``mma_tiles``' tile, or 64 x
+    128 where a 128-pixel band's halo would leave one block an SM; co is
+    halved, in whole 64-channel chunks, while the blocks number fewer than
+    two an SM (f32) or one (bf16) and each chunk keeps at least 256 of the
+    9 * co products a pixel, as ``mma_plan`` splits."""
+    bm, bn = mma_tiles(rows, ci, f32)
+    if bm == 128 and halo_dgrad_smem(bm, bn, w_, f32) > SMEM_TWO_BLOCKS:
+        bm, bn = 64, 128
+    tiles = _cdiv(rows, bm) * _cdiv(ci, bn)
+    target = MMA_BLOCKS * (2 if f32 else 1)
+    splits = 1
+    while tiles * splits < target and 9 * co >= 2 * splits * 256:
+        splits *= 2
+    return (bm, bn) + _chunked(co, splits)
+
+
+def halo_wgrad_band(f32=True):
+    """Pixels of K7's wgrad k tile: 64 in f32, 128 in bf16."""
+    return 64 if f32 else 128
+
+
+def halo_wgrad_plan(rows, ci, co, f32=True):
+    """(splits, chunk) of K7's wgrad dW (co, 9, ci) summed over ``rows``
+    pixels: about two blocks an SM of its 32 o x 32 i x 9-tap tiles, at
+    least four bands a chunk, chunks of whole bands."""
+    band = halo_wgrad_band(f32)
+    tiles = _cdiv(ci, HALO_WGRAD_TILE) * _cdiv(co, HALO_WGRAD_TILE)
+    splits = max(1, min(_cdiv(2 * MMA_BLOCKS, tiles), rows // (4 * band)))
+    chunk = _cdiv(_cdiv(rows, splits), band) * band
+    return _cdiv(rows, chunk), chunk

@@ -15,9 +15,9 @@ layout.  Weights stay in their OHWI checkpoint layout: the kernels read
 (Co, Ci) and (Co, 3, 3, Ci) directly.  MXNET_FUSED_UNIT_C3=4d runs the
 middle conv through the reference's other pair of 3x3 kernels instead, K4
 ``c3_fwd4d`` and K7 ``c3_bwd4d``, on the NHWC view of the same tensors
-(spatial tiles with their halo in shared memory).  The reference gates
-those by TPU scoped-VMEM budgets and sends some stages to XLA; the port
-runs them at every width, as it does K3 and K6.
+(each with its operand's halo resident in shared memory).  The reference
+gates those by TPU scoped-VMEM budgets and sends some stages to XLA; the
+port runs them at every width, as it does K3 and K6.
 
 In training mode K1 and K3 also return the batch statistics of their
 output, and the unit is a ``torch.autograd.Function`` whose backward runs
@@ -38,25 +38,28 @@ f32 accumulation, one rounding of the output), a launch counter
 the plain version only for tensors on the CPU or the meta device; for a
 CUDA tensor it launches the kernel or raises.  The CUDA sources are
 ``mxnet_tpu_torch/csrc/fu_*.cu`` (tiling and bound: ``fu_mma.cuh`` for K1,
-K5 and K6 on the tensor cores, K6's tap shifts gathered as it stages its
-operands; ``fu_gemm.cuh`` and ``fu_conv4d.cuh`` for the others).
-``mm_fwd_tf32x3``, ``mm_bwd_tf32x3``, ``c3_bwd2d_tf32x3`` and
-``conv1x1_bwd_tf32x3`` emulate the float32 arithmetic of K1, K5, K6 and
-K8 (``ops/nn.py``) (3xTF32 over the same split of the summed axis) for
-the CPU tests; nothing on the path calls them.
+K3, K5 and K6 on the tensor cores, K3's and K6's tap shifts gathered as
+they stage their operands; ``fu_halo.cuh`` for K7 on the tensor cores,
+each product's shared operand staged once into a halo that the nine taps
+read at shifted rows; ``fu_gemm.cuh`` and ``fu_conv4d.cuh`` for K2 and K4
+on CUDA cores).  ``mm_fwd_tf32x3``, ``c3_fwd2d_tf32x3``,
+``mm_bwd_tf32x3``, ``c3_bwd2d_tf32x3``, ``c3_bwd4d_tf32x3`` and
+``conv1x1_bwd_tf32x3`` emulate the float32 arithmetic of K1, K3, K5, K6,
+K7 and K8 (``ops/nn.py``) (3xTF32 over the same split of the summed axis,
+in the kernel's k order) for the CPU tests; nothing on the path calls
+them.
 """
 import torch
 import torch.nn.functional as F
 
 from .registry import register, P
-from ._cuda import (check, check_dims, launch, mma_plan, mma_wgrad_plan,
-                    on_host, stream)
+from ._cuda import (check, check_dims, halo_dgrad_plan, halo_wgrad_plan,
+                    launch, mma_plan, mma_wgrad_plan, on_host, stream)
 from ..base import MXNetError
 from .. import config
 
 EPS_DEFAULT = 2e-5
-_ROW_BLOCK = 64     # BM in fu_gemm.cuh: K3's stats partials' rows
-_TILE = 8           # TH = TW in fu_conv4d.cuh: K4's and K7's spatial tiles
+_TILE = 8           # TH = TW in fu_conv4d.cuh: K4's spatial tiles
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +184,19 @@ def mm_fwd_tf32x3(x2d, w, sc, sh, with_stats=False, passes=3):
     return (acc.to(x2d.dtype),) + _stats(acc, with_stats)
 
 
+def c3_fwd2d_tf32x3(x2d, w, sc, sh, n, h, w_, with_stats=False, passes=3):
+    """K3's float32 arithmetic on the CPU: ``c3_fwd2d_plain`` as K3 takes
+    it, a' (R, 9 Ci) @ w' (9 Ci, Co) with a'[r, (t, c)] = act(x)[r + off_t,
+    c] (zero off the image) and w' the OHWI weight, k tap-major, as
+    ``_mm_tf32`` over K3's split (``mma_plan(R, Co, 9 Ci)``)."""
+    rows, ci = x2d.shape
+    co = w.shape[0]
+    _, _, splits, chunk = mma_plan(rows, co, 9 * ci)
+    a9 = _taps(_prologue(x2d, sc, sh).reshape(n, h, w_, ci), 1)
+    acc = _mm_tf32(a9, w.reshape(co, 9 * ci).t(), splits, chunk, passes)
+    return (acc.to(x2d.dtype),) + _stats(acc, with_stats)
+
+
 def mm_bwd_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, passes=3):
     """K5's float32 arithmetic on the CPU: ``mm_bwd_plain`` with the dgrad
     and the wgrad taken as ``_mm_tf32`` over K5's splits (``mma_plan``,
@@ -228,6 +244,38 @@ def c3_bwd2d_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_,
     a9 = _taps(_prologue(x2d, sc, sh).reshape(n, h, w_, ci), 1)
     dw = _mm_tf32(g.t(), a9, wsplits, wchunk, passes)
     return dp, dw.reshape(co, 3, 3, ci), db, dg
+
+
+def c3_bwd4d_tf32x3(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh, passes=3):
+    """K7's float32 arithmetic on the CPU: ``c3_bwd4d_plain`` as K7 takes
+    it (csrc/fu_halo.cuh), each product as ``_mm_tf32`` over K7's splits
+    (``halo_dgrad_plan``, ``halo_wgrad_plan``).  The dgrad sums k = (chunk
+    of 32 channels of Co, tap, channel), a chunk's nine taps read from one
+    staged halo: fin(g)' (R, 9 Co) @ w' with fin(g)'[r, (t, o)] =
+    fin(g)[r - off_t, o], Co padded with zero channels to whole chunks as
+    the kernel's tiles are; the wgrad sums the pixels in order, each tap
+    apart: fin(g)^T @ a' (R, 9 Ci) with a'[r, (t, i)] = act(x)[r + off_t,
+    i]."""
+    n, h, w_, co = g4d.shape
+    ci = x4d.shape[-1]
+    rows = n * h * w_
+    x2d = x4d.reshape(rows, ci)
+    g = _finalize_g(g4d.reshape(rows, co), yraw4d.reshape(rows, co), fin)
+    _, _, dsplits, dchunk = halo_dgrad_plan(rows, ci, co, w_)
+    wsplits, wchunk = halo_wgrad_plan(rows, ci, co)
+    bk = 32                                   # f32 channels of a k tile
+    nb = -(-co // bk)
+    gp = F.pad(g, (0, nb * bk - co)).reshape(n, h, w_, nb * bk)
+    gk = _taps(gp, -1).reshape(rows, 9, nb, bk).transpose(1, 2) \
+        .reshape(rows, 9 * nb * bk)
+    wk = F.pad(w.float().permute(1, 2, 0, 3).reshape(9, co, ci),
+               (0, 0, 0, nb * bk - co)).reshape(9, nb, bk, ci) \
+        .transpose(0, 1).reshape(9 * nb * bk, ci)
+    da = _mm_tf32(gk, wk, dsplits, 9 * dchunk, passes)
+    dp, db, dg = _bwd_epilogue(da, x2d, sc, sh, xs, xh)
+    a9 = _taps(_prologue(x2d, sc, sh).reshape(n, h, w_, ci), 1)
+    dw = _mm_tf32(g.t(), a9, wsplits, wchunk, passes)
+    return dp.reshape(x4d.shape), dw.reshape(co, 3, 3, ci), db, dg
 
 
 def conv1x1_bwd_tf32x3(x2d, dy2d, w, passes=3):
@@ -283,13 +331,6 @@ def c3_bwd2d_plain(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_):
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-
-def _stats_buffers(rows, n, device):
-    part = torch.empty((2, -(-rows // _ROW_BLOCK), n), dtype=torch.float32,
-                       device=device)
-    return (part, torch.empty(n, dtype=torch.float32, device=device),
-            torch.empty(n, dtype=torch.float32, device=device))
-
 
 def mm_fwd_buffers(rows, ci, co, with_stats, device, f32=True):
     """K1's launch plan (bm, bn, splits, chunk) for x (rows, ci) in f32 or
@@ -379,6 +420,21 @@ def mm_skip_fwd(x2d, w, sc, sh, skip2d):
 mm_skip_fwd.launches = 0
 
 
+def c3_fwd2d_buffers(rows, ci, co, with_stats, device, f32=True):
+    """K3's launch plan and scratch: ``mm_fwd_buffers`` over its k = 9 *
+    ci, the plan ``mma_plan(rows, co, 9 * ci)``."""
+    return mm_fwd_buffers(rows, 9 * ci, co, with_stats, device, f32)
+
+
+def _check_index_division(name, rows, h, w_, c):
+    """The tap gathers divide row and channel indices by multiply-high,
+    exact while index * divisor < 2^32."""
+    if (rows + 128) * max(h, w_) >= 2 ** 32 or (9 * c + 128) * c >= 2 ** 32:
+        raise MXNetError("%s: %d rows of %dx%d images at %d channels "
+                         "overflow the kernel's 32-bit index division"
+                         % (name, rows, h, w_, c))
+
+
 def c3_fwd2d(x2d, w, sc, sh, n, h, w_, with_stats=False):
     """K3: 3x3 / stride 1 / pad 1 convolution of relu(x*sc + sh) over n
     whole h x w_ images held as x (n*h*w_, Ci), weight (Co, 3, 3, Ci) OHWI;
@@ -386,9 +442,14 @@ def c3_fwd2d(x2d, w, sc, sh, n, h, w_, with_stats=False):
 
     Replaces mxnet_tpu/ops/fused_unit.py ``_k_conv3_fwd_2d``
     (``_c3_fwd2d``, pallas_call "fu_c3_fwd2d").  Bound on the H100:
-    arithmetic (9 taps of 2*R*Ci*Co); each output row reads its neighbour
-    rows directly with zeros outside the image, so there is no rolled copy
-    and no mask tensor, and it runs at every width (csrc/fu_gemm.cuh)."""
+    arithmetic (9 taps of 2*R*Ci*Co), which the tensor cores serve (bf16
+    MMA, float32 through 3xTF32) on K1's loop (csrc/fu_mma.cuh) with k =
+    (tap, channel): each tap's neighbour row of the activation is gathered
+    through the prologue as the tile is staged, with zeros outside the
+    image (no rolled copy, no mask tensor), and the OHWI weight is read in
+    place.  Plan and scratch come from ``c3_fwd2d_buffers`` (shapes only);
+    split partials and statistics are added in a fixed order.  It runs at
+    every width."""
     if on_host(x2d):
         return c3_fwd2d_plain(x2d, w, sc, sh, n, h, w_, with_stats)
     rows, ci = x2d.shape
@@ -400,14 +461,15 @@ def c3_fwd2d(x2d, w, sc, sh, n, h, w_, with_stats=False):
                                                tuple(w.shape), n, h, w_))
     check("c3_fwd2d", x2d.dtype, x2d.device, x=x2d, w=w, sc=sc, sh=sh)
     check_dims("c3_fwd2d", ci, co)
+    _check_index_division("c3_fwd2d", rows, h, w_, max(ci, co))
     y = torch.empty((rows, co), dtype=x2d.dtype, device=x2d.device)
-    part = s = ss = None
-    if with_stats:
-        part, s, ss = _stats_buffers(rows, co, x2d.device)
+    plan, ws, part, s, ss = c3_fwd2d_buffers(rows, ci, co, with_stats,
+                                             x2d.device,
+                                             x2d.dtype == torch.float32)
     with torch.cuda.device(x2d.device):
-        launch("fu_c3_fwd2d", x2d, w, sc, sh, y, part, s, ss, rows, ci, co,
-               h, w_, int(x2d.dtype == torch.bfloat16), int(with_stats),
-               stream(x2d.device))
+        launch("fu_c3_fwd2d", x2d, w, sc, sh, y, part, s, ss, ws, rows, ci,
+               co, h, w_, int(x2d.dtype == torch.bfloat16), int(with_stats),
+               *plan, stream(x2d.device))
     c3_fwd2d.launches += 1
     return y, s, ss
 
@@ -539,13 +601,7 @@ def c3_bwd2d(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_):
     check("c3_bwd2d", x2d.dtype, x2d.device, g=g2d, yraw=yraw2d, c1=fin[0],
           u0=fin[1], u1=fin[2], x=x2d, w=w, sc=sc, sh=sh, xs=xs, xh=xh)
     check_dims("c3_bwd2d", ci, co)
-    # the gathers divide row and channel indices by multiply-high, exact
-    # while index * divisor < 2^32
-    c = max(ci, co)
-    if (rows + 128) * max(h, w_) >= 2 ** 32 or (9 * c + 128) * c >= 2 ** 32:
-        raise MXNetError("c3_bwd2d: %d rows of %dx%d images at %d channels "
-                         "overflow the kernel's 32-bit index division"
-                         % (rows, h, w_, c))
+    _check_index_division("c3_bwd2d", rows, h, w_, max(ci, co))
     dev = x2d.device
     dp = torch.empty((rows, ci), dtype=x2d.dtype, device=dev)
     dplan, wplan, part, db, dg, dws, dw, wpart = c3_bwd2d_buffers(
@@ -563,21 +619,9 @@ c3_bwd2d.launches = 0
 
 
 def _tiles(h, w_):
-    """(tiles per image row, tiles per image) of K4's and K7's spatial
-    tiles."""
+    """(tiles per image row, tiles per image) of K4's spatial tiles."""
     tiles_w = -(-w_ // _TILE)
     return tiles_w, -(-h // _TILE) * tiles_w
-
-
-def _wgrad4d_split(tiles, co, ci):
-    """(splits, chunk) of K7's wgrad sum over ``tiles`` spatial tiles: about
-    256 blocks of its 64 x 32 (x 9 taps) weight-gradient tiles and at least
-    4 spatial tiles a chunk, from the shapes alone, so that the sum order
-    (and the result) never depends on the device."""
-    blocks = -(-co // 64) * -(-ci // 32)
-    splits = max(1, min(-(-256 // blocks), tiles // 4))
-    chunk = -(-tiles // splits)
-    return -(-tiles // chunk), chunk
 
 
 def c3_fwd4d(x4d, w, sc, sh, with_stats=False):
@@ -625,6 +669,26 @@ def c3_fwd4d(x4d, w, sc, sh, with_stats=False):
 c3_fwd4d.launches = 0
 
 
+def c3_bwd4d_buffers(n, h, w_, ci, co, device, f32=True):
+    """K7's launch plans for NHWC x (n, h, w_, ci) and g (n, h, w_, co) in
+    f32 or bf16, the dgrad's ``halo_dgrad_plan(rows, ci, co, w_)`` and the
+    wgrad's ``halo_wgrad_plan(rows, ci, co)``, and the buffers they imply:
+    (dgrad plan, wgrad plan, BN-sum partials (2, row tiles, ci), db, dg,
+    dgrad split partials (splits, rows, ci) or None, dW (co, 3, 3, ci),
+    wgrad split partials (splits, co, 9 * ci) or None), all f32."""
+    rows = n * h * w_
+    dplan = halo_dgrad_plan(rows, ci, co, w_, f32)
+    wplan = halo_wgrad_plan(rows, ci, co, f32)
+    fp = dict(dtype=torch.float32, device=device)
+    dws = torch.empty((dplan[2], rows, ci), **fp) if dplan[2] > 1 else None
+    wpart = torch.empty((wplan[0], co, 9 * ci), **fp) \
+        if wplan[0] > 1 else None
+    return (dplan, wplan,
+            torch.empty((2, -(-rows // dplan[0]), ci), **fp),
+            torch.empty(ci, **fp), torch.empty(ci, **fp), dws,
+            torch.empty((co, 3, 3, ci), **fp), wpart)
+
+
 def c3_bwd4d(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh):
     """K7: the backward of y = conv3x3(relu(x*sc + sh)) for NHWC x (N, H,
     W, Ci), weight (Co, 3, 3, Ci) OHWI, from the deferred cotangent g (N,
@@ -634,11 +698,15 @@ def c3_bwd4d(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh):
 
     Replaces mxnet_tpu/ops/fused_unit.py ``_k_conv3_bwd`` (``_c3_bwd``,
     pallas_call "fu_c3_bwd"), which returns dW as (3, 3, Ci, Co).  Bound on
-    the H100: arithmetic (9 taps of 4*N*H*W*Ci*Co); dgrad stages each 8x8
-    tile's finalized cotangent halo once and sums the rotated taps out of
-    shared memory, reading the OHWI weight in place; wgrad walks spatial
-    tiles with the activation halo in shared memory, its sum split into
-    chunks fixed by the shapes and added in order (csrc/fu_conv4d.cuh)."""
+    the H100: arithmetic (9 taps of 4*N*H*W*Ci*Co), which the tensor cores
+    serve (bf16 MMA, float32 through 3xTF32) on K6's loop in its
+    halo-resident form (csrc/fu_halo.cuh): the dgrad stages the finalized
+    cotangent of a band of pixels once per channel chunk and the wgrad the
+    activation once per band, and the nine taps read that halo at shifted
+    rows, a zero row where a neighbour leaves the image; the OHWI weight is
+    read in place and the wgrad writes the OHWI gradient.  Plans and
+    scratch come from ``c3_bwd4d_buffers`` (shapes only); every partial is
+    added in a fixed order.  It runs at every width."""
     if on_host(x4d):
         return c3_bwd4d_plain(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh)
     if x4d.ndim != 4:
@@ -659,22 +727,16 @@ def c3_bwd4d(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh):
     check("c3_bwd4d", x4d.dtype, x4d.device, g=g4d, yraw=yraw4d, c1=fin[0],
           u0=fin[1], u1=fin[2], x=x4d, w=w, sc=sc, sh=sh, xs=xs, xh=xh)
     check_dims("c3_bwd4d", ci, co)
-    tiles_w, tiles_img = _tiles(h, w_)
-    splits, chunk = _wgrad4d_split(n * tiles_img, co, ci)
+    _check_index_division("c3_bwd4d", n * h * w_, h, w_, max(ci, co))
     dev = x4d.device
     dp = torch.empty(x4d.shape, dtype=x4d.dtype, device=dev)
-    part = torch.empty((2, n * tiles_img, ci), dtype=torch.float32,
-                       device=dev)
-    db = torch.empty(ci, dtype=torch.float32, device=dev)
-    dg = torch.empty(ci, dtype=torch.float32, device=dev)
-    dw = torch.empty((co, 3, 3, ci), dtype=torch.float32, device=dev)
-    wpart = torch.empty((splits, co, 9 * ci), dtype=torch.float32,
-                        device=dev) if splits > 1 else None
+    dplan, wplan, part, db, dg, dws, dw, wpart = c3_bwd4d_buffers(
+        n, h, w_, ci, co, dev, x4d.dtype == torch.float32)
     with torch.cuda.device(dev):
         launch("fu_c3_bwd4d", g4d, yraw4d, fin[0], fin[1], fin[2], x4d, w,
-               sc, sh, xs, xh, dp, part, db, dg, dw, wpart, n, h, w_, ci, co,
-               tiles_w, tiles_img, splits, chunk,
-               int(x4d.dtype == torch.bfloat16), stream(dev))
+               sc, sh, xs, xh, dp, part, db, dg, dw, wpart, dws, n, h, w_,
+               ci, co, int(x4d.dtype == torch.bfloat16), *dplan, *wplan,
+               stream(dev))
     c3_bwd4d.launches += 1
     return dp, dw, db, dg
 

@@ -357,6 +357,106 @@ def test_k6_k8_on_mma_match_plain_and_repeat_on_card(cuda_device, dtype):
             assert err <= tol, (kernel.__name__, args[-3:], i, err)
 
 
+# K3 and K7 on the tensor cores, as (n, h, w, ci, co): channels of 36 and
+# 100, ragged images (13 x 11, 7 x 7: rows and widths off every tile and
+# band), a split of K3's k = 9 Ci and of K7's dgrad Co (stage 3's width
+# at batch 1), of K7's wgrad pixels (1568 pixels), and images wider than
+# K7's bands (140: the three-window halo in both products)
+C3_TC_CASES = [(2, 13, 11, 36, 100), (3, 7, 7, 100, 36),
+               (1, 14, 14, 256, 256), (2, 28, 28, 36, 100),
+               (1, 3, 140, 36, 36)]
+
+
+def _k3_k7_calls(device, dtype):
+    """K3 (with and without statistics) and K7 at C3_TC_CASES, on inputs
+    from a seed."""
+    calls = []
+    for n, h, w, ci, co in C3_TC_CASES:
+        rows = n * h * w
+        g = torch.Generator().manual_seed(rows + 3 * ci + 17 * co)
+        r = lambda *s, scale=1.0: (torch.randn(  # noqa: E731
+            *s, generator=g) * scale).to(device)
+        x, wt = r(rows, ci).to(dtype), \
+            r(co, 3, 3, ci, scale=(9 * ci) ** -0.5).to(dtype)
+        vec = (r(ci).abs() + 0.5, r(ci) * 0.3)
+        for stats in (True, False):
+            calls.append((fu.c3_fwd2d, fu.c3_fwd2d_plain,
+                          (x, wt, *vec, n, h, w, stats)))
+        nhwc = (n, h, w)
+        calls.append((fu.c3_bwd4d, fu.c3_bwd4d_plain,
+                      (r(*nhwc, co).to(dtype), r(*nhwc, co).to(dtype),
+                       (r(co).abs() + 0.5, r(co) * 0.1, r(co) * 0.1),
+                       x.reshape(*nhwc, ci), wt) + vec
+                      + (r(ci).abs() + 0.5, r(ci) * 0.3)))
+    return calls
+
+
+def test_k3_k7_cases_cover_ragged_split_and_wide_plans():
+    from mxnet_tpu_torch.ops import _cuda
+    k3 = [_cuda.mma_plan(n * h * w, co, 9 * ci)
+          for n, h, w, ci, co in C3_TC_CASES]
+    dg = [_cuda.halo_dgrad_plan(n * h * w, ci, co, w)
+          for n, h, w, ci, co in C3_TC_CASES]
+    wg = [_cuda.halo_wgrad_plan(n * h * w, ci, co)
+          for n, h, w, ci, co in C3_TC_CASES]
+    assert any(p[2] > 1 for p in k3)              # K3 split
+    assert any(p[2] > 1 for p in dg)              # K7 dgrad split
+    assert any(p[0] > 1 for p in wg)              # K7 wgrad split
+    assert any(w > p[0] + 2 for p, (_, _, w, _, _) in zip(dg, C3_TC_CASES))
+    assert any(w > _cuda.halo_wgrad_band() + 2
+               for _, _, w, _, _ in C3_TC_CASES)  # three-window halos
+    assert {36, 100} <= {c for case in C3_TC_CASES for c in case[3:]}
+    assert any(n * h * w % 64 and w % 8 for n, h, w, _, _ in C3_TC_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_k7_on_mma_match_plain_and_repeat_on_card(cuda_device, dtype):
+    """K3 and K7 on the tensor cores at ragged, split and wide shapes:
+    within the tolerances above of their plain versions (K3's statistics
+    at K7's f32-sum bound), and the same bits from a second launch."""
+    dt = getattr(torch, dtype)
+    for kernel, plain, args in _k3_k7_calls(cuda_device, dt):
+        before = kernel.launches
+        got, want, again = kernel(*args), plain(*args), kernel(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        for i, (g, r, a) in enumerate(zip(got, want, again)):
+            if r is None:
+                assert g is None and a is None
+                continue
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert torch.equal(g, a), (kernel.__name__, i)
+            tol = CARD_TOL[dt] if i == 0 else BWD_TOL[dt]
+            if kernel is fu.c3_fwd2d and i:
+                tol = 1e-4                  # f32 sums over every pixel
+            scale = float(r.float().abs().max())
+            err = float((g.float() - r.float()).abs().max()) / scale
+            assert err <= tol, (kernel.__name__, args[-6:-3], i, err)
+
+
+@pytest.mark.cuda
+def test_k3_k7_float32_equal_the_cpu_emulation_bitwise(cuda_device):
+    """K3's y and K7's dP and dW in float32 against c3_fwd2d_tf32x3 and
+    c3_bwd4d_tf32x3 on the same inputs on the CPU (the 3xTF32 split, the
+    k order and the split plan of the kernels), bit for bit."""
+    for kernel, _plain, args in _k3_k7_calls(cuda_device, torch.float32):
+        if kernel is fu.c3_fwd2d and not args[-1]:
+            continue
+        got = kernel(*args)
+        cpu = tuple(tuple(t.cpu() for t in a) if isinstance(a, tuple)
+                    else a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args)
+        emu = (fu.c3_fwd2d_tf32x3 if kernel is fu.c3_fwd2d
+               else fu.c3_bwd4d_tf32x3)(*cpu)
+        outs = (0,) if kernel is fu.c3_fwd2d else (0, 1)
+        for i in outs:
+            diff = float((got[i].cpu() - emu[i]).abs().max())
+            assert torch.equal(got[i].cpu(), emu[i]), \
+                (kernel.__name__, args[-6:-3] if kernel is fu.c3_bwd4d
+                 else args[-4:-1], i, diff)
+
+
 @pytest.mark.cuda
 def test_tf32_emulation_matches_the_card_bitwise(cuda_device):
     """fused_unit._tf32 (the CPU tests' model of K1's and K5's split)

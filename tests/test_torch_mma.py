@@ -1,17 +1,20 @@
-"""The tensor-core arithmetic and tiling of K1, K5, K6 and K8, emulated on
-the CPU.
+"""The tensor-core arithmetic and tiling of K1, K3, K5, K6, K7 and K8,
+emulated on the CPU.
 
-The CUDA kernels (csrc/fu_mma.cuh) compute float32 products as 3xTF32 on
-the tensor cores, over output tiles and splits of the summed axis chosen
-in Python from the shapes alone.  Here:
+The CUDA kernels (csrc/fu_mma.cuh, and K7's halo-resident csrc/fu_halo.cuh)
+compute float32 products as 3xTF32 on the tensor cores, over output tiles
+and splits of the summed axis chosen in Python from the shapes alone.
+Here:
 
 - ``_tf32`` rounds as ``cvt.rna.tf32.f32`` on crafted bit patterns;
-- ``mm_fwd_tf32x3`` / ``mm_bwd_tf32x3`` / ``c3_bwd2d_tf32x3`` /
-  ``conv1x1_bwd_tf32x3``, which walk the kernels' k order and splits in
-  their order, against the JAX package's ``_mm_fwd`` / ``_mm_bwd`` /
-  ``_c3_bwd2d`` / ``_fused1x1_bwd_pallas`` (in interpret mode, as its own
-  tests run them) at ResNet-50's widths, within chip_smoke.py's float32
-  tolerance; a single TF32 pass fails it;
+- ``mm_fwd_tf32x3`` / ``c3_fwd2d_tf32x3`` / ``mm_bwd_tf32x3`` /
+  ``c3_bwd2d_tf32x3`` / ``c3_bwd4d_tf32x3`` / ``conv1x1_bwd_tf32x3``,
+  which walk the kernels' k order and splits in their order, against the
+  JAX package's ``_mm_fwd`` / ``_c3_fwd2d`` / ``_mm_bwd`` / ``_c3_bwd2d``
+  / ``_c3_bwd`` / ``_fused1x1_bwd_pallas`` (in interpret mode, as its own
+  tests run them) at ResNet-50's widths or on ragged images with split
+  plans, within chip_smoke.py's float32 tolerance; a single TF32 pass
+  fails it;
 - the tile and split plans: pure functions of the shapes at every
   main-path shape, and the scratch the wrappers allocate from them.
 
@@ -19,6 +22,7 @@ tests/test_torch_kernels.py holds the kernels themselves against the
 plain versions on the card.
 """
 import contextlib
+import functools
 import importlib.util
 import os
 
@@ -206,6 +210,77 @@ def test_c3_bwd2d_tf32x3_matches_pallas(case, passes):
         assert errs[0] > TOL, errs
 
 
+@functools.lru_cache(maxsize=None)
+def _c3_case(n, h, w, c):
+    """Seeded inputs of a 3x3 at c channels in and out over n h x w images,
+    K3's (x, w, sc, sh) and K7's (g, y_raw, fin, x, w, sc, sh, xs, xh), with
+    the JAX package's ``_c3_fwd2d`` (y, sums) and ``_c3_bwd`` (dP, dW,
+    sums) on them."""
+    rng = np.random.default_rng(n * 1000 + h * 100 + w + c)
+    rows = n * h * w
+    r = lambda *s, scale=1.0: (rng.standard_normal(s)  # noqa: E731
+                               * scale).astype(np.float32)
+    u = lambda k: rng.uniform(0.5, 1.5, k).astype(np.float32)  # noqa: E731
+    fwd = (r(rows, c), r(c, 3, 3, c, scale=(9 * c) ** -0.5), u(c),
+           r(c, scale=0.3))
+    bwd = (r(n, h, w, c), r(n, h, w, c), (u(c), r(c, scale=0.1),
+                                          r(c, scale=0.1)),
+           r(n, h, w, c), r(c, 3, 3, c, scale=(9 * c) ** -0.5), u(c),
+           r(c, scale=0.3), u(c), r(c, scale=0.3))
+    j = jnp.asarray
+    yj = jfu._c3_fwd2d(j(fwd[0]), jfu._w4(j(fwd[1])), j(fwd[2]), j(fwd[3]),
+                       n, h, w, jnp.float32)
+    g, yraw, fin, x, w2 = bwd[:5]
+    bj = jfu._c3_bwd(j(g), j(yraw), tuple(map(j, fin)), j(x),
+                     jfu._w4(j(w2)), *map(j, bwd[5:]), jnp.float32)
+    return fwd, bwd, [np.asarray(a) for a in yj], [np.asarray(a) for a in bj]
+
+
+def _torch(a):
+    return tuple(map(_torch, a)) if isinstance(a, tuple) \
+        else torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "one-pass"])
+def test_c3_fwd2d_tf32x3_matches_pallas(passes):
+    """K3 on two ragged 13 x 11 images at 64 channels (its k = 9 * 64
+    split in two): 3xTF32 within the float32 tolerance in y and the
+    statistics of the f32 accumulator, one TF32 pass outside it in y."""
+    n, h, w, c = 2, 13, 11, 64
+    assert _cuda.mma_plan(n * h * w, c, 9 * c)[2] > 1
+    fwd, _, (yj, sj, ssj), _ = _c3_case(n, h, w, c)
+    y, s, ss = tfu.c3_fwd2d_tf32x3(*_torch(fwd), n, h, w, with_stats=True,
+                                   passes=passes)
+    errs = [_rel(y, yj), _rel(s, sj), _rel(ss, ssj)]
+    if passes == 3:
+        assert max(errs) <= TOL, errs
+    else:
+        assert errs[0] > TOL, errs
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "one-pass"])
+@pytest.mark.parametrize("case", [(1, 13, 11, 128), (2, 28, 28, 64)],
+                         ids=["ragged-dgrad-split", "wgrad-split"])
+def test_c3_bwd4d_tf32x3_matches_pallas(case, passes):
+    """K7 on a ragged 13 x 11 image at 128 channels (its dgrad's Co split
+    in two) and at stage 1's width on 1568 pixels (its wgrad's pixels
+    split): 3xTF32 within the float32 tolerance in every output, one TF32
+    pass outside it in dP.  The port's dW is (Co, 3, 3, Ci), the
+    reference's (3, 3, Ci, Co)."""
+    n, h, w, c = case
+    rows = n * h * w
+    assert _cuda.halo_dgrad_plan(rows, c, c, w)[2] > 1 \
+        or _cuda.halo_wgrad_plan(rows, c, c)[0] > 1
+    _, bwd, _, ref = _c3_case(n, h, w, c)
+    out = tfu.c3_bwd4d_tf32x3(*_torch(bwd), passes=passes)
+    errs = [_rel(out[0], ref[0]), _rel(out[1].permute(1, 2, 3, 0), ref[1]),
+            _rel(out[2], ref[2]), _rel(out[3], ref[3])]
+    if passes == 3:
+        assert max(errs) <= TOL, errs
+    else:
+        assert errs[0] > TOL, errs
+
+
 @pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "one-pass"])
 @pytest.mark.parametrize("rows,ci,co", [(256, 512, 2048), (1024, 256, 1024)],
                          ids=["stage4-site", "wgrad-split"])
@@ -230,27 +305,37 @@ def test_conv1x1_bwd_tf32x3_matches_pallas(rows, ci, co, passes):
 
 
 def _main_path_shapes():
-    """(kernel, rows, ci, co, side) of every K1, K5, K6 and K8 launch on
-    the main path: the fused units of ResNet-50 at its four stages; K1
-    (rows, C, C/4) served at batch 8 and trained at batch 32, K5 trained
-    (and driven imperatively) at batch 32 at conv3 (rows, C/4, C) and
-    conv1 (rows, C, C/4), K6 trained at batch 32 at conv2 (rows, C/4,
-    C/4) on side x side images; K8 at its three transition sites."""
+    """(kernel, rows, ci, co, side) of every K1, K3, K5, K6, K7 and K8
+    launch on the main path: the fused units of ResNet-50 at its four
+    stages; K1 (rows, C, C/4) and K3 (rows, C/4, C/4) served at batch 8
+    and trained at batch 32, K5 trained (and driven imperatively) at batch
+    32 at conv3 (rows, C/4, C) and conv1 (rows, C, C/4), K6 and K7 trained
+    at batch 32 at conv2 (rows, C/4, C/4) on side x side images; K8 at its
+    three transition sites."""
     for (hw, c, _), side in zip(SMOKE.STAGES, SMOKE.STAGE_HW):
         for batch in (SMOKE.BATCH, SMOKE.TRAIN_BATCH):
             yield "K1", batch * hw, c, c // 4, side
+            yield "K3", batch * hw, c // 4, c // 4, side
         rows = SMOKE.TRAIN_BATCH * hw
         yield "K5", rows, c // 4, c, side
         yield "K5", rows, c, c // 4, side
         yield "K6", rows, c // 4, c // 4, side
+        yield "K7", rows, c // 4, c // 4, side
     for _, hw, ci, co in SMOKE.K8_SITES:
         yield "K8", SMOKE.TRAIN_BATCH * hw, ci, co, None
 
 
 def _plans(kernel, rows, ci, co, side, f32):
-    """The (m, n, k) and plan of each product the kernel launches."""
+    """The (m, n, k) and plan of each product the kernel launches (K7's
+    dgrad: k = co channels, each over nine taps; its wgrad: a plan of its
+    own, see ``test_k7_wgrad_plans_fill_the_card``)."""
     if kernel == "K1":
         return [((rows, co, ci), _cuda.mma_plan(rows, co, ci, f32))]
+    if kernel == "K3":
+        return [((rows, co, 9 * ci), _cuda.mma_plan(rows, co, 9 * ci, f32))]
+    if kernel == "K7":
+        return [((rows, ci, co), _cuda.halo_dgrad_plan(rows, ci, co, side,
+                                                         f32))]
     taps = 9 if kernel == "K6" else 1
     return [((rows, ci, taps * co), _cuda.mma_plan(rows, ci, taps * co,
                                                     f32)),
@@ -278,6 +363,29 @@ def test_plans_are_pure_functions_of_the_shapes(monkeypatch, f32):
                 (m, n, k, bm, bn, splits, chunk)
 
 
+@pytest.mark.parametrize("f32", [True, False], ids=["float32", "bfloat16"])
+def test_k7_wgrad_plans_fill_the_card(monkeypatch, f32):
+    """K7's wgrad plans at the main-path shapes: whole bands a chunk, the
+    chunks cover the pixels, at least 3/4 of the SMs get blocks, and no
+    plan looks at the device; its dgrad's halo leaves two blocks an SM."""
+    shapes = [s for s in _main_path_shapes() if s[0] == "K7"]
+    plans = {s: (_cuda.halo_wgrad_plan(s[1], s[2], s[3], f32),
+                 _cuda.halo_dgrad_plan(s[1], s[2], s[3], s[4], f32))
+             for s in shapes}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    band = _cuda.halo_wgrad_band(f32)
+    tile = _cuda.HALO_WGRAD_TILE
+    for (_, rows, ci, co, side), ((splits, chunk), dplan) in plans.items():
+        assert (splits, chunk) == _cuda.halo_wgrad_plan(rows, ci, co, f32)
+        assert chunk % band == 0
+        assert (splits - 1) * chunk < rows <= splits * chunk
+        blocks = -(-ci // tile) * -(-co // tile) * splits
+        assert blocks >= 0.75 * _cuda.MMA_BLOCKS, (rows, ci, co, splits)
+        assert _cuda.halo_dgrad_smem(dplan[0], dplan[1], side, f32) \
+            <= _cuda.SMEM_TWO_BLOCKS
+
+
 @contextlib.contextmanager
 def _launch_captured(monkeypatch):
     """The wrappers' CUDA path on meta tensors, each launch captured
@@ -298,9 +406,9 @@ def _launch_captured(monkeypatch):
                          ids=["float32", "bfloat16"])
 def test_wrappers_allocate_the_plans_scratch(monkeypatch, dtype):
     """At every main-path shape, the scratch and plan the wrappers of K1,
-    K5, K6 and K8 pass to the kernel are those mm_fwd_buffers,
-    mm_bwd_buffers, c3_bwd2d_buffers and conv1x1_bwd_buffers give for the
-    shapes."""
+    K3, K5, K6, K7 and K8 pass to the kernel are those mm_fwd_buffers,
+    c3_fwd2d_buffers, mm_bwd_buffers, c3_bwd2d_buffers, c3_bwd4d_buffers
+    and conv1x1_bwd_buffers give for the shapes."""
     f32 = dtype == torch.float32
 
     def m(*shape, dt=dtype):
@@ -316,6 +424,34 @@ def test_wrappers_allocate_the_plans_scratch(monkeypatch, dtype):
     with _launch_captured(monkeypatch) as calls:
         for kernel, rows, ci, co, side in _main_path_shapes():
             v = m(ci, dt=torch.float32)
+            if kernel == "K3":
+                n = rows // (side * side)
+                for stats in (True, False):
+                    tfu.c3_fwd2d(m(rows, ci), m(co, 3, 3, ci), v, v, n,
+                                 side, side, stats)
+                    name, a = calls.pop()
+                    plan, ws, part, s, ss = tfu.c3_fwd2d_buffers(
+                        rows, ci, co, stats, "meta", f32)
+                    assert name == "fu_c3_fwd2d" and a[16:20] == plan
+                    assert a[9:14] == (rows, ci, co, side, side)
+                    same((a[5], a[6], a[7], a[8]), (part, s, ss, ws))
+                continue
+            if kernel == "K7":
+                fin = (m(co, dt=torch.float32),) * 3
+                nhwc = (rows // (side * side), side, side)
+                n = nhwc[0]
+                dp, dw, _, _ = tfu.c3_bwd4d(
+                    m(*nhwc, co), m(*nhwc, co), fin, m(*nhwc, ci),
+                    m(co, 3, 3, ci), v, v, v, v)
+                name, a = calls.pop()
+                dplan, wplan, part, db, dg, dws, dwb, wpart = \
+                    tfu.c3_bwd4d_buffers(n, side, side, ci, co, "meta", f32)
+                assert name == "fu_c3_bwd4d"
+                assert a[24:28] == dplan and a[28:30] == wplan
+                assert a[18:23] == (n, side, side, ci, co)
+                same(a[12:18], (part, db, dg, dwb, wpart, dws))
+                assert dp.shape == (*nhwc, ci) and dw.shape == (co, 3, 3, ci)
+                continue
             if kernel == "K6":
                 fin = (m(co, dt=torch.float32),) * 3
                 dp, dw, _, _ = tfu.c3_bwd2d(
