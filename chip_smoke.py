@@ -19,8 +19,9 @@ Phases (none catches its own failure; there is no CPU path):
    deferred shapes), K6 ``fu_c3_bwd2d`` and K7 ``fu_c3_bwd4d`` at the four
    stage shapes and K8 ``nn_conv1x1_bwd`` at its three 224x224 sites, at
    batch 32; each also launched twice on the same inputs to show equal
-   bits, and its TFLOP/s logged (K1, K5, K6 and K8 run on the tensor
-   cores, ``csrc/fu_mma.cuh``; the rest on CUDA cores); K5-K8 and their
+   bits, and its TFLOP/s logged (K1, K3, K5, K6 and K8 run on the tensor
+   cores, ``csrc/fu_mma.cuh``, K7 on its halo-resident form
+   ``csrc/fu_halo.cuh``; K2 and K4 on CUDA cores); K3 and K5-K8 and their
    library calls also timed with the L2 cache flushed before each call;
 4. serve: ResNet-50 (224x224, 1000 classes, NHWC, fused units, weights
    from ``--seed``) saved as a checkpoint, loaded by
@@ -77,7 +78,7 @@ Phases (none catches its own failure; there is no CPU path):
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so float32 means float32 on both
-sides of every comparison; K1, K5, K6 and K8 compute their float32
+sides of every comparison; K1, K3 and K5-K8 compute their float32
 products on the tensor cores through 3xTF32, which keeps float32's
 accuracy (the same
 tolerances hold them).  ``--json`` also writes every measurement to
@@ -168,7 +169,7 @@ KV_SLOTS, KV_T, KV_WINDOW = (8, 64), (128, 2048), 5
 # H100 SXM peaks (NVIDIA data sheet, dense), the least time bounds take: bf16
 # in the tensor cores, and HBM3 bandwidth.  float32 products at float32's
 # accuracy: 3xTF32 on the tensor cores (each f32 value split into two TF32
-# terms, three TF32 products per f32 product, as K1, K5, K6 and K8 compute
+# terms, three TF32 products per f32 product, as K1, K3 and K5-K8 compute
 # them),
 # 495 / 3 = 165 TFLOP/s, faster than FFMA's 67; every f32 product row
 # (K1-K8) is bounded at that rate, so no kernel can read above its bound
@@ -271,9 +272,12 @@ def c3_pairs(n, side):
 
 
 def kernel_phase(torch, fu, device, seed):
-    """Every kernel against its plain version at the stage shapes."""
+    """Every kernel against its plain version at the stage shapes; K3 and
+    its library call also timed with the L2 cache flushed before each
+    call."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cpu").manual_seed(seed)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=device)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(device)
@@ -371,13 +375,21 @@ def kernel_phase(torch, fu, device, seed):
                                  >= nbytes / HBM_BYTES_S else "bytes"),
                 }
                 row["tflops"] = flops / row["ms"] / 1e9
+                cold = ""
+                if name == "fu_c3_fwd2d":
+                    row["ms_l2_flushed"] = time_ms_cold(
+                        torch, lambda: kern(*args), flush)
+                    row["library_ms_l2_flushed"] = time_ms_cold(torch, lib,
+                                                                flush)
+                    cold = "  L2 flushed %.4f / library %.4f ms" % (
+                        row["ms_l2_flushed"], row["library_ms_l2_flushed"])
                 rows.append(row)
                 log("  %-14s %-5s stage %d %-8s rel_err %.2e  kernel %.4f ms"
                     " (%.1f TFLOP/s)  plain %.4f ms  library %.4f ms  bound "
-                    "%.4f ms (%s)"
+                    "%.4f ms (%s)%s"
                     % (name, variant, stage + 1, dname, err, row["ms"],
                        row["tflops"], row["plain_ms"], row["library_ms"],
-                       row["bound_ms"], row["bound_by"]))
+                       row["bound_ms"], row["bound_by"], cold))
     return rows
 
 
@@ -385,7 +397,8 @@ def bwd_kernel_phase(torch, fu, nn, device, seed):
     """K5, K6, K7 and K8 against their plain versions at ResNet-50's
     training shapes (batch 32), with a bitwise repeat of each launch.  K5,
     K6 and K8 run on the tensor cores (``csrc/fu_mma.cuh``: bf16 MMA, f32
-    through 3xTF32), K7 on CUDA cores.  Each kernel and its library call
+    through 3xTF32), K7 too on its halo-resident form
+    (``csrc/fu_halo.cuh``).  Each kernel and its library call
     are timed warm (``time_ms``) and with the L2 cache flushed before each
     call (``time_ms_cold``)."""
     gen = torch.Generator(device="cpu").manual_seed(seed + 7)
@@ -1609,8 +1622,9 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
     over the shapes.  Every entry also gives its launches per serve batch
     and training step in both modes, per decode step, per imperative unit
     and in the rtc phase; K1-K8 also their bfloat16 times (kernel, library
-    and bound) at the same shapes, and K5-K8 their kernel and library
-    times in both dtypes with the L2 cache flushed before each call."""
+    and bound) at the same shapes, and K3 and K5-K8 their kernel and
+    library times in both dtypes with the L2 cache flushed before each
+    call."""
     table = []
     for name, (wrapper, replaces) in _SOURCES.items():
         decode_launches = sum(r["launches"][wrapper]
@@ -1679,7 +1693,7 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
                 "bf16_library_ms": total("library_ms", sel16),
                 "bf16_bound_ms": total("bound_ms", sel16),
             }
-            if not fwd:
+            if "ms_l2_flushed" in sel[0]:
                 entry.update((pre + key, total(key, rs)) for pre, rs in (
                     ("", sel), ("bf16_", sel16)) for key in (
                         "ms_l2_flushed", "library_ms_l2_flushed"))

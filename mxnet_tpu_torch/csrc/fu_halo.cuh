@@ -46,6 +46,11 @@
 // at image edges may share one).  Staging and multiplying are not
 // overlapped inside a block (one halo buffer: the f32 halo of a 128-pixel
 // band at W = 56 is 70 KB); two blocks an SM hide each other's staging.
+// On an NVIDIA H100 80GB HBM3 at 700 W (chip_mma_probe.py; PERF.md,
+// Findings) a dgrad k tile takes 4-20% fewer cycles than K6's, its
+// multiply phase lighter and its staging no cheaper (the weight slice's
+// hi/lo split, which every block repeats, outweighs the halo); the
+// wgrad's staging costs about as much as its multiply phase.
 // No float atomics: two launches give the same bits.
 #pragma once
 
@@ -58,7 +63,6 @@ using namespace fmma;
 constexpr int HROW = TILE_BYTES_K + 16;   // bytes of a K-major halo row
 constexpr int WTHREADS = 9 * 32;          // wgrad: one warp a tap
 constexpr int WB = 32;                    // wgrad: i and o per block
-constexpr int SMEM_MAX = 227 * 1024;      // a block's opt-in shared memory
 
 // the halo of a band of `band` pixels over images W wide: 1 or 3 windows
 __host__ __device__ inline int halo_windows(int band, int W) {

@@ -7,8 +7,8 @@
 // accumulation in the tensor cores (mma.sync), whose operands are staged
 // from device memory through an optional per-element transform:
 //   - X_RAW       the value as stored (K8's operands);
-//   - X_PROLOGUE  T(relu(v * v0[ch] + v1[ch]))        K1's, K3's, K5's, K6's act(x);
-//   - X_FINALIZE  T(v0[ch] * v + v1[ch] + v2[ch] * y) K5's, K6's deferred g,
+//   - X_PROLOGUE  T(relu(v * v0[ch] + v1[ch]))        act(x) (K1, K3, K5, K6);
+//   - X_FINALIZE  T(v0[ch] * v + v1[ch] + v2[ch] * y) deferred g (K5, K6),
 // each step rounded as the plain versions compute it (ops/fused_unit.py),
 // where ch is the operand's channel: k for an operand stored K-major (k
 // contiguous: K1's x and w, g in a dgrad), m or n for one stored MN-major
@@ -72,17 +72,18 @@
 // third of bf16's), and the staging rewrite adds 25-60% to it
 // (chip_mma_probe.py; PERF.md, Findings).
 //
-// Split K.  A call whose tile grid leaves most of the 132 SMs idle (K1's,
-// K5's and K6's dgrad at stages 2-4, every wgrad, where K = rows) cuts K
-// into `splits` chunks: each block writes its f32 partial tile, and a
-// second kernel adds the partials in chunk order and applies the epilogue.
-// The epilogues (K1: T(y) and the statistics of the f32 sum; K5's and K6's
-// dgrad: the ReLU mask, T(dP) and the BatchNorm sums of the f32 dP) take
-// per-column sums over each BM-row tile in a fixed order into a (2, row
-// tiles, N) buffer that col_sums_kernel adds in a fixed order with 32
-// loads in flight per column (fu::stats_reduce_kernel's one serial thread
-// per column crawls through stage 1's 784-1568 row tiles).  No float
-// atomics anywhere: two launches on the same inputs give the same bits.
+// Split K.  A call whose tile grid leaves most of the 132 SMs idle (the
+// dgrads and K1's and K3's products at stages 2-4, every wgrad, where K =
+// rows) cuts K into `splits` chunks: each block writes its f32 partial
+// tile, and a second kernel adds the partials in chunk order and applies
+// the epilogue.  The epilogues (K1, K3: T(y) and the statistics of the f32
+// sum; the dgrads of K5, K6 and K7: the ReLU mask, T(dP) and the BatchNorm
+// sums of the f32 dP) take per-column sums over each BM-row tile in a
+// fixed order into a (2, row tiles, N) buffer that col_sums_kernel adds in
+// a fixed order with 32 loads in flight per column (fu::stats_reduce_kernel's
+// one serial thread per column crawls through stage 1's 784-1568 row
+// tiles).  No float atomics anywhere: two launches on the same inputs give
+// the same bits.
 #pragma once
 
 #include "fu_gemm.cuh"

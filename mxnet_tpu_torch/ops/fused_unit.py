@@ -46,8 +46,9 @@ on CUDA cores).  ``mm_fwd_tf32x3``, ``c3_fwd2d_tf32x3``,
 ``mm_bwd_tf32x3``, ``c3_bwd2d_tf32x3``, ``c3_bwd4d_tf32x3`` and
 ``conv1x1_bwd_tf32x3`` emulate the float32 arithmetic of K1, K3, K5, K6,
 K7 and K8 (``ops/nn.py``) (3xTF32 over the same split of the summed axis,
-in the kernel's k order) for the CPU tests; nothing on the path calls
-them.
+in the kernel's k order) for the CPU tests; with ``exact`` each MMA
+rounds as the tensor core does (``_mma_step``), which gives the card's
+bits; nothing on the path calls them.
 """
 import torch
 import torch.nn.functional as F
@@ -151,13 +152,62 @@ def _tf32(t):
     return ((i + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _mm_tf32(a, b, splits, chunk, passes=3):
-    """a (m, k) @ b (k, n) as K1's and K5's tile loop computes it in
-    float32 (csrc/fu_mma.cuh): each value split into hi = tf32(v) and lo =
-    tf32(v - hi); each of the ``splits`` chunks of ``chunk`` k summed from
-    zero in k steps of 8 (one m16n8k8 MMA), a_lo b_hi + a_hi b_lo +
-    a_hi b_hi in that order; the chunks' partials added in chunk order.
-    ``passes=1`` keeps a_hi b_hi alone (one TF32 pass)."""
+# An m16n8k8 tf32 MMA on an NVIDIA H100 adds its eight products and the
+# accumulator c in one step: each term is placed in a format with two
+# integer bits (a product's exponent is the sum of its factors', c's its
+# own plus one), truncated toward zero 27 bits below the largest of those
+# exponents, the terms are added exactly, and the sum is rounded toward
+# zero to f32 (chip_mma_probe.py fits this against the card's results).
+_MMA_BITS = 27
+
+
+def _significands(t, bits):
+    """t's integer significands (``bits`` wide, signed) and exponents: t =
+    m * 2^(e - bits) with 2^(bits - 1) <= |m| < 2^bits, m = 0 for 0."""
+    f, e = torch.frexp(t)
+    return torch.ldexp(f, torch.full_like(e, bits)).to(torch.int32), e
+
+
+def _mma_step(acc, a, b):
+    """acc (m, n) f32 plus a (m, 8) @ b (8, n) of tf32 values, as one
+    m16n8k8 MMA computes it (see _MMA_BITS), in integers: a product's
+    11 x 11-bit significand and the accumulator's 24 bits shifted to units
+    of 2^(emax - _MMA_BITS), toward zero."""
+    ma, ea = _significands(a, 11)
+    mb, eb = _significands(b, 11)
+    mc, ec = _significands(acc, 24)
+    prod = ma[:, :, None] * mb[None, :, :]
+    ep = ea[:, :, None] + eb[None, :, :]
+    low = torch.iinfo(torch.int32).min // 2
+    emax = torch.maximum(torch.where(prod != 0, ep, low).amax(1),
+                         torch.where(mc != 0, ec + 1, low))
+    # product k in units: |prod| * 2^(ep - 22 - (emax - _MMA_BITS))
+    d = emax[:, None, :] - ep - (_MMA_BITS - 22)
+    mag = prod.abs()
+    q = torch.where(d > 0, mag >> d.clamp(0, 31), mag << (-d).clamp(0, 31))
+    dc = emax - ec - (_MMA_BITS - 24)
+    magc = mc.abs()
+    qc = torch.where(dc > 0, magc >> dc.clamp(0, 31),
+                     magc << (-dc).clamp(0, 31))
+    units = (torch.where(prod < 0, -q, q).sum(1, dtype=torch.int64)
+             + torch.where(mc < 0, -qc, qc))
+    s = torch.ldexp(units.double(),
+                    (emax - _MMA_BITS).clamp(min=-1000).double())
+    y = s.float()
+    return torch.where(y.double().abs() > s.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mm_tf32(a, b, splits, chunk, passes=3, exact=False):
+    """a (m, k) @ b (k, n) as the tensor-core tile loop computes it in
+    float32 (csrc/fu_mma.cuh, fu_halo.cuh): each value split into hi =
+    tf32(v) and lo = tf32(v - hi); each of the ``splits`` chunks of
+    ``chunk`` k summed from zero in k steps of 8, one MMA each for a_lo
+    b_hi, a_hi b_lo and a_hi b_hi in that order; the chunks' partials
+    added in chunk order.  ``passes=1`` keeps a_hi b_hi alone (one TF32
+    pass).  An MMA adds its eight products in f32 (matmul order), or with
+    ``exact`` as the card does (``_mma_step``, bit for bit, about 30 times
+    slower)."""
     a, b = a.float(), b.float()
     ah, bh = _tf32(a), _tf32(b)
     al, bl = _tf32(a - ah), _tf32(b - bh)
@@ -167,6 +217,12 @@ def _mm_tf32(a, b, splits, chunk, passes=3):
         acc = a.new_zeros((a.shape[0], b.shape[1]))
         for k0 in range(z * chunk, min(k, (z + 1) * chunk), 8):
             ks = slice(k0, k0 + 8)
+            if exact:
+                if passes == 3:
+                    acc = _mma_step(acc, al[:, ks], bh[ks])
+                    acc = _mma_step(acc, ah[:, ks], bl[ks])
+                acc = _mma_step(acc, ah[:, ks], bh[ks])
+                continue
             if passes == 3:
                 acc = acc + torch.matmul(al[:, ks], bh[ks])
                 acc = acc + torch.matmul(ah[:, ks], bl[ks])
@@ -175,16 +231,19 @@ def _mm_tf32(a, b, splits, chunk, passes=3):
     return total
 
 
-def mm_fwd_tf32x3(x2d, w, sc, sh, with_stats=False, passes=3):
+def mm_fwd_tf32x3(x2d, w, sc, sh, with_stats=False, passes=3,
+                  exact=False):
     """K1's float32 arithmetic on the CPU: ``mm_fwd_plain`` with the
     product taken as ``_mm_tf32`` over K1's split (``mma_plan``)."""
     w2 = w.reshape(w.shape[0], -1)
     _, _, splits, chunk = mma_plan(x2d.shape[0], w2.shape[0], w2.shape[1])
-    acc = _mm_tf32(_prologue(x2d, sc, sh), w2.t(), splits, chunk, passes)
+    acc = _mm_tf32(_prologue(x2d, sc, sh), w2.t(), splits, chunk, passes,
+                   exact)
     return (acc.to(x2d.dtype),) + _stats(acc, with_stats)
 
 
-def c3_fwd2d_tf32x3(x2d, w, sc, sh, n, h, w_, with_stats=False, passes=3):
+def c3_fwd2d_tf32x3(x2d, w, sc, sh, n, h, w_, with_stats=False, passes=3,
+                    exact=False):
     """K3's float32 arithmetic on the CPU: ``c3_fwd2d_plain`` as K3 takes
     it, a' (R, 9 Ci) @ w' (9 Ci, Co) with a'[r, (t, c)] = act(x)[r + off_t,
     c] (zero off the image) and w' the OHWI weight, k tap-major, as
@@ -193,11 +252,13 @@ def c3_fwd2d_tf32x3(x2d, w, sc, sh, n, h, w_, with_stats=False, passes=3):
     co = w.shape[0]
     _, _, splits, chunk = mma_plan(rows, co, 9 * ci)
     a9 = _taps(_prologue(x2d, sc, sh).reshape(n, h, w_, ci), 1)
-    acc = _mm_tf32(a9, w.reshape(co, 9 * ci).t(), splits, chunk, passes)
+    acc = _mm_tf32(a9, w.reshape(co, 9 * ci).t(), splits, chunk, passes,
+                   exact)
     return (acc.to(x2d.dtype),) + _stats(acc, with_stats)
 
 
-def mm_bwd_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, passes=3):
+def mm_bwd_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, passes=3,
+                  exact=False):
     """K5's float32 arithmetic on the CPU: ``mm_bwd_plain`` with the dgrad
     and the wgrad taken as ``_mm_tf32`` over K5's splits (``mma_plan``,
     ``mma_wgrad_plan``)."""
@@ -207,9 +268,10 @@ def mm_bwd_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, passes=3):
     g = _finalize_g(g2d, yraw2d, fin)
     _, _, dsplits, dchunk = mma_plan(rows, ci, co)
     _, _, wsplits, wchunk = mma_wgrad_plan(co, ci, rows)
-    dp, db, dg = _bwd_epilogue(_mm_tf32(g, w2, dsplits, dchunk, passes),
+    dp, db, dg = _bwd_epilogue(_mm_tf32(g, w2, dsplits, dchunk, passes, exact),
                                x2d, sc, sh, xs, xh)
-    dw = _mm_tf32(g.t(), _prologue(x2d, sc, sh), wsplits, wchunk, passes)
+    dw = _mm_tf32(g.t(), _prologue(x2d, sc, sh), wsplits, wchunk, passes,
+                  exact)
     return dp, dw, db, dg
 
 
@@ -226,7 +288,7 @@ def _taps(t4, sign):
 
 
 def c3_bwd2d_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_,
-                    passes=3):
+                    passes=3, exact=False):
     """K6's float32 arithmetic on the CPU: ``c3_bwd2d_plain`` as K6 takes
     it, the dgrad fin(g)' (R, 9 Co) @ w' (9 Co, Ci) with fin(g)'[r, (t, o)]
     = fin(g)[r - off_t, o] and w'[(t, o), i] = w[o, t, i], the wgrad
@@ -242,11 +304,12 @@ def c3_bwd2d_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_,
                   passes)
     dp, db, dg = _bwd_epilogue(da, x2d, sc, sh, xs, xh)
     a9 = _taps(_prologue(x2d, sc, sh).reshape(n, h, w_, ci), 1)
-    dw = _mm_tf32(g.t(), a9, wsplits, wchunk, passes)
+    dw = _mm_tf32(g.t(), a9, wsplits, wchunk, passes, exact)
     return dp, dw.reshape(co, 3, 3, ci), db, dg
 
 
-def c3_bwd4d_tf32x3(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh, passes=3):
+def c3_bwd4d_tf32x3(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh, passes=3,
+                    exact=False):
     """K7's float32 arithmetic on the CPU: ``c3_bwd4d_plain`` as K7 takes
     it (csrc/fu_halo.cuh), each product as ``_mm_tf32`` over K7's splits
     (``halo_dgrad_plan``, ``halo_wgrad_plan``).  The dgrad sums k = (chunk
@@ -254,8 +317,9 @@ def c3_bwd4d_tf32x3(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh, passes=3):
     staged halo: fin(g)' (R, 9 Co) @ w' with fin(g)'[r, (t, o)] =
     fin(g)[r - off_t, o], Co padded with zero channels to whole chunks as
     the kernel's tiles are; the wgrad sums the pixels in order, each tap
-    apart: fin(g)^T @ a' (R, 9 Ci) with a'[r, (t, i)] = act(x)[r + off_t,
-    i]."""
+    apart, as the kernel takes it, transposed: a'^T (9 Ci, R) @ fin(g),
+    with a'[r, (t, i)] = act(x)[r + off_t, i] (the activation is the MMA's
+    A operand, so its lo part meets g's hi part in the first pass)."""
     n, h, w_, co = g4d.shape
     ci = x4d.shape[-1]
     rows = n * h * w_
@@ -271,14 +335,14 @@ def c3_bwd4d_tf32x3(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh, passes=3):
     wk = F.pad(w.float().permute(1, 2, 0, 3).reshape(9, co, ci),
                (0, 0, 0, nb * bk - co)).reshape(9, nb, bk, ci) \
         .transpose(0, 1).reshape(9 * nb * bk, ci)
-    da = _mm_tf32(gk, wk, dsplits, 9 * dchunk, passes)
+    da = _mm_tf32(gk, wk, dsplits, 9 * dchunk, passes, exact)
     dp, db, dg = _bwd_epilogue(da, x2d, sc, sh, xs, xh)
     a9 = _taps(_prologue(x2d, sc, sh).reshape(n, h, w_, ci), 1)
-    dw = _mm_tf32(g.t(), a9, wsplits, wchunk, passes)
+    dw = _mm_tf32(a9.t(), g, wsplits, wchunk, passes, exact).t()
     return dp.reshape(x4d.shape), dw.reshape(co, 3, 3, ci), db, dg
 
 
-def conv1x1_bwd_tf32x3(x2d, dy2d, w, passes=3):
+def conv1x1_bwd_tf32x3(x2d, dy2d, w, passes=3, exact=False):
     """K8's float32 arithmetic on the CPU: ``nn.conv1x1_bwd_plain`` with
     dx = dy @ w and dW = dy^T x taken as ``_mm_tf32`` over K8's splits
     (``nn.conv1x1_bwd_buffers``)."""
@@ -287,8 +351,8 @@ def conv1x1_bwd_tf32x3(x2d, dy2d, w, passes=3):
     co = w2.shape[0]
     _, _, dsplits, dchunk = mma_plan(rows, ci, co)
     _, _, wsplits, wchunk = mma_wgrad_plan(co, ci, rows)
-    dx = _mm_tf32(dy2d, w2, dsplits, dchunk, passes).to(x2d.dtype)
-    dw = _mm_tf32(dy2d.t(), x2d, wsplits, wchunk, passes)
+    dx = _mm_tf32(dy2d, w2, dsplits, dchunk, passes, exact).to(x2d.dtype)
+    dw = _mm_tf32(dy2d.t(), x2d, wsplits, wchunk, passes, exact)
     return dx, dw.reshape(w.shape).to(w.dtype)
 
 

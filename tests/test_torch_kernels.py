@@ -432,29 +432,38 @@ def test_k3_k7_on_mma_match_plain_and_repeat_on_card(cuda_device, dtype):
                 tol = 1e-4                  # f32 sums over every pixel
             scale = float(r.float().abs().max())
             err = float((g.float() - r.float()).abs().max()) / scale
-            assert err <= tol, (kernel.__name__, args[-6:-3], i, err)
+            assert err <= tol, (kernel.__name__, tuple(args[3].shape), i,
+                                err)
 
 
 @pytest.mark.cuda
 def test_k3_k7_float32_equal_the_cpu_emulation_bitwise(cuda_device):
-    """K3's y and K7's dP and dW in float32 against c3_fwd2d_tf32x3 and
-    c3_bwd4d_tf32x3 on the same inputs on the CPU (the 3xTF32 split, the
-    k order and the split plan of the kernels), bit for bit."""
-    for kernel, _plain, args in _k3_k7_calls(cuda_device, torch.float32):
-        if kernel is fu.c3_fwd2d and not args[-1]:
-            continue
+    """K3's y and K7's dP and dW in float32 (and K1's y, on the same loop)
+    equal c3_fwd2d_tf32x3, c3_bwd4d_tf32x3 and mm_fwd_tf32x3 with
+    ``exact`` on the same inputs on the CPU, bit for bit: the 3xTF32
+    split, the k order, the split plan and each MMA's own rounding
+    (fused_unit._mma_step) of the kernels."""
+    calls = [c for c in _k3_k7_calls(cuda_device, torch.float32)
+             if c[0] is fu.c3_bwd4d or c[2][-1]]
+    g = torch.Generator().manual_seed(1)
+    r = lambda *s, scale=1.0: (torch.randn(  # noqa: E731
+        *s, generator=g) * scale).to(cuda_device)
+    calls.append((fu.mm_fwd, None, (r(286, 36), r(100, 1, 1, 36, scale=1 / 6),
+                                    r(36).abs() + 0.5, r(36) * 0.3)))
+    emulations = {fu.c3_fwd2d: fu.c3_fwd2d_tf32x3,
+                  fu.c3_bwd4d: fu.c3_bwd4d_tf32x3,
+                  fu.mm_fwd: fu.mm_fwd_tf32x3}
+    for kernel, _plain, args in calls:
         got = kernel(*args)
         cpu = tuple(tuple(t.cpu() for t in a) if isinstance(a, tuple)
                     else a.cpu() if isinstance(a, torch.Tensor) else a
                     for a in args)
-        emu = (fu.c3_fwd2d_tf32x3 if kernel is fu.c3_fwd2d
-               else fu.c3_bwd4d_tf32x3)(*cpu)
-        outs = (0,) if kernel is fu.c3_fwd2d else (0, 1)
-        for i in outs:
-            diff = float((got[i].cpu() - emu[i]).abs().max())
+        emu = emulations[kernel](*cpu, exact=True)
+        for i in (0, 1) if kernel is fu.c3_bwd4d else (0,):
+            diff = (got[i].cpu() - emu[i]).abs()
             assert torch.equal(got[i].cpu(), emu[i]), \
-                (kernel.__name__, args[-6:-3] if kernel is fu.c3_bwd4d
-                 else args[-4:-1], i, diff)
+                (kernel.__name__, tuple(cpu[0].shape), i,
+                 float((diff > 0).float().mean()), float(diff.max()))
 
 
 @pytest.mark.cuda

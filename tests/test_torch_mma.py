@@ -6,7 +6,9 @@ compute float32 products as 3xTF32 on the tensor cores, over output tiles
 and splits of the summed axis chosen in Python from the shapes alone.
 Here:
 
-- ``_tf32`` rounds as ``cvt.rna.tf32.f32`` on crafted bit patterns;
+- ``_tf32`` rounds as ``cvt.rna.tf32.f32`` on crafted bit patterns, and
+  ``_mma_step`` rounds as the card's m16n8k8 tf32 MMA on 48 of its results
+  (``tests/fixtures/mma_tf32_h100.npz``);
 - ``mm_fwd_tf32x3`` / ``c3_fwd2d_tf32x3`` / ``mm_bwd_tf32x3`` /
   ``c3_bwd2d_tf32x3`` / ``c3_bwd4d_tf32x3`` / ``conv1x1_bwd_tf32x3``,
   which walk the kernels' k order and splits in their order, against the
@@ -78,6 +80,26 @@ def _bits(v):
 def test_tf32_rounds_like_cvt_rna(bits, want):
     got = tfu._tf32(_bits(bits)).view(torch.int32).item() & 0xFFFFFFFF
     assert got == want, "%08x -> %08x, want %08x" % (bits, got, want)
+
+
+# 48 tf32 MMAs (m16n8k8) on an NVIDIA H100 80GB HBM3: inputs and the
+# card's results, written by chip_mma_probe.py --fixture (a third each of
+# one scale, spread exponents and cancelling sums)
+MMA_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "mma_tf32_h100.npz")
+
+
+def test_mma_model_reproduces_the_card_bitwise():
+    """fused_unit._mma_step, the model of how an m16n8k8 tf32 MMA rounds
+    that the exact emulations use, gives the card's bits for the fixture's
+    MMAs; adding the products in f32 does not."""
+    f = np.load(MMA_FIXTURE)
+    a, b, c, d = (torch.from_numpy(f[k]) for k in "abcd")
+    assert a.shape[0] == 48
+    for i in range(a.shape[0]):
+        got = tfu._mma_step(c[i], a[i], b[i])
+        assert torch.equal(got, d[i]), i
+    f32 = [torch.equal(c[i] + a[i] @ b[i], d[i]) for i in range(48)]
+    assert not all(f32)
 
 
 def _rel(got, want):
