@@ -140,7 +140,8 @@ HALO_PROBES = [
     ('#include "fu_mma.cuh"', '#include "fu_mma_probe.cuh"'),
     ("""  for (int j = 0; j < ntiles; ++j) {
     int t, c0, c1;
-    tile(j, t, c0, c1);""", _HALO_INIT + """  for (int j = 0; j < ntiles; ++j) {
+    tile(j, t, c0, c1);""",
+     _HALO_INIT + """  for (int j = 0; j < ntiles; ++j) {
     const unsigned long long q0 = clock64();
     int t, c0, c1;
     tile(j, t, c0, c1);"""),
@@ -175,7 +176,8 @@ HALO_PROBES = [
     ("""    ldb.transform(p.b, n0, p.N, t * p.K + c0, t * p.K + c1, sb);
     // the halo and tile j are in place, and every warp is done with tile
     // j - 1, whose stage the next copies overwrite
-    __syncthreads();""", """    ldb.transform(p.b, n0, p.N, t * p.K + c0, t * p.K + c1, sb);
+    __syncthreads();""",
+     """    ldb.transform(p.b, n0, p.N, t * p.K + c0, t * p.K + c1, sb);
     const unsigned long long q1 = clock64();
     ph[1] += q1 - q0;
     __syncthreads();
@@ -185,7 +187,8 @@ HALO_PROBES = [
       }
     }
   }
-  tile_epilogue""", """            mma_bf16(acc[i][jj], ah[i], bh[jj][0], bh[jj][1]);
+  tile_epilogue""",
+     """            mma_bf16(acc[i][jj], ah[i], bh[jj][0], bh[jj][1]);
       }
     }
     ph[3] += clock64() - q2;

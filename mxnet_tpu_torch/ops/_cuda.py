@@ -136,7 +136,8 @@ HALO_ROW_BYTES = 144        # a K-major halo row: 128 bytes of k + padding
 # dynamic shared memory that leaves two blocks an SM (228 KB, less 1 KB
 # reserved a block and the 2 KB of statistics scratch each)
 SMEM_TWO_BLOCKS = 111 * 1024
-HALO_WGRAD_TILE = 32        # the wgrad block's o and i (nine warps, a tap each)
+# the wgrad block's o and i (nine warps, a tap each)
+HALO_WGRAD_TILE = 32
 
 
 def halo_rows(band, w_):

@@ -268,8 +268,8 @@ def mm_bwd_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, passes=3,
     g = _finalize_g(g2d, yraw2d, fin)
     _, _, dsplits, dchunk = mma_plan(rows, ci, co)
     _, _, wsplits, wchunk = mma_wgrad_plan(co, ci, rows)
-    dp, db, dg = _bwd_epilogue(_mm_tf32(g, w2, dsplits, dchunk, passes, exact),
-                               x2d, sc, sh, xs, xh)
+    da = _mm_tf32(g, w2, dsplits, dchunk, passes, exact)
+    dp, db, dg = _bwd_epilogue(da, x2d, sc, sh, xs, xh)
     dw = _mm_tf32(g.t(), _prologue(x2d, sc, sh), wsplits, wchunk, passes,
                   exact)
     return dp, dw, db, dg
@@ -301,7 +301,7 @@ def c3_bwd2d_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_,
     _, _, wsplits, wchunk = mma_wgrad_plan(co, 9 * ci, rows)
     w9 = w.permute(1, 2, 0, 3).reshape(9 * co, ci)
     da = _mm_tf32(_taps(g.reshape(n, h, w_, co), -1), w9, dsplits, dchunk,
-                  passes)
+                  passes, exact)
     dp, db, dg = _bwd_epilogue(da, x2d, sc, sh, xs, xh)
     a9 = _taps(_prologue(x2d, sc, sh).reshape(n, h, w_, ci), 1)
     dw = _mm_tf32(g.t(), a9, wsplits, wchunk, passes, exact)
