@@ -1,33 +1,39 @@
 #!/usr/bin/env python3
-"""Where the time of the tensor-core tile loops of K1, K3 and K5-K8 goes,
-on one card.
+"""Where the time of the tensor-core tile loops of K1-K8 goes, on one
+card.
 
     python3 chip_mma_probe.py [--json PATH] [--fixture PATH]
 
 1. The kernels each launch of K1 (``fused_unit.mm_fwd``, with statistics,
-   at ResNet-50's four stage shapes at batch 8), K3 (``c3_fwd2d``, with
-   statistics, at batch 8 and 32), K5 (``mm_bwd``, final and deferred, at
-   batch 32), K6 (``c3_bwd2d``) and K7 (``c3_bwd4d``) at batch 32 and K8
+   at ResNet-50's four stage shapes at batch 8), K2 (``mm_skip_fwd``), K3
+   (``c3_fwd2d``) and K4 (``c3_fwd4d``), both with statistics, at batch 8
+   and 32, K5 (``mm_bwd``, final and deferred, at batch 32), K6
+   (``c3_bwd2d``) and K7 (``c3_bwd4d``) at batch 32 and K8
    (``nn.conv1x1_bwd``, at its three sites at batch 32) runs, with their
    device time from torch.profiler: the GEMMs, the split epilogue or
-   reduction, the statistics' column sums.
+   reduction, the statistics' column sums.  Then K2 beside K1 on K2's
+   operands (the same product and plan without the residual) and beside
+   ``torch.add`` of two tensors of K2's output shape (the bytes its
+   epilogue moves): what reading the residual costs.
 2. A phase profile of the loops themselves: ``csrc/fu_mma.cuh`` and
    ``csrc/fu_halo.cuh`` copied into ``build/probe/`` with ``clock64`` and
    ``%globaltimer`` reads added around their phases (waiting for a tile's
    copies, the in-place transform, the barrier, the fragment loads and
    MMAs), built by ``nvcc`` and run on K1-shaped products with the
    operand raw and through the BN+ReLU prologue, and on K6's and K7's
-   dgrad and wgrad at the four stage shapes at batch 32 (the gathered
-   operand against the resident halo): cycles per k tile in each phase,
-   the blocks an SM held at once, and the SM clock.  The instrumented
-   copies only measure; the port never loads them.
+   dgrad and wgrad at the four stage shapes at batch 32 and K3's and K4's
+   forward, with statistics, at batch 8 (the gathered operand against the
+   resident halo): cycles per k tile in each phase, the blocks an SM held
+   at once, and the SM clock.  The instrumented copies only measure; the
+   port never loads them.
 3. One ``mma.sync.m16n8k8.tf32`` per warp on seeded inputs (values of
    one scale, exponents spread over 2^+-20 and 2^+-30, sums that cancel)
    against ``fused_unit._mma_step``, the CPU model of how the tensor core
    rounds (``--fixture PATH`` also writes 48 of them for
-   ``tests/test_torch_mma.py``); then the float32 results of K1, K3 and
-   K7 against their CPU emulations (``fused_unit.mm_fwd_tf32x3``,
-   ``c3_fwd2d_tf32x3``, ``c3_bwd4d_tf32x3``) on small seeded cases, with
+   ``tests/test_torch_mma.py``); then the float32 results of K1-K4 and K7
+   against their CPU emulations (``fused_unit.mm_fwd_tf32x3``,
+   ``mm_skip_fwd_tf32x3``, ``c3_fwd2d_tf32x3``, ``c3_fwd4d_tf32x3``,
+   ``c3_bwd4d_tf32x3``) on small seeded cases, with
    the MMAs added in f32 and with ``exact``: the share of equal bits, the
    largest and median difference in ulps, and the relative difference
    beside the plain version's.
@@ -275,7 +281,7 @@ static int run_bwd(int k7, int which, const fmma::Gemm& d, int bm, int bn,
                    cudaStream_t st) {
   using namespace fmma;
   if (which == 0)
-    return k7 ? fhalo::dgrad<T>(d, bm, bn, st)
+    return k7 ? fhalo::conv<T, fhalo::DGRAD>(d, bm, bn, st)
               : gemm<T, K_MAJOR, X_FINALIZE, MN_MAJOR, X_RAW, EPI_DP,
                      G_SHIFT_K, G_OHWI>(d, bm, bn, st);
   return k7 ? fhalo::wgrad<T>(d, st)
@@ -320,6 +326,35 @@ extern "C" int probe_bwd(int k7, int which, const void* g, const void* yraw,
   if (bf16) return run_bwd<__nv_bfloat16>(k7, which, d, bm, bn, st);
   return run_bwd<float>(k7, which, d, bm, bn, st);
 }
+// K3's forward (k4 = 0, fu_c3_fwd2d.cu: the tap gather) or K4's (k4 = 1,
+// fu_c3_fwd4d.cu: the halo) with statistics, set up as those entry points
+// do
+template <typename T>
+static int run_fwd(int k4, const fmma::Gemm& p, int bm, int bn,
+                   cudaStream_t st) {
+  using namespace fmma;
+  return k4 ? fhalo::conv<T, fhalo::FWD>(p, bm, bn, st)
+            : gemm<T, K_MAJOR, X_PROLOGUE, K_MAJOR, X_RAW, EPI_Y,
+                   G_SHIFT_KP, G_NONE>(p, bm, bn, st);
+}
+extern "C" int probe_fwd(int k4, const void* x, const void* w,
+                         const void* sc, const void* sh, void* y, void* part,
+                         void* ws, void* prof, int N, int H, int W, int C,
+                         int Co, int bf16, int bm, int bn, int splits,
+                         int chunk, void* stream) {
+  fmma::Gemm p = {};
+  p.a = {x, nullptr, static_cast<const float*>(sc),
+         static_cast<const float*>(sh), nullptr, C, C, H, W};
+  p.b = {w, nullptr, nullptr, nullptr, nullptr, 9 * C};
+  p.out = y; p.spart = static_cast<float*>(part);
+  p.ws = static_cast<float*>(ws);
+  p.M = N * H * W; p.N = Co; p.K = k4 ? C : 9 * C;
+  p.chunk = chunk; p.splits = splits; p.stats = 1;
+  p.prof = static_cast<unsigned long long*>(prof);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) return run_fwd<__nv_bfloat16>(k4, p, bm, bn, st);
+  return run_fwd<float>(k4, p, bm, bn, st);
+}
 '''
 
 
@@ -344,6 +379,12 @@ def kernel_split(torch, cs, fu, nn, dev, out):
             v2 = (rn(cq).abs() + 0.5, rn(cq, scale=0.1))
             calls.append(("K3 stats", r, lambda a=(y1, w2) + v2
                           + (batch, side, side, True): fu.c3_fwd2d(*a)))
+            calls.append(("K4 stats", r, lambda a=(
+                y1.reshape(batch, side, side, cq), w2) + v2 + (True,):
+                fu.c3_fwd4d(*a)))
+            a2 = (y1, rn(c, 1, 1, cq, scale=cq ** -0.5).to(dt)) + v2 \
+                + (rn(r, c).to(dt),)
+            calls.append(("K2", r, lambda a=a2: fu.mm_skip_fwd(*a)))
             if batch == cs.BATCH:
                 x = rn(r, c).to(dt)
                 w = rn(cq, 1, 1, c, scale=c ** -0.5).to(dt)
@@ -431,7 +472,9 @@ def build_probe():
         + [ctypes.c_void_p]
     lib.probe_bwd.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 16 \
         + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    for fn in (lib.probe_k1, lib.probe_bwd):
+    lib.probe_fwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 \
+        + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    for fn in (lib.probe_k1, lib.probe_bwd, lib.probe_fwd):
         fn.restype = ctypes.c_int
     return lib
 
@@ -614,6 +657,109 @@ def halo_profile(torch, cs, lib, dev, out):
                            phases[3] * per, most, ghz))
 
 
+def fwd_profile(torch, cs, lib, dev, out):
+    """K3's forward (the activation gathered per tap) beside K4's (the
+    activation resident in a halo), with statistics, at the four stage
+    shapes at batch 8: cycles per k tile (128 bytes of one tap's channels
+    in both) in each phase."""
+    from mxnet_tpu_torch.ops import _cuda
+    gen = torch.Generator().manual_seed(4)
+    names = ("wait", "transform", "barrier", "multiply",
+             "of which chunk barrier", "of which halo")
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        f32 = dt == torch.float32
+        for (hw, c, _), side in zip(cs.STAGES, cs.STAGE_HW):
+            n, r, cq = cs.BATCH, cs.BATCH * hw, c // 4
+            x = (torch.randn(r, cq, generator=gen)).to(dev).to(dt)
+            w = (torch.randn(cq, 3, 3, cq, generator=gen)
+                 * (9 * cq) ** -0.5).to(dev).to(dt)
+            sc = (torch.rand(cq, generator=gen) + 0.5).to(dev)
+            sh = (torch.randn(cq, generator=gen) * 0.1).to(dev)
+            y = torch.empty((r, cq), device=dev, dtype=dt)
+            part = torch.empty((2, -(-r // 64), cq), device=dev)
+            plans = {"K3": _cuda.mma_plan(r, cq, 9 * cq, f32),
+                     "K4": _cuda.halo_fwd_plan(r, cq, cq, side, f32)}
+            for kname, (bm, bn, splits, chunk) in plans.items():
+                k4 = kname == "K4"
+                blocks = -(-r // bm) * -(-cq // bn) * splits
+                slots, width = (9, HALO_REC) if k4 else (8, 9)
+                ws = torch.empty((splits, r, cq), device=dev) \
+                    if splits > 1 else None
+                rec = torch.zeros(blocks * slots * width, dtype=torch.int64,
+                                  device=dev)
+                args = [int(k4)] + [t.data_ptr() for t in (
+                    x, w, sc, sh, y, part)] \
+                    + [None if ws is None else ws.data_ptr(), None, n, side,
+                       side, cq, cq, int(not f32), bm, bn, splits, chunk]
+                call = _call(torch, lib.probe_fwd, args)
+                call()
+                ms = cs.time_ms(torch, call)
+                args[8] = rec.data_ptr()
+                call()
+                torch.cuda.synchronize()
+                tiles, phases, us, most, ghz = read_records(
+                    torch, rec, blocks, slots, width)
+                row = {"kernel": kname, "product": "forward",
+                       "dtype": dname, "stage_side": side, "rows": r,
+                       "c": cq, "plan": [bm, bn, splits, chunk],
+                       "blocks": blocks, "ms": ms,
+                       "tiles_per_block": tiles,
+                       "cycles_per_tile": dict(zip(names, phases)),
+                       "block_loop_us": us, "most_blocks_on_an_sm": most,
+                       "sm_ghz": ghz}
+                out.append(row)
+                sub = ""
+                if k4:
+                    sub = " (of which chunk barrier %.0f, halo %.0f)" % (
+                        phases[4], phases[5])
+                cs.log("  %s forward %-8s stage %2dx%-2d C %3d plan %s, %d "
+                       "blocks: %.4f ms; per 128 B of k: wait %.0f, "
+                       "transform %.0f%s, barrier %.0f, multiply %.0f "
+                       "cycles; %d blocks on an SM at once; SM %.3f GHz" % (
+                           kname, dname, side, side, cq, tuple(row["plan"]),
+                           blocks, ms, phases[0], phases[1], sub, phases[2],
+                           phases[3], most, ghz))
+
+
+def skip_cost(torch, cs, fu, dev, out):
+    """K2 beside K1 on K2's operands without the residual (the same
+    product, plan and loop) and beside ``torch.add`` of two tensors of K2's
+    output shape (a pass that moves the bytes K2's epilogue moves: the
+    residual read, y written, plus one more read), at the four stage
+    shapes at batch 8, with K2's bound (bytes at 3.35 TB/s)."""
+    gen = torch.Generator().manual_seed(5)
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        es = torch.tensor([], dtype=dt).element_size()
+        for hw, c, _ in cs.STAGES:
+            r, cq = cs.BATCH * hw, c // 4
+            x = torch.randn(r, cq, generator=gen).to(dev).to(dt)
+            w = (torch.randn(c, 1, 1, cq, generator=gen)
+                 * cq ** -0.5).to(dev).to(dt)
+            sc = (torch.rand(cq, generator=gen) + 0.5).to(dev)
+            sh = (torch.randn(cq, generator=gen) * 0.1).to(dev)
+            skip = torch.randn(r, c, generator=gen).to(dev).to(dt)
+            other = torch.randn(r, c, generator=gen).to(dev).to(dt)
+            row = {"dtype": dname, "rows": r, "ci": cq, "co": c,
+                   "k2_ms": cs.time_ms(torch, lambda: fu.mm_skip_fwd(
+                       x, w, sc, sh, skip)),
+                   "k1_same_product_ms": cs.time_ms(torch, lambda: fu.mm_fwd(
+                       x, w, sc, sh)),
+                   "add_ms": cs.time_ms(torch, lambda: torch.add(skip,
+                                                                 other)),
+                   "bound_ms": 1e3 * (r * cq + cq * c + 2 * r * c) * es
+                   / cs.HBM_BYTES_S}
+            out.append(row)
+            cs.log("  K2 %-8s %6d x %4d -> %4d: %.4f ms; K1 on the same "
+                   "product %.4f ms (residual %.4f ms); torch.add of two %d "
+                   "x %d %.4f ms; bound %.4f ms (bytes)" % (
+                       dname, r, cq, c, row["k2_ms"],
+                       row["k1_same_product_ms"],
+                       row["k2_ms"] - row["k1_same_product_ms"], r, c,
+                       row["add_ms"], row["bound_ms"]))
+
+
 MMA_SOURCE = r"""
 extern "C" __global__ void mma_tf32(const float* A, const float* B,
                                     const float* C, float* D, int n) {
@@ -754,6 +900,14 @@ def emulation_gap(torch, cs, fu, dev, out):
         gap("K1 y", case, fu.mm_fwd(*cu(a1))[0],
             [fu.mm_fwd_tf32x3(*a1, exact=e)[0] for e in (False, True)],
             fu.mm_fwd_plain(*a1)[0])
+        a2 = a1 + (r(rows, co),)
+        gap("K2 y", case, fu.mm_skip_fwd(*cu(a2)),
+            [fu.mm_skip_fwd_tf32x3(*a2, exact=e) for e in (False, True)],
+            fu.mm_skip_fwd_plain(*a2))
+        a4 = (x.reshape(n, h, w, ci), wt, sc, sh)
+        gap("K4 y", case, fu.c3_fwd4d(*cu(a4))[0],
+            [fu.c3_fwd4d_tf32x3(*a4, exact=e)[0] for e in (False, True)],
+            fu.c3_fwd4d_plain(*a4)[0])
 
 
 def main():
@@ -775,9 +929,11 @@ def main():
     card = cs.card_line()
     cs.log(card)
     dev = torch.device("cuda", 0)
-    split, phases, halo, model, gaps = [], [], [], [], []
-    cs.log("[1] kernels of each K1 / K3 / K5-K8 launch (torch.profiler)")
+    split, skips, phases, halo, fwd, model, gaps = [], [], [], [], [], [], []
+    cs.log("[1] kernels of each K1-K8 launch (torch.profiler); what K2's "
+           "residual costs")
     kernel_split(torch, cs, fu, nn, dev, split)
+    skip_cost(torch, cs, fu, dev, skips)
     lib = build_probe()
     cs.log("[2] phases of the tile loop (instrumented copy of fu_mma.cuh)")
     phase_profile(torch, cs, lib, dev, phases)
@@ -785,6 +941,9 @@ def main():
            "%d (instrumented copies of fu_mma.cuh and fu_halo.cuh)"
            % cs.TRAIN_BATCH)
     halo_profile(torch, cs, lib, dev, halo)
+    cs.log("[3b] K3 (gathered) beside K4 (halo), forward with statistics, "
+           "at the stage shapes, batch %d" % cs.BATCH)
+    fwd_profile(torch, cs, lib, dev, fwd)
     cs.log("[4] the tensor core's tf32 MMA against its CPU model, and "
            "float32 kernels against their CPU emulations")
     import mxnet_tpu_torch as mt
@@ -794,9 +953,9 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)),
                     exist_ok=True)
         with open(opts.json, "w") as f:
-            json.dump({"card": card, "kernels": split, "phases": phases,
-                       "halo": halo, "mma_model": model,
-                       "emulation": gaps}, f, indent=1)
+            json.dump({"card": card, "kernels": split, "k2_residual": skips,
+                       "phases": phases, "halo": halo, "forward": fwd,
+                       "mma_model": model, "emulation": gaps}, f, indent=1)
     cs.log(card)
 
 

@@ -19,10 +19,10 @@ Phases (none catches its own failure; there is no CPU path):
    deferred shapes), K6 ``fu_c3_bwd2d`` and K7 ``fu_c3_bwd4d`` at the four
    stage shapes and K8 ``nn_conv1x1_bwd`` at its three 224x224 sites, at
    batch 32; each also launched twice on the same inputs to show equal
-   bits, and its TFLOP/s logged (K1, K3, K5, K6 and K8 run on the tensor
-   cores, ``csrc/fu_mma.cuh``, K7 on its halo-resident form
-   ``csrc/fu_halo.cuh``; K2 and K4 on CUDA cores); K3 and K5-K8 and their
-   library calls also timed with the L2 cache flushed before each call;
+   bits, and its TFLOP/s logged (all on the tensor cores: K1, K2, K3, K5,
+   K6 and K8 on ``csrc/fu_mma.cuh``, K4 and K7 on its halo-resident form
+   ``csrc/fu_halo.cuh``); K2-K8 and their library calls also timed with
+   the L2 cache flushed before each call;
 4. serve: ResNet-50 (224x224, 1000 classes, NHWC, fused units, weights
    from ``--seed``) saved as a checkpoint, loaded by
    ``ServingEngine.from_checkpoint`` on cuda:0, warmed up, and sent
@@ -78,11 +78,10 @@ Phases (none catches its own failure; there is no CPU path):
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so float32 means float32 on both
-sides of every comparison; K1, K3 and K5-K8 compute their float32
-products on the tensor cores through 3xTF32, which keeps float32's
-accuracy (the same
-tolerances hold them).  ``--json`` also writes every measurement to
-a file.
+sides of every comparison; K1-K8 compute their float32 products on the
+tensor cores through 3xTF32, which keeps float32's accuracy (the same
+tolerances hold them).  ``--json`` also writes every measurement to a
+file.
 """
 import argparse
 import contextlib
@@ -169,8 +168,7 @@ KV_SLOTS, KV_T, KV_WINDOW = (8, 64), (128, 2048), 5
 # H100 SXM peaks (NVIDIA data sheet, dense), the least time bounds take: bf16
 # in the tensor cores, and HBM3 bandwidth.  float32 products at float32's
 # accuracy: 3xTF32 on the tensor cores (each f32 value split into two TF32
-# terms, three TF32 products per f32 product, as K1, K3 and K5-K8 compute
-# them),
+# terms, three TF32 products per f32 product, as K1-K8 compute them),
 # 495 / 3 = 165 TFLOP/s, faster than FFMA's 67; every f32 product row
 # (K1-K8) is bounded at that rate, so no kernel can read above its bound
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
@@ -272,9 +270,9 @@ def c3_pairs(n, side):
 
 
 def kernel_phase(torch, fu, device, seed):
-    """Every kernel against its plain version at the stage shapes; K3 and
-    its library call also timed with the L2 cache flushed before each
-    call."""
+    """Every kernel against its plain version at the stage shapes; K2, K3
+    and K4 and their library calls also timed with the L2 cache flushed
+    before each call."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cpu").manual_seed(seed)
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=device)
@@ -376,7 +374,7 @@ def kernel_phase(torch, fu, device, seed):
                 }
                 row["tflops"] = flops / row["ms"] / 1e9
                 cold = ""
-                if name == "fu_c3_fwd2d":
+                if name != "fu_mm_fwd":
                     row["ms_l2_flushed"] = time_ms_cold(
                         torch, lambda: kern(*args), flush)
                     row["library_ms_l2_flushed"] = time_ms_cold(torch, lib,
@@ -1608,6 +1606,12 @@ _SOURCES = {
     "rtc_add_one": ("CudaKernel", "mxnet_tpu/rtc.py:23"),
 }
 FWD_WRAPPERS = ("mm_fwd", "c3_fwd2d", "c3_fwd4d", "mm_skip_fwd")
+# the loop each fused-unit and 1x1 kernel runs on (mxnet_tpu_torch/csrc/)
+_LOOPS = dict.fromkeys(("fu_mm_fwd", "fu_mm_skip_fwd", "fu_c3_fwd2d",
+                        "fu_mm_bwd", "fu_c3_bwd2d", "nn_conv1x1_bwd"),
+                       "fu_mma.cuh, tensor cores")
+_LOOPS.update(dict.fromkeys(("fu_c3_fwd4d", "fu_c3_bwd4d"),
+                            "fu_halo.cuh, tensor cores, resident halo"))
 
 
 def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
@@ -1622,9 +1626,9 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
     over the shapes.  Every entry also gives its launches per serve batch
     and training step in both modes, per decode step, per imperative unit
     and in the rtc phase; K1-K8 also their bfloat16 times (kernel, library
-    and bound) at the same shapes, and K3 and K5-K8 their kernel and
-    library times in both dtypes with the L2 cache flushed before each
-    call."""
+    and bound) at the same shapes, and K2-K8 their kernel and library
+    times in both dtypes with the L2 cache flushed before each call; K1-K8
+    name the tensor-core loop they run on (``loop``)."""
     table = []
     for name, (wrapper, replaces) in _SOURCES.items():
         decode_launches = sum(r["launches"][wrapper]
@@ -1697,6 +1701,7 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
                 entry.update((pre + key, total(key, rs)) for pre, rs in (
                     ("", sel), ("bf16_", sel16)) for key in (
                         "ms_l2_flushed", "library_ms_l2_flushed"))
+            entry["loop"] = _LOOPS[name]
         table.append(dict({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -24,7 +24,7 @@
 template <typename T>
 static int run(const fmma::Gemm& dgrad, const fmma::Gemm& wgrad, int dbm,
                int dbn, float* db, float* dg, cudaStream_t st) {
-  int err = fhalo::dgrad<T>(dgrad, dbm, dbn, st);
+  int err = fhalo::conv<T, fhalo::DGRAD>(dgrad, dbm, dbn, st);
   if (err != cudaSuccess) return err;
   err = fmma::col_sums(dgrad, dbm, db, dg, st);
   if (err != cudaSuccess) return err;

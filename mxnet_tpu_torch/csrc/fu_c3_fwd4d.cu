@@ -1,38 +1,53 @@
-// K4 of the fused bottleneck unit: the 3x3 / stride 1 / pad 1 convolution of
-// T(relu(x * sc + sh)) over NHWC images on 8 x 8 spatial tiles whose halo is
-// staged in shared memory (zeros outside the image, after the prologue), with
-// the optional per-channel sum / sum-of-squares epilogue.  Replaces the TPU
-// kernel mxnet_tpu/ops/fused_unit.py _k_conv3_fwd (pallas_call in _c3_fwd,
-// "fu_c3_fwd"), the MXNET_FUSED_UNIT_C3=4d path; it runs at every width (the
-// TPU's scoped-VMEM gates sent stage 4 to XLA).  Tiling, bound and
-// determinism: see fu_conv4d.cuh.
-#include "fu_conv4d.cuh"
+// K4 of the fused bottleneck unit: the 3x3 / stride 1 / pad 1 convolution
+// of T(relu(x * sc + sh)) over NHWC images (zero padding after the
+// prologue), with the optional per-channel sum / sum-of-squares epilogue
+// of the f32 sum.  Replaces the TPU kernel mxnet_tpu/ops/fused_unit.py
+// _k_conv3_fwd (pallas_call in _c3_fwd, "fu_c3_fwd"), the
+// MXNET_FUSED_UNIT_C3=4d path; it runs at every width (the TPU's
+// scoped-VMEM gates sent stage 4 to XLA).  On the tensor cores (bf16 MMA,
+// f32 through 3xTF32), on the halo loop of K7's dgrad (fu_halo.cuh):
+//   y (R, Co) = sum_t shift_t(act(x)) (R, Ci) @ w_t^T, BM x BN tiles, k =
+//   (Ci chunk, tap); per chunk act(x) of a band of pixels is staged once
+//   into a halo that the nine taps read at row m + (dh W + dw), and the
+//   OHWI weight, (Co, 9 Ci) K-major, streams through fu_mma.cuh's ring;
+//   Ci split in `splits` chunks of `chunk` (ops/_cuda.py halo_fwd_plan),
+//   statistics per row tile added by col_sums.
+// Halo, tiles, bound and determinism: see fu_halo.cuh and fu_mma.cuh.
+#include "fu_halo.cuh"
 
-// x (N, H, W, C), w (Co, 3, 3, C) OHWI, sc/sh (C,) f32, y (N, H, W, Co);
-// with_stats: part (2, N * tiles_img, Co) f32 scratch, s/ss (Co,) f32.
-// tiles_w = ceil(W / 8), tiles_img = ceil(H / 8) * tiles_w.
+template <typename T>
+static int run(const fmma::Gemm& p, int bm, int bn, float* s, float* ss,
+               cudaStream_t st) {
+  int err = fhalo::conv<T, fhalo::FWD>(p, bm, bn, st);
+  if (err != cudaSuccess || !p.stats) return err;
+  return fmma::col_sums(p, bm, s, ss, st);
+}
+
+// x (N, H, W, C), w (Co, 3, 3, C) OHWI, sc/sh (C,) f32, y (N, H, W, Co).
+// with_stats: part (2, ceil(R / bm), Co) f32 scratch, s/ss (Co,) f32.  ws
+// (splits, R, Co) f32 scratch when splits > 1; R = N * H * W.  bf16
+// selects bfloat16 x/w/y, else float32.
 extern "C" int fu_c3_fwd4d(const void* x, const void* w, const void* sc,
                            const void* sh, void* y, void* part, void* s,
-                           void* ss, int N, int H, int W, int C, int Co,
-                           int tiles_w, int tiles_img, int bf16,
-                           int with_stats, void* stream) {
-  fu4::Args p = {};
-  p.x = x;
-  p.w = w;
-  p.sc = static_cast<const float*>(sc);
-  p.sh = static_cast<const float*>(sh);
+                           void* ss, void* ws, int N, int H, int W, int C,
+                           int Co, int bf16, int with_stats, int bm, int bn,
+                           int splits, int chunk, void* stream) {
+  fmma::Gemm p = {};
+  p.a = {x, nullptr, static_cast<const float*>(sc),
+         static_cast<const float*>(sh), nullptr, C, C, H, W};
+  p.b = {w, nullptr, nullptr, nullptr, nullptr, 9 * C};
   p.out = y;
-  p.part = static_cast<float*>(part);
-  p.s = static_cast<float*>(s);
-  p.ss = static_cast<float*>(ss);
-  p.N = N;
-  p.H = H;
-  p.W = W;
-  p.Ci = C;
-  p.Co = Co;
-  p.tiles_w = tiles_w;
-  p.tiles_img = tiles_img;
+  p.ws = static_cast<float*>(ws);
+  p.spart = static_cast<float*>(part);
+  p.M = N * H * W;
+  p.N = Co;
+  p.K = C;
+  p.chunk = chunk;
+  p.splits = splits;
+  p.stats = with_stats;
+  float* fs = static_cast<float*>(s);
+  float* fss = static_cast<float*>(ss);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) return fu4::launch_fwd<__nv_bfloat16>(p, with_stats, st);
-  return fu4::launch_fwd<float>(p, with_stats, st);
+  if (bf16) return run<__nv_bfloat16>(p, bm, bn, fs, fss, st);
+  return run<float>(p, bm, bn, fs, fss, st);
 }

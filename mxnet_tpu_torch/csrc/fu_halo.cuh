@@ -1,33 +1,44 @@
-// K7's loops (fu_c3_bwd4d.cu): the backward of the fused unit's 3x3 /
-// stride 1 / pad 1 convolution on the tensor cores, with the operand that
-// the nine taps share resident in shared memory.
+// The loops of K4 (fu_c3_fwd4d.cu) and K7 (fu_c3_bwd4d.cu): the fused
+// unit's 3x3 / stride 1 / pad 1 convolution, forward and backward, on the
+// tensor cores, with the operand that the nine taps share resident in
+// shared memory.
 //
-// K6 (fu_c3_bwd2d.cu) computes the same function on fu_mma.cuh's loop, k =
-// (tap, channel): every tap gathers, transforms and splits its own copy of
-// the shared operand, about nine times per source element.  Here the
-// operand is staged once per band of pixels and channel chunk: a band of
-// `band` consecutive pixels of the (n, h, w) row layout (crossing image
-// rows and images) needs the rows [r0 - W - 1, r0 + band + W + 1) for all
-// nine taps (one window of band + 2W + 2 rows), or, where W > band + 2,
-// three windows of band + 2 rows, one per tap row.  Each tap's fragments
-// are read out of that halo at rows shifted by its offset: ldmatrix takes
-// one row address per lane and the tf32 LDS.32 loads one address each, so
-// a lane whose pixel's neighbour for this tap lies off the image reads a
-// zero row instead (the pixel's image-edge bits, as fu_mma.cuh's gathers
-// test them).  The zero padding is thus applied after the transform, as
-// the reference pads (neither finalize(0) nor relu(sh) is zero), and the
-// band wastes no rows at any image size.
+// K3 and K6 (fu_c3_fwd2d.cu, fu_c3_bwd2d.cu) compute the same functions on
+// fu_mma.cuh's loop, k = (tap, channel): every tap gathers, transforms and
+// splits its own copy of the shared operand, about nine times per source
+// element.  Here the operand is staged once per band of pixels and channel
+// chunk: a band of `band` consecutive pixels of the (n, h, w) row layout
+// (crossing image rows and images) needs the rows [r0 - W - 1, r0 + band +
+// W + 1) for all nine taps (one window of band + 2W + 2 rows), or, where W
+// > band + 2, three windows of band + 2 rows, one per tap row.  Each tap's
+// fragments are read out of that halo at rows shifted by its offset:
+// ldmatrix takes one row address per lane and the tf32 LDS.32 loads one
+// address each, so a lane whose pixel's neighbour for this tap lies off the
+// image reads a zero row instead (the pixel's image-edge bits, as
+// fu_mma.cuh's gathers test them).  The zero padding is thus applied after
+// the transform, as the reference pads (neither finalize(0) nor relu(sh) is
+// zero), and the band wastes no rows at any image size.
 //
-//   dgrad  dP (R, Ci) = mask(sum_t shift_t(fin(g)) (R, Co) @ w_t (Co, Ci)):
-//          a block owns a BM x BN tile (BM pixels x BN input channels) and
-//          walks k = (Co chunk of one 128-byte tile, tap): per chunk it
-//          stages the finalized g halo K-major ([pixel][channel], f32 hi
-//          and lo planes), then nine k tiles, one per tap, each with its
-//          OHWI weight slice streamed through fu_mma.cuh's cp.async ring
-//          (G_OHWI) and its A fragments from the halo at row m - (dh W +
-//          dw); the epilogue is fu_mma.cuh's EPI_DP (ReLU mask, T(dP),
-//          BatchNorm sums of the f32 dP per row tile in a fixed order),
-//          split over Co chunks by the same plan rules as mma_plan;
+//   conv   one loop, two directions (conv_kernel):
+//          fwd    y (R, Co) = sum_t shift_t(act(x)) (R, Ci) @ w_t^T (K4);
+//          dgrad  dP (R, Ci) = mask(sum_t shift_t(fin(g)) (R, Co) @ w_t)
+//                 (K7).
+//          A block owns a BM x BN tile (BM pixels x BN output channels of
+//          the product) and walks k = (chunk of one 128-byte tile of the
+//          summed channels, tap): per chunk it stages the halo K-major
+//          ([pixel][channel], f32 hi and lo planes) through the transform
+//          (the prologue act(x) forward, the finalize fin(g) in the
+//          dgrad), then nine k tiles, one per tap, each with its OHWI
+//          weight slice streamed through fu_mma.cuh's cp.async ring (the
+//          forward reads w as a K-major (Co, 9 Ci) operand, the dgrad as
+//          an MN-major one through G_OHWI) and its A fragments from the
+//          halo at row m + (dh W + dw) forward, m - (dh W + dw) in the
+//          dgrad; the epilogue is fu_mma.cuh's EPI_Y forward (T(y), the
+//          statistics of the f32 sum) and EPI_DP in the dgrad (ReLU mask,
+//          T(dP), BatchNorm sums of the f32 dP), per row tile in a fixed
+//          order, split over the summed channels' chunks by the same plan
+//          rules as mma_plan (ops/_cuda.py halo_fwd_plan,
+//          halo_dgrad_plan);
 //   wgrad  dW[o, t, i] = sum_p fin(g)[p, o] * act(x)[p + dh W + dw, i]:
 //          a block of nine warps, one a tap, owns 32 o x 32 i x 9 taps and
 //          walks bands of pixels: per band it stages fin(g) (band x 32 o)
@@ -47,12 +58,14 @@
 // overlapped inside a block (one halo buffer: the f32 halo of a 128-pixel
 // band at W = 56 is 70 KB); two blocks an SM hide each other's staging.
 // On an NVIDIA H100 80GB HBM3 at 700 W (chip_mma_probe.py; PERF.md,
-// Findings) a dgrad k tile takes 4-20% fewer cycles than K6's, its
+// Findings) a dgrad k tile takes 7-20% fewer cycles than K6's, its
 // multiply phase lighter and its staging no cheaper (the weight slice's
 // hi/lo split, which every block repeats, outweighs the halo); the
 // wgrad's staging costs about as much as its multiply phase.
 // No float atomics: two launches give the same bits.
 #pragma once
+
+#include <type_traits>
 
 #include "fu_mma.cuh"
 
@@ -157,36 +170,52 @@ struct Rows {
 };
 
 // ---------------------------------------------------------------------------
-// dgrad
+// conv: the forward (K4) and the dgrad (K7)
 // ---------------------------------------------------------------------------
 
-// Shared memory of the dgrad on BN-column tiles: the weights' two-stage
-// ring, then the halo (rows and a zero row) in two planes.
-template <typename T, int BN>
-struct DgradSmem {
-  using LdB = Loader<T, MN_MAJOR, X_RAW, BN, G_OHWI>;
+enum Dir { FWD = 0, DGRAD = 1 };
+
+// What the direction sets: the halo's transform (act(x) forward, fin(g) in
+// the dgrad), the weight's loader (the OHWI weight as a K-major (Co, 9 Ci)
+// operand forward, an MN-major ((t, o), i) one through G_OHWI in the
+// dgrad), the epilogue, and the shared memory on BN-column tiles: the
+// weight's two-stage ring, then the halo (rows and a zero row) in one
+// plane (bf16 forward) or two (f32: tf32 hi and lo; X_FINALIZE lands
+// y_raw in the second).
+template <typename T, int DIR, int BN>
+struct Conv {
+  static constexpr int AX = DIR == FWD ? X_PROLOGUE : X_FINALIZE;
+  static constexpr int BMAJ = DIR == FWD ? K_MAJOR : MN_MAJOR;
+  static constexpr int EPI = DIR == FWD ? EPI_Y : EPI_DP;
+  using LdB = std::conditional_t<DIR == FWD,
+                                 Loader<T, K_MAJOR, X_RAW, BN>,
+                                 Loader<T, MN_MAJOR, X_RAW, BN, G_OHWI>>;
   static constexpr int NS = 2;
   static constexpr int RING = NS * LdB::BYTES;
+  static constexpr int HPLANES = sizeof(T) == 4 || AX == X_FINALIZE ? 2 : 1;
   __host__ __device__ static int bytes(int hrows) {
-    return RING + 2 * (hrows + 1) * HROW;
+    return RING + HPLANES * (hrows + 1) * HROW;
   }
 };
 
-// p.a: the cotangent (g, y_raw, c1, u0, u1; ld Co, H, W); p.b: the OHWI
-// weight (ld Ci, gc Co); M = R pixels, N = Ci, K = Co summed over
-// [blockIdx.z * chunk, + chunk); the EPI_DP fields as fu_mma.cuh's.
-template <typename T, int BM, int BN>
+// p.a: the halo's operand, forward the activation (x, sc, sh; ld Ci, H,
+// W), in the dgrad the cotangent (g, y_raw, c1, u0, u1; ld Co, H, W); p.b:
+// the OHWI weight (forward ld 9 Ci; dgrad ld Ci, gc Co); M = R pixels, N =
+// the output's channels (Co forward, Ci in the dgrad), K = the summed
+// channels (Ci, Co) over [blockIdx.z * chunk, + chunk); the EPI_Y or
+// EPI_DP fields as fu_mma.cuh's.
+template <typename T, int DIR, int BM, int BN>
 __global__ void __launch_bounds__(THREADS, 2)
-dgrad_kernel(const __grid_constant__ Gemm p) {
+conv_kernel(const __grid_constant__ Gemm p) {
   using WT = WarpTiling<BM, BN>;
   constexpr int WARPS_M = WT::WARPS_M, WARPS_N = WT::WARPS_N;
   constexpr int MT = WT::MT, NT = WT::NT;
   constexpr int BK = Ty<T>::BK, KSTEPS = BK / Ty<T>::KS;
   constexpr bool F32 = sizeof(T) == 4;
-  using SM = DgradSmem<T, BN>;
+  using SM = Conv<T, DIR, BN>;
   using LdB = typename SM::LdB;
-  constexpr int NS = SM::NS;
-  constexpr int PB = Lay<T, MN_MAJOR, BN>::BYTES;   // hi to lo plane
+  constexpr int NS = SM::NS, BMAJ = SM::BMAJ;
+  constexpr int PB = Lay<T, BMAJ, BN>::BYTES;   // hi to lo plane
 
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -200,8 +229,8 @@ dgrad_kernel(const __grid_constant__ Gemm p) {
   unsigned char* ring = smem;
   unsigned char* halo = smem + SM::RING;
   const int plane = (hg.rows + 1) * HROW;
-  // the zero row after the halo's rows, in both planes
-  if (tid < 2 * HROW / 16)
+  // the zero row after the halo's rows, in each plane
+  if (tid < SM::HPLANES * HROW / 16)
     *reinterpret_cast<uint4*>(halo + (tid / (HROW / 16)) * plane
                               + hg.rows * HROW + (tid % (HROW / 16)) * 16) =
         make_uint4(0u, 0u, 0u, 0u);
@@ -218,7 +247,7 @@ dgrad_kernel(const __grid_constant__ Gemm p) {
                << 4 * i;
     }
   }
-  Rows<T, X_FINALIZE, BK / 4, THREADS, HROW> hs(tid);
+  Rows<T, SM::AX, BK / 4, THREADS, HROW> hs(tid);
   const auto src = [&](int e) { return hg.src(e, m0); };
   LdB ldb(tid);
   ldb.setup(p.b, n0);
@@ -269,18 +298,20 @@ dgrad_kernel(const __grid_constant__ Gemm p) {
     __syncthreads();
     if (j + NS - 1 < ntiles) issue_b(j + NS - 1);
     cp_async_commit();
-    // tap t reads fin(g) at pixel (h - dh, w - dw): the halo at row
-    // m - (dh W + dw), or the zero row where that pixel is off the image
-    const int dh = t / 3 - 1, dw = t % 3 - 1;
-    const unsigned forbid = (unsigned)(dh > 0) | (unsigned)(dh < 0) << 1
-                            | (unsigned)(dw > 0) << 2
-                            | (unsigned)(dw < 0) << 3;
+    // tap t reads its operand at pixel (h + sh, w + sw), (sh, sw) = (dh,
+    // dw) forward and -(dh, dw) in the dgrad: the halo at row m + (sh W +
+    // sw), or the zero row where that pixel is off the image
+    const int sg = DIR == FWD ? 1 : -1;
+    const int sh = sg * (t / 3 - 1), sw = sg * (t % 3 - 1);
+    const unsigned forbid = (unsigned)(sh < 0) | (unsigned)(sh > 0) << 1
+                            | (unsigned)(sw < 0) << 2
+                            | (unsigned)(sw > 0) << 3;
     uint32_t arow[MT];
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       const int m = wm0 + i * 16 + (lane & 15);
       const int row = (edges >> 4 * i) & forbid ? hg.rows
-                                                : hg.row(m, -dh, -dw);
+                                                : hg.row(m, sh, sw);
       arow[i] = smem_u32(halo + row * HROW + (lane >> 4) * 16);
     }
 #pragma unroll
@@ -289,11 +320,11 @@ dgrad_kernel(const __grid_constant__ Gemm p) {
 #pragma unroll
       for (int jj = 0; jj < NT; jj += 2) {
         uint32_t b[4];
-        frag_b2<T, MN_MAJOR, BN>(sb, wn0 + jj * 8, ks, lane, b);
+        frag_b2<T, BMAJ, BN>(sb, wn0 + jj * 8, ks, lane, b);
 #pragma unroll
         for (int q = 0; q < 4; ++q) bh[jj + q / 2][q & 1] = b[q];
         if constexpr (F32) {
-          frag_b2<T, MN_MAJOR, BN>(sb + PB, wn0 + jj * 8, ks, lane, b);
+          frag_b2<T, BMAJ, BN>(sb + PB, wn0 + jj * 8, ks, lane, b);
 #pragma unroll
           for (int q = 0; q < 4; ++q) bl[jj + q / 2][q & 1] = b[q];
         }
@@ -315,15 +346,15 @@ dgrad_kernel(const __grid_constant__ Gemm p) {
       }
     }
   }
-  tile_epilogue<T, BM, BN, EPI_DP, WARPS_M, WARPS_N, MT, NT>(
+  tile_epilogue<T, BM, BN, SM::EPI, WARPS_M, WARPS_N, MT, NT>(
       p, acc, m0, n0, wm0, wn0, warp, lane);
 }
 
 // static: see fu_mma.cuh launch_tile
-template <typename T, int BM, int BN>
-static int launch_dgrad(const Gemm& p, cudaStream_t st) {
-  auto kern = dgrad_kernel<T, BM, BN>;
-  const int bytes = DgradSmem<T, BN>::bytes(halo_rows(BM, p.a.W));
+template <typename T, int DIR, int BM, int BN>
+static int launch_conv(const Gemm& p, cudaStream_t st) {
+  auto kern = conv_kernel<T, DIR, BM, BN>;
+  const int bytes = Conv<T, DIR, BN>::bytes(halo_rows(BM, p.a.W));
   static int sized = 0;   // the most dynamic shared memory allowed so far
   if (bytes > sized) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -340,22 +371,24 @@ static int launch_dgrad(const Gemm& p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// K7's dgrad on a (bm, bn) tile, then, when split over Co, fu_mma.cuh's
-// split epilogue; the statistics partials are left in p.spart for
-// col_sums.  An unknown tile is cudaErrorInvalidValue.
-template <typename T>
-static int dgrad(const Gemm& p, int bm, int bn, cudaStream_t st) {
+// K4's forward or K7's dgrad on a (bm, bn) tile, then, when split over the
+// summed channels, fu_mma.cuh's split epilogue; the statistics partials
+// are left in p.spart for col_sums.  An unknown tile is
+// cudaErrorInvalidValue.
+template <typename T, int DIR>
+static int conv(const Gemm& p, int bm, int bn, cudaStream_t st) {
   int err = (int)cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {   // f32 takes no 128 x 128 tile
-    if (bm == 128 && bn == 128) err = launch_dgrad<T, 128, 128>(p, st);
+    if (bm == 128 && bn == 128) err = launch_conv<T, DIR, 128, 128>(p, st);
   }
   if (bm == 128 && bn == 64)
-    err = launch_dgrad<T, 128, 64>(p, st);
+    err = launch_conv<T, DIR, 128, 64>(p, st);
   else if (bm == 64 && bn == 128)
-    err = launch_dgrad<T, 64, 128>(p, st);
+    err = launch_conv<T, DIR, 64, 128>(p, st);
   if (err != cudaSuccess || p.splits == 1) return err;
+  constexpr int EPI = DIR == FWD ? EPI_Y : EPI_DP;
   const dim3 grid((p.N + 15) / 16, (p.M + bm - 1) / bm);
-  split_epi_kernel<T, EPI_DP><<<grid, THREADS, 0, st>>>(p, bm);
+  split_epi_kernel<T, EPI><<<grid, THREADS, 0, st>>>(p, bm);
   return (int)cudaGetLastError();
 }
 

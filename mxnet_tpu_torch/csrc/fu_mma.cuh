@@ -1,7 +1,8 @@
-// Tensor-core tile loop of K1 (fu_mm_fwd.cu), K3 (fu_c3_fwd2d.cu), K5
-// (fu_mm_bwd.cu), K6 (fu_c3_bwd2d.cu) and K8 (nn_conv1x1_bwd.cu); its
-// pieces (fragments, 3xTF32 split, cp.async ring, epilogues, reductions)
-// also carry K7's halo-resident loop (fu_halo.cuh).
+// Tensor-core tile loop of K1 (fu_mm_fwd.cu), K2 (fu_mm_skip_fwd.cu), K3
+// (fu_c3_fwd2d.cu), K5 (fu_mm_bwd.cu), K6 (fu_c3_bwd2d.cu) and K8
+// (nn_conv1x1_bwd.cu); its pieces (fragments, 3xTF32 split, cp.async ring,
+// epilogues, reductions) also carry the halo-resident loop of K4 and K7
+// (fu_halo.cuh).
 //
 // One templated GEMM  C[m, n] = sum_k A[m, k] * B[k, n]  with f32
 // accumulation in the tensor cores (mma.sync), whose operands are staged
@@ -73,16 +74,16 @@
 // (chip_mma_probe.py; PERF.md, Findings).
 //
 // Split K.  A call whose tile grid leaves most of the 132 SMs idle (the
-// dgrads and K1's and K3's products at stages 2-4, every wgrad, where K =
-// rows) cuts K into `splits` chunks: each block writes its f32 partial
-// tile, and a second kernel adds the partials in chunk order and applies
-// the epilogue.  The epilogues (K1, K3: T(y) and the statistics of the f32
-// sum; the dgrads of K5, K6 and K7: the ReLU mask, T(dP) and the BatchNorm
-// sums of the f32 dP) take per-column sums over each BM-row tile in a
-// fixed order into a (2, row tiles, N) buffer that col_sums_kernel adds in
-// a fixed order with 32 loads in flight per column (fu::stats_reduce_kernel's
-// one serial thread per column crawls through stage 1's 784-1568 row
-// tiles).  No float atomics anywhere: two launches on the same inputs give
+// dgrads, K1's and K3's products at stages 2-4, K2's at stage 4, every
+// wgrad, where K = rows) cuts K into `splits` chunks: each block writes its
+// f32 partial tile, and a second kernel adds the partials in chunk order
+// and applies the epilogue.  The epilogues (K1, K3, K4: T(y) and the
+// statistics of the f32 sum; K2: T(y + skip), the residual added to the
+// complete f32 sum and rounded once; the dgrads of K5, K6 and K7: the ReLU
+// mask, T(dP) and the BatchNorm sums of the f32 dP) take per-column sums
+// over each BM-row tile in a fixed order into a (2, row tiles, N) buffer
+// that col_sums_kernel adds in a fixed order with 32 loads in flight per
+// column.  No float atomics anywhere: two launches on the same inputs give
 // the same bits.
 #pragma once
 
@@ -98,9 +99,10 @@ enum Xform { X_RAW = 0, X_PROLOGUE = 1, X_FINALIZE = 2 };
 // where k runs in device memory: K_MAJOR element (i, k) at p[i * ld + k],
 // MN_MAJOR element (i, k) at p[k * ld + i]
 enum Major { K_MAJOR = 0, MN_MAJOR = 1 };
-// EPI_Y: K1's T(y) (+ statistics), K8's dx; EPI_DP: K5's and K6's masked
-// T(dP) and BN sums; EPI_F32: the f32 sum itself (the weight gradients)
-enum Epi { EPI_Y = 0, EPI_DP = 1, EPI_F32 = 2 };
+// EPI_Y: K1's, K3's and K4's T(y) (+ statistics), K8's dx; EPI_DP: the
+// masked T(dP) and BN sums of K5's, K6's and K7's dgrads; EPI_F32: the f32
+// sum itself (the weight gradients); EPI_SKIP: K2's T(y + skip)
+enum Epi { EPI_Y = 0, EPI_DP = 1, EPI_F32 = 2, EPI_SKIP = 3 };
 // where an operand's elements lie (see the gathers above)
 enum Gather { G_NONE = 0, G_SHIFT_K = 1, G_SHIFT_N = 2, G_OHWI = 3,
               G_SHIFT_KP = 4 };
@@ -121,6 +123,7 @@ struct Gemm {
   float* ws;         // (splits, M, N) f32 partials when splits > 1
   float* spart;      // (2, row tiles, N) f32 statistics partials
   const void* x;     // EPI_DP: raw conv input (M, N) T
+  const void* skip;  // EPI_SKIP: the residual (M, N) T
   const float* sc;   // EPI_DP: prologue scale / shift, xhat = x * xs + xh
   const float* sh;
   const float* xs;
@@ -588,13 +591,16 @@ __device__ __forceinline__ void st_pair(void* out, size_t off, float v0,
   }
 }
 
-// The epilogue of output element (r, c) with raw input xv: returns the
-// value to store and adds its statistics (EPI_Y: v, v^2; EPI_DP: dP,
-// dP * xhat, with dP = v masked by the recomputed ReLU).
+// The epilogue of output element (r, c) with input xv (EPI_DP: the raw
+// conv input; EPI_SKIP: the residual): returns the value to store and adds
+// its statistics (EPI_Y: v, v^2; EPI_DP: dP, dP * xhat, with dP = v masked
+// by the recomputed ReLU; EPI_SKIP: none).
 template <int EPI>
 __device__ __forceinline__ float epi(const Gemm& p, int c, float xv, float v,
                                      float& s, float& ss) {
-  if constexpr (EPI == EPI_DP) {
+  if constexpr (EPI == EPI_SKIP) {
+    v = __fadd_rn(v, xv);
+  } else if constexpr (EPI == EPI_DP) {
     const float a32 =
         fmaxf(__fadd_rn(__fmul_rn(xv, p.sc[c]), p.sh[c]), 0.f);
     v = a32 > 0.f ? v : 0.f;
@@ -696,9 +702,9 @@ __device__ __forceinline__ void stats_tile(const Gemm& p,
 
 // The epilogue of a block's BM x BN output tile at (m0, n0), held as
 // m16n8 fragments acc[MT][NT] by each warp at (wm0, wn0): the f32
-// partial of split blockIdx.z (EPI_F32, or any split plan), else T(y) or
-// the masked T(dP) with their statistics into p.spart (row tile
-// blockIdx.y).  Shared by mma_kernel and K7's halo dgrad (fu_halo.cuh).
+// partial of split blockIdx.z (EPI_F32, or any split plan), else T(y),
+// T(y + skip) or the masked T(dP), with their statistics into p.spart (row
+// tile blockIdx.y).  Shared by mma_kernel and the halo loop (fu_halo.cuh).
 template <typename T, int BM, int BN, int EPI, int WARPS_M, int WARPS_N,
           int MT, int NT>
 __device__ __forceinline__ void tile_epilogue(const Gemm& p,
@@ -707,8 +713,11 @@ __device__ __forceinline__ void tile_epilogue(const Gemm& p,
                                               int wn0, int warp, int lane) {
   // fragment (i, j) holds rows g, g + 8 and columns 2t, 2t + 1
   const int g = lane >> 2, tq = lane & 3;
+  constexpr bool STATS = EPI == EPI_Y || EPI == EPI_DP;
+  constexpr bool READS = EPI == EPI_DP || EPI == EPI_SKIP;
   const bool partial = EPI == EPI_F32 || p.splits > 1;
-  const bool stats = !partial && (EPI == EPI_DP || p.stats);
+  const bool stats = STATS && !partial && (EPI == EPI_DP || p.stats);
+  const void* in = EPI == EPI_DP ? p.x : p.skip;
   float* pout = EPI == EPI_F32 && p.splits == 1 ? static_cast<float*>(p.out)
                                                 : p.ws;
   pout += (size_t)blockIdx.z * p.M * p.N;
@@ -716,9 +725,9 @@ __device__ __forceinline__ void tile_epilogue(const Gemm& p,
 #pragma unroll
   for (int j = 0; j < NT; ++j)
     cs[j][0] = cs[j][1] = css[j][0] = css[j][1] = 0.f;
-  // EPI_DP reads the raw input at every output element: a row block's
-  // loads are issued before its first store (which the compiler could not
-  // move them past), so they are in flight together
+  // EPI_DP reads the raw input, EPI_SKIP the residual, at every output
+  // element: a row block's loads are issued before its first store (which
+  // the compiler could not move them past), so they are in flight together
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     float2 xin[2][NT];
@@ -728,8 +737,8 @@ __device__ __forceinline__ void tile_epilogue(const Gemm& p,
       for (int j = 0; j < NT; ++j) {
         const int r = m0 + wm0 + i * 16 + g + 8 * h;
         const int c = n0 + wn0 + j * 8 + 2 * tq;
-        xin[h][j] = EPI == EPI_DP && !partial && r < p.M && c < p.N
-            ? ld_pair<T>(p.x, (size_t)r * p.N + c) : make_float2(0.f, 0.f);
+        xin[h][j] = READS && !partial && r < p.M && c < p.N
+            ? ld_pair<T>(in, (size_t)r * p.N + c) : make_float2(0.f, 0.f);
       }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -752,7 +761,7 @@ __device__ __forceinline__ void tile_epilogue(const Gemm& p,
       }
     }
   }
-  if constexpr (EPI != EPI_F32) {
+  if constexpr (STATS) {
     if (!stats) return;   // uniform over the block
     stats_tile<BN, WARPS_M, WARPS_N, NT>(p, cs, css, warp, g, tq, wn0, n0);
   }
@@ -888,12 +897,14 @@ split_epi_kernel(const __grid_constant__ Gemm p, int rows) {
       float v = 0.f;
       for (int z = 0; z < p.splits; ++z) v += p.ws[z * mn + off];
       const float xv =
-          EPI == EPI_DP ? fu::to_f(static_cast<const T*>(p.x)[off]) : 0.f;
+          EPI == EPI_DP ? fu::to_f(static_cast<const T*>(p.x)[off])
+          : EPI == EPI_SKIP ? fu::to_f(static_cast<const T*>(p.skip)[off])
+          : 0.f;
       v = epi<EPI>(p, c, xv, v, s, ss);
       static_cast<T*>(p.out)[off] = fu::from_f<T>(v);
     }
   }
-  if (!(EPI == EPI_DP || p.stats)) return;
+  if (!(EPI == EPI_DP || (EPI == EPI_Y && p.stats))) return;
   __shared__ float red[2][16][16];
   red[0][ty][tx] = s;
   red[1][ty][tx] = ss;

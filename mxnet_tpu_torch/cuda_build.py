@@ -32,16 +32,16 @@ __all__ = ["KERNELS", "build", "load", "build_dir", "build_cubin"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
-_COMMON = ["fu_gemm.cuh", "fu_conv4d.cuh", "fu_mma.cuh", "fu_halo.cuh"]
+_COMMON = ["fu_gemm.cuh", "fu_mma.cuh", "fu_halo.cuh"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every kernel entry point: (argtypes) -> int cudaError_t
 KERNELS = {
     "fu_mm_fwd": [_P] * 9 + [_I] * 9 + [_P],
-    "fu_mm_skip_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fu_mm_skip_fwd": [_P] * 7 + [_I] * 8 + [_P],
     "fu_c3_fwd2d": [_P] * 9 + [_I] * 11 + [_P],
-    "fu_c3_fwd4d": [_P] * 8 + [_I] * 9 + [_P],
+    "fu_c3_fwd4d": [_P] * 9 + [_I] * 10 + [_P],
     "fu_mm_bwd": [_P] * 18 + [_I] * 13 + [_P],
     "fu_c3_bwd2d": [_P] * 18 + [_I] * 14 + [_P],
     "fu_c3_bwd4d": [_P] * 18 + [_I] * 12 + [_P],

@@ -1,7 +1,8 @@
 """How an op module validates, allocates for and launches a hand-written
 CUDA kernel: shared by ``fused_unit`` (K1-K7) and ``nn`` (K8), with the
 tile and split plans of the tensor-core loops: ``csrc/fu_mma.cuh`` (K1,
-K3, K5, K6, K8) and its halo-resident form ``csrc/fu_halo.cuh`` (K7).
+K2, K3, K5, K6, K8) and its halo-resident form ``csrc/fu_halo.cuh`` (K4,
+K7).
 
 A wrapper asks ``on_host`` first and, for a CPU or meta tensor, runs its
 plain version; for a CUDA tensor it checks its operands with ``check`` and
@@ -70,10 +71,10 @@ def stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-# The tensor-core tile loop of K1, K3, K5, K6 and K8 (csrc/fu_mma.cuh): output
-# tiles of 128 x 128, 128 x 64 or 64 x 128 and a split of the summed axis,
-# chosen from the shapes and the element size alone so that the sum order
-# (and the result) never depends on the device.  MMA_BLOCKS is the block
+# The tensor-core tile loop of K1, K2, K3, K5, K6 and K8 (csrc/fu_mma.cuh):
+# output tiles of 128 x 128, 128 x 64 or 64 x 128 and a split of the summed
+# axis, chosen from the shapes and the element size alone so that the sum
+# order (and the result) never depends on the device.  MMA_BLOCKS is the block
 # count a plan aims at: one per SM of an H100 SXM.
 MMA_BLOCKS = 132
 MMA_TILES = ((128, 128), (128, 64), (64, 128))
@@ -102,8 +103,8 @@ def _chunked(k, splits):
 
 def mma_plan(m, n, k, f32=True):
     """(bm, bn, splits, chunk) of an (m, n) product over k channels (K1,
-    K3, the dgrads of K5, K6 and K8) in f32 or bf16: the k range is halved
-    while each chunk keeps at least 256 channels and the blocks number
+    K2, K3, the dgrads of K5, K6 and K8) in f32 or bf16: the k range is
+    halved while each chunk keeps at least 256 channels and the blocks number
     fewer than one an SM (bf16) or two (f32).  Two blocks share an SM, so
     196 blocks leave 64 SMs with twice the work of the other 68; in f32 a
     further split pays for its partials, in bf16, whose 128 x 128 tiles
@@ -129,9 +130,10 @@ def mma_wgrad_plan(m, n, rows):
     return (bm, bn) + _chunked(rows, splits)
 
 
-# K7's halo-resident loops (csrc/fu_halo.cuh).  A band of pixels of the
-# (n, h, w) row layout reads, over all nine taps, a halo of rows around it:
-# one window of band + 2W + 2 rows, or three of band + 2 where W > band + 2.
+# The halo-resident loops of K4 and K7 (csrc/fu_halo.cuh).  A band of
+# pixels of the (n, h, w) row layout reads, over all nine taps, a halo of
+# rows around it: one window of band + 2W + 2 rows, or three of band + 2
+# where W > band + 2.
 HALO_ROW_BYTES = 144        # a K-major halo row: 128 bytes of k + padding
 # dynamic shared memory that leaves two blocks an SM (228 KB, less 1 KB
 # reserved a block and the 2 KB of statistics scratch each)
@@ -147,28 +149,51 @@ def halo_rows(band, w_):
 
 def halo_dgrad_smem(bm, bn, w_, f32=True):
     """Dynamic shared memory of K7's dgrad on a (bm, bn) tile: a two-stage
-    ring of (k tile x bn) weight slices (f32: hi and lo planes) and the
-    halo of bm pixels, with a zero row, in two planes."""
+    ring of (k tile x bn) weight slices, MN-major (f32: hi and lo planes),
+    and the halo of bm pixels, with a zero row, in two planes (f32: hi and
+    lo; bf16: g and y_raw)."""
     stage = (256 if f32 else 128) * (bn + 8)
     return 2 * stage + 2 * (halo_rows(bm, w_) + 1) * HALO_ROW_BYTES
 
 
-def halo_dgrad_plan(rows, ci, co, w_, f32=True):
-    """(bm, bn, splits, chunk) of K7's dgrad dP (rows, ci) summed over co
-    channels and nine taps, on images w_ wide: ``mma_tiles``' tile, or 64 x
-    128 where a 128-pixel band's halo would leave one block an SM; co is
-    halved, in whole 64-channel chunks, while the blocks number fewer than
-    two an SM (f32) or one (bf16) and each chunk keeps at least 256 of the
-    9 * co products a pixel, as ``mma_plan`` splits."""
-    bm, bn = mma_tiles(rows, ci, f32)
-    if bm == 128 and halo_dgrad_smem(bm, bn, w_, f32) > SMEM_TWO_BLOCKS:
+def halo_fwd_smem(bm, bn, w_, f32=True):
+    """Dynamic shared memory of K4's forward on a (bm, bn) tile: a
+    two-stage ring of (bn x k tile) weight slices, K-major with rows of
+    HALO_ROW_BYTES, and the halo of bm pixels with a zero row, in two planes
+    (hi and lo) in f32 and one in bf16."""
+    planes = 2 if f32 else 1
+    return planes * (2 * bn + halo_rows(bm, w_) + 1) * HALO_ROW_BYTES
+
+
+def _halo_plan(rows, n, k, w_, f32, smem):
+    """(bm, bn, splits, chunk) of a halo loop's (rows, n) product summed
+    over k channels and nine taps, on images w_ wide: ``mma_tiles``' tile,
+    or 64 x 128 where a 128-pixel band's halo would leave one block an SM
+    (``smem``: the loop's shared memory); k is halved, in whole 64-channel
+    chunks, while the blocks number fewer than two an SM (f32) or one
+    (bf16) and each chunk keeps at least 256 of the 9 * k products a pixel,
+    as ``mma_plan`` splits."""
+    bm, bn = mma_tiles(rows, n, f32)
+    if bm == 128 and smem(bm, bn, w_, f32) > SMEM_TWO_BLOCKS:
         bm, bn = 64, 128
-    tiles = _cdiv(rows, bm) * _cdiv(ci, bn)
+    tiles = _cdiv(rows, bm) * _cdiv(n, bn)
     target = MMA_BLOCKS * (2 if f32 else 1)
     splits = 1
-    while tiles * splits < target and 9 * co >= 2 * splits * 256:
+    while tiles * splits < target and 9 * k >= 2 * splits * 256:
         splits *= 2
-    return (bm, bn) + _chunked(co, splits)
+    return (bm, bn) + _chunked(k, splits)
+
+
+def halo_dgrad_plan(rows, ci, co, w_, f32=True):
+    """(bm, bn, splits, chunk) of K7's dgrad dP (rows, ci) summed over co
+    channels and nine taps (``_halo_plan``)."""
+    return _halo_plan(rows, ci, co, w_, f32, halo_dgrad_smem)
+
+
+def halo_fwd_plan(rows, ci, co, w_, f32=True):
+    """(bm, bn, splits, chunk) of K4's forward y (rows, co) summed over ci
+    channels and nine taps (``_halo_plan``)."""
+    return _halo_plan(rows, co, ci, w_, f32, halo_fwd_smem)
 
 
 def halo_wgrad_band(f32=True):

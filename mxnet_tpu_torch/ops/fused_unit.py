@@ -15,9 +15,10 @@ layout.  Weights stay in their OHWI checkpoint layout: the kernels read
 (Co, Ci) and (Co, 3, 3, Ci) directly.  MXNET_FUSED_UNIT_C3=4d runs the
 middle conv through the reference's other pair of 3x3 kernels instead, K4
 ``c3_fwd4d`` and K7 ``c3_bwd4d``, on the NHWC view of the same tensors
-(each with its operand's halo resident in shared memory).  The reference
-gates those by TPU scoped-VMEM budgets and sends some stages to XLA; the
-port runs them at every width, as it does K3 and K6.
+(one halo loop for both, with the shared operand resident in shared
+memory).  The reference gates those by TPU scoped-VMEM budgets and sends
+some stages to XLA; the port runs them at every width, as it does K3 and
+K6.
 
 In training mode K1 and K3 also return the batch statistics of their
 output, and the unit is a ``torch.autograd.Function`` whose backward runs
@@ -37,30 +38,30 @@ f32 accumulation, one rounding of the output), a launch counter
 (``<wrapper>.launches``) and a note on what it replaces.  A wrapper uses
 the plain version only for tensors on the CPU or the meta device; for a
 CUDA tensor it launches the kernel or raises.  The CUDA sources are
-``mxnet_tpu_torch/csrc/fu_*.cu`` (tiling and bound: ``fu_mma.cuh`` for K1,
-K3, K5 and K6 on the tensor cores, K3's and K6's tap shifts gathered as
-they stage their operands; ``fu_halo.cuh`` for K7 on the tensor cores,
+``mxnet_tpu_torch/csrc/fu_*.cu``, all on the tensor cores (tiling and
+bound: ``fu_mma.cuh`` for K1, K2, K3, K5 and K6, K3's and K6's tap shifts
+gathered as they stage their operands; ``fu_halo.cuh`` for K4 and K7,
 each product's shared operand staged once into a halo that the nine taps
-read at shifted rows; ``fu_gemm.cuh`` and ``fu_conv4d.cuh`` for K2 and K4
-on CUDA cores).  ``mm_fwd_tf32x3``, ``c3_fwd2d_tf32x3``,
-``mm_bwd_tf32x3``, ``c3_bwd2d_tf32x3``, ``c3_bwd4d_tf32x3`` and
-``conv1x1_bwd_tf32x3`` emulate the float32 arithmetic of K1, K3, K5, K6,
-K7 and K8 (``ops/nn.py``) (3xTF32 over the same split of the summed axis,
-in the kernel's k order) for the CPU tests; with ``exact`` each MMA
-rounds as the tensor core does (``_mma_step``), which gives the card's
-bits; nothing on the path calls them.
+read at shifted rows).  ``mm_fwd_tf32x3``, ``mm_skip_fwd_tf32x3``,
+``c3_fwd2d_tf32x3``, ``c3_fwd4d_tf32x3``, ``mm_bwd_tf32x3``,
+``c3_bwd2d_tf32x3``, ``c3_bwd4d_tf32x3`` and ``conv1x1_bwd_tf32x3``
+emulate the float32 arithmetic of K1-K8 (K8: ``ops/nn.py``) (3xTF32 over
+the same split of the summed axis, in the kernel's k order) for the CPU
+tests; with ``exact`` each MMA rounds as the tensor core does
+(``_mma_step``), which gives the card's bits; nothing on the path calls
+them.
 """
 import torch
 import torch.nn.functional as F
 
 from .registry import register, P
-from ._cuda import (check, check_dims, halo_dgrad_plan, halo_wgrad_plan,
-                    launch, mma_plan, mma_wgrad_plan, on_host, stream)
+from ._cuda import (check, check_dims, halo_dgrad_plan, halo_fwd_plan,
+                    halo_wgrad_plan, launch, mma_plan, mma_wgrad_plan,
+                    on_host, stream)
 from ..base import MXNetError
 from .. import config
 
 EPS_DEFAULT = 2e-5
-_TILE = 8           # TH = TW in fu_conv4d.cuh: K4's spatial tiles
 
 
 # ---------------------------------------------------------------------------
@@ -231,15 +232,30 @@ def _mm_tf32(a, b, splits, chunk, passes=3, exact=False):
     return total
 
 
+def _mm_fwd_acc(x2d, w, sc, sh, passes, exact):
+    """The f32 sum of K1's and K2's product: ``_mm_tf32`` over their split
+    (``mma_plan``)."""
+    w2 = w.reshape(w.shape[0], -1)
+    _, _, splits, chunk = mma_plan(x2d.shape[0], w2.shape[0], w2.shape[1])
+    return _mm_tf32(_prologue(x2d, sc, sh), w2.t(), splits, chunk, passes,
+                    exact)
+
+
 def mm_fwd_tf32x3(x2d, w, sc, sh, with_stats=False, passes=3,
                   exact=False):
     """K1's float32 arithmetic on the CPU: ``mm_fwd_plain`` with the
     product taken as ``_mm_tf32`` over K1's split (``mma_plan``)."""
-    w2 = w.reshape(w.shape[0], -1)
-    _, _, splits, chunk = mma_plan(x2d.shape[0], w2.shape[0], w2.shape[1])
-    acc = _mm_tf32(_prologue(x2d, sc, sh), w2.t(), splits, chunk, passes,
-                   exact)
+    acc = _mm_fwd_acc(x2d, w, sc, sh, passes, exact)
     return (acc.to(x2d.dtype),) + _stats(acc, with_stats)
+
+
+def mm_skip_fwd_tf32x3(x2d, w, sc, sh, skip2d, passes=3, exact=False):
+    """K2's float32 arithmetic on the CPU: ``mm_skip_fwd_plain`` with the
+    product taken as K1's (``_mm_tf32`` over ``mma_plan``'s split), then
+    the residual added to the complete f32 sum and the result rounded
+    once."""
+    acc = _mm_fwd_acc(x2d, w, sc, sh, passes, exact)
+    return (acc + skip2d.float()).to(x2d.dtype)
 
 
 def c3_fwd2d_tf32x3(x2d, w, sc, sh, n, h, w_, with_stats=False, passes=3,
@@ -287,6 +303,45 @@ def _taps(t4, sign):
     return torch.cat(cols, dim=-1).reshape(n * h * w_, 9 * c)
 
 
+_HALO_BK = 32       # f32 channels of a halo loop's k tile (128 bytes)
+
+
+def _halo_operands(t4, w9, sign):
+    """A product of the halo loops (csrc/fu_halo.cuh) in their k order, k =
+    (chunk of _HALO_BK channels, tap, channel), the channels padded with
+    zeros to whole chunks as the kernels' tiles are: (A (rows, 9 * C') with
+    A[r, (b, t, c)] = t4 at pixel (h + sign * dh, w + sign * dw), channel b
+    * _HALO_BK + c (``_taps``), B (9 * C', N) from w9 (9, C, N), the weight
+    of tap t over the summed channels)."""
+    c = t4.shape[-1]
+    nb = -(-c // _HALO_BK)
+    pad = nb * _HALO_BK - c
+    a = _taps(F.pad(t4, (0, pad)), sign)
+    a = a.reshape(-1, 9, nb, _HALO_BK).transpose(1, 2).reshape(a.shape[0], -1)
+    b = F.pad(w9.float(), (0, 0, 0, pad)).reshape(9, nb, _HALO_BK, -1) \
+        .transpose(0, 1).reshape(9 * nb * _HALO_BK, -1)
+    return a, b
+
+
+def c3_fwd4d_tf32x3(x4d, w, sc, sh, with_stats=False, passes=3,
+                    exact=False):
+    """K4's float32 arithmetic on the CPU: ``c3_fwd4d_plain`` as K4 takes
+    it (csrc/fu_halo.cuh), y = act(x)' @ w' with act(x)'[r, (b, t, c)] =
+    act(x)[r + off_t, b * 32 + c] (zero off the image) and w'[(b, t, c), o]
+    = w[o, t, b * 32 + c], k = (chunk of 32 channels of Ci, tap, channel) as
+    ``_halo_operands`` orders it, a chunk's nine taps read from one staged
+    halo: ``_mm_tf32`` over K4's split of Ci (``halo_fwd_plan``), then
+    K1's epilogue."""
+    n, h, w_, ci = x4d.shape
+    co = w.shape[0]
+    _, _, splits, chunk = halo_fwd_plan(n * h * w_, ci, co, w_)
+    a, b = _halo_operands(_prologue(x4d, sc, sh),
+                          w.permute(1, 2, 3, 0).reshape(9, ci, co), 1)
+    acc = _mm_tf32(a, b, splits, 9 * chunk, passes, exact)
+    return ((acc.to(x4d.dtype).reshape(n, h, w_, co),)
+            + _stats(acc, with_stats))
+
+
 def c3_bwd2d_tf32x3(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_,
                     passes=3, exact=False):
     """K6's float32 arithmetic on the CPU: ``c3_bwd2d_plain`` as K6 takes
@@ -315,8 +370,8 @@ def c3_bwd4d_tf32x3(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh, passes=3,
     (``halo_dgrad_plan``, ``halo_wgrad_plan``).  The dgrad sums k = (chunk
     of 32 channels of Co, tap, channel), a chunk's nine taps read from one
     staged halo: fin(g)' (R, 9 Co) @ w' with fin(g)'[r, (t, o)] =
-    fin(g)[r - off_t, o], Co padded with zero channels to whole chunks as
-    the kernel's tiles are; the wgrad sums the pixels in order, each tap
+    fin(g)[r - off_t, o], ordered as ``_halo_operands`` orders them; the
+    wgrad sums the pixels in order, each tap
     apart, as the kernel takes it, transposed: a'^T (9 Ci, R) @ fin(g),
     with a'[r, (t, i)] = act(x)[r + off_t, i] (the activation is the MMA's
     A operand, so its lo part meets g's hi part in the first pass)."""
@@ -327,14 +382,8 @@ def c3_bwd4d_tf32x3(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh, passes=3,
     g = _finalize_g(g4d.reshape(rows, co), yraw4d.reshape(rows, co), fin)
     _, _, dsplits, dchunk = halo_dgrad_plan(rows, ci, co, w_)
     wsplits, wchunk = halo_wgrad_plan(rows, ci, co)
-    bk = 32                                   # f32 channels of a k tile
-    nb = -(-co // bk)
-    gp = F.pad(g, (0, nb * bk - co)).reshape(n, h, w_, nb * bk)
-    gk = _taps(gp, -1).reshape(rows, 9, nb, bk).transpose(1, 2) \
-        .reshape(rows, 9 * nb * bk)
-    wk = F.pad(w.float().permute(1, 2, 0, 3).reshape(9, co, ci),
-               (0, 0, 0, nb * bk - co)).reshape(9, nb, bk, ci) \
-        .transpose(0, 1).reshape(9 * nb * bk, ci)
+    gk, wk = _halo_operands(g.reshape(n, h, w_, co),
+                            w.permute(1, 2, 0, 3).reshape(9, co, ci), -1)
     da = _mm_tf32(gk, wk, dsplits, 9 * dchunk, passes, exact)
     dp, db, dg = _bwd_epilogue(da, x2d, sc, sh, xs, xh)
     a9 = _taps(_prologue(x2d, sc, sh).reshape(n, h, w_, ci), 1)
@@ -458,8 +507,13 @@ def mm_skip_fwd(x2d, w, sc, sh, skip2d):
 
     Replaces mxnet_tpu/ops/fused_unit.py ``_k_matmul_skip_fwd``
     (``_mm_skip_fwd``, pallas_call "fu_mm_skip_fwd").  Bound on the H100:
-    arithmetic at ResNet-50 widths; the residual add rides the epilogue,
-    so the sum is written once (csrc/fu_gemm.cuh)."""
+    bytes at ResNet-50 widths, in both dtypes (R*(Ci + 2*Co) elements moved
+    against 2*R*Ci*Co operations: its Ci is a quarter of its Co, and float32
+    products run through 3xTF32).  It runs on K1's tensor-core loop
+    (csrc/fu_mma.cuh), on the same plan (``mma_plan``, through
+    ``mm_fwd_buffers`` without statistics), with the residual read in the
+    epilogue and added to the complete f32 sum, which is rounded once and
+    written once."""
     if on_host(x2d):
         return mm_skip_fwd_plain(x2d, w, sc, sh, skip2d)
     rows, ci = x2d.shape
@@ -474,9 +528,12 @@ def mm_skip_fwd(x2d, w, sc, sh, skip2d):
           skip=skip2d)
     check_dims("mm_skip_fwd", ci, co)
     y = torch.empty((rows, co), dtype=x2d.dtype, device=x2d.device)
+    plan, ws = mm_fwd_buffers(rows, ci, co, False, x2d.device,
+                              x2d.dtype == torch.float32)[:2]
     with torch.cuda.device(x2d.device):
-        launch("fu_mm_skip_fwd", x2d, w2, sc, sh, skip2d, y, rows, ci, co,
-               int(x2d.dtype == torch.bfloat16), stream(x2d.device))
+        launch("fu_mm_skip_fwd", x2d, w2, sc, sh, skip2d, y, ws, rows, ci,
+               co, int(x2d.dtype == torch.bfloat16), *plan,
+               stream(x2d.device))
     mm_skip_fwd.launches += 1
     return y
 
@@ -682,10 +739,20 @@ def c3_bwd2d(g2d, yraw2d, fin, x2d, w, sc, sh, xs, xh, n, h, w_):
 c3_bwd2d.launches = 0
 
 
-def _tiles(h, w_):
-    """(tiles per image row, tiles per image) of K4's spatial tiles."""
-    tiles_w = -(-w_ // _TILE)
-    return tiles_w, -(-h // _TILE) * tiles_w
+def c3_fwd4d_buffers(n, h, w_, ci, co, with_stats, device, f32=True):
+    """K4's launch plan for NHWC x (n, h, w_, ci) in f32 or bf16 and co
+    output channels, ``halo_fwd_plan(rows, ci, co, w_)``, and the scratch
+    it implies, as ``mm_fwd_buffers`` gives K1's: (plan, split partials
+    (splits, rows, co) or None, statistics partials (2, row tiles, co),
+    sum, sum of squares; the last three None without statistics)."""
+    rows = n * h * w_
+    plan = halo_fwd_plan(rows, ci, co, w_, f32)
+    fp = dict(dtype=torch.float32, device=device)
+    ws = torch.empty((plan[2], rows, co), **fp) if plan[2] > 1 else None
+    if not with_stats:
+        return plan, ws, None, None, None
+    return (plan, ws, torch.empty((2, -(-rows // plan[0]), co), **fp),
+            torch.empty(co, **fp), torch.empty(co, **fp))
 
 
 def c3_fwd4d(x4d, w, sc, sh, with_stats=False):
@@ -696,10 +763,15 @@ def c3_fwd4d(x4d, w, sc, sh, with_stats=False):
 
     Replaces mxnet_tpu/ops/fused_unit.py ``_k_conv3_fwd`` (``_c3_fwd``,
     pallas_call "fu_c3_fwd"), the MXNET_FUSED_UNIT_C3=4d path.  Bound on
-    the H100: arithmetic (9 taps of 2*N*H*W*Ci*Co); the design stages each
-    8x8 spatial tile's halo once, through the prologue and with zeros
-    outside the image, and walks the nine taps out of shared memory, at
-    every width (csrc/fu_conv4d.cuh)."""
+    the H100: arithmetic (9 taps of 2*N*H*W*Ci*Co), which the tensor cores
+    serve (bf16 MMA, float32 through 3xTF32) on K7's dgrad loop
+    (csrc/fu_halo.cuh) run forward: per chunk of Ci the activation of a
+    band of pixels is staged once through the prologue into a halo that the
+    nine taps read at shifted rows, a zero row where a neighbour leaves the
+    image (the padding after the prologue), and the OHWI weight is read in
+    place; the epilogue is K1's.  Plan and scratch come from
+    ``c3_fwd4d_buffers`` (shapes only); split partials and statistics are
+    added in a fixed order.  It runs at every width."""
     if on_host(x4d):
         return c3_fwd4d_plain(x4d, w, sc, sh, with_stats)
     if x4d.ndim != 4:
@@ -713,19 +785,15 @@ def c3_fwd4d(x4d, w, sc, sh, with_stats=False):
                          % (tuple(x4d.shape), tuple(w.shape)))
     check("c3_fwd4d", x4d.dtype, x4d.device, x=x4d, w=w, sc=sc, sh=sh)
     check_dims("c3_fwd4d", ci, co)
-    tiles_w, tiles_img = _tiles(h, w_)
+    _check_index_division("c3_fwd4d", n * h * w_, h, w_, max(ci, co))
     dev = x4d.device
     y = torch.empty((n, h, w_, co), dtype=x4d.dtype, device=dev)
-    part = s = ss = None
-    if with_stats:
-        part = torch.empty((2, n * tiles_img, co), dtype=torch.float32,
-                           device=dev)
-        s = torch.empty(co, dtype=torch.float32, device=dev)
-        ss = torch.empty(co, dtype=torch.float32, device=dev)
+    plan, ws, part, s, ss = c3_fwd4d_buffers(n, h, w_, ci, co, with_stats,
+                                             dev, x4d.dtype == torch.float32)
     with torch.cuda.device(dev):
-        launch("fu_c3_fwd4d", x4d, w, sc, sh, y, part, s, ss, n, h, w_, ci,
-               co, tiles_w, tiles_img, int(x4d.dtype == torch.bfloat16),
-               int(with_stats), stream(dev))
+        launch("fu_c3_fwd4d", x4d, w, sc, sh, y, part, s, ss, ws, n, h, w_,
+               ci, co, int(x4d.dtype == torch.bfloat16), int(with_stats),
+               *plan, stream(dev))
     c3_fwd4d.launches += 1
     return y, s, ss
 

@@ -436,15 +436,90 @@ def test_k3_k7_on_mma_match_plain_and_repeat_on_card(cuda_device, dtype):
                                 err)
 
 
+# K2 on the tensor cores, as (rows, ci, co): K4's cases' rows (286 and 147
+# off every tile) and K2's stage-4 widths on 100 rows, whose k = 512 splits
+K2_TC_CASES = [(n * h * w, ci, co) for n, h, w, ci, co in C3_TC_CASES] \
+    + [(100, 512, 2048)]
+
+
+def _k2_k4_calls(device, dtype):
+    """K4 (with and without statistics) at C3_TC_CASES and K2 at
+    K2_TC_CASES, on inputs from a seed."""
+    calls = []
+    for n, h, w, ci, co in C3_TC_CASES:
+        g = torch.Generator().manual_seed(n * h * w + 5 * ci + 13 * co)
+        r = lambda *s, scale=1.0: (torch.randn(  # noqa: E731
+            *s, generator=g) * scale).to(device)
+        x = r(n, h, w, ci).to(dtype)
+        wt = r(co, 3, 3, ci, scale=(9 * ci) ** -0.5).to(dtype)
+        for stats in (True, False):
+            calls.append((fu.c3_fwd4d, fu.c3_fwd4d_plain,
+                          (x, wt, r(ci).abs() + 0.5, r(ci) * 0.3, stats)))
+    for rows, ci, co in K2_TC_CASES:
+        g = torch.Generator().manual_seed(rows + 11 * ci + 3 * co)
+        r = lambda *s, scale=1.0: (torch.randn(  # noqa: E731
+            *s, generator=g) * scale).to(device)
+        calls.append((fu.mm_skip_fwd, fu.mm_skip_fwd_plain,
+                      (r(rows, ci).to(dtype),
+                       r(co, 1, 1, ci, scale=ci ** -0.5).to(dtype),
+                       r(ci).abs() + 0.5, r(ci) * 0.3,
+                       r(rows, co).to(dtype))))
+    return calls
+
+
+def test_k2_k4_cases_cover_ragged_split_and_wide_plans():
+    from mxnet_tpu_torch.ops import _cuda
+    k4 = [_cuda.halo_fwd_plan(n * h * w, ci, co, w)
+          for n, h, w, ci, co in C3_TC_CASES]
+    k2 = [_cuda.mma_plan(rows, co, ci) for rows, ci, co in K2_TC_CASES]
+    assert any(p[2] > 1 for p in k4)              # K4 split over Ci
+    assert any(p[2] > 1 for p in k2)              # K2 split over Ci
+    assert any(w > p[0] + 2 for p, (_, _, w, _, _) in zip(k4, C3_TC_CASES))
+    assert any(rows % 64 for rows, _, _ in K2_TC_CASES)
+    assert any(n * h * w % 64 and w % 8 for n, h, w, _, _ in C3_TC_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_k4_on_tensor_cores_match_plain_and_repeat_on_card(cuda_device,
+                                                              dtype):
+    """K2 and K4 on the tensor cores at ragged, split and wide shapes:
+    within the tolerances above of their plain versions (K4's statistics
+    at 1e-4, f32 sums over every pixel), and the same bits from a second
+    launch."""
+    dt = getattr(torch, dtype)
+    for kernel, plain, args in _k2_k4_calls(cuda_device, dt):
+        before = kernel.launches
+        got, want, again = kernel(*args), plain(*args), kernel(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        if kernel is fu.mm_skip_fwd:
+            got, want, again = (got,), (want,), (again,)
+        for i, (g, r, a) in enumerate(zip(got, want, again)):
+            if r is None:
+                assert g is None and a is None
+                continue
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert torch.equal(g, a), (kernel.__name__, i)
+            tol = CARD_TOL[dt] if i == 0 else 1e-4
+            scale = float(r.float().abs().max())
+            err = float((g.float() - r.float()).abs().max()) / scale
+            assert err <= tol, (kernel.__name__, tuple(args[0].shape), i,
+                                err)
+
+
 @pytest.mark.cuda
 def test_k3_k7_float32_equal_the_cpu_emulation_bitwise(cuda_device):
-    """K3's y and K7's dP and dW in float32 (and K1's y, on the same loop)
-    equal c3_fwd2d_tf32x3, c3_bwd4d_tf32x3 and mm_fwd_tf32x3 with
-    ``exact`` on the same inputs on the CPU, bit for bit: the 3xTF32
-    split, the k order, the split plan and each MMA's own rounding
-    (fused_unit._mma_step) of the kernels."""
+    """K3's y and K7's dP and dW in float32 (and K1's y, on the same loop,
+    K2's y and K4's y) equal c3_fwd2d_tf32x3, c3_bwd4d_tf32x3,
+    mm_fwd_tf32x3, mm_skip_fwd_tf32x3 and c3_fwd4d_tf32x3 with ``exact`` on
+    the same inputs on the CPU, bit for bit: the 3xTF32 split, the k order,
+    the split plan and each MMA's own rounding (fused_unit._mma_step) of
+    the kernels."""
     calls = [c for c in _k3_k7_calls(cuda_device, torch.float32)
              if c[0] is fu.c3_bwd4d or c[2][-1]]
+    calls += [c for c in _k2_k4_calls(cuda_device, torch.float32)
+              if c[0] is fu.mm_skip_fwd or c[2][-1]]
     g = torch.Generator().manual_seed(1)
     r = lambda *s, scale=1.0: (torch.randn(  # noqa: E731
         *s, generator=g) * scale).to(cuda_device)
@@ -452,13 +527,17 @@ def test_k3_k7_float32_equal_the_cpu_emulation_bitwise(cuda_device):
                                     r(36).abs() + 0.5, r(36) * 0.3)))
     emulations = {fu.c3_fwd2d: fu.c3_fwd2d_tf32x3,
                   fu.c3_bwd4d: fu.c3_bwd4d_tf32x3,
-                  fu.mm_fwd: fu.mm_fwd_tf32x3}
+                  fu.mm_fwd: fu.mm_fwd_tf32x3,
+                  fu.mm_skip_fwd: fu.mm_skip_fwd_tf32x3,
+                  fu.c3_fwd4d: fu.c3_fwd4d_tf32x3}
     for kernel, _plain, args in calls:
         got = kernel(*args)
         cpu = tuple(tuple(t.cpu() for t in a) if isinstance(a, tuple)
                     else a.cpu() if isinstance(a, torch.Tensor) else a
                     for a in args)
         emu = emulations[kernel](*cpu, exact=True)
+        if kernel is fu.mm_skip_fwd:
+            got, emu = (got,), (emu,)
         for i in (0, 1) if kernel is fu.c3_bwd4d else (0,):
             diff = (got[i].cpu() - emu[i]).abs()
             assert torch.equal(got[i].cpu(), emu[i]), \

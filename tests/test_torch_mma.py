@@ -1,22 +1,22 @@
-"""The tensor-core arithmetic and tiling of K1, K3, K5, K6, K7 and K8,
-emulated on the CPU.
+"""The tensor-core arithmetic and tiling of K1-K8, emulated on the CPU.
 
-The CUDA kernels (csrc/fu_mma.cuh, and K7's halo-resident csrc/fu_halo.cuh)
-compute float32 products as 3xTF32 on the tensor cores, over output tiles
-and splits of the summed axis chosen in Python from the shapes alone.
-Here:
+The CUDA kernels (csrc/fu_mma.cuh, and the halo-resident csrc/fu_halo.cuh
+of K4 and K7) compute float32 products as 3xTF32 on the tensor cores, over
+output tiles and splits of the summed axis chosen in Python from the
+shapes alone.  Here:
 
 - ``_tf32`` rounds as ``cvt.rna.tf32.f32`` on crafted bit patterns, and
   ``_mma_step`` rounds as the card's m16n8k8 tf32 MMA on 48 of its results
   (``tests/fixtures/mma_tf32_h100.npz``);
-- ``mm_fwd_tf32x3`` / ``c3_fwd2d_tf32x3`` / ``mm_bwd_tf32x3`` /
-  ``c3_bwd2d_tf32x3`` / ``c3_bwd4d_tf32x3`` / ``conv1x1_bwd_tf32x3``,
-  which walk the kernels' k order and splits in their order, against the
-  JAX package's ``_mm_fwd`` / ``_c3_fwd2d`` / ``_mm_bwd`` / ``_c3_bwd2d``
-  / ``_c3_bwd`` / ``_fused1x1_bwd_pallas`` (in interpret mode, as its own
-  tests run them) at ResNet-50's widths or on ragged images with split
-  plans, within chip_smoke.py's float32 tolerance; a single TF32 pass
-  fails it;
+- ``mm_fwd_tf32x3`` / ``mm_skip_fwd_tf32x3`` / ``c3_fwd2d_tf32x3`` /
+  ``c3_fwd4d_tf32x3`` / ``mm_bwd_tf32x3`` / ``c3_bwd2d_tf32x3`` /
+  ``c3_bwd4d_tf32x3`` / ``conv1x1_bwd_tf32x3``, which walk the kernels' k
+  order and splits in their order, against the JAX package's ``_mm_fwd``
+  / ``_mm_skip_fwd`` / ``_c3_fwd2d`` / ``_c3_fwd`` / ``_mm_bwd`` /
+  ``_c3_bwd2d`` / ``_c3_bwd`` / ``_fused1x1_bwd_pallas`` (in interpret
+  mode, as its own tests run them) at ResNet-50's widths or on ragged
+  images with split plans, within chip_smoke.py's float32 tolerance; a
+  single TF32 pass fails it;
 - the tile and split plans: pure functions of the shapes at every
   main-path shape, and the scratch the wrappers allocate from them.
 
@@ -152,6 +152,35 @@ def test_one_tf32_pass_fails_the_float32_tolerance(fwd_case):
     assert _rel(y, yj) > 4 * TOL
 
 
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "one-pass"])
+@pytest.mark.parametrize("rows,cq", [(ROWS, CQ), (100, 64)],
+                         ids=["stage4-split", "stage1-ragged"])
+def test_mm_skip_fwd_tf32x3_matches_pallas(rows, cq, passes):
+    """K2 at stage 4's widths (its k = C/4 = 512 split in two) and at
+    stage 1's on 100 rows (no split, rows off every tile): the residual
+    added to the complete 3xTF32 sum within the float32 tolerance, one
+    TF32 pass outside it."""
+    rng = _rng()
+    c = 4 * cq
+    x = rng.standard_normal((rows, cq)).astype(np.float32)
+    w = (rng.standard_normal((c, 1, 1, cq)) * cq ** -0.5).astype(np.float32)
+    sc = rng.uniform(0.5, 1.5, cq).astype(np.float32)
+    sh = (rng.standard_normal(cq) * 0.1).astype(np.float32)
+    skip = rng.standard_normal((rows, c)).astype(np.float32)
+    assert (_cuda.mma_plan(rows, c, cq)[2] > 1) == (cq == CQ)
+    j = jnp.asarray
+    ref = jfu._mm_skip_fwd(j(x), jfu._w2d(j(w)), j(sc), j(sh), j(skip),
+                           jnp.float32)
+    t = torch.from_numpy
+    y = tfu.mm_skip_fwd_tf32x3(t(x), t(w), t(sc), t(sh), t(skip),
+                               passes=passes)
+    err = _rel(y, ref)
+    if passes == 3:
+        assert err <= TOL, err
+    else:
+        assert err > TOL, err
+
+
 def _bwd_inputs(deferred):
     rng = _rng()
     co, ci = (CQ, C) if deferred else (C, CQ)
@@ -280,6 +309,37 @@ def test_c3_fwd2d_tf32x3_matches_pallas(passes):
         assert errs[0] > TOL, errs
 
 
+@functools.lru_cache(maxsize=None)
+def _c3_fwd4d_ref(n, h, w, c):
+    """The JAX package's ``_c3_fwd`` (y, sums) on K3's inputs of
+    ``_c3_case`` viewed as NHWC."""
+    x, wt, sc, sh = _c3_case(n, h, w, c)[0]
+    j = jnp.asarray
+    out = jfu._c3_fwd(j(x.reshape(n, h, w, c)), jfu._w4(j(wt)), j(sc),
+                      j(sh), jnp.float32)
+    return [np.asarray(a) for a in out]
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "one-pass"])
+@pytest.mark.parametrize("case", [(2, 13, 11, 64), (1, 13, 11, 128)],
+                         ids=["ragged", "ragged-split"])
+def test_c3_fwd4d_tf32x3_matches_pallas(case, passes):
+    """K4 on two ragged 13 x 11 images at 64 channels and on one at 128
+    (its Ci split in two): 3xTF32 within the float32 tolerance in y and
+    the statistics of the f32 sum, one TF32 pass outside it in y."""
+    n, h, w, c = case
+    assert (_cuda.halo_fwd_plan(n * h * w, c, c, w)[2] > 1) == (c == 128)
+    x, wt, sc, sh = _torch(_c3_case(n, h, w, c)[0])
+    yj, sj, ssj = _c3_fwd4d_ref(n, h, w, c)
+    y, s, ss = tfu.c3_fwd4d_tf32x3(x.reshape(n, h, w, c), wt, sc, sh,
+                                   with_stats=True, passes=passes)
+    errs = [_rel(y, yj), _rel(s, sj), _rel(ss, ssj)]
+    if passes == 3:
+        assert errs[0] <= TOL and max(errs[1:]) <= SMOKE.TOL["stats"], errs
+    else:
+        assert errs[0] > TOL, errs
+
+
 @pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "one-pass"])
 @pytest.mark.parametrize("case", [(1, 13, 11, 128), (2, 28, 28, 64)],
                          ids=["ragged-dgrad-split", "wgrad-split"])
@@ -327,17 +387,19 @@ def test_conv1x1_bwd_tf32x3_matches_pallas(rows, ci, co, passes):
 
 
 def _main_path_shapes():
-    """(kernel, rows, ci, co, side) of every K1, K3, K5, K6, K7 and K8
-    launch on the main path: the fused units of ResNet-50 at its four
-    stages; K1 (rows, C, C/4) and K3 (rows, C/4, C/4) served at batch 8
-    and trained at batch 32, K5 trained (and driven imperatively) at batch
+    """(kernel, rows, ci, co, side) of every K1-K8 launch on the main path:
+    the fused units of ResNet-50 at its four stages; K1 (rows, C, C/4), K2
+    (rows, C/4, C), K3 and K4 (rows, C/4, C/4) served at batch 8 and
+    trained at batch 32, K5 trained (and driven imperatively) at batch
     32 at conv3 (rows, C/4, C) and conv1 (rows, C, C/4), K6 and K7 trained
     at batch 32 at conv2 (rows, C/4, C/4) on side x side images; K8 at its
     three transition sites."""
     for (hw, c, _), side in zip(SMOKE.STAGES, SMOKE.STAGE_HW):
         for batch in (SMOKE.BATCH, SMOKE.TRAIN_BATCH):
             yield "K1", batch * hw, c, c // 4, side
+            yield "K2", batch * hw, c // 4, c, side
             yield "K3", batch * hw, c // 4, c // 4, side
+            yield "K4", batch * hw, c // 4, c // 4, side
         rows = SMOKE.TRAIN_BATCH * hw
         yield "K5", rows, c // 4, c, side
         yield "K5", rows, c, c // 4, side
@@ -348,11 +410,14 @@ def _main_path_shapes():
 
 
 def _plans(kernel, rows, ci, co, side, f32):
-    """The (m, n, k) and plan of each product the kernel launches (K7's
-    dgrad: k = co channels, each over nine taps; its wgrad: a plan of its
-    own, see ``test_k7_wgrad_plans_fill_the_card``)."""
-    if kernel == "K1":
+    """The (m, n, k) and plan of each product the kernel launches (K4's
+    and K7's dgrad: k = ci or co channels, each over nine taps; K7's
+    wgrad: a plan of its own, see ``test_k7_wgrad_plans_fill_the_card``)."""
+    if kernel in ("K1", "K2"):
         return [((rows, co, ci), _cuda.mma_plan(rows, co, ci, f32))]
+    if kernel == "K4":
+        return [((rows, co, ci), _cuda.halo_fwd_plan(rows, ci, co, side,
+                                                     f32))]
     if kernel == "K3":
         return [((rows, co, 9 * ci), _cuda.mma_plan(rows, co, 9 * ci, f32))]
     if kernel == "K7":
@@ -368,7 +433,8 @@ def _plans(kernel, rows, ci, co, side, f32):
 @pytest.mark.parametrize("f32", [True, False], ids=["float32", "bfloat16"])
 def test_plans_are_pure_functions_of_the_shapes(monkeypatch, f32):
     """Every main-path plan is legal, gives blocks to at least 3/4 of the
-    SMs, and does not look at the device: the same with no card."""
+    SMs, and does not look at the device: the same with no card; K4's
+    halo leaves two blocks an SM, as K7's dgrad's does."""
     plans = {shape: _plans(*shape, f32) for shape in _main_path_shapes()}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
@@ -383,6 +449,9 @@ def test_plans_are_pure_functions_of_the_shapes(monkeypatch, f32):
             blocks = -(-m // bm) * -(-n // bn) * splits
             assert blocks >= 0.75 * _cuda.MMA_BLOCKS, \
                 (m, n, k, bm, bn, splits, chunk)
+        if shape[0] == "K4":
+            assert _cuda.halo_fwd_smem(bm, bn, shape[4], f32) \
+                <= _cuda.SMEM_TWO_BLOCKS
 
 
 @pytest.mark.parametrize("f32", [True, False], ids=["float32", "bfloat16"])
@@ -427,10 +496,11 @@ def _launch_captured(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_wrappers_allocate_the_plans_scratch(monkeypatch, dtype):
-    """At every main-path shape, the scratch and plan the wrappers of K1,
-    K3, K5, K6, K7 and K8 pass to the kernel are those mm_fwd_buffers,
-    c3_fwd2d_buffers, mm_bwd_buffers, c3_bwd2d_buffers, c3_bwd4d_buffers
-    and conv1x1_bwd_buffers give for the shapes."""
+    """At every main-path shape, the scratch and plan the wrappers of
+    K1-K8 pass to the kernel are those mm_fwd_buffers (K1, and K2 without
+    statistics), c3_fwd2d_buffers, c3_fwd4d_buffers, mm_bwd_buffers,
+    c3_bwd2d_buffers, c3_bwd4d_buffers and conv1x1_bwd_buffers give for
+    the shapes."""
     f32 = dtype == torch.float32
 
     def m(*shape, dt=dtype):
@@ -446,6 +516,29 @@ def test_wrappers_allocate_the_plans_scratch(monkeypatch, dtype):
     with _launch_captured(monkeypatch) as calls:
         for kernel, rows, ci, co, side in _main_path_shapes():
             v = m(ci, dt=torch.float32)
+            if kernel == "K2":
+                y = tfu.mm_skip_fwd(m(rows, ci), m(co, 1, 1, ci), v, v,
+                                    m(rows, co))
+                name, a = calls.pop()
+                plan, ws = tfu.mm_fwd_buffers(rows, ci, co, False, "meta",
+                                              f32)[:2]
+                assert name == "fu_mm_skip_fwd" and a[11:15] == plan
+                assert a[7:10] == (rows, ci, co) and y.shape == (rows, co)
+                same((a[6],), (ws,))
+                continue
+            if kernel == "K4":
+                n = rows // (side * side)
+                for stats in (True, False):
+                    y, _, _ = tfu.c3_fwd4d(m(n, side, side, ci),
+                                           m(co, 3, 3, ci), v, v, stats)
+                    name, a = calls.pop()
+                    plan, ws, part, s, ss = tfu.c3_fwd4d_buffers(
+                        n, side, side, ci, co, stats, "meta", f32)
+                    assert name == "fu_c3_fwd4d" and a[16:20] == plan
+                    assert a[9:14] == (n, side, side, ci, co)
+                    assert y.shape == (n, side, side, co)
+                    same((a[5], a[6], a[7], a[8]), (part, s, ss, ws))
+                continue
             if kernel == "K3":
                 n = rows // (side * side)
                 for stats in (True, False):
