@@ -45,13 +45,33 @@ Phases (none catches its own failure; there is no CPU path):
    against the plain versions' run by the losses and step 1's gradients
    (the two main-path runs too): every sound run must pass and every fault
    must fail;
-6. the KV-cache writes K9 ``cache_write_row`` and K10 ``cache_write_rows``
+6. bench: ``bench.py``'s training step (ResNet-50 224x224, NHWC, stem
+   ``fused``, bfloat16 parameters, f32 aux states, uint8 input scaled in
+   the step, SGD at lr 0.05, batch 256, weights from ``--seed``) through
+   ``bench_step.TrainStep`` on cuda:0, one warm-up and five timed steps on
+   one seeded batch, in three configurations: ``bench`` (bench.py's own
+   ``unit_impl="plain"``: cuDNN and cuBLAS, no hand-written kernel),
+   ``fused2d`` (fused units, MXNET_CONV1X1_FUSED_BWD=1: K1, K2, K3, K5
+   twice, K6 and K8) and ``fused4d`` (also MXNET_FUSED_UNIT_C3=4d: K4 and
+   K7 in place of K3 and K6).  Each gives its step time, images/s, peak
+   memory, one profiled step and its launches per step, which must be
+   the table's; its losses must be finite and fall, and step 1's loss
+   must be within 2e-2 of one f32 forward of the same weights.  For the
+   fused configs, step 1's gradients through the kernels, in bf16 and
+   from the same weights in f32 (each bf16 kernel call also held against
+   its plain version on the same inputs), are held against the same step
+   through the plain versions, beside two controls (the batch reversed,
+   conv0_weight one step away) from which the limits come; a fault
+   planted at K2's launch (its residual dropped) must fail.  First, the
+   fused stem is held against BatchNorm + Convolution in f32 at batch
+   256, and with its dbeta zeroed (a planted fault) must fail that;
+7. the KV-cache writes K9 ``cache_write_row`` and K10 ``cache_write_rows``
    against their plain versions at 8 and 64 slots, max_len 128 and 2048,
    d 200, in float32, float16 and bfloat16, with edge positions, windows
    straddling the end and counts 0..5: the whole cache bit-identical, and
    untouched outside the written rows; timed beside the one-hot blend they
    replace, one ``index_put_`` and their bound;
-7. decode: the attention decoder of ``perf/decode_bench.py``
+8. decode: the attention decoder of ``perf/decode_bench.py``
    (``build_spec_models``, copied here: vocab 10000, d 200, 6 blocks,
    max_len 128, weights from ``--seed``) served by ``DecodeEngine`` on
    cuda:0 with 8 slots, 64 requests (geometric lengths of mean 16, 8 with
@@ -62,18 +82,18 @@ Phases (none catches its own failure; there is no CPU path):
    and K9 and K10 must launch exactly as the graphs imply per step.
    Tokens/s, step p50/p99, accept rate and tokens per step, and one
    profiled step at k = 0 and 4;
-8. the imperative path: ``mt.nd._contrib_FusedBottleneckUnit`` at the
+9. the imperative path: ``mt.nd._contrib_FusedBottleneckUnit`` at the
    four stage shapes at batch 32 under ``autograd.record()`` and
    ``backward()`` in 4d mode: K1, K2, K4, K5 (twice) and K7 once per
    unit, and the output and ten gradients bit-equal to the same unit
    through ``Symbol.bind`` and ``Executor.backward``;
-9. rtc (K11): CUDA C++ written at run time (``RTC_SOURCE``) compiled by
+10. rtc (K11): CUDA C++ written at run time (``RTC_SOURCE``) compiled by
    ``rtc.CudaModule`` and installed by ``rtc.register_kernel_op``:
    ``add_one`` over 16M float32 through ``mt.nd``, a bound symbol and a
    second thread, bit-equal to ``x + 1``, and a swish pair registered
    with ``vjp=`` whose gradient through ``Executor.backward`` is held
    against torch autograd on the formula; timed beside ``x + 1``;
-10. the kernel table (K1-K11) as one JSON line, then the result line
+11. the kernel table (K1-K11) as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -183,6 +203,16 @@ TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7, "stats": 1e-4}
 # rounded operands in both dtypes (bf16 products are exact in f32), except
 # K8's dW, which is rounded to the weight's dtype
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# each output of each kernel against its plain version on the same inputs
+# in the bench phase's bf16 step, as the kernel phases hold them: y, dP and
+# dx; the f32 statistics; the f32 sums dW, db and dg
+_FWD_TOLS = (TOL["bfloat16"], TOL["stats"], TOL["stats"])
+_BWD_TOLS = (TOL["bfloat16"],) + (BWD_TOL["bfloat16"],) * 3
+BENCH_KERNEL_TOLS = {"mm_fwd": _FWD_TOLS, "c3_fwd2d": _FWD_TOLS,
+                     "c3_fwd4d": _FWD_TOLS, "mm_skip_fwd": _FWD_TOLS[:1],
+                     "mm_bwd": _BWD_TOLS, "c3_bwd2d": _BWD_TOLS,
+                     "c3_bwd4d": _BWD_TOLS,
+                     "conv1x1_bwd": (TOL["bfloat16"],) * 2}
 # training: each run from the same weights is held against the plain
 # versions' run (float32, cuDNN deterministic).  Step 1's loss is a forward
 # only.  Step 1's gradient carries the whole backward, through
@@ -205,6 +235,50 @@ SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
 # served probabilities against the plain graph: float32 through 50 layers
 # whose products are summed in another order
 SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-6
+# bench.py's step (bench.py:68-140): ResNet-50 at 224x224, NHWC, stem
+# "fused", bfloat16 parameters and activations, f32 aux states and loss,
+# uint8 input scaled in the step, SGD at lr 0.05, batch 256; one warm-up
+# and five timed steps on one seeded batch
+BENCH_BATCH, BENCH_IMAGE, BENCH_LR = 256, 224, 0.05
+BENCH_WARMUP, BENCH_STEPS = 1, 5
+# config -> (unit_impl, environment): "bench" is bench.py's own graph
+# (cuDNN and cuBLAS through autograd, no hand-written kernel); the fused
+# units with K8 on, the 3x3 in the row layout (K3/K6) or on 4D tiles
+# (K4/K7)
+BENCH_CONFIGS = {
+    "bench": ("plain", {"MXNET_CONV1X1_FUSED_BWD": None,
+                        "MXNET_FUSED_UNIT_C3": None}),
+    "fused2d": ("fused", {"MXNET_CONV1X1_FUSED_BWD": "1",
+                          "MXNET_FUSED_UNIT_C3": None}),
+    "fused4d": ("fused", {"MXNET_CONV1X1_FUSED_BWD": "1",
+                          "MXNET_FUSED_UNIT_C3": "4d"}),
+}
+BENCH_LAUNCHES = {"bench": {}, "fused2d": TRAIN_LAUNCHES["2d"],
+                  "fused4d": TRAIN_LAUNCHES["4d"]}
+# step 1's bf16 loss against one f32 forward of the same weights
+BENCH_F32_RTOL = 2e-2
+# step 1's gradients through the kernels against the same step through
+# their plain versions (cuDNN deterministic), from the same weights in bf16
+# and widened to f32: |g - g_plain| / |g_plain| over all parameters as one
+# vector (BENCH_GRAD_RTOL), and in f32 also each parameter's largest
+# difference over its largest magnitude (BENCH_TENSOR_RTOL).  The limits
+# come from two controls through the plain versions, the batch reversed
+# and conv0_weight one step of the dtype away from zero.  On an NVIDIA
+# H100 80GB HBM3 at 700 W they read 0.87 and 1.20 in bf16 (the kernels
+# 0.72; a bf16 step at He-scaled weights is chaotic: a bf16 rounding in
+# one activation moves the gradients below every BatchNorm it reaches),
+# and 1.8e-2 and 1.6e-2 in f32, 4.2e-2 for the worst parameter (the
+# kernels 1.8e-2, 4.4e-2); K2 with its residual dropped reads 480 in
+# both.  Each limit is 2-3x its controls: the bf16 reading rejects a
+# gross fault only, the f32 reading holds the kernels' arithmetic at
+# these shapes, and each bf16 kernel call is held against its plain
+# version on the same inputs (the kernel phases' tolerances).
+BENCH_GRAD_RTOL = {"bfloat16": 2.5, "float32": 5e-2}
+BENCH_TENSOR_RTOL = 0.1
+# the fused stem against BatchNorm(fix_gamma) + Convolution at full width
+# in f32: tests/test_bn_stem.py's tolerances, the gradients' relative to
+# their largest magnitude (sums over 3.2M products)
+STEM_FWD_TOL, STEM_BWD_TOL = 2e-5, 1e-4
 
 
 def log(*a):
@@ -536,15 +610,20 @@ def replaced(mod, name, fn):
         setattr(mod, name, saved)
 
 
+def kernel_sites(fu, nn):
+    """(module, wrapper name) of K1-K8; each has ``<name>_plain`` beside
+    it."""
+    return [(fu, "mm_fwd"), (fu, "c3_fwd2d"), (fu, "c3_fwd4d"),
+            (fu, "mm_skip_fwd"), (fu, "mm_bwd"), (fu, "c3_bwd2d"),
+            (fu, "c3_bwd4d"), (nn, "conv1x1_bwd")]
+
+
 @contextlib.contextmanager
 def plain_kernels(fu, nn):
     """Every kernel's plain version in place of its wrapper: the
-    reference side of the serve and train checks, and only that."""
+    reference side of the serve, train and bench checks, and only that."""
     with contextlib.ExitStack() as stack:
-        for mod, name in [(fu, "mm_fwd"), (fu, "c3_fwd2d"),
-                          (fu, "c3_fwd4d"), (fu, "mm_skip_fwd"),
-                          (fu, "mm_bwd"), (fu, "c3_bwd2d"),
-                          (fu, "c3_bwd4d"), (nn, "conv1x1_bwd")]:
+        for mod, name in kernel_sites(fu, nn):
             stack.enter_context(replaced(mod, name,
                                          getattr(mod, name + "_plain")))
         yield
@@ -829,17 +908,27 @@ PLANTED_FAULTS = {"fault: K6 u0/u1 swapped": (_fin_swapped, "auto"),
 
 
 @contextlib.contextmanager
-def c3_mode(mode):
-    """MXNET_FUSED_UNIT_C3=mode inside the block ('auto': unset)."""
-    saved = os.environ.pop("MXNET_FUSED_UNIT_C3", None)
-    if mode != "auto":
-        os.environ["MXNET_FUSED_UNIT_C3"] = mode
+def env_vars(env):
+    """The environment variables of ``env`` set (a string) or unset
+    (None) inside the block."""
+    saved = {k: os.environ.get(k) for k in env}
     try:
+        for k, v in env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
         yield
     finally:
-        os.environ.pop("MXNET_FUSED_UNIT_C3", None)
-        if saved is not None:
-            os.environ["MXNET_FUSED_UNIT_C3"] = saved
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def c3_mode(mode):
+    """MXNET_FUSED_UNIT_C3=mode inside the block ('auto': unset)."""
+    return env_vars({"MXNET_FUSED_UNIT_C3": None if mode == "auto"
+                     else mode})
 
 
 def fit_run(torch, mt, sym, args, aux, x, y, steps):
@@ -1025,6 +1114,307 @@ def train_phase(torch, mt, fu, nn, kv, seed, steps, card):
         if r["passes"] == name.startswith("fault"):
             raise AssertionError("%s %s the train check: %s" % (
                 name, "passed" if r["passes"] else "failed", r))
+    return out
+
+
+@contextlib.contextmanager
+def checked_kernels(fu, nn, errs):
+    """Every kernel wrapper runs as usual, and each call's outputs are
+    held against its plain version on the same inputs: ``errs[name]``
+    gets the number of calls and the largest relative error of each
+    output over them."""
+    def make(name, kern, plain):
+        def both(*args):
+            got = kern(*args)
+            want = plain(*args)
+            pairs = [(g, w) for g, w in zip(
+                got if isinstance(got, tuple) else (got,),
+                want if isinstance(want, tuple) else (want,))
+                if g is not None]
+            e = [rel_err(g, w) for g, w in pairs]
+            rec = errs.setdefault(name, {"calls": 0, "rel_errs": e})
+            rec["calls"] += 1
+            rec["rel_errs"] = [max(a, b) for a, b in zip(rec["rel_errs"], e)]
+            return got
+        # the wrapper bumps the counter of whatever its module's name holds
+        both.launches = 0
+        return both
+    with contextlib.ExitStack() as stack:
+        for mod, name in kernel_sites(fu, nn):
+            stack.enter_context(replaced(mod, name, make(
+                name, getattr(mod, name), getattr(mod, name + "_plain"))))
+        yield
+
+
+@contextlib.contextmanager
+def stem_dbeta_zeroed(torch, nn):
+    """A planted fault: the fused stem's backward returns dbeta zero."""
+    cls = nn._BNStemConv
+    saved = cls.__dict__["backward"]
+
+    def faulty(ctx, *grads):
+        out = list(saved.__func__(ctx, *grads))
+        out[1] = torch.zeros_like(out[1])
+        return tuple(out)
+    cls.backward = staticmethod(faulty)
+    try:
+        yield
+    finally:
+        cls.backward = saved
+
+
+def _residual_dropped(launch):
+    """A planted fault: K2 launched with a zero residual."""
+    def faulty(name, *args):
+        if name == "fu_mm_skip_fwd":
+            args = args[:4] + (args[4].new_zeros(args[4].shape),) + args[5:]
+        launch(name, *args)
+    return faulty
+
+
+def _grad_reading(grads, ref, dtype):
+    """Step 1's gradients against the reference run's: over all parameters
+    as one vector, |g - g_ref| / |g_ref| (L2); each parameter's relative L2
+    difference and its largest difference over its largest magnitude, the
+    worst of each; and the verdict of BENCH_GRAD_RTOL (and in f32
+    BENCH_TENSOR_RTOL)."""
+    d2 = {n: float((g.double() - ref[n].double()).pow(2).sum())
+          for n, g in grads.items()}
+    r2 = {n: float(ref[n].double().pow(2).sum()) for n in grads}
+    l2 = {n: (d2[n] / r2[n]) ** 0.5 if r2[n] else d2[n] ** 0.5
+          for n in grads}
+    rel = {n: rel_err(g, ref[n]) for n, g in grads.items()}
+    worst_l2, worst = max(l2, key=l2.get), max(rel, key=rel.get)
+    err = (sum(d2.values()) / sum(r2.values())) ** 0.5
+    return {"grad_rel_err": err, "worst_l2": l2[worst_l2],
+            "worst_l2_param": worst_l2, "worst_rel": rel[worst],
+            "worst": worst,
+            "passes": err <= BENCH_GRAD_RTOL[dtype] and (
+                dtype != "float32" or rel[worst] <= BENCH_TENSOR_RTOL)}
+
+
+def stem_check(torch, mt, seed, dev):
+    """The fused stem (``_contrib_BNStemConv``) against BatchNorm
+    (fix_gamma) + Convolution on the same f32 weights at bench.py's
+    shapes: output, dW and dbeta for one seeded cotangent, each relative
+    to the largest magnitude, and whether all three are within
+    STEM_FWD_TOL and STEM_BWD_TOL."""
+    gen = torch.Generator(device="cpu").manual_seed(seed + 5)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+    n, side, nf = BENCH_BATCH, BENCH_IMAGE, 64
+    data = randn(n, side, side, 3) * 2 + 1
+    weight = randn(nf, 7, 7, 3, scale=(2.0 / 147) ** 0.5)
+    beta = randn(3, scale=0.1)
+    gamma, mm, mv = (torch.ones(3, device=dev), torch.zeros(3, device=dev),
+                     torch.ones(3, device=dev))
+    cot = randn(n, side // 2, side // 2, nf)
+    conv = dict(num_filter=nf, kernel=(7, 7), stride=(2, 2), pad=(3, 3),
+                layout="NHWC")
+    invoke = mt.ops.invoke
+
+    def run(fused):
+        b = beta.clone().requires_grad_(True)
+        w = weight.clone().requires_grad_(True)
+        with torch.enable_grad():
+            if fused:
+                out = invoke("_contrib_BNStemConv", dict(
+                    conv, eps=2e-5, momentum=0.9, fix_gamma=True), data,
+                    gamma, b, w, mm, mv, training=True)[0]
+            else:
+                bn = invoke("BatchNorm", dict(eps=2e-5, momentum=0.9,
+                                              fix_gamma=True, axis=3),
+                            data, gamma, b, mm, mv, training=True)[0]
+                out = invoke("Convolution", dict(conv, no_bias=True), bn,
+                             w)[0]
+            db, dw = torch.autograd.grad(out, (b, w), cot)
+        return out.detach(), dw, db
+    got, want = run(True), run(False)
+    torch.cuda.synchronize()
+    out = {"passes": True}
+    for what, g, w, tol in zip(("output", "dW", "dbeta"), got, want,
+                               (STEM_FWD_TOL, STEM_BWD_TOL, STEM_BWD_TOL)):
+        bound = tol * (w.abs() if what == "output" else w.abs().max()) + tol
+        out[what] = rel_err(g, w)
+        out["passes"] &= bool(((g - w).abs() <= bound).all())
+    return out
+
+
+def bench_phase(torch, mt, fu, nn, kv, seed, card):
+    """bench.py's training step through ``bench_step.TrainStep`` in each
+    of BENCH_CONFIGS, from the same bf16 weights; each config's main path
+    counted, timed and profiled with its counters set to 0 just before
+    it, then checked."""
+    import numpy as np
+    dev = mt.gpu(0).device
+    bf16, side = torch.bfloat16, BENCH_IMAGE
+    wrappers = kernel_wrappers(fu, nn, kv)
+    log("  %s" % card)
+    stem = {"sound": stem_check(torch, mt, seed, dev)}
+    with stem_dbeta_zeroed(torch, nn):
+        stem["fault: stem dbeta zeroed"] = stem_check(torch, mt, seed, dev)
+    for run, r in stem.items():
+        log("  fused stem against BatchNorm + Convolution, f32, batch %d, "
+            "%s: output %.2e, dW %.2e, dbeta %.2e (relative to the largest "
+            "magnitude)" % (BENCH_BATCH, run, r["output"], r["dW"],
+                            r["dbeta"]))
+    failures = ["the stem check: %s %s it: %s" % (
+        run, "passed" if r["passes"] else "failed", r)
+        for run, r in stem.items() if r["passes"] == run.startswith("fault")]
+    syms = {name: mt.models.get_resnet_symbol(
+        num_classes=1000, num_layers=50, image_shape=(3, side, side),
+        layout="NHWC", stem="fused", unit_impl=impl)
+        for name, (impl, _) in BENCH_CONFIGS.items()}
+    args, aux = mt.convert.random_params(syms["bench"],
+                                         {"data": (1, side, side, 3)},
+                                         seed=seed)
+    rng = np.random.default_rng(seed + 3)
+    u8 = torch.from_numpy(rng.integers(
+        0, 256, (BENCH_BATCH, side, side, 3), dtype=np.uint8)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 1000, BENCH_BATCH)
+                              .astype(np.float32)).to(dev)
+    out = {"batch": BENCH_BATCH, "image": side, "lr": BENCH_LR,
+           "stem_check": stem, "configs": {}}
+    for name, (impl, env) in BENCH_CONFIGS.items():
+        step = mt.bench_step.TrainStep(syms[name], dtype=bf16, lr=BENCH_LR)
+        params0 = tuple(torch.from_numpy(args[n]).to(dev, bf16)
+                        for n in step.param_names)
+        aux0 = tuple(torch.from_numpy(aux[n]).to(dev)
+                     for n in step.aux_names)
+        steps = BENCH_WARMUP + BENCH_STEPS
+        with env_vars(env):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for k in wrappers:
+                k.launches = 0
+            params, auxs, losses, secs = params0, aux0, [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                loss, grads, params, auxs = step(u8, labels, params, auxs)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+                del grads
+            launches = {k.__name__: k.launches for k in wrappers}
+            peak = torch.cuda.max_memory_allocated()
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in params + auxs)
+            prof = profile_calls(
+                torch, lambda: step(u8, labels, params, auxs), 2)
+            del params, auxs
+            # step 1's loss against one f32 forward of the same weights
+            step32 = mt.bench_step.TrainStep(syms[name], dtype=torch.float32)
+            with torch.no_grad():
+                loss32 = float(step32.forward_loss(
+                    u8, labels, [p.float() for p in params0], aux0)[0])
+            checks, kerr = {}, {}
+            if impl == "fused":
+                checks = bench_checks(torch, mt, fu, nn, syms[name], u8,
+                                      labels, params0, aux0, kerr)
+        torch.cuda.empty_cache()
+        step_ms = [1e3 * t for t in secs[BENCH_WARMUP:]]
+        median = _median(step_ms)
+        rec = {"losses": losses, "step_ms": step_ms, "median_step_ms": median,
+               "spread_ms": max(step_ms) - min(step_ms),
+               "images_per_s": BENCH_BATCH * 1e3 / median,
+               "first_step_s": secs[0], "max_memory_allocated": peak,
+               "launches": launches,
+               "launches_per_step": {k: v / steps for k, v in
+                                     launches.items() if v},
+               "profile_step": prof, "loss_f32": loss32,
+               "loss_f32_rel_diff": abs(losses[0] - loss32) / abs(loss32),
+               "checks": checks, "kernel_rel_errs": kerr}
+        out["configs"][name] = rec
+        log("  %s (unit_impl=%s): losses %s; f32 loss %.5f (step 1 rel diff "
+            "%.2e)" % (name, impl, fmt(losses), loss32,
+                       rec["loss_f32_rel_diff"]))
+        log("  %s: median step (of %d after %d warm-up) %.2f ms, spread "
+            "%.2f ms, %.1f images/s, first step %.2f s, "
+            "max_memory_allocated %.2f GB; launches per step %s [%s]"
+            % (name, BENCH_STEPS, BENCH_WARMUP, median, rec["spread_ms"],
+               rec["images_per_s"], secs[0], peak / 1e9,
+               rec["launches_per_step"], card))
+        log_profile("one bf16 step, %s" % name, prof, card)
+        for run, r in checks.items():
+            log("  %s: %-40s step-1 gradient vs plain: %.3e (L2, all "
+                "parameters); worst parameter L2 %.3e (%s), largest "
+                "difference %.3e (%s)" % (
+                    name, run, r["grad_rel_err"], r["worst_l2"],
+                    r["worst_l2_param"], r["worst_rel"], r["worst"]))
+        for k, v in sorted(kerr.items()):
+            log("  %s: %-12s against its plain version over %d calls: %s"
+                % (name, k, v["calls"], fmt(v["rel_errs"], "%.2e")))
+        try:
+            _launch_check("bench, %s" % name, launches, BENCH_LAUNCHES[name],
+                          steps)
+            if not (finite and np.isfinite(losses).all()):
+                raise AssertionError("non-finite loss or parameter: %s"
+                                     % losses)
+            if not losses[-1] < losses[0]:
+                raise AssertionError("the loss did not fall: %s" % losses)
+            if rec["loss_f32_rel_diff"] > BENCH_F32_RTOL:
+                raise AssertionError("step 1's loss %.5f is %.3g from the "
+                                     "f32 loss %.5f" % (
+                                         losses[0], rec["loss_f32_rel_diff"],
+                                         loss32))
+            for k, v in kerr.items():
+                tols = BENCH_KERNEL_TOLS[k]
+                if any(e > t for e, t in zip(v["rel_errs"], tols)):
+                    raise AssertionError("%s against its plain version: %s "
+                                         "over %s" % (k, v, tols))
+            # the kernels and the controls must pass, the fault must fail
+            for run, r in checks.items():
+                if r["passes"] == ("fault:" in run):
+                    raise AssertionError("%s %s the check against the plain "
+                                         "versions: %s" % (
+                                             run, "passed" if r["passes"]
+                                             else "failed", r))
+        except AssertionError as e:
+            failures.append("%s: %s" % (name, e))
+    if failures:
+        raise AssertionError("bench: " + "; ".join(failures))
+    return out
+
+
+def bench_checks(torch, mt, fu, nn, sym, u8, labels, params0, aux0, kerr):
+    """Step 1 from the same weights, in bf16 (bench.py's dtype) and in f32
+    (the same weights widened), with cuDNN deterministic: through the
+    plain versions (the reference); two controls through the plain
+    versions, the batch reversed (the same function, every sum in another
+    order) and conv0_weight one step of the dtype away from zero; through
+    the kernels, each bf16 call held against its plain version on the
+    same inputs (``kerr``); and with a planted fault, K2's residual
+    dropped.  Each is read against the reference of its dtype."""
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dt, bits in ((torch.bfloat16, torch.int16),
+                         (torch.float32, torch.int32)):
+            step = mt.bench_step.TrainStep(sym, dtype=dt, lr=BENCH_LR)
+            params = tuple(p.to(dt) for p in params0)
+
+            def grads(params, rev=False):
+                x, y = (u8.flip(0), labels.flip(0)) if rev else (u8, labels)
+                g = step(x, y, params, aux0)[1]
+                return {n: t.detach() for n, t in zip(step.param_names, g)}
+            i = step.param_names.index("conv0_weight")
+            moved = list(params)
+            moved[i] = (params[i].view(bits) + 1).view(dt)
+            with plain_kernels(fu, nn):
+                ref = grads(params)
+                runs = {"control: plain, batch reversed": grads(params, True),
+                        "control: conv0_weight +1 step": grads(tuple(moved))}
+            with checked_kernels(fu, nn, kerr if dt == torch.bfloat16
+                                 else {}):
+                runs["kernels"] = grads(params)
+            with replaced(fu, "launch", _residual_dropped(fu.launch)):
+                runs["fault: K2 residual dropped"] = grads(params)
+            name = str(dt).split(".")[1]
+            out.update(("%s, %s" % (name, run), _grad_reading(g, ref, name))
+                       for run, g in runs.items())
+    finally:
+        torch.backends.cudnn.deterministic = False
     return out
 
 
@@ -1614,7 +2004,8 @@ _LOOPS.update(dict.fromkeys(("fu_c3_fwd4d", "fu_c3_bwd4d"),
                             "fu_halo.cuh, tensor cores, resident halo"))
 
 
-def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
+def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, decode, imp,
+                 rtc):
     """One entry per kernel.  K1-K4: times per ResNet-50 forward at batch
     8 (each stage's shape weighted by its number of fused units) and
     launches in the serve phase of their mode (K4: 4d); K5-K8: times per
@@ -1624,8 +2015,9 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
     at k = 0, 2 and 4 together; K11: one add_one launch over 16M float32
     and launches in the rtc phase.  All float32; errors are the largest
     over the shapes.  Every entry also gives its launches per serve batch
-    and training step in both modes, per decode step, per imperative unit
-    and in the rtc phase; K1-K8 also their bfloat16 times (kernel, library
+    and training step in both modes, per bf16 step of bench.py's (each
+    config of the bench phase), per decode step, per imperative unit and
+    in the rtc phase; K1-K8 also their bfloat16 times (kernel, library
     and bound) at the same shapes, and K2-K8 their kernel and library
     times in both dtypes with the L2 cache flushed before each call; K1-K8
     name the tensor-core loop they run on (``loop``)."""
@@ -1713,6 +2105,13 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp, rtc):
                 train["launches"][wrapper] / train["steps"],
             "launches_per_train_step_4d":
                 train["4d"]["launches"][wrapper] / train["steps"],
+            "launches_per_bench_step": {
+                cfg: r["launches"][wrapper] / (BENCH_WARMUP + BENCH_STEPS)
+                for cfg, r in bench["configs"].items()},
+            "bench_rel_errs": {
+                cfg: r["kernel_rel_errs"][wrapper]["rel_errs"]
+                for cfg, r in bench["configs"].items()
+                if wrapper in r["kernel_rel_errs"]},
             "launches_per_decode_step": per_decode,
             "launches_per_imperative_unit":
                 imp["launches"][wrapper] / imp["units"],
@@ -1806,28 +2205,33 @@ def main():
     train = train_phase(torch, mt, fu, nn, kv, opts.seed, opts.train_steps,
                         card)
 
-    log("[6] K9/K10 against their plain versions: slots %s, max_len %s, "
+    log("[6] bench.py's step: ResNet-50 224x224 in bfloat16 at batch %d "
+        "through bench_step.TrainStep on %s, stem fused, %s"
+        % (BENCH_BATCH, name, ", ".join(BENCH_CONFIGS)))
+    bench = bench_phase(torch, mt, fu, nn, kv, opts.seed, card)
+
+    log("[7] K9/K10 against their plain versions: slots %s, max_len %s, "
         "d %d, window %d" % (KV_SLOTS, KV_T, DECODER["d"], KV_WINDOW))
     kv_rows = kv_phase(torch, kv, device, opts.seed)
 
-    log("[7] decode: the attention decoder (vocab %d, d %d, %d blocks, "
+    log("[8] decode: the attention decoder (vocab %d, d %d, %d blocks, "
         "max_len %d) through DecodeEngine on %s, %d slots, %d requests, "
         "k = 0, %s" % (DECODER["vocab"], DECODER["d"], DECODER["layers"],
                        DECODER["max_len"], name, DECODE_SLOTS,
                        DECODE_REQUESTS, ", ".join(map(str, SPEC_KS))))
     decode = decode_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    log("[8] the imperative path: mt.nd._contrib_FusedBottleneckUnit at "
+    log("[9] the imperative path: mt.nd._contrib_FusedBottleneckUnit at "
         "the four stage shapes at batch %d under autograd.record(), 4d, "
         "against the Executor" % TRAIN_BATCH)
     imp = imperative_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    log("[9] rtc: CUDA C++ written at run time through rtc.CudaModule and "
+    log("[10] rtc: CUDA C++ written at run time through rtc.CudaModule and "
         "register_kernel_op")
     rtc = rtc_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    table = kernel_table(rows, bwd_rows, kv_rows, serve, train, decode, imp,
-                         rtc)
+    table = kernel_table(rows, bwd_rows, kv_rows, serve, train, bench,
+                         decode, imp, rtc)
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)),
                     exist_ok=True)
@@ -1836,11 +2240,12 @@ def main():
                        "torch": torch.__version__, "cuda": torch.version.cuda,
                        "build_s": build_s, "kernel_rows": rows,
                        "bwd_kernel_rows": bwd_rows, "serve": serve,
-                       "train": train, "kv_rows": kv_rows,
+                       "train": train, "bench": bench,
+                       "kv_rows": kv_rows,
                        "decode": decode, "imperative": imp, "rtc": rtc,
                        "kernels": table,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log("[10] done in %.1f s" % (time.perf_counter() - t_start))
+    log("[11] done in %.1f s" % (time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ and backward -> SGD) through hand-written CUDA kernels for the fused
 bottleneck units and the 1x1-convolution backward (ops/fused_unit.py,
 ops/nn.py, csrc/), and serves continuous-batching greedy decode of an
 attention decoder (serving.DecodeEngine -> StepProgram -> the KV-cache
-write kernels of ops/cache.py).  The imperative frontend (``nd.<op>``,
+write kernels of ops/cache.py).  ``bench_step.TrainStep`` is the repo's
+benchmark step (bench.py's: bfloat16 parameters, batch statistics and
+loss in f32).  The imperative frontend (``nd.<op>``,
 ``autograd``) runs the same ops eagerly, and ``rtc`` compiles CUDA C++ at
 run time and registers ops.  Entry points run on the first CUDA card
 unless the caller passes ``ctx=cpu()`` (``context=cpu()`` for Module) or
@@ -47,5 +49,6 @@ from . import io
 from . import callback
 from . import module
 from . import module as mod
+from . import bench_step
 from . import rtc
 from . import test_utils

@@ -25,8 +25,10 @@ __all__ = ["params_from_numpy", "params_to_numpy", "load_params",
 def params_from_numpy(arg_params, aux_params, device=None, dtype=None):
     """({name: array}, {name: array}) -> ({name: NDArray}, {...}) on
     ``device`` (a Context), else on ``current_context()`` (the card, or the
-    innermost ``with mt.cpu():`` scope; raises without a card), cast to
-    ``dtype`` when given."""
+    innermost ``with mt.cpu():`` scope; raises without a card).  Each keeps
+    its array's dtype, bfloat16 too (the JAX package's bf16 arrays reach
+    numpy as ``ml_dtypes.bfloat16``; their bits are kept), unless ``dtype``
+    (a torch or numpy dtype or its name, ``"bfloat16"`` too) casts them."""
     ctx = device or current_context()
     conv = lambda d: {k: nd.array(np.asarray(v), ctx=ctx, dtype=dtype)  # noqa: E731
                       for k, v in d.items()}

@@ -21,11 +21,10 @@ from __future__ import annotations
 
 import collections
 
-import numpy as np
 import torch
 
 from .base import MXNetError
-from .ndarray.ndarray import NDArray
+from .ndarray.ndarray import NDArray, _host_tensor
 from .symbol.symbol import _topo
 
 __all__ = ["Executor", "build_graph_fn"]
@@ -168,8 +167,7 @@ class Executor:
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("forward: unknown argument %r" % k)
-            src = v._data if isinstance(v, NDArray) \
-                else torch.from_numpy(np.asarray(v))
+            src = v._data if isinstance(v, NDArray) else _host_tensor(v)
             self.arg_dict[k]._data.copy_(src)
         aux = [self.aux_dict[n]._data for n in self.aux_names]
         self._recorded = None

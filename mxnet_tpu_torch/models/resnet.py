@@ -2,9 +2,10 @@
 
 Counterpart of ``mxnet_tpu/models/resnet.py`` (pre-activation ResNet,
 He et al. 1512.03385 / 1603.05027): the same graph with the same node
-and parameter names, so both packages build identical symbol JSON.  The
-7x7 ``conv7`` stem only; the ``fused`` and ``s2d`` stems are not yet
-ported.
+and parameter names, so both packages build identical symbol JSON, with
+each of the three stems: ``conv7`` (the input BatchNorm, then the 7x7
+convolution), ``fused`` (both as one ``_contrib_BNStemConv``) and ``s2d``
+(the 7x7 convolution as a 4x4 one over the space-to-depth input).
 """
 from .. import symbol as sym
 
@@ -89,6 +90,40 @@ def _residual_unit(data, num_filter, stride, dim_match, name,
     return conv2 + shortcut
 
 
+def _s2d_stem(data, num_filter, height, layout):
+    """The 7x7/s2 stem as an exact space-to-depth reformulation: the
+    kernel's 7x7 taps padded to 8x8 (one zero row and column in front),
+    kernel and image taken to depth by 2, and the convolution becomes
+    4x4/s1 over 12 channels (2y+i-3 = 2(y+a)+b with i+1 = 2A+b), so
+    conv0_weight keeps its shape and values and checkpoints interchange.
+    The 113x113 output is cropped to the 112x112 of the strided original.
+    """
+    if layout != "NHWC":
+        raise ValueError("the s2d stem is channels-last only")
+    b_sym = 0  # batch placeholder in reshape specs
+    h2 = height // 2
+    # image: (B, H, W, 3) -> (B, H/2, W/2, 12); channel order (di, dj, c)
+    z = sym.Reshape(data, shape=(b_sym, h2, 2, h2, 2, 3))
+    z = sym.transpose(z, axes=(0, 1, 3, 2, 4, 5))
+    z = sym.Reshape(z, shape=(b_sym, h2, h2, 12), name="stem_s2d")
+    # kernel: (64, 7, 7, 3) --pad front--> (64, 8, 8, 3) -> (64, 4, 4, 12)
+    w = sym.Variable("conv0_weight", shape=(num_filter, 7, 7, 3))
+    w8 = sym.transpose(w, axes=(0, 3, 1, 2))          # (64, 3, 7, 7)
+    w8 = sym.Pad(w8, mode="constant",
+                 pad_width=(0, 0, 0, 0, 1, 0, 1, 0))  # front-pad taps
+    w8 = sym.transpose(w8, axes=(0, 2, 3, 1))          # (64, 8, 8, 3)
+    ws = sym.Reshape(w8, shape=(num_filter, 4, 2, 4, 2, 3))
+    ws = sym.transpose(ws, axes=(0, 1, 3, 2, 4, 5))
+    ws = sym.Reshape(ws, shape=(num_filter, 4, 4, 12))
+    y = sym.Convolution(z, weight=ws, num_filter=num_filter, kernel=(4, 4),
+                        stride=(1, 1), pad=(2, 2), no_bias=True,
+                        name="conv0", layout="NHWC")
+    # pad 2 symmetric gives H/2+1 rows; the original (pad 3, stride 2)
+    # needs rows [0, H/2): drop the trailing one
+    y = sym.slice_axis(y, axis=1, begin=0, end=h2)
+    return sym.slice_axis(y, axis=2, begin=0, end=h2)
+
+
 def _resnet(units, num_stages, filter_list, num_classes, image_shape,
             bottle_neck=True, bn_mom=0.9, layout="NCHW", stem="conv7",
             unit_impl="plain"):
@@ -96,18 +131,37 @@ def _resnet(units, num_stages, filter_list, num_classes, image_shape,
     bn_axis = 3 if layout == "NHWC" else 1
     data = sym.Variable("data")
     nchannel, height, _ = image_shape
-    if stem != "conv7":
-        raise ValueError("stem=%r is not yet ported (conv7 only)" % (stem,))
-    data = sym.BatchNorm(data, fix_gamma=True, eps=2e-5, momentum=bn_mom,
-                         name="bn_data", axis=bn_axis)
+    fused_stem = stem == "fused" and height > 32
+    if not fused_stem:
+        data = sym.BatchNorm(data, fix_gamma=True, eps=2e-5, momentum=bn_mom,
+                             name="bn_data", axis=bn_axis)
     if height <= 32:  # cifar-style stem
         body = sym.Convolution(data, num_filter=filter_list[0],
                                kernel=(3, 3), stride=(1, 1), pad=(1, 1),
                                no_bias=True, name="conv0", layout=layout)
     else:  # imagenet stem
-        body = sym.Convolution(data, num_filter=filter_list[0],
-                               kernel=(7, 7), stride=(2, 2), pad=(3, 3),
-                               no_bias=True, name="conv0", layout=layout)
+        if stem == "s2d":
+            body = _s2d_stem(data, filter_list[0], height, layout)
+        elif fused_stem:
+            # the input BatchNorm and the stem convolution as one op whose
+            # backward takes bn_data's dbeta from rectangle sums instead of
+            # a stem dgrad (ops/nn.py _contrib_BNStemConv); parameter and
+            # aux names match the unfused graph's, so checkpoints
+            # interchange
+            body = sym._contrib_BNStemConv(
+                data,
+                gamma=sym.Variable("bn_data_gamma"),
+                beta=sym.Variable("bn_data_beta"),
+                weight=sym.Variable("conv0_weight"),
+                moving_mean=sym.Variable("bn_data_moving_mean"),
+                moving_var=sym.Variable("bn_data_moving_var"),
+                eps=2e-5, momentum=bn_mom, fix_gamma=True,
+                num_filter=filter_list[0], kernel=(7, 7), stride=(2, 2),
+                pad=(3, 3), layout=layout, name="stem_fused")
+        else:
+            body = sym.Convolution(data, num_filter=filter_list[0],
+                                   kernel=(7, 7), stride=(2, 2), pad=(3, 3),
+                                   no_bias=True, name="conv0", layout=layout)
         body = sym.BatchNorm(body, fix_gamma=False, eps=2e-5, momentum=bn_mom,
                              name="bn0", axis=bn_axis)
         body = sym.Activation(body, act_type="relu", name="relu0")
@@ -185,6 +239,11 @@ def get_resnet_symbol(num_classes=1000, num_layers=50,
                       image_shape=(3, 224, 224), layout="NCHW",
                       stem="conv7", unit_impl="plain"):
     """Build a ResNet symbol (symbols/resnet.py get_symbol).
+
+    stem='fused': the input BatchNorm and the 7x7 stem convolution as one
+    ``_contrib_BNStemConv`` (above 32x32; the same parameters and math).
+    stem='s2d' (NHWC only): the exact space-to-depth form of the 7x7/s2
+    stem, with the same parameters and outputs (see _s2d_stem).
 
     unit_impl='fused' (NHWC bottleneck only): stride-1 dim-match units
     run as single fused ops over the CUDA kernels of ops/fused_unit.py —

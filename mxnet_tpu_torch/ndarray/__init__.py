@@ -3,7 +3,7 @@
 import sys as _sys
 
 from .ndarray import (NDArray, array, zeros, zeros_like, invoke, sgd_update,
-                      sgd_mom_update)
+                      sgd_mom_update, mp_sgd_update, mp_sgd_mom_update)
 from .utils import save, load
 from . import register as _register
 

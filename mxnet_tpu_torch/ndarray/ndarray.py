@@ -2,10 +2,11 @@
 
 Counterpart of ``mxnet_tpu/ndarray/ndarray.py``: creation, ``asnumpy``,
 ``as_in_context``, ``copyto``, ``copy``, indexing and assignment, shape
-and dtype, the arithmetic operators, the SGD updates with ``out=`` (in
-place, as the reference writes them), ``attach_grad`` / ``grad`` /
-``backward`` for ``autograd``, and ``invoke``, the imperative dispatch
-that every generated ``mt.nd.<op>`` calls.
+and dtype, the arithmetic operators, the SGD updates (plain and
+multi-precision) with ``out=`` (in place, as the reference writes them),
+``attach_grad`` / ``grad`` / ``backward`` for ``autograd``, and
+``invoke``, the imperative dispatch that every generated ``mt.nd.<op>``
+calls.
 
 An array made without ``ctx`` (``array``, ``zeros``, an op without array
 inputs) lands on ``current_context()``: the innermost ``with ctx:``
@@ -26,7 +27,8 @@ from ..context import Context, current_context
 from ..ops.registry import OpDef, get_op, torch_dtype
 
 __all__ = ["NDArray", "array", "zeros", "zeros_like", "invoke",
-           "sgd_update", "sgd_mom_update"]
+           "sgd_update", "sgd_mom_update", "mp_sgd_update",
+           "mp_sgd_mom_update"]
 
 
 def _ctx_of(c):
@@ -153,7 +155,7 @@ class NDArray:
                 self._data[key] = value
                 return
             src = value._data if isinstance(value, NDArray) \
-                else torch.from_numpy(np.ascontiguousarray(value))
+                else _host_tensor(value)
             self._data[key].copy_(src)
 
     def copy(self):
@@ -226,17 +228,34 @@ class NDArray:
                                      self.context)
 
 
+def _host_tensor(a):
+    """A CPU tensor over numpy array ``a``.  bfloat16 (``ml_dtypes``'
+    type, in which the JAX package's bf16 arrays reach numpy, and which
+    ``torch.from_numpy`` rejects) goes through its uint16 bits."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        # torch shares the buffer, which it may write: copy a read-only
+        # one (the JAX package's arrays)
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def array(source, ctx=None, dtype=None):
-    """NDArray from a numpy array (or anything numpy can take) on ``ctx``,
-    else on ``current_context()``; float64 input becomes float32, as in
-    the reference.  Always a copy, as in the reference: an in-place update
-    of the NDArray never writes into the source."""
+    """NDArray from an NDArray (keeping its dtype), a numpy array or
+    anything numpy can take, on ``ctx``, else on ``current_context()``;
+    float64 input becomes float32, as in the reference, and ``dtype`` (a
+    torch or numpy dtype or its name, ``"bfloat16"`` too) casts.  Always a
+    copy, as in the reference: an in-place update of the NDArray never
+    writes into the source."""
     if isinstance(source, NDArray):
-        source = source.asnumpy()
-    a = np.asarray(source)
-    if dtype is None and a.dtype == np.float64:
-        dtype = np.float32
-    t = torch.from_numpy(np.ascontiguousarray(a))
+        t = source._data.detach()
+    else:
+        a = np.asarray(source)
+        if dtype is None and a.dtype == np.float64:
+            dtype = np.float32
+        t = _host_tensor(a)
     if dtype is not None:
         t = t.to(torch_dtype(dtype))
     return NDArray(t.to((ctx or current_context()).device, copy=True))
@@ -276,4 +295,22 @@ def sgd_mom_update(weight, grad, mom, out=None, **attrs):
     from ..ops.optimizer_ops import sgd_mom_update as update
     out = _update_target(weight, out)
     update(out._data, grad._data, mom._data, **attrs)
+    return out
+
+
+def mp_sgd_update(weight, grad, weight32, out=None, **attrs):
+    """``ops.optimizer_ops.mp_sgd_update`` into ``out``; the f32 master
+    copy ``weight32`` is updated in place."""
+    from ..ops.optimizer_ops import mp_sgd_update as update
+    out = _update_target(weight, out)
+    update(out._data, grad._data, weight32._data, **attrs)
+    return out
+
+
+def mp_sgd_mom_update(weight, grad, mom, weight32, out=None, **attrs):
+    """``ops.optimizer_ops.mp_sgd_mom_update`` into ``out``; the f32
+    momentum ``mom`` and master copy ``weight32`` are updated in place."""
+    from ..ops.optimizer_ops import mp_sgd_mom_update as update
+    out = _update_target(weight, out)
+    update(out._data, grad._data, mom._data, weight32._data, **attrs)
     return out

@@ -1,15 +1,16 @@
 """Neural-network layer ops.
 
 Counterpart of the ResNet ops in ``mxnet_tpu/ops/nn.py``: Convolution,
-Pooling, BatchNorm, Activation, FullyConnected and SoftmaxOutput, and the
-attention decoder's Embedding and softmax, with
+Pooling, BatchNorm, the fused input BatchNorm and stem convolution
+``_contrib_BNStemConv``, Activation, FullyConnected and SoftmaxOutput, and
+the attention decoder's Embedding and softmax, with
 the same parameter schemas (so symbol JSON interchanges) and the same
 layouts at the op boundary (NHWC data with OHWI weights when ``layout``
 ends in C, else NCHW/OIHW).  None of these was a Pallas kernel in the
 reference, so they run on torch's own operators (cuDNN/cuBLAS on the
 card) and take their gradients from autograd, except where the reference
-wrote the backward by hand: BatchNorm's training backward and
-SoftmaxOutput's loss gradient are ``torch.autograd.Function``s with the
+wrote the backward by hand: BatchNorm's and the stem's training backward
+and SoftmaxOutput's loss gradient are ``torch.autograd.Function``s with the
 reference's arithmetic, and with MXNET_CONV1X1_FUSED_BWD a stride-1 1x1
 convolution's backward is the hand-written CUDA kernel K8
 (``conv1x1_bwd``, csrc/nn_conv1x1_bwd.cu).
@@ -319,6 +320,14 @@ def _bn_fill(attrs, in_shapes):
     return out
 
 
+def _batch_stats(xf, red):
+    """Batch mean and variance of the f32 tensor ``xf`` over the axes
+    ``red``: E[x] and E[x^2], the variance clamped at 0 so that f32
+    cancellation cannot make it negative."""
+    mean = xf.mean(red)
+    return mean, torch.clamp((xf * xf).mean(red) - mean * mean, min=0.0)
+
+
 class _BatchNormTrain(torch.autograd.Function):
     """Training BatchNorm: (out, batch mean, batch var) with the
     reference's hand-written backward (``_bn_train_bwd``): one pass for
@@ -327,10 +336,7 @@ class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, red, bshape):
         xf = x.float()
-        # f32 E[x] and E[x^2]; the clamp keeps f32 cancellation from
-        # making the variance negative
-        mean = xf.mean(red)
-        var = torch.clamp((xf * xf).mean(red) - mean * mean, min=0.0)
+        mean, var = _batch_stats(xf, red)
         inv = torch.rsqrt(var + eps)
         scale = gamma * inv
         shift = beta - mean * scale
@@ -391,6 +397,152 @@ register("BatchNorm", aliases=["batch_norm", "BatchNorm_v1", "batch_norm_v1",
              "output_mean_var") else 1,
          mutate_aux={3: 3, 4: 4}, mode_dependent=True,
          fill_shapes=_bn_fill, params=_BN_PARAMS)(_batch_norm_impl)
+
+
+# ---------------------------------------------------------------------------
+# _contrib_BNStemConv: the input BatchNorm fused with the stem convolution
+# ---------------------------------------------------------------------------
+#
+# BatchNorm(fix_gamma=True) on the raw input, then the stem convolution.
+# Under autodiff the only live cotangent into that BatchNorm is dbeta =
+# sum(d conv input), which the backward takes without the stem's dgrad
+# convolution:
+#
+#     sum_m dx[m] = sum_{kh,kw} W[kh,kw] * (sum of g over the output
+#                   positions whose window covers tap (kh,kw))
+#
+# from per-tap rectangle sums of sum_n(g), as separable masked
+# contractions along H and along W.  ``data`` is a graph input: the op
+# returns zero for d(data) and for gamma.
+
+def _bn_stem_fill(attrs, in_shapes):
+    out = list(in_shapes)
+    data = out[0]
+    if data is not None:
+        cl = _channels_last(attrs)
+        cin = data[-1] if cl else data[1]
+        k = tuple(attrs["kernel"])
+        for i in (1, 2, 4, 5):
+            if len(out) > i and out[i] is None:
+                out[i] = (cin,)
+        if len(out) > 3 and out[3] is None:
+            out[3] = ((attrs["num_filter"],) + k + (cin,) if cl
+                      else (attrs["num_filter"], cin) + k)
+    return out
+
+
+def _stem_valid_mask(k_dim, pad, stride, in_size, out_size, device):
+    """(K, OUT) f32 0/1 mask: mask[k, o] = 1 where output o's window covers
+    tap k, that is where o*stride + k - pad lies in [0, in_size)."""
+    o = torch.arange(out_size, device=device)
+    k = torch.arange(k_dim, device=device)[:, None]
+    pos = o * stride + k - pad
+    return ((pos >= 0) & (pos < in_size)).float()
+
+
+def _bn_stem_norm(xf, beta, mean, inv, cl, dtype):
+    """(x - mean) * inv + beta from the f32 data ``xf`` (gamma fixed at
+    1), rounded to ``dtype``, the data's."""
+    ax = xf.ndim - 1 if cl else 1
+    bshape = tuple(xf.shape[ax] if i == ax else 1 for i in range(xf.ndim))
+    return ((xf - mean.reshape(bshape)) * inv.reshape(bshape)
+            + beta.float().reshape(bshape)).to(dtype)
+
+
+def _bn_stem_conv(bn, weight, stride, pad, cl):
+    if cl:
+        return _to_channels_last(F.conv2d(
+            _to_channels_first(bn), _to_channels_first(weight),
+            stride=stride, padding=pad))
+    return F.conv2d(bn, weight, stride=stride, padding=pad)
+
+
+class _BNStemConv(torch.autograd.Function):
+    """Training forward from the batch statistics, and the reference's
+    backward (``_bn_stem_bwd``): dW through the convolution with the
+    normalized input recomputed from the saved statistics, dbeta from the
+    per-tap rectangle sums, zero for the data.  Outputs (out, mean, var);
+    the statistics carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, data, beta, weight, eps, stride, pad, cl):
+        red = tuple(i for i in range(data.ndim)
+                    if i != (data.ndim - 1 if cl else 1))
+        xf = data.float()
+        mean, var = _batch_stats(xf, red)
+        inv = torch.rsqrt(var + eps)
+        out = _bn_stem_conv(_bn_stem_norm(xf, beta, mean, inv, cl,
+                                          data.dtype), weight, stride, pad,
+                            cl)
+        ctx.cfg = (stride, pad, cl)
+        ctx.save_for_backward(data, beta, weight, mean, inv)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _dmean, _dvar):
+        stride, pad, cl = ctx.cfg
+        data, beta, weight, mean, inv = ctx.saved_tensors
+        bn = _bn_stem_norm(data.float(), beta, mean, inv, cl, data.dtype)
+        if cl:
+            dw = _to_channels_last(torch.nn.grad.conv2d_weight(
+                _to_channels_first(bn), _to_channels_first(weight).shape,
+                _to_channels_first(g), stride=stride, padding=pad))
+            gsum = g.float().sum(0)                          # (OH, OW, O)
+            kh, kw = weight.shape[1], weight.shape[2]
+            in_h, in_w = data.shape[1], data.shape[2]
+        else:
+            dw = torch.nn.grad.conv2d_weight(bn, weight.shape, g,
+                                             stride=stride, padding=pad)
+            gsum = g.float().sum(0).movedim(0, -1)           # (OH, OW, O)
+            kh, kw = weight.shape[2], weight.shape[3]
+            in_h, in_w = data.shape[2], data.shape[3]
+        vh = _stem_valid_mask(kh, pad[0], stride[0], in_h, gsum.shape[0],
+                              g.device)
+        vw = _stem_valid_mask(kw, pad[1], stride[1], in_w, gsum.shape[1],
+                              g.device)
+        t = torch.einsum("bw,awo->abo", vw,
+                         torch.einsum("ah,hwo->awo", vh, gsum))
+        dbeta = torch.einsum("hwo,ohwc->c" if cl else "hwo,ochw->c", t,
+                             weight.float())
+        return (torch.zeros_like(data), dbeta.to(beta.dtype),
+                dw.to(weight.dtype), None, None, None, None)
+
+
+@register("_contrib_BNStemConv",
+          nin=6,
+          input_names=["data", "gamma", "beta", "weight",
+                       "moving_mean", "moving_var"],
+          aux_inputs=(4, 5), nout=1, mutate_aux={4: 1, 5: 2},
+          mode_dependent=True, fill_shapes=_bn_stem_fill,
+          params={"eps": P(float, 2e-5), "momentum": P(float, 0.9),
+                  "fix_gamma": P(bool, True),
+                  "num_filter": P(int), "kernel": P("shape"),
+                  "stride": P("shape", ()), "pad": P("shape", ()),
+                  "layout": P("str_or_none", None)})
+def bn_stem_conv(attrs, data, gamma, beta, weight, mov_mean, mov_var):
+    """BatchNorm(fix_gamma=True) of the input, then a 2-D convolution,
+    with no bias.  Training normalizes by the batch statistics and returns
+    the two moving averages updated; eval uses and returns them."""
+    if not attrs["fix_gamma"]:
+        raise MXNetError("_contrib_BNStemConv requires fix_gamma=true (the "
+                         "reference bn_data contract); use separate "
+                         "BatchNorm + Convolution otherwise")
+    if data.ndim != 4:
+        raise MXNetError("_contrib_BNStemConv supports 2D convs only")
+    stride = tuple(attrs["stride"]) or (1, 1)
+    pad = tuple(attrs["pad"]) or (0, 0)
+    cl = _channels_last(attrs)
+    if attrs.get("_training", False):
+        out, mean, var = _BNStemConv.apply(data, beta.float(), weight,
+                                           attrs["eps"], stride, pad, cl)
+        m = attrs["momentum"]
+        return (out, m * mov_mean + (1 - m) * mean,
+                m * mov_var + (1 - m) * var)
+    mean = mov_mean.float()
+    inv = torch.rsqrt(mov_var.float() + attrs["eps"])
+    bn = _bn_stem_norm(data.float(), beta, mean, inv, cl, data.dtype)
+    return _bn_stem_conv(bn, weight, stride, pad, cl), mov_mean, mov_var
 
 
 # ---------------------------------------------------------------------------

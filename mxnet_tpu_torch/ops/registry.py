@@ -33,10 +33,12 @@ P = Param
 
 
 def torch_dtype(dt):
-    """torch dtype, numpy dtype or dtype name -> torch dtype."""
+    """torch dtype, numpy dtype or dtype name -> torch dtype; bfloat16 by
+    name, or as the numpy dtype of ``ml_dtypes``."""
     if isinstance(dt, torch.dtype):
         return dt
-    return getattr(torch, dt if dt == "bfloat16" else np.dtype(dt).name)
+    name = dt if isinstance(dt, str) else np.dtype(dt).name
+    return getattr(torch, name if name == "bfloat16" else np.dtype(name).name)
 
 
 class OpDef:

@@ -1,11 +1,12 @@
 """Shape ops (counterpart of ``mxnet_tpu/ops/shape_ops.py``): Reshape with
-MXNet's special codes, Flatten, expand_dims and slice_axis, and the
-creation ops one_hot and _arange that the attention decoder's graphs
-use."""
+MXNet's special codes, Flatten, transpose, expand_dims, slice_axis and
+Pad (constant mode), and the creation ops one_hot and _arange that the
+attention decoder's graphs use."""
 import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .registry import register, P, torch_dtype
 from ..base import MXNetError
@@ -71,6 +72,12 @@ def flatten(attrs, x):
     return x.reshape(x.shape[0], -1)
 
 
+@register("transpose", params={"axes": P("shape", ())})
+def transpose(attrs, x):
+    """The axes permuted as ``axes`` gives them, reversed when empty."""
+    return x.permute(tuple(attrs["axes"]) or tuple(range(x.ndim))[::-1])
+
+
 @register("expand_dims", params={"axis": P(int)})
 def expand_dims(attrs, x):
     return x.unsqueeze(attrs["axis"])
@@ -83,6 +90,26 @@ def slice_axis(attrs, x):
     sl = [slice(None)] * x.dim()
     sl[attrs["axis"] % x.dim()] = slice(attrs["begin"], attrs["end"])
     return x[tuple(sl)]
+
+
+@register("Pad", aliases=["pad"],
+          params={"mode": P(str, "constant",
+                            choices=["constant", "edge", "reflect"]),
+                  "pad_width": P("shape", ()),
+                  "constant_value": P(float, 0.0)})
+def pad(attrs, x):
+    """``pad_width`` holds (before, after) for every axis in order; the
+    constant mode fills with ``constant_value``."""
+    if attrs["mode"] != "constant":
+        raise MXNetError("Pad: mode=%s is not yet ported (constant only)"
+                         % attrs["mode"])
+    pw = attrs["pad_width"]
+    if len(pw) != 2 * x.ndim:
+        raise MXNetError("Pad: pad_width needs 2 entries per axis of a %d-D "
+                         "input, got %d" % (x.ndim, len(pw)))
+    # F.pad takes the pairs last axis first
+    flat = [p for i in reversed(range(x.ndim)) for p in pw[2 * i:2 * i + 2]]
+    return F.pad(x, flat, mode="constant", value=attrs["constant_value"])
 
 
 @register("one_hot", input_names=["indices"],

@@ -3,19 +3,23 @@
 Counterpart of ``mxnet_tpu/optimizer.py``: the ``Optimizer`` base (lr,
 wd, ``rescale_grad``, ``clip_gradient``, per-parameter ``lr_mult`` and
 ``wd_mult`` resolved through ``idx2name``, ``register``/``create``), SGD
-on dense gradients through the in-place update ops, and ``Updater`` /
-``get_updater``.  The reference's other optimizers, multi-precision SGD,
-sparse gradients and learning-rate schedulers are not yet ported.
+on dense gradients through the in-place update ops (with a float32 master
+copy of float16 weights under ``multi_precision``), and ``Updater`` /
+``get_updater``.  The reference's other optimizers, sparse gradients and
+learning-rate schedulers are not yet ported.
 """
 from __future__ import annotations
 
+import logging
 import pickle
 
 import numpy as np
+import torch
 
 from .base import MXNetError
 from .context import cpu
-from .ndarray import NDArray, array, zeros_like, sgd_update, sgd_mom_update
+from .ndarray import (NDArray, array, zeros, zeros_like, sgd_update,
+                      sgd_mom_update, mp_sgd_update, mp_sgd_mom_update)
 
 __all__ = ["Optimizer", "SGD", "Updater", "get_updater", "create",
            "register"]
@@ -116,15 +120,27 @@ create = Optimizer.create_optimizer
 
 @register
 class SGD(Optimizer):
-    """SGD with momentum, on dense gradients."""
+    """SGD with momentum, on dense gradients.  With ``multi_precision`` a
+    float16 weight's state is (momentum or None, a float32 master copy),
+    both f32, and the update runs on the master copy (the reference keeps
+    the copy for float16 weights only: bfloat16 and float32 weights take
+    the plain update)."""
 
     def __init__(self, momentum=0.0, multi_precision=False, **kwargs):
-        if multi_precision:
-            raise MXNetError("SGD(multi_precision=True) is not yet ported")
         super().__init__(**kwargs)
         self.momentum = momentum
+        self.multi_precision = multi_precision
 
     def create_state(self, index, weight):
+        if weight.dtype == torch.float16:
+            if self.multi_precision:
+                mom = zeros(weight.shape, weight.context, torch.float32) \
+                    if self.momentum != 0.0 else None
+                return (mom, array(weight, weight.context, torch.float32))
+            logging.warning("Accumulating with float16 in optimizer can "
+                            "lead to poor accuracy or slow convergence. "
+                            "Consider using multi_precision=True option of "
+                            "the SGD optimizer")
         if self.momentum == 0.0:
             return None
         return zeros_like(weight)
@@ -132,7 +148,14 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         kwargs = self._common_attrs(index)
-        if state is not None:
+        if isinstance(state, (list, tuple)):
+            mom, weight32 = state
+            if mom is not None:
+                mp_sgd_mom_update(weight, grad, mom, weight32, out=weight,
+                                  momentum=self.momentum, **kwargs)
+            else:
+                mp_sgd_update(weight, grad, weight32, out=weight, **kwargs)
+        elif state is not None:
             sgd_mom_update(weight, grad, state, out=weight,
                            momentum=self.momentum, **kwargs)
         else:

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``mxnet_tpu_torch`` and
-neither ``chip_smoke.py`` nor ``chip_mma_probe.py`` imports JAX or the JAX
-package, and its entry points run on the card unless the caller asks for
+neither ``chip_smoke.py`` nor ``chip_mma_probe.py`` imports JAX, the JAX
+package or ``ml_dtypes`` (which the card's machine does not have; the
+port reads bf16 numpy arrays by their dtype's name), and its entry points run on the card unless the caller asks for
 the CPU."""
 import ast
 import os
@@ -12,7 +13,7 @@ import torch
 import mxnet_tpu_torch as mt
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
 
 
 def _port_sources():
