@@ -65,13 +65,39 @@ Phases (none catches its own failure; there is no CPU path):
    planted at K2's launch (its residual dropped) must fail.  First, the
    fused stem is held against BatchNorm + Convolution in f32 at batch
    256, and with its dbeta zeroed (a planted fault) must fail that;
-7. the KV-cache writes K9 ``cache_write_row`` and K10 ``cache_write_rows``
+7. ImageNet: ``examples/train_imagenet.py``'s path (``examples/common.py``'s
+   ``fit``) at full width.  512 training and 256 validation records of
+   random uint8 pixels at 256x256 (bench.py's ``_make_raw_rec``, through
+   the port's ``recordio``, in a temporary directory); the example's
+   ``ImageRecordIter`` (224x224 NHWC, its mean and std, raw records, one
+   thread per host core; random crop, mirror and shuffle for training)
+   timed alone in uint8 (bench.py's ``pipeline_images_per_sec``) and
+   float32, and over JPEG records where cv2 or PIL is installed; then
+   ``Module.fit`` of ResNet-50 in f32 at batch 256 for 2 epochs of 2
+   steps (SGD at lr 0.05, momentum 0.9, wd 1e-4, a MultiFactorScheduler
+   decaying 10x after update 2, Xavier from ``--seed``, validation and a
+   checkpoint each epoch), with the example's ``unit_impl="plain"``
+   (cuDNN only) and with the fused units and MXNET_CONV1X1_FUSED_BWD=1
+   (K1, K2, K3, K5 twice, K6, K8 a step; K1-K3 a validation batch), each
+   counted, timed, profiled and its peak memory read.  Checks: the first
+   8 images of the first batch each equal a 224x224 window of their own
+   record, mirrored or not (every offset, normalized in numpy, 1e-5) with
+   the record's label; the rate 0.05 at updates 1-2 and 0.005 at 3-4;
+   finite losses and validation accuracy; the fused fit's step-1 loss
+   within 1e-3 of the plain fit's; the checkpoint files, checkpoint 2
+   equal to the parameters bit for bit, and a fit resumed from checkpoint
+   1 (begin_epoch=1) running its epoch; each kernel call of one fused step
+   against its plain version; an image flipped vertically and a scheduler
+   decaying one update early are planted faults that must fail.  Last,
+   bench.py's step (config ``bench``) on a resident batch and fed each
+   step by a new uint8 batch from the pipeline, copied to the card;
+8. the KV-cache writes K9 ``cache_write_row`` and K10 ``cache_write_rows``
    against their plain versions at 8 and 64 slots, max_len 128 and 2048,
    d 200, in float32, float16 and bfloat16, with edge positions, windows
    straddling the end and counts 0..5: the whole cache bit-identical, and
    untouched outside the written rows; timed beside the one-hot blend they
    replace, one ``index_put_`` and their bound;
-8. decode: the attention decoder of ``perf/decode_bench.py``
+9. decode: the attention decoder of ``perf/decode_bench.py``
    (``build_spec_models``, copied here: vocab 10000, d 200, 6 blocks,
    max_len 128, weights from ``--seed``) served by ``DecodeEngine`` on
    cuda:0 with 8 slots, 64 requests (geometric lengths of mean 16, 8 with
@@ -82,18 +108,18 @@ Phases (none catches its own failure; there is no CPU path):
    and K9 and K10 must launch exactly as the graphs imply per step.
    Tokens/s, step p50/p99, accept rate and tokens per step, and one
    profiled step at k = 0 and 4;
-9. the imperative path: ``mt.nd._contrib_FusedBottleneckUnit`` at the
+10. the imperative path: ``mt.nd._contrib_FusedBottleneckUnit`` at the
    four stage shapes at batch 32 under ``autograd.record()`` and
    ``backward()`` in 4d mode: K1, K2, K4, K5 (twice) and K7 once per
    unit, and the output and ten gradients bit-equal to the same unit
    through ``Symbol.bind`` and ``Executor.backward``;
-10. rtc (K11): CUDA C++ written at run time (``RTC_SOURCE``) compiled by
+11. rtc (K11): CUDA C++ written at run time (``RTC_SOURCE``) compiled by
    ``rtc.CudaModule`` and installed by ``rtc.register_kernel_op``:
    ``add_one`` over 16M float32 through ``mt.nd``, a bound symbol and a
    second thread, bit-equal to ``x + 1``, and a swish pair registered
    with ``vjp=`` whose gradient through ``Executor.backward`` is held
    against torch autograd on the formula; timed beside ``x + 1``;
-11. the kernel table (K1-K11) as one JSON line, then the result line
+12. the kernel table (K1-K11) as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -279,6 +305,45 @@ BENCH_TENSOR_RTOL = 0.1
 # in f32: tests/test_bn_stem.py's tolerances, the gradients' relative to
 # their largest magnitude (sums over 3.2M products)
 STEM_FWD_TOL, STEM_BWD_TOL = 2e-5, 1e-4
+# examples/train_imagenet.py at full width through examples/common.py's
+# fit: ResNet-50 224x224 NHWC in f32 at batch 256, from raw uint8 records
+# stored at 256x256 (bench.py's _make_raw_rec, label i % 1000): 2 epochs
+# of 2 batches, validation on 256 records after each, SGD at lr 0.05
+# (momentum 0.9, wd 1e-4) decaying 10x after update 2
+# (MultiFactorScheduler), Xavier from --seed, a checkpoint an epoch
+IMAGENET_BATCH, IMAGENET_IMAGE, IMAGENET_STORED = 256, 224, 256
+IMAGENET_TRAIN_RECORDS, IMAGENET_VAL_RECORDS = 512, 256
+IMAGENET_EPOCHS, IMAGENET_DECAY_AT = 2, 2
+IMAGENET_STEPS = IMAGENET_EPOCHS * IMAGENET_TRAIN_RECORDS // IMAGENET_BATCH
+IMAGENET_VAL_BATCHES = IMAGENET_EPOCHS * -(-IMAGENET_VAL_RECORDS
+                                           // IMAGENET_BATCH)
+IMAGENET_MEAN = (123.68, 116.779, 103.939)
+IMAGENET_STD = (58.393, 57.12, 57.375)
+IMAGENET_LRS = [0.05, 0.05, 0.005, 0.005]       # at updates 1..4
+# the iterator's settings that turn normalization off (uint8 batches)
+UNNORMALIZED = dict(mean_r=0.0, mean_g=0.0, mean_b=0.0, std_r=1.0,
+                    std_g=1.0, std_b=1.0)
+# the first WINDOW_IMAGES images of the first batch, each against every
+# 224x224 window of its record, mirrored or not, normalized in numpy: the
+# same f32 operations, so a true window agrees to the last bit
+WINDOW_IMAGES, WINDOW_TOL = 8, 1e-5
+# the fused fit's step-1 loss against the plain fit's: one f32 forward of
+# the same weights on the same batch, through 3xTF32 kernels against cuDNN
+IMAGENET_LOSS_RTOL = 1e-3
+# the forward kernels an eval forward (a validation batch) launches
+VAL_LAUNCHES = {"mm_fwd": 12, "c3_fwd2d": 12, "mm_skip_fwd": 12}
+# each kernel call of one fused f32 step at batch 256 against its plain
+# version, at the kernel phases' f32 tolerances
+_FWD32 = (TOL["float32"], TOL["stats"], TOL["stats"])
+_BWD32 = (TOL["float32"],) + (BWD_TOL["float32"],) * 3
+IMAGENET_KERNEL_TOLS = {"mm_fwd": _FWD32, "c3_fwd2d": _FWD32,
+                        "mm_skip_fwd": _FWD32[:1], "mm_bwd": _BWD32,
+                        "c3_bwd2d": _BWD32,
+                        "conv1x1_bwd": (TOL["float32"], BWD_TOL["float32"])}
+# the pipeline alone: epochs timed after one warm-up epoch; bench.py's step
+# fed by it: steps timed after warm-up steps
+PIPELINE_EPOCHS = 5
+OVERLAP_WARMUP, OVERLAP_STEPS = 2, 8
 
 
 def log(*a):
@@ -1418,6 +1483,528 @@ def bench_checks(torch, mt, fu, nn, sym, u8, labels, params0, aux0, kerr):
     return out
 
 
+def write_raw_records(mt, prefix, n, seed):
+    """bench.py's ``_make_raw_rec`` through the port's recordio: ``n``
+    seeded uint8 images at IMAGENET_STORED x IMAGENET_STORED (the
+    ``im2rec --encoding raw`` format), label i % 1000, with an index."""
+    import numpy as np
+    rio = mt.recordio
+    rng = np.random.default_rng(seed)
+    shape = (IMAGENET_STORED, IMAGENET_STORED, 3)
+    w = rio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    try:
+        for i in range(n):
+            img = rng.integers(0, 256, shape, dtype=np.uint8)
+            w.write_idx(i, rio.pack(rio.IRHeader(0, float(i % 1000), i, 0),
+                                    img.tobytes()))
+    finally:
+        w.close()
+    return prefix + ".rec"
+
+
+def imagenet_iter(mt, rec, train, seed, **kwargs):
+    """``examples/train_imagenet.py``'s ImageRecordIter over ``rec``: its
+    ``common_iter`` (224x224, NHWC, the example's mean and std, raw
+    records at IMAGENET_STORED, one preprocess thread per host core),
+    shuffled, cropped and mirrored at random for training; ``kwargs``
+    override."""
+    side = IMAGENET_IMAGE
+    args = dict(path_imgrec=rec, data_shape=(3, side, side),
+                batch_size=IMAGENET_BATCH,
+                preprocess_threads=os.cpu_count(), layout="NHWC",
+                raw_shape=(IMAGENET_STORED, IMAGENET_STORED, 3), seed=seed)
+    args.update(zip(("mean_r", "mean_g", "mean_b"), IMAGENET_MEAN))
+    args.update(zip(("std_r", "std_g", "std_b"), IMAGENET_STD))
+    if train:
+        args.update(shuffle=True, rand_crop=True, rand_mirror=True)
+    args.update(kwargs)
+    return mt.io.ImageRecordIter(**args)
+
+
+def window_reading(mt, rec, images, keys, labels):
+    """Each image (HWC float32, as the iterator normalized it) against
+    every 224x224 window of its own stored record, mirrored or not, each
+    normalized here in numpy with the example's mean and std: the windows
+    it equals within WINDOW_TOL, and its label against the record
+    header's.  Passes when every image equals a window and every label
+    its record's."""
+    import numpy as np
+    rio = mt.recordio
+    mean = np.array(IMAGENET_MEAN, np.float32)
+    std = np.array(IMAGENET_STD, np.float32)
+    side = IMAGENET_IMAGE
+    span = IMAGENET_STORED - side + 1
+    rd = rio.MXIndexedRecordIO(os.path.splitext(rec)[0] + ".idx", rec, "r")
+    out = []
+    try:
+        for img, key, label in zip(images, keys, labels):
+            header, buf = rio.unpack(rd.read_idx(int(key)))
+            src = np.frombuffer(buf, np.uint8).reshape(
+                IMAGENET_STORED, IMAGENET_STORED, 3)
+            hits = []
+            for mirror in (False, True):
+                for dy in range(span):
+                    for dx in range(span):
+                        win = src[dy:dy + side, dx:dx + side]
+                        if mirror:
+                            win = win[:, ::-1]
+                        # the first row rules out a wrong window of random
+                        # pixels; the survivors are held whole
+                        row = (win[0].astype(np.float32) - mean) / std
+                        if np.abs(row - img[0]).max() > WINDOW_TOL:
+                            continue
+                        err = float(np.abs(
+                            (win.astype(np.float32) - mean) / std
+                            - img).max())
+                        if err <= WINDOW_TOL:
+                            hits.append((dy, dx, mirror, err))
+            out.append({"key": int(key), "windows": hits,
+                        "label": float(label),
+                        "record_label": float(header.label)})
+    finally:
+        rd.close()
+    return {"images": out,
+            "passes": all(r["windows"] and r["label"] == r["record_label"]
+                          for r in out)}
+
+
+def lr_reading(lrs):
+    """The rates of updates 1..4 against IMAGENET_LRS."""
+    return {"lrs": lrs, "passes": len(lrs) == len(IMAGENET_LRS) and all(
+        abs(a - b) <= 1e-12 * b for a, b in zip(lrs, IMAGENET_LRS))}
+
+
+def scheduler_lrs(mt, decay_at):
+    """The rates SGD applies at updates 1..4 of one weight on cuda:0 with
+    the fit's settings and a MultiFactorScheduler that decays after
+    update ``decay_at``, read as the fit reads them."""
+    opt = mt.optimizer.SGD(lr_scheduler=mt.lr_scheduler.MultiFactorScheduler(
+        step=[decay_at], factor=0.1), **SGD)
+    upd = mt.optimizer.get_updater(opt)
+    w, g = mt.nd.zeros((4,), mt.gpu(0)), mt.nd.zeros((4,), mt.gpu(0))
+    lrs = []
+    for _ in IMAGENET_LRS:
+        upd(0, g, w)
+        lrs.append(opt._get_lr(0))
+    return lrs
+
+
+def imagenet_fit(torch, mt, sym, recs, prefix, seed, begin_epoch=0,
+                 arg_params=None, aux_params=None):
+    """``examples/common.py``'s ``fit`` of ``sym`` on cuda:0 over
+    train_imagenet.py's iterators, Xavier from ``seed``, a checkpoint an
+    epoch at ``prefix``.  Returns each step's loss (from the softmax and
+    the labels), update count, rate and host time at its end; the
+    validation accuracies; the first batch with a host copy of its first
+    WINDOW_IMAGES images, keys and labels; the module; the start time."""
+    import numpy as np
+    train = imagenet_iter(mt, recs["train"], True, seed)
+    val = imagenet_iter(mt, recs["val"], False, seed)
+    steps, val_acc, first = [], [], {}
+
+    def on_batch(param):
+        probs = mod.get_outputs()[0]._data
+        batch = param.locals["batch"]
+        labels = batch.label[0]._data.to(probs.device).long()
+        rows = torch.arange(probs.shape[0], device=probs.device)
+        loss = float(-torch.log(probs[rows, labels] + 1e-8).mean())
+        opt = mod._optimizer
+        steps.append({"epoch": param.epoch, "nbatch": param.nbatch,
+                      "loss": loss, "num_update": opt.num_update,
+                      "lr": opt._get_lr(0), "t": time.perf_counter()})
+        if not first:
+            first.update(
+                batch=batch,
+                images=batch.data[0].asnumpy()[:WINDOW_IMAGES].copy(),
+                keys=np.array(batch.index[:WINDOW_IMAGES]),
+                labels=batch.label[0].asnumpy()[:WINDOW_IMAGES].copy())
+
+    def on_eval(param):
+        val_acc.append(float(dict(
+            param.eval_metric.get_name_value())["accuracy"]))
+    mt.random.seed(seed)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    sched = mt.lr_scheduler.MultiFactorScheduler(step=[IMAGENET_DECAY_AT],
+                                                 factor=0.1)
+    t0 = time.perf_counter()
+    try:
+        mod.fit(train, eval_data=val, num_epoch=IMAGENET_EPOCHS,
+                begin_epoch=begin_epoch, kvstore="local", optimizer="sgd",
+                optimizer_params=dict(SGD, lr_scheduler=sched),
+                arg_params=arg_params, aux_params=aux_params,
+                initializer=mt.init.Xavier(),
+                batch_end_callback=[
+                    mt.callback.Speedometer(IMAGENET_BATCH, 1), on_batch],
+                eval_end_callback=on_eval,
+                epoch_end_callback=mt.callback.do_checkpoint(prefix))
+    finally:
+        train.close()
+        val.close()
+    return steps, val_acc, first, mod, t0
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and a.asnumpy().tobytes() == b.asnumpy().tobytes()
+
+
+def pipeline_rate(mt, rec, seed, **kwargs):
+    """The training iterator alone over ``rec``: one warm-up epoch, then
+    PIPELINE_EPOCHS epochs, each timed from just before ``reset()`` (which
+    submits the epoch's first batches) to its last batch;
+    images/s, the median of the epochs', and the seconds between
+    batches."""
+    it = imagenet_iter(mt, rec, True, seed, **kwargs)
+    rates, gaps = [], []
+    try:
+        for _ in it:
+            pass
+        for _ in range(PIPELINE_EPOCHS):
+            t = t0 = time.perf_counter()
+            it.reset()
+            n = 0
+            for b in it:
+                now = time.perf_counter()
+                gaps.append(now - t)
+                t = now
+                n += b.data[0].shape[0]
+            rates.append(n / (t - t0))
+    finally:
+        it.close()
+    return {"images_per_s": _median(rates), "epoch_images_per_s": rates,
+            "batch_gaps_s": gaps, "threads": os.cpu_count()}
+
+
+def overlap_reading(torch, mt, seed, rec, card):
+    """bench.py's step (config ``bench``: unit_impl plain, stem fused,
+    bf16, batch 256, weights from ``seed``) through
+    ``bench_step.TrainStep`` on cuda:0: OVERLAP_STEPS on one uint8 batch
+    resident on the card, then OVERLAP_STEPS each fed a new uint8 NHWC
+    batch from the training iterator (random crop and mirror, not
+    normalized: the step scales it), copied to the card in the step;
+    each after OVERLAP_WARMUP warm-up steps.  Images/s of both, one fed
+    step profiled, and the losses."""
+    import numpy as np
+    dev = mt.gpu(0).device
+    side = IMAGENET_IMAGE
+    sym = mt.models.get_resnet_symbol(
+        num_classes=1000, num_layers=50, image_shape=(3, side, side),
+        layout="NHWC", stem="fused", unit_impl="plain")
+    args, aux = mt.convert.random_params(sym, {"data": (1, side, side, 3)},
+                                         seed=seed)
+    step = mt.bench_step.TrainStep(sym, dtype=torch.bfloat16, lr=BENCH_LR)
+    params = tuple(torch.from_numpy(args[n]).to(dev, torch.bfloat16)
+                   for n in step.param_names)
+    auxs = tuple(torch.from_numpy(aux[n]).to(dev) for n in step.aux_names)
+    it = imagenet_iter(mt, rec, True, seed, dtype="uint8", **UNNORMALIZED)
+
+    def fetch():
+        try:
+            b = it.next()
+        except StopIteration:
+            it.reset()
+            b = it.next()
+        return b.data[0]._data.to(dev), b.label[0]._data.to(dev)
+    out = {"steps": OVERLAP_STEPS, "warmup": OVERLAP_WARMUP}
+    try:
+        x, y = fetch()
+        assert x.dtype == torch.uint8 and tuple(x.shape) == (
+            IMAGENET_BATCH, side, side, 3)
+        for mode in ("resident", "fed"):
+            losses = []
+            for i in range(OVERLAP_WARMUP + OVERLAP_STEPS):
+                if i == OVERLAP_WARMUP:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                if mode == "fed":
+                    x, y = fetch()
+                loss, grads, params, auxs = step(x, y, params, auxs)
+                del grads
+                losses.append(loss)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            out[mode] = {"images_per_s": OVERLAP_STEPS * IMAGENET_BATCH
+                         / secs, "step_ms": 1e3 * secs / OVERLAP_STEPS,
+                         "losses": [float(v) for v in losses]}
+
+        def fed_step():
+            step(*fetch(), params, auxs)
+        out["profile_fed_step"] = profile_calls(torch, fed_step, 2)
+    finally:
+        it.close()
+    out["finite"] = all(np.isfinite(out[m]["losses"]).all()
+                        for m in ("resident", "fed"))
+    return out
+
+
+def imagenet_phase(torch, mt, fu, nn, kv, seed, card):
+    """``examples/train_imagenet.py``'s path at full width (see
+    IMAGENET_*): the input pipeline alone; the fit with the example's
+    ``unit_impl="plain"`` and with the fused units and
+    MXNET_CONV1X1_FUSED_BWD=1, each counted, timed and profiled with its
+    counters set to 0 just before it, then checked (windows, rates,
+    losses, checkpoints, a resumed fit, planted faults); bench.py's step
+    fed by the pipeline.  Every failed check fails the phase."""
+    import gc
+    import importlib.util
+    import numpy as np
+    wrappers = kernel_wrappers(fu, nn, kv)
+    side = IMAGENET_IMAGE
+    syms = {impl: mt.models.get_resnet_symbol(
+        num_classes=1000, num_layers=50, image_shape=(3, side, side),
+        layout="NHWC", unit_impl=impl) for impl in ("plain", "fused")}
+    out = {"batch": IMAGENET_BATCH, "stored": IMAGENET_STORED,
+           "host_cores": os.cpu_count(), "card": card, "fits": {}}
+    failures = []
+    with tempfile.TemporaryDirectory(prefix="imagenet") as tmp:
+        t0 = time.perf_counter()
+        recs = {"train": write_raw_records(
+                    mt, os.path.join(tmp, "train"), IMAGENET_TRAIN_RECORDS,
+                    seed),
+                "val": write_raw_records(
+                    mt, os.path.join(tmp, "val"), IMAGENET_VAL_RECORDS,
+                    seed + 1)}
+        nbytes = sum(os.path.getsize(r) for r in recs.values())
+        log("  raw records: %d train, %d val at %dx%dx3, %.1f MB, written "
+            "in %.2f s" % (IMAGENET_TRAIN_RECORDS, IMAGENET_VAL_RECORDS,
+                           IMAGENET_STORED, IMAGENET_STORED, nbytes / 1e6,
+                           time.perf_counter() - t0))
+        out["record_bytes"] = nbytes
+
+        # the input pipeline alone: bench.py's pipeline_images_per_sec
+        # (uint8, crop and mirror) and the fit's iterator (float32,
+        # normalized)
+        pipe = out["pipeline"] = {
+            "uint8": pipeline_rate(mt, recs["train"], seed, dtype="uint8",
+                                   **UNNORMALIZED),
+            "float32": pipeline_rate(mt, recs["train"], seed)}
+        codec = next((m for m in ("cv2", "PIL")
+                      if importlib.util.find_spec(m)), None)
+        if codec:
+            jpeg = os.path.join(tmp, "train_jpeg")
+            rio = mt.recordio
+            rd = rio.MXIndexedRecordIO(os.path.join(tmp, "train.idx"),
+                                       recs["train"], "r")
+            w = rio.MXIndexedRecordIO(jpeg + ".idx", jpeg + ".rec", "w")
+            for k in rd.keys:
+                hdr, buf = rio.unpack(rd.read_idx(k))
+                img = np.frombuffer(buf, np.uint8).reshape(
+                    IMAGENET_STORED, IMAGENET_STORED, 3)
+                w.write_idx(k, rio.pack_img(hdr, img, quality=90))
+            w.close()
+            rd.close()
+            pipe["jpeg_uint8"] = pipeline_rate(
+                mt, jpeg + ".rec", seed, dtype="uint8", raw_shape=None,
+                **UNNORMALIZED)
+            pipe["jpeg_uint8"]["codec"] = codec
+        for name, r in pipe.items():
+            log("  pipeline alone, %s: %.1f images/s (median of %d epochs "
+                "of %d batches: %s), %d threads, host cores %d"
+                % (name, r["images_per_s"], PIPELINE_EPOCHS,
+                   IMAGENET_TRAIN_RECORDS // IMAGENET_BATCH,
+                   fmt(r["epoch_images_per_s"], "%.1f"), r["threads"],
+                   os.cpu_count()))
+        if not codec:
+            log("  the JPEG path was not run: neither cv2 nor PIL is "
+                "installed on this host, and the port decodes JPEG through "
+                "one of them")
+
+        lr_fault = lr_reading(scheduler_lrs(mt, IMAGENET_DECAY_AT - 1))
+        for impl, env in (("plain", {"MXNET_CONV1X1_FUSED_BWD": None,
+                                     "MXNET_FUSED_UNIT_C3": None}),
+                          ("fused", {"MXNET_CONV1X1_FUSED_BWD": "1",
+                                     "MXNET_FUSED_UNIT_C3": None})):
+            prefix = os.path.join(tmp, impl)
+            with env_vars(env):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                for k in wrappers:
+                    k.launches = 0
+                steps, val_acc, first, mod, t0 = imagenet_fit(
+                    torch, mt, syms[impl], recs, prefix, seed)
+                launches = {k.__name__: k.launches for k in wrappers}
+                peak = torch.cuda.max_memory_allocated()
+                args, aux = mod.get_params()
+                files = ["%s-symbol.json" % prefix] + [
+                    "%s-%04d.params" % (prefix, e)
+                    for e in range(1, IMAGENET_EPOCHS + 1)]
+                missing = [f for f in files if not os.path.exists(f)]
+                _, ck_args, ck_aux = mt.model.load_checkpoint(
+                    prefix, IMAGENET_EPOCHS)
+                ckpt_equal = (sorted(ck_args) == sorted(args)
+                              and sorted(ck_aux) == sorted(aux)
+                              and all(_same_bits(ck_args[n], v)
+                                      for n, v in args.items())
+                              and all(_same_bits(ck_aux[n], v)
+                                      for n, v in aux.items()))
+                del args, aux, ck_args, ck_aux
+                kerr = {}
+                if impl == "fused":
+                    # each kernel call of one step on the fit's first batch
+                    # against its plain version on the same inputs
+                    with checked_kernels(fu, nn, kerr):
+                        mod.forward_backward(first["batch"])
+                    torch.cuda.synchronize()
+
+                def step():
+                    mod.forward_backward(first["batch"])
+                    mod.update()
+                prof = profile_calls(torch, step, 2)
+                del mod
+                gc.collect()
+                torch.cuda.empty_cache()
+            intervals = [1e3 * (b["t"] - a["t"]) for a, b in
+                         zip(steps, steps[1:]) if a["epoch"] == b["epoch"]]
+            median = _median(intervals)
+            rec = {"losses": [s["loss"] for s in steps],
+                   "num_updates": [s["num_update"] for s in steps],
+                   "lr": lr_reading([s["lr"] for s in steps]),
+                   "val_accuracy": val_acc, "launches": launches,
+                   "step_ms_within_epochs": intervals,
+                   "median_step_ms": median,
+                   "images_per_s": IMAGENET_BATCH * 1e3 / median,
+                   "first_step_s": steps[0]["t"] - t0,
+                   "max_memory_allocated": peak, "profile_step": prof,
+                   "checkpoint_files_missing": missing,
+                   "checkpoint_equals_params": ckpt_equal,
+                   "kernel_rel_errs": kerr,
+                   "windows": window_reading(mt, recs["train"],
+                                             first["images"], first["keys"],
+                                             first["labels"])}
+            if impl == "plain":
+                rec["windows_fault_flipped"] = window_reading(
+                    mt, recs["train"], first["images"][:, ::-1],
+                    first["keys"], first["labels"])
+            del first
+            out["fits"][impl] = rec
+            log("  fit, unit_impl=%s: losses %s, updates %s, rates %s, "
+                "validation accuracy %s; launches %s" % (
+                    impl, fmt(rec["losses"]), rec["num_updates"],
+                    rec["lr"]["lrs"], val_acc,
+                    {k: v for k, v in launches.items() if v}))
+            log("  fit, unit_impl=%s: step within an epoch %s ms (median "
+                "%.2f), %.1f images/s, first step %.2f s, "
+                "max_memory_allocated %.2f GB [%s, host cores %d]" % (
+                    impl, fmt(intervals, "%.2f"), median,
+                    rec["images_per_s"], rec["first_step_s"], peak / 1e9,
+                    card, os.cpu_count()))
+            log_profile("one f32 step of the fit, unit_impl=%s" % impl, prof,
+                        card)
+            for k, v in sorted(kerr.items()):
+                log("  fused fit: %-12s against its plain version over %d "
+                    "calls: %s" % (k, v["calls"], fmt(v["rel_errs"],
+                                                      "%.2e")))
+            for r in rec["windows"]["images"]:
+                log("  record %d: windows %s, label %s (record %s)" % (
+                    r["key"], [(dy, dx, m) for dy, dx, m, _ in r["windows"]],
+                    r["label"], r["record_label"]))
+            # the checks of this fit
+            want = {k: (IMAGENET_STEPS * TRAIN_LAUNCHES["2d"].get(k, 0)
+                        + IMAGENET_VAL_BATCHES * VAL_LAUNCHES.get(k, 0))
+                    if impl == "fused" else 0 for k in launches}
+            if launches != want:
+                failures.append("%s fit: launches %s, not %s"
+                                % (impl, launches, want))
+            if not rec["windows"]["passes"]:
+                failures.append("%s fit: an image of the first batch is no "
+                                "window of its record: %s"
+                                % (impl, rec["windows"]))
+            if not rec["lr"]["passes"]:
+                failures.append("%s fit: rates %s, not %s"
+                                % (impl, rec["lr"]["lrs"], IMAGENET_LRS))
+            if not (np.isfinite(rec["losses"]).all()
+                    and len(rec["losses"]) == len(IMAGENET_LRS)
+                    and np.isfinite(val_acc).all()
+                    and len(val_acc) == IMAGENET_EPOCHS):
+                failures.append("%s fit: losses %s, validation accuracy %s"
+                                % (impl, rec["losses"], val_acc))
+            if missing or not ckpt_equal:
+                failures.append("%s fit: checkpoint files missing %s, "
+                                "checkpoint %d equals the parameters: %s"
+                                % (impl, missing, IMAGENET_EPOCHS,
+                                   ckpt_equal))
+            for k, v in kerr.items():
+                if any(e > t for e, t in zip(v["rel_errs"],
+                                             IMAGENET_KERNEL_TOLS[k])):
+                    failures.append("fused fit: %s against its plain "
+                                    "version: %s over %s"
+                                    % (k, v, IMAGENET_KERNEL_TOLS[k]))
+            if impl == "fused" and set(kerr) != {
+                    k for k, n in TRAIN_LAUNCHES["2d"].items() if n}:
+                failures.append("fused fit: kernels checked %s" % sorted(kerr))
+
+        # a fit resumed from checkpoint 1 runs its epoch
+        prefix = os.path.join(tmp, "plain")
+        _, a1, x1 = mt.model.load_checkpoint(prefix, 1)
+        steps, val_acc, _, mod, _ = imagenet_fit(
+            torch, mt, syms["plain"], recs, prefix + "-resumed", seed,
+            begin_epoch=1, arg_params=a1, aux_params=x1)
+        del mod, a1, x1
+        gc.collect()
+        torch.cuda.empty_cache()
+        resumed = out["resumed"] = {
+            "epochs": sorted({s["epoch"] for s in steps}),
+            "losses": [s["loss"] for s in steps], "val_accuracy": val_acc,
+            "checkpoint": os.path.exists(
+                "%s-resumed-%04d.params" % (prefix, IMAGENET_EPOCHS))}
+        log("  fit resumed from checkpoint 1 (begin_epoch=1): epochs %s, "
+            "losses %s, validation accuracy %s, checkpoint %d written: %s"
+            % (resumed["epochs"], fmt(resumed["losses"]), val_acc,
+               IMAGENET_EPOCHS, resumed["checkpoint"]))
+        if not (resumed["epochs"] == [1] and len(resumed["losses"]) == 2
+                and np.isfinite(resumed["losses"]).all()
+                and len(val_acc) == 1 and np.isfinite(val_acc).all()
+                and resumed["checkpoint"]):
+            failures.append("the resumed fit: %s" % resumed)
+
+        plain, fused = out["fits"]["plain"], out["fits"]["fused"]
+        rel = abs(fused["losses"][0] - plain["losses"][0]) / abs(
+            plain["losses"][0])
+        out["step1_loss_rel_diff"] = rel
+        log("  step 1's loss: plain %.6f, fused %.6f, rel diff %.2e "
+            "(limit %.0e)" % (plain["losses"][0], fused["losses"][0], rel,
+                              IMAGENET_LOSS_RTOL))
+        if rel > IMAGENET_LOSS_RTOL:
+            failures.append("step 1's loss: fused %r against plain %r"
+                            % (fused["losses"][0], plain["losses"][0]))
+        # the planted faults must fail their checks
+        out["faults"] = {
+            "fault: image flipped vertically":
+                plain["windows_fault_flipped"]["passes"],
+            "fault: rate decays one update early": lr_fault["passes"]}
+        log("  planted faults: an image flipped vertically %s the window "
+            "check; a scheduler decaying one update early (rates %s) %s the "
+            "rate check" % (
+                "passes" if out["faults"]["fault: image flipped vertically"]
+                else "fails", lr_fault["lrs"],
+                "passes" if lr_fault["passes"] else "fails"))
+        failures.extend("%s passed its check" % name
+                        for name, passed in out["faults"].items() if passed)
+
+        # bench.py's step fed by the pipeline
+        ov = out["overlap"] = overlap_reading(torch, mt, seed, recs["train"],
+                                              card)
+    alone = {"card (resident batch)": ov["resident"]["images_per_s"],
+             "pipeline (uint8)": pipe["uint8"]["images_per_s"]}
+    slower = min(alone, key=alone.get)
+    fed = ov["fed"]["images_per_s"]
+    ov["slower_side_alone"] = slower
+    ov["fed_over_slower_side"] = fed / alone[slower]
+    log("  bench.py's step fed by the pipeline: %.1f images/s (%.2f ms a "
+        "step); resident batch %.1f images/s (%.2f ms); the pipeline alone "
+        "%.1f images/s; fed / slower side alone (%s) %.3f [%s, host cores "
+        "%d]" % (fed, ov["fed"]["step_ms"], ov["resident"]["images_per_s"],
+                 ov["resident"]["step_ms"], pipe["uint8"]["images_per_s"],
+                 slower, ov["fed_over_slower_side"], card, os.cpu_count()))
+    log_profile("one fed bf16 step", ov["profile_fed_step"], card)
+    if not ov["finite"]:
+        failures.append("bench.py's step fed by the pipeline: losses %s %s"
+                        % (ov["resident"]["losses"], ov["fed"]["losses"]))
+    if failures:
+        raise AssertionError("imagenet: " + "; ".join(failures))
+    return out
+
+
 def kv_phase(torch, kv, device, seed):
     """K9 and K10 against their plain versions at decode shapes: every
     dtype, positions 0 and T-1, windows straddling the end, out-of-range
@@ -2004,8 +2591,8 @@ _LOOPS.update(dict.fromkeys(("fu_c3_fwd4d", "fu_c3_bwd4d"),
                             "fu_halo.cuh, tensor cores, resident halo"))
 
 
-def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, decode, imp,
-                 rtc):
+def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
+                 decode, imp, rtc):
     """One entry per kernel.  K1-K4: times per ResNet-50 forward at batch
     8 (each stage's shape weighted by its number of fused units) and
     launches in the serve phase of their mode (K4: 4d); K5-K8: times per
@@ -2016,7 +2603,9 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, decode, imp,
     and launches in the rtc phase.  All float32; errors are the largest
     over the shapes.  Every entry also gives its launches per serve batch
     and training step in both modes, per bf16 step of bench.py's (each
-    config of the bench phase), per decode step, per imperative unit and
+    config of the bench phase), in each ImageNet fit (4 steps and 2
+    validation batches; plain and fused) with the fused fit's errors
+    against the plain versions, per decode step, per imperative unit and
     in the rtc phase; K1-K8 also their bfloat16 times (kernel, library
     and bound) at the same shapes, and K2-K8 their kernel and library
     times in both dtypes with the L2 cache flushed before each call; K1-K8
@@ -2112,6 +2701,11 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, decode, imp,
                 cfg: r["kernel_rel_errs"][wrapper]["rel_errs"]
                 for cfg, r in bench["configs"].items()
                 if wrapper in r["kernel_rel_errs"]},
+            "launches_in_imagenet_fit": {
+                impl: r["launches"][wrapper]
+                for impl, r in imagenet["fits"].items()},
+            "imagenet_fit_rel_errs": imagenet["fits"]["fused"][
+                "kernel_rel_errs"].get(wrapper, {}).get("rel_errs"),
             "launches_per_decode_step": per_decode,
             "launches_per_imperative_unit":
                 imp["launches"][wrapper] / imp["units"],
@@ -2210,28 +2804,34 @@ def main():
         % (BENCH_BATCH, name, ", ".join(BENCH_CONFIGS)))
     bench = bench_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    log("[7] K9/K10 against their plain versions: slots %s, max_len %s, "
+    log("[7] examples/train_imagenet.py: ImageRecordIter over raw records "
+        "and Module.fit of ResNet-50 224x224 in f32 at batch %d on %s, "
+        "unit_impl plain and fused; bench.py's step fed by the pipeline"
+        % (IMAGENET_BATCH, name))
+    imagenet = imagenet_phase(torch, mt, fu, nn, kv, opts.seed, card)
+
+    log("[8] K9/K10 against their plain versions: slots %s, max_len %s, "
         "d %d, window %d" % (KV_SLOTS, KV_T, DECODER["d"], KV_WINDOW))
     kv_rows = kv_phase(torch, kv, device, opts.seed)
 
-    log("[8] decode: the attention decoder (vocab %d, d %d, %d blocks, "
+    log("[9] decode: the attention decoder (vocab %d, d %d, %d blocks, "
         "max_len %d) through DecodeEngine on %s, %d slots, %d requests, "
         "k = 0, %s" % (DECODER["vocab"], DECODER["d"], DECODER["layers"],
                        DECODER["max_len"], name, DECODE_SLOTS,
                        DECODE_REQUESTS, ", ".join(map(str, SPEC_KS))))
     decode = decode_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    log("[9] the imperative path: mt.nd._contrib_FusedBottleneckUnit at "
+    log("[10] the imperative path: mt.nd._contrib_FusedBottleneckUnit at "
         "the four stage shapes at batch %d under autograd.record(), 4d, "
         "against the Executor" % TRAIN_BATCH)
     imp = imperative_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    log("[10] rtc: CUDA C++ written at run time through rtc.CudaModule and "
+    log("[11] rtc: CUDA C++ written at run time through rtc.CudaModule and "
         "register_kernel_op")
     rtc = rtc_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
     table = kernel_table(rows, bwd_rows, kv_rows, serve, train, bench,
-                         decode, imp, rtc)
+                         imagenet, decode, imp, rtc)
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)),
                     exist_ok=True)
@@ -2241,11 +2841,12 @@ def main():
                        "build_s": build_s, "kernel_rows": rows,
                        "bwd_kernel_rows": bwd_rows, "serve": serve,
                        "train": train, "bench": bench,
+                       "imagenet": imagenet,
                        "kv_rows": kv_rows,
                        "decode": decode, "imperative": imp, "rtc": rtc,
                        "kernels": table,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log("[11] done in %.1f s" % (time.perf_counter() - t_start))
+    log("[12] done in %.1f s" % (time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

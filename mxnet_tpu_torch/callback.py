@@ -1,11 +1,71 @@
-"""Training callbacks (counterpart of ``Speedometer`` in
-``mxnet_tpu/callback.py``)."""
+"""Training callbacks.
+
+Counterpart of ``mxnet_tpu/callback.py``: ``module_checkpoint``,
+``do_checkpoint``, ``log_train_metric``, ``Speedometer``, ``ProgressBar``
+and ``LogValidationMetricsCallback``.  Batch-end and eval-end callbacks
+take a ``BatchEndParam`` (epoch, nbatch, eval_metric, locals); epoch-end
+callbacks take (epoch index, symbol, arg_params, aux_params).
+"""
 from __future__ import annotations
 
 import logging
+import sys
 import time
 
-__all__ = ["Speedometer"]
+from .base import MXNetError
+
+__all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
+           "Speedometer", "ProgressBar", "LogValidationMetricsCallback"]
+
+
+def _fmt_metric(eval_metric):
+    """A metric's (name, value) pairs as 'name=value' strings."""
+    return ["%s=%f" % nv for nv in eval_metric.get_name_value()]
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch-end callback: ``mod.save_checkpoint(prefix, epoch)`` every
+    ``period`` epochs (epochs counted from 1).  Optimizer states are not
+    yet saved."""
+    if save_optimizer_states:
+        raise MXNetError("module_checkpoint: save_optimizer_states is not "
+                         "yet ported")
+    period = max(1, int(period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        epoch = iter_no + 1
+        if epoch % period == 0:
+            mod.save_checkpoint(prefix, epoch)
+    return _callback
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch-end callback writing ``prefix-symbol.json`` and
+    ``prefix-%04d.params`` every ``period`` epochs (epochs counted from
+    1)."""
+    from .model import save_checkpoint
+    period = max(1, int(period))
+
+    def _callback(iter_no, sym, arg, aux):
+        epoch = iter_no + 1
+        if epoch % period == 0:
+            save_checkpoint(prefix, epoch, sym, arg, aux)
+    return _callback
+
+
+def log_train_metric(period, auto_reset=False):
+    """Batch-end callback logging the training metric every ``period``
+    batches."""
+    period = max(1, int(period))
+
+    def _callback(param):
+        if param.eval_metric is None or param.nbatch % period != 0:
+            return
+        logging.info("Iter[%d] Batch[%d] Train-%s", param.epoch, param.nbatch,
+                     "\t".join(_fmt_metric(param.eval_metric)))
+        if auto_reset:
+            param.eval_metric.reset()
+    return _callback
 
 
 class Speedometer:
@@ -34,8 +94,7 @@ class Speedometer:
             return
         rate = (param.nbatch - n0) * self.batch_size / (now - t0)
         if param.eval_metric is not None:
-            pieces = ["%s=%f" % nv
-                      for nv in param.eval_metric.get_name_value()]
+            pieces = _fmt_metric(param.eval_metric)
             logging.info("Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec\t%s",
                          param.epoch, param.nbatch, rate,
                          "\t".join(pieces))
@@ -45,3 +104,28 @@ class Speedometer:
             logging.info("Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec",
                          param.epoch, param.nbatch, rate)
         self._stamp = (now, param.nbatch)
+
+
+class ProgressBar:
+    """Batch-end callback drawing an ASCII bar of ``nbatch / total``."""
+
+    def __init__(self, total, length=80):
+        self.total = max(1, int(total))
+        self.length = max(1, int(length))
+
+    def __call__(self, param):
+        frac = min(max(param.nbatch / float(self.total), 0.0), 1.0)
+        done = int(self.length * frac + 0.5)
+        bar = "=" * done + "-" * (self.length - done)
+        sys.stdout.write("[%s] %d%%\r" % (bar, int(frac * 100 + 0.999)))
+
+
+class LogValidationMetricsCallback:
+    """Eval-end callback logging the validation metrics."""
+
+    def __call__(self, param):
+        if param.eval_metric is None:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Epoch[%d] Validation-%s=%f",
+                         param.epoch, name, value)

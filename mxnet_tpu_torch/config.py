@@ -1,8 +1,8 @@
 """Runtime configuration: the MXNET_* environment variables this package reads.
 
 Counterpart of ``mxnet_tpu/config.py``, keeping only the variables the
-ResNet-50 serving and training paths and the decode engine read, under
-the same names and defaults.
+ResNet-50 serving and training paths, the image pipeline and the decode
+engine read, under the same names and defaults.
 """
 from __future__ import annotations
 
@@ -30,6 +30,14 @@ class _Var(object):
 
 
 VARIABLES = {v.name: v for v in [
+    _Var("MXNET_CPU_WORKER_NTHREADS", int, 4,
+         "Default worker count of host-side pipelines (ImageRecordIter's "
+         "preprocess_threads)."),
+    _Var("MXNET_MP_START_METHOD", str, "spawn",
+         "multiprocessing start method of ImageRecordIter's worker "
+         "processes (use_processes=True): spawn, forkserver or fork.  "
+         "fork is unsafe in a process that runs threads or holds a CUDA "
+         "context."),
     _Var("MXNET_FUSED_UNIT_MIN_FILTER", int, 0,
          "Minimum num_filter for unit_impl='fused' residual units to run "
          "as one fused op (models/resnet.py); narrower units keep the "

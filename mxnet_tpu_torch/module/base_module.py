@@ -2,15 +2,17 @@
 
 Counterpart of ``mxnet_tpu/module/base_module.py``: ``forward_backward``,
 ``score`` and ``fit`` (bind, init params and optimizer, then per epoch
-forward_backward / update / metric with batch-end callbacks, and the
-epoch-end callbacks with a host-consistent copy of the parameters).  The
-reference's step telemetry and monitors are not ported.
+forward_backward / update / ``prepare`` of the next batch / metric with
+batch-end callbacks, and the epoch-end callbacks with a host-consistent
+copy of the parameters).  The reference's step telemetry and monitors are
+not ported.
 """
 from __future__ import annotations
 
 import logging
 import time
 
+from ..base import MXNetError
 from .. import metric
 from ..initializer import Uniform
 from ..model import BatchEndParam
@@ -37,6 +39,20 @@ def _check_input_names(symbol, names, typename, throw):
     logging.warning(msg)
 
 
+def _lookahead_iter(source):
+    """Yield (batch, next batch or None), so the loop can prepare the
+    upcoming batch while the device still computes the current one."""
+    it = iter(source)
+    try:
+        cur = next(it)
+    except StopIteration:
+        return
+    for nxt in it:
+        yield cur, nxt
+        cur = nxt
+    yield cur, None
+
+
 class BaseModule:
     """Lifecycle: bind -> init_params -> init_optimizer -> forward /
     backward / update, or fit / score."""
@@ -57,6 +73,9 @@ class BaseModule:
     def forward_backward(self, data_batch):
         self.forward(data_batch, is_train=True)
         self.backward()
+
+    def prepare(self, data_batch):
+        """Make ready for ``data_batch`` before it is fed (a no-op)."""
 
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, score_end_callback=None, reset=True,
@@ -88,10 +107,17 @@ class BaseModule:
             eval_end_callback=None, eval_batch_end_callback=None,
             initializer=Uniform(0.01), arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
-            begin_epoch=0, num_epoch=None, validation_metric=None):
-        """Train over ``train_data`` for epochs [begin_epoch, num_epoch)."""
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None):
+        """Train over ``train_data`` for epochs [begin_epoch, num_epoch).
+        Each step runs forward_backward and update, then ``prepare``s the
+        next batch, then updates the metric, as the reference orders
+        them."""
         if num_epoch is None:
             raise ValueError("fit() needs num_epoch")
+        if monitor is not None:
+            raise MXNetError("fit(monitor=...) is not yet ported (it comes "
+                             "with monitor.py)")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -106,9 +132,12 @@ class BaseModule:
         for epoch in range(begin_epoch, num_epoch):
             t_epoch = time.time()
             eval_metric.reset()
-            for nbatch, batch in enumerate(train_data):
+            for nbatch, (batch, upcoming) in enumerate(
+                    _lookahead_iter(train_data)):
                 self.forward_backward(batch)
                 self.update()
+                if upcoming is not None:
+                    self.prepare(upcoming)
                 self.update_metric(eval_metric, batch.label)
                 for cb in _as_list(batch_end_callback):
                     cb(BatchEndParam(epoch=epoch, nbatch=nbatch,

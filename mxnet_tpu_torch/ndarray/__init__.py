@@ -2,8 +2,9 @@
 ``mt.nd.<op>`` for every op the registry holds."""
 import sys as _sys
 
-from .ndarray import (NDArray, array, zeros, zeros_like, invoke, sgd_update,
-                      sgd_mom_update, mp_sgd_update, mp_sgd_mom_update)
+from .ndarray import (NDArray, array, from_numpy, zeros, zeros_like, invoke,
+                      sgd_update, sgd_mom_update, mp_sgd_update,
+                      mp_sgd_mom_update)
 from .utils import save, load
 from . import register as _register
 

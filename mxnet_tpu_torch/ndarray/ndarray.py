@@ -26,7 +26,8 @@ from ..base import MXNetError
 from ..context import Context, current_context
 from ..ops.registry import OpDef, get_op, torch_dtype
 
-__all__ = ["NDArray", "array", "zeros", "zeros_like", "invoke",
+__all__ = ["NDArray", "array", "from_numpy", "zeros", "zeros_like",
+           "invoke",
            "sgd_update", "sgd_mom_update", "mp_sgd_update",
            "mp_sgd_mom_update"]
 
@@ -259,6 +260,19 @@ def array(source, ctx=None, dtype=None):
     if dtype is not None:
         t = t.to(torch_dtype(dtype))
     return NDArray(t.to((ctx or current_context()).device, copy=True))
+
+
+def from_numpy(arr, zero_copy=True):
+    """A CPU NDArray over the host numpy array ``arr``, always on the CPU.
+    It shares ``arr``'s memory where it can (C-contiguous, writable, not
+    float64), so the caller must not change ``arr`` afterwards: the data
+    pipeline's produce-once batch buffers.  Otherwise, or with
+    ``zero_copy=False``, a copy as ``array(arr, ctx=cpu())`` makes it."""
+    if zero_copy and isinstance(arr, np.ndarray) \
+            and arr.flags.c_contiguous and arr.flags.writeable \
+            and arr.dtype != np.float64 and arr.dtype.name != "bfloat16":
+        return NDArray(torch.from_numpy(arr))
+    return array(arr, ctx=Context("cpu", 0))
 
 
 def zeros(shape, ctx=None, dtype=None):

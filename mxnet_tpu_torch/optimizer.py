@@ -5,8 +5,10 @@ wd, ``rescale_grad``, ``clip_gradient``, per-parameter ``lr_mult`` and
 ``wd_mult`` resolved through ``idx2name``, ``register``/``create``), SGD
 on dense gradients through the in-place update ops (with a float32 master
 copy of float16 weights under ``multi_precision``), and ``Updater`` /
-``get_updater``.  The reference's other optimizers, sparse gradients and
-learning-rate schedulers are not yet ported.
+``get_updater``.  A learning-rate scheduler (``lr_scheduler.py``) gives
+the rate of every update from ``num_update``, the largest update count of
+any index, which starts at ``begin_num_update``.  The reference's other
+optimizers and sparse gradients are not yet ported.
 """
 from __future__ import annotations
 
@@ -16,7 +18,6 @@ import pickle
 import numpy as np
 import torch
 
-from .base import MXNetError
 from .context import cpu
 from .ndarray import (NDArray, array, zeros, zeros_like, sgd_update,
                       sgd_mom_update, mp_sgd_update, mp_sgd_mom_update)
@@ -45,10 +46,11 @@ class Optimizer:
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0):
-        if lr_scheduler is not None:
-            raise MXNetError("lr_scheduler is not yet ported")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
@@ -96,9 +98,18 @@ class Optimizer:
         name = self.idx2name.get(index)
         return table.get(name, 1.0) if name is not None else 1.0
 
+    def _get_lr(self, index):
+        """The rate of ``index``'s update: the scheduler's at
+        ``num_update`` (else ``lr``) times its multiplier."""
+        base = self.lr_scheduler(self.num_update) \
+            if self.lr_scheduler is not None else self.lr
+        return base * self._multiplier(index, self.lr_mult)
+
+    def _get_wd(self, index):
+        return self.wd * self._multiplier(index, self.wd_mult)
+
     def _common_attrs(self, index):
-        a = {"lr": self.lr * self._multiplier(index, self.lr_mult),
-             "wd": self.wd * self._multiplier(index, self.wd_mult),
+        a = {"lr": self._get_lr(index), "wd": self._get_wd(index),
              "rescale_grad": self.rescale_grad}
         if self.clip_gradient:
             a["clip_gradient"] = self.clip_gradient

@@ -188,3 +188,53 @@ def test_params_from_numpy_defaults_to_the_card():
                                         {"m": np.zeros(3, np.float32)})
     assert a["w"].context == x["m"].context == mt.gpu(0)
     assert a["w"]._data.device == torch.device("cuda", 0)
+
+
+_DATA_PATH_MODULES = ("mxnet_tpu_torch.recordio", "mxnet_tpu_torch.image",
+                      "mxnet_tpu_torch.io", "mxnet_tpu_torch.lr_scheduler")
+# what the data path must not pull in: JAX, the JAX package, and the image
+# codecs, which it imports only to decode or resize
+_NOT_ON_THE_DATA_PATH = ("jax", "jaxlib", "mxnet_tpu", "cv2", "PIL")
+
+
+def test_data_path_imports_neither_jax_nor_the_image_codecs():
+    """In a fresh interpreter, importing the port's data-path modules
+    loads no JAX, no JAX package, no cv2 and no PIL."""
+    import subprocess
+    import sys
+    code = ("import importlib, sys\n"
+            "for m in %r: importlib.import_module(m)\n"
+            "print(sorted(r for r in %r if r in sys.modules))"
+            % (_DATA_PATH_MODULES, _NOT_ON_THE_DATA_PATH))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip().splitlines()[-1] == "[]"
+
+
+def test_spawned_pipeline_workers_load_neither_jax_nor_cuda(tmp_path):
+    """A worker process of ImageRecordIter(use_processes=True) (spawned)
+    has imported the port, and neither JAX, the JAX package, cv2 nor PIL
+    for raw records, and has not initialized CUDA."""
+    from mxnet_tpu_torch import recordio
+    rec = str(tmp_path / "raw.rec")
+    w = recordio.MXIndexedRecordIO(str(tmp_path / "raw.idx"), rec, "w")
+    for i in range(4):
+        w.write_idx(i, recordio.pack(recordio.IRHeader(0, float(i), i, 0),
+                                     bytes(range(48))))
+    w.close()
+    it = mt.io.ImageRecordIter(path_imgrec=rec, data_shape=(3, 4, 4),
+                               raw_shape=(4, 4, 3), batch_size=2,
+                               preprocess_threads=1, use_processes=True)
+    try:
+        assert it.next().data[0].shape == (2, 3, 4, 4)
+        probe = ("(sorted(r for r in %r if r in __import__('sys').modules), "
+                 "'mxnet_tpu_torch.image.mp_iter' in "
+                 "__import__('sys').modules, "
+                 "__import__('torch').cuda.is_initialized())"
+                 % (_NOT_ON_THE_DATA_PATH,))
+        loaded, has_port, cuda = it._ppool._exe.submit(eval, probe).result(
+            timeout=120)
+    finally:
+        it.close()
+    assert loaded == [] and has_port and not cuda
