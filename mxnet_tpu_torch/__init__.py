@@ -10,12 +10,12 @@ ops/nn.py, csrc/), and serves continuous-batching greedy decode of an
 attention decoder (serving.DecodeEngine -> StepProgram -> the KV-cache
 write kernels of ops/cache.py).  ``bench_step.TrainStep`` is the repo's
 benchmark step (bench.py's: bfloat16 parameters, batch statistics and
-loss in f32).  The data path of ``examples/train_imagenet.py`` is here too:
-RecordIO files (``recordio``), ``io.ImageRecordIter`` with its augmenters
-(``image``, on host threads or worker processes), the learning-rate
-schedulers and the checkpoint callbacks.  The imperative frontend (``nd.<op>``,
-``autograd``) runs the same ops eagerly, and ``rtc`` compiles CUDA C++ at
-run time and registers ops.  Entry points run on the first CUDA card
+loss in f32).  The data path of ``examples/train_imagenet.py`` is here
+too: RecordIO files (``recordio``), ``io.ImageRecordIter`` with its
+augmenters (``image``, on host threads or worker processes), the
+learning-rate schedulers and the checkpoint callbacks.  The imperative
+frontend (``nd.<op>``, ``autograd``) runs the same ops eagerly, and
+``rtc`` compiles CUDA C++ at run time and registers ops.  Entry points run on the first CUDA card
 unless the caller passes ``ctx=cpu()`` (``context=cpu()`` for Module) or
 opens a ``with cpu():`` scope.
 """

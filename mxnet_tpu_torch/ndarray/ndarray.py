@@ -27,8 +27,7 @@ from ..context import Context, current_context
 from ..ops.registry import OpDef, get_op, torch_dtype
 
 __all__ = ["NDArray", "array", "from_numpy", "zeros", "zeros_like",
-           "invoke",
-           "sgd_update", "sgd_mom_update", "mp_sgd_update",
+           "invoke", "sgd_update", "sgd_mom_update", "mp_sgd_update",
            "mp_sgd_mom_update"]
 
 
@@ -149,14 +148,19 @@ class NDArray:
         return NDArray(self._data[key])
 
     def __setitem__(self, key, value):
-        """Write a scalar, a numpy array or an NDArray into ``self[key]``,
-        cast to this array's dtype and moved to its device."""
+        """Write a scalar, a numpy array, a tensor or an NDArray into
+        ``self[key]``, cast to this array's dtype and moved to its
+        device."""
         with torch.no_grad():
             if isinstance(value, (int, float)):
                 self._data[key] = value
                 return
-            src = value._data if isinstance(value, NDArray) \
-                else _host_tensor(value)
+            if isinstance(value, NDArray):
+                src = value._data
+            elif isinstance(value, torch.Tensor):
+                src = value
+            else:
+                src = _host_tensor(value)
             self._data[key].copy_(src)
 
     def copy(self):
@@ -263,11 +267,12 @@ def array(source, ctx=None, dtype=None):
 
 
 def from_numpy(arr, zero_copy=True):
-    """A CPU NDArray over the host numpy array ``arr``, always on the CPU.
-    It shares ``arr``'s memory where it can (C-contiguous, writable, not
-    float64), so the caller must not change ``arr`` afterwards: the data
-    pipeline's produce-once batch buffers.  Otherwise, or with
-    ``zero_copy=False``, a copy as ``array(arr, ctx=cpu())`` makes it."""
+    """A CPU NDArray of the host numpy array ``arr``, whatever the current
+    context.  It shares ``arr``'s memory where it can (C-contiguous,
+    writable, not float64), so the caller must not change ``arr``
+    afterwards: the data pipeline's produce-once batch buffers.
+    Otherwise, or with ``zero_copy=False``, it is a copy, as
+    ``array(arr, ctx=cpu())`` makes."""
     if zero_copy and isinstance(arr, np.ndarray) \
             and arr.flags.c_contiguous and arr.flags.writeable \
             and arr.dtype != np.float64 and arr.dtype.name != "bfloat16":

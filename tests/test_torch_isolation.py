@@ -238,3 +238,33 @@ def test_spawned_pipeline_workers_load_neither_jax_nor_cuda(tmp_path):
     finally:
         it.close()
     assert loaded == [] and has_port and not cuda
+
+
+def test_initializers_write_their_draws_without_a_host_round_trip(
+        monkeypatch):
+    """Uniform, Normal and Xavier draw on the array's own device and write
+    the tensor in place, with no numpy copy (there is none of a CUDA
+    tensor): assigning a tensor to an NDArray takes it as it is."""
+    from mxnet_tpu_torch.ndarray import ndarray as nd_mod
+
+    def no_host_copy(a):
+        raise AssertionError("a tensor went through numpy")
+    monkeypatch.setattr(nd_mod, "_host_tensor", no_host_copy)
+    for init in (mt.init.Uniform(0.1), mt.init.Normal(0.1), mt.init.Xavier()):
+        w = mt.nd.zeros((4, 6), ctx=mt.cpu())
+        init(mt.init.InitDesc("fc_weight"), w)
+        assert float(np.abs(w.asnumpy()).max()) > 0
+    w = mt.nd.zeros((2, 3), ctx=mt.cpu())
+    w[:] = torch.arange(6.0).reshape(2, 3)
+    np.testing.assert_array_equal(w.asnumpy(), np.arange(6.0).reshape(2, 3))
+
+
+@pytest.mark.cuda
+def test_xavier_initializes_parameters_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w = mt.nd.zeros((64, 32), ctx=mt.gpu(0))
+    mt.init.Xavier()(mt.init.InitDesc("fc_weight"), w)
+    assert w._data.device == torch.device("cuda", 0)
+    bound = (3.0 / ((64 + 32) / 2.0)) ** 0.5
+    assert 0 < float(w._data.abs().max()) <= bound
