@@ -89,11 +89,13 @@ PROBES = [
         }
       }
     }
+    if constexpr (F32) promote(acc, part);
   }''',
      '''            mma_bf16(acc[i][j], ah, bh[j][0], bh[j][1]);
         }
       }
     }
+    if constexpr (F32) promote(acc, part);
     ph[3] += clock64() - c3;
   }
   float done = 0.f;   // the last MMAs retired
@@ -192,11 +194,13 @@ HALO_PROBES = [
     ("""            mma_bf16(acc[i][jj], ah[i], bh[jj][0], bh[jj][1]);
       }
     }
+    if constexpr (F32) promote(acc, part);
   }
   tile_epilogue""",
      """            mma_bf16(acc[i][jj], ah[i], bh[jj][0], bh[jj][1]);
       }
     }
+    if constexpr (F32) promote(acc, part);
     ph[3] += clock64() - q2;
   }
 """ + _HALO_DUMP.replace("NTILES", "ntiles") + """  tile_epilogue"""),
@@ -232,11 +236,13 @@ HALO_PROBES = [
         }
       }
     }
+    if constexpr (F32) promote(acc, part);
   }
 """, """            mma_bf16(acc[i][j], ah[i], bh[j][0], bh[j][1]);
         }
       }
     }
+    if constexpr (F32) promote(acc, part);
     ph[3] += clock64() - q2;
   }
 """ + _HALO_DUMP.replace("NTILES", "(kend - kbeg + BAND - 1) / BAND")

@@ -86,9 +86,11 @@ Phases (none catches its own failure; there is no CPU path):
    finite losses and validation accuracy; the fused fit's step-1 loss
    within 1e-3 of the plain fit's; the checkpoint files, checkpoint 2
    equal to the parameters bit for bit, and a fit resumed from checkpoint
-   1 (begin_epoch=1) running its epoch; each kernel call of one fused step
-   and its plain version against the plain version in f64 (the kernel
-   within the f32 tolerance or 4x the plain version's error); an image
+   1 (begin_epoch=1) running its epoch; each kernel call of one fused step,
+   and of the same step with the 3x3 on 4D tiles (K4, K7), and its plain
+   version against the plain version in f64 (the kernel
+   within 1e-4 of the plain version, and within 4x the plain version's
+   error of the f64 value, or 2e-6 where that is smaller); an image
    flipped vertically and a scheduler
    decaying one update early are planted faults that must fail.  Last,
    bench.py's step (config ``bench``) on a resident batch and fed each
@@ -121,7 +123,24 @@ Phases (none catches its own failure; there is no CPU path):
    second thread, bit-equal to ``x + 1``, and a swish pair registered
    with ``vjp=`` whose gradient through ``Executor.backward`` is held
    against torch autograd on the formula; timed beside ``x + 1``;
-12. the kernel table (K1-K11) as one JSON line, then the result line
+12. MNIST: ``examples/train_mnist.py``'s path (``examples/common.py``'s
+   ``fit``) on cuda:0: LeNet at its published widths over the example's
+   synthetic stand-in (made in numpy as the example makes it), SGD at
+   batch 64 for 5 epochs with validation; each epoch's training accuracy,
+   the final validation accuracy (within 0.02 of the JAX package's on the
+   same run), the step time and the device idle share.  Then every
+   optimizer the port registers (SGD and its fourteen others, RMSProp
+   also centered) for one epoch of 28 steps from the same host weights,
+   on the card and on the CPU in the same process, held against each
+   other by the losses and step 1's parameters (the sign optimizers by
+   the share of agreeing elements) within limits from a float64 control,
+   the loss falling; Adam without its bias correction and NAG as plain
+   momentum are planted faults that must fail.  A checkpoint with the
+   optimizer's states after epoch 1, resumed by ``Module.load`` in a fresh
+   module, must give the uninterrupted run's epoch 2 bit for bit (cuDNN
+   deterministic for this step only), and ``fit(monitor=Monitor(1,
+   ".*"))`` the CPU's stats.  No hand-written kernel runs on this path;
+13. the kernel table (K1-K11) as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -337,18 +356,96 @@ VAL_LAUNCHES = {"mm_fwd": 12, "c3_fwd2d": 12, "mm_skip_fwd": 12}
 # each kernel call of one fused f32 step at batch 256 and its plain
 # version (cuBLAS in f32) on the same inputs, both against the plain version
 # computed in f64, each output relative to its largest magnitude: the
-# kernel within IMAGENET_KERNEL_RTOL of the plain version, and of the f64
-# value (or within IMAGENET_F64_FACTOR times the plain version's own error
-# there, where the f64 prologue flips a ReLU mask at zero).  The kernel
-# phases hold row sums to 1e-4 over 100,352 rows (batch 32); the tensor
-# core rounds each MMA's sum toward zero, so a sum's error grows with its
-# length, and these run over 8x the rows.  Set after the first chip run of
-# this phase, whose kernel errors against f64 read up to 4.1e-4 (K5's dW)
-# and 4.0e-5 in a product output (K3's y), where the plain version read
-# 7.1e-5 and 4.2e-7: the f32 kernels at these shapes are 6-100x less
-# accurate than cuBLAS in f32 (PERF.md, PR 10).  K5 with its dW zeroed is
-# a planted fault that must fail.
-IMAGENET_KERNEL_RTOL, IMAGENET_F64_FACTOR = 1e-3, 4
+# kernel within IMAGENET_KERNEL_RTOL of the plain version, and within
+# IMAGENET_F64_FACTOR times the plain version's own error of the f64 value,
+# or IMAGENET_F64_FLOOR where that is smaller (an output that f32 gets
+# within a few ulps, as the y of K1's small products).  The limits hold the
+# f32 kernels to f32 arithmetic: their 3xTF32 products carry about 2^-21
+# of each product, and each k tile's MMAs, which round toward zero, start
+# from zero and are promoted into the accumulator with a round-to-nearest
+# add (csrc/fu_mma.cuh), so a sum's error does not grow with its length.
+# With the running sum as every MMA's C operand the kernels read up to
+# 4.1e-4 here (K5's dW; PERF.md, Findings), far outside them.  dP reads
+# 0.07-0.21 against f64 in both (f64 flips ReLU masks at zero), so the
+# factor is what holds it there and the plain f32 version what holds it
+# tight.  K5 with its dW zeroed is a planted fault that must fail.
+IMAGENET_KERNEL_RTOL, IMAGENET_F64_FACTOR, IMAGENET_F64_FLOOR = 1e-4, 4, 2e-6
+# examples/train_mnist.py (BASELINE.json config 1): LeNet at its published
+# widths (conv 5x5 x20, conv 5x5 x50, fc 500, fc 10, tanh, max-pool, NCHW)
+# over the example's synthetic stand-in (1800 training and 200 validation
+# images), batch 64, 5 epochs, lr 0.05, momentum 0.9, wd 1e-4, Xavier
+MNIST_BATCH, MNIST_EPOCHS, MNIST_LR = 64, 5, 0.05
+# the JAX package's final validation accuracy on the same run, on the CPU
+# (commit 642b9b8: `cd examples && JAX_PLATFORMS=cpu python
+# train_mnist.py --data-dir /nonexistent` prints "final validation
+# accuracy: 1.0000"); the port's on the card must be within MNIST_ACC_TOL
+# (one of the 200 validation images is 0.005)
+MNIST_JAX_VAL_ACC, MNIST_ACC_TOL = 1.0, 0.02
+# every optimizer for one epoch of 28 steps (the first 1792 training
+# images in order) from the same Xavier weights drawn on the host, on the
+# card and through the port on the CPU, with the example's wd 1e-4 and a
+# rate of the optimizer's kind: the example's 0.05 (momentum 0.9) for the
+# gradient steps, the class defaults where the step is normalized (Adam
+# 0.001, RMSProp 0.001, Adamax 0.002, Nadam 0.001, Ftrl 0.1; AdaDelta has
+# none), 0.001 for the sign steps and 0.01 for AdaGrad.  SGLD samples the
+# posterior of the whole training set: its gradient is the set's summed
+# loss's (rescale_grad 1800/64, the mean loss's N times) at lr 1e-5, so
+# its noise (sqrt(lr) = 0.0032 a step) lets the loss fall; it draws the
+# same noise on both sides (same_sgld_noise)
+MNIST_OPT_STEPS = 28
+MNIST_OPTIMIZERS = {
+    "sgd": dict(learning_rate=0.05, momentum=0.9),
+    "ccsgd": dict(learning_rate=0.05, momentum=0.9),
+    "nag": dict(learning_rate=0.05, momentum=0.9),
+    "dcasgd": dict(learning_rate=0.05, momentum=0.9),
+    "sgld": dict(learning_rate=1e-5, rescale_grad=1800 / 64),
+    "signsgd": dict(learning_rate=0.001),
+    "signum": dict(learning_rate=0.001, momentum=0.9),
+    "adam": dict(learning_rate=0.001),
+    "adagrad": dict(learning_rate=0.01),
+    "rmsprop": dict(learning_rate=0.001),
+    "rmsprop-centered": dict(learning_rate=0.001, centered=True),
+    "adadelta": dict(),
+    "ftrl": dict(learning_rate=0.1),
+    "adamax": dict(learning_rate=0.002),
+    "nadam": dict(learning_rate=0.001),
+    "test": dict(learning_rate=0.05),
+}
+MNIST_SIGN_OPTIMIZERS = ("signsgd", "signum")
+# optimizer -> (its class, a planted fault's update, what it does)
+MNIST_FAULTS = {
+    "adam": ("Adam", "adam_without_bias_correction",
+             "its bias correction dropped"),
+    "nag": ("NAG", "nag_as_plain_momentum", "plain momentum"),
+}
+# Each card run is held against the CPU run, and each limit comes from a
+# control: the same CPU run against itself with the executor in float64
+# (what f32 rounding alone moves), run in this phase.  Readings: the
+# losses' largest difference over the 28 steps relative to step 1's loss
+# (the losses fall to 1e-5), the step-1 parameters' largest difference
+# relative to each parameter's largest magnitude, and the share of
+# step-1 parameter elements within MNIST_AGREE of it.  The card and the
+# CPU both round in f32, with sums in other orders (cuDNN's convolutions,
+# TF32 off), so a limit is MNIST_CONTROL_FACTOR times its control.  Run
+# on a CPU with 4 threads before the first card run, the control read
+# 2e-8 to 1e-6 in the losses, 5e-8 to 4e-7 in the parameters of the
+# gradient steps, 1e-6 to 3.5e-5 in those of the normalized steps (Adam,
+# AdaGrad, RMSProp, AdaDelta, Ftrl) and 6e-4 and 1.9e-3 in Nadam's and
+# Adamax's: a step that divides by an element's own gradient turns a
+# gradient that cancels to near zero into a relative error of its step.  Where the control reads 0 or rounding's own scale
+# the floors hold.  The sign steps flip on gradients near zero, so they
+# are held by the losses and by the share of elements that agree (a
+# flipped element moves 2 lr, 0.002, far outside MNIST_AGREE), of which
+# at most MNIST_AGREE_FLOOR may be off.  The loss must fall (the mean of
+# the last MNIST_WINDOW steps under the first's), except Test's, whose
+# update ascends.  Planted faults that must fail: Adam with its bias
+# correction dropped, NAG as plain momentum.
+MNIST_AGREE, MNIST_WINDOW = 1e-5, 4
+MNIST_CONTROL_FACTOR = 10
+MNIST_LOSS_FLOOR, MNIST_PARAM_FLOOR, MNIST_AGREE_FLOOR = 1e-6, 1e-6, 1e-3
+# a Monitor's mean |softmax output| on the card against the CPU's: the
+# same f32 forward with sums in another order
+MNIST_MONITOR_RTOL = 1e-5
 # the pipeline alone: epochs timed after one warm-up epoch; bench.py's step
 # fed by it: rounds of timed steps on a resident batch, then fed, after
 # warm-up steps of each
@@ -1719,11 +1816,11 @@ def imagenet_fit(torch, mt, sym, recs, prefix, seed, begin_epoch=0,
 def kernel_failures(kerr):
     """The kernels of ``kerr`` (``f64_checked_kernels``' readings) whose
     outputs are not within IMAGENET_KERNEL_RTOL of the plain version's, or
-    not within the larger of IMAGENET_KERNEL_RTOL and IMAGENET_F64_FACTOR
+    not within the larger of IMAGENET_F64_FLOOR and IMAGENET_F64_FACTOR
     times the plain version's error of the f64 value."""
     return sorted(k for k, v in kerr.items() if any(
         e > IMAGENET_KERNEL_RTOL for e in v["rel_errs"]) or any(
-        e > max(IMAGENET_KERNEL_RTOL, IMAGENET_F64_FACTOR * p)
+        e > max(IMAGENET_F64_FLOOR, IMAGENET_F64_FACTOR * p)
         for e, p in zip(v["kernel_f64"], v["plain_f64"])))
 
 
@@ -1934,9 +2031,13 @@ def imagenet_phase(torch, mt, fu, nn, kv, seed, card):
                 if impl == "fused":
                     # each kernel call of one step on the fit's first batch
                     # and its plain version on the same inputs, against the
-                    # plain version in f64; then with K5's dW zeroed
+                    # plain version in f64, and of the same step with the
+                    # units' 3x3 on 4D tiles (K4, K7); then with K5's dW
+                    # zeroed
                     with f64_checked_kernels(torch, fu, nn, kerr):
                         mod.forward_backward(first["batch"])
+                        with c3_mode("4d"):
+                            mod.forward_backward(first["batch"])
                     with replaced(fu, "launch",
                                   _dw_zeroed("fu_mm_bwd")(fu.launch)), \
                             f64_checked_kernels(torch, fu, nn, kfault):
@@ -2026,7 +2127,8 @@ def imagenet_phase(torch, mt, fu, nn, kv, seed, card):
                                 % (impl, missing, IMAGENET_EPOCHS,
                                    ckpt_equal))
             if impl == "fused":
-                checked = {k for k, n in TRAIN_LAUNCHES["2d"].items() if n}
+                checked = {k for mode in ("2d", "4d")
+                           for k, n in TRAIN_LAUNCHES[mode].items() if n}
                 if set(kerr) != checked or kernel_failures(kerr):
                     failures.append("fused fit: kernel calls against the "
                                     "plain and f64 versions: %s" % kerr)
@@ -2675,6 +2777,394 @@ def rtc_phase(torch, mt, fu, nn, kv, seed, card):
     return row
 
 
+def mnist_data():
+    """examples/train_mnist.py's synthetic stand-in (2000 images of 28x28
+    from 10 prototypes, noise 0.25, ``default_rng(0)``), made as the
+    example makes it: (train x, train y, validation x, validation y)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    protos = [np.kron(rng.random((7, 7)).astype(np.float32),
+                      np.ones((4, 4), np.float32)) for _ in range(10)]
+    x, y = [], []
+    for k, pr in enumerate(protos):
+        for _ in range(200):
+            x.append(np.clip(pr + rng.normal(0, 0.25, (28, 28)), 0, 1))
+            y.append(k)
+    x = np.stack(x)[:, None].astype(np.float32) - 0.5
+    y = np.asarray(y, np.float32)
+    order = rng.permutation(len(y))
+    x, y = x[order], y[order]
+    n = int(len(y) * 0.9)
+    return x[:n], y[:n], x[n:], y[n:]
+
+
+def mnist_fit(mt, module, train, val, callbacks):
+    """``examples/common.py``'s ``fit`` with train_mnist.py's defaults
+    (--optimizer sgd, --num-epochs 5, --lr 0.05, --momentum 0.9, --wd
+    1e-4, --batch-size 64, Xavier, kvstore local, a Speedometer every 20
+    batches; no checkpoint prefix) and ``callbacks`` after the
+    Speedometer."""
+    module.fit(train, eval_data=val, num_epoch=MNIST_EPOCHS,
+               kvstore="local", optimizer="sgd",
+               optimizer_params={"learning_rate": MNIST_LR, "momentum": 0.9,
+                                 "wd": 1e-4},
+               initializer=mt.init.Xavier(),
+               batch_end_callback=[mt.callback.Speedometer(MNIST_BATCH, 20)]
+               + list(callbacks))
+
+
+def lenet_weights(sym, seed):
+    """Xavier (uniform, avg, magnitude 3) weights and zero biases for
+    LeNet at batch MNIST_BATCH, drawn on the host from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shapes, _, _ = sym.infer_shape(data=(MNIST_BATCH, 1, 28, 28))
+    args = {}
+    for name, shape in zip(sym.list_arguments(), shapes):
+        if name.endswith("_weight"):
+            fan = (shape[0] + shape[1]) * np.prod(shape[2:]) / 2.0
+            lim = np.sqrt(3.0 / fan)
+            args[name] = rng.uniform(-lim, lim, shape).astype(np.float32)
+        elif name.endswith("_bias"):
+            args[name] = np.zeros(shape, np.float32)
+    return args
+
+
+def batch_loss(mod, batch):
+    """The mean cross-entropy of the module's softmax on ``batch``, in f64
+    on the host (probabilities floored at 1e-30, so a diverging run's
+    loss stays finite)."""
+    import numpy as np
+    probs = mod.get_outputs()[0].asnumpy().astype(np.float64)
+    labels = batch.label[0].asnumpy().astype(np.int64)
+    return float(-np.log(np.maximum(probs[np.arange(len(labels)), labels],
+                                    1e-30)).mean())
+
+
+def opt_run(torch, mt, sym, name, args, x, y, ctx, f64=False, epochs=1,
+            module=None, begin_epoch=0, **fit_kwargs):
+    """Optimizer ``name`` (MNIST_OPTIMIZERS) through ``Module.fit`` on
+    ``ctx`` from the host weights ``args`` (None: the module's own, as
+    ``Module.load`` gives them), over (x, y) in order at batch
+    MNIST_BATCH for ``epochs`` epochs from ``begin_epoch``: (each step's
+    loss, the parameters after step 1 as f64 numpy, the module).  ``f64``
+    widens the executor's arrays to float64 first (the control run)."""
+    import numpy as np
+    losses, first = [], {}
+
+    def on_batch(param):
+        losses.append(batch_loss(mod, param.locals["batch"]))
+        if not first:
+            first.update((k, mod._exec.arg_dict[k].asnumpy().astype(
+                np.float64)) for k in mod._param_names)
+    mod = module or mt.mod.Module(sym, context=ctx)
+    train = mt.io.NDArrayIter(x, y, MNIST_BATCH,
+                              label_name="softmax_label")
+    if f64:
+        mod.bind(train.provide_data, train.provide_label)
+        mod.init_params(arg_params={k: mt.nd.array(v, ctx=ctx)
+                                    for k, v in args.items()})
+        ex = mod._exec
+        for d in (ex.arg_dict, ex.grad_dict, ex.aux_dict):
+            for v in d.values():
+                v._data = v._data.double()
+    kind, _, variant = name.partition("-")
+    params = dict(MNIST_OPTIMIZERS[name], wd=1e-4)
+    mod.fit(train, num_epoch=begin_epoch + epochs, begin_epoch=begin_epoch,
+            kvstore="local", optimizer=kind, optimizer_params=params,
+            arg_params=None if args is None else {
+                k: mt.nd.array(v, ctx=ctx) for k, v in args.items()},
+            batch_end_callback=on_batch, **fit_kwargs)
+    return losses, first, mod
+
+
+def opt_reading(card, cpu):
+    """One optimizer's card run against its CPU run (or the CPU run
+    against its f64 control): the largest loss difference over the steps
+    relative to the first step's loss (the losses fall to 1e-5), the worst
+    parameter's largest difference after step 1 over its largest
+    magnitude, the share of parameter elements after step 1
+    within MNIST_AGREE of their parameter's largest magnitude, and whether
+    the loss fell (the last MNIST_WINDOW steps' mean under the first's)."""
+    import numpy as np
+    (cl, cp), (rl, rp) = card, cpu
+    loss_err = max(abs(a - b) for a, b in zip(cl, rl)) / abs(rl[0])
+    param_err, agree, total = 0.0, 0, 0
+    for k, ref in rp.items():
+        scale = float(np.abs(ref).max()) or 1.0
+        diff = np.abs(cp[k] - ref) / scale
+        param_err = max(param_err, float(diff.max()))
+        agree += int((diff <= MNIST_AGREE).sum())
+        total += diff.size
+    w = MNIST_WINDOW
+    return {"loss_rel_err": loss_err, "param_rel_err": param_err,
+            "agree_share": agree / total,
+            "falls": float(np.mean(cl[-w:])) < float(np.mean(cl[:w]))}
+
+
+def adam_without_bias_correction(self, index, weight, grad, state):
+    """A planted fault: Adam's update at the bare rate."""
+    self._update_count(index)
+    mean, var = state
+    from mxnet_tpu_torch.ndarray import adam_update
+    adam_update(weight, grad, mean, var, out=weight, beta1=self.beta1,
+                beta2=self.beta2, epsilon=self.epsilon,
+                **self._common_attrs(index))
+
+
+def nag_as_plain_momentum(self, index, weight, grad, state):
+    """A planted fault: NAG's step without the look-ahead, mom = momentum
+    * mom + g; w -= lr * mom."""
+    import torch
+    self._update_count(index)
+    lr, wd = self._get_lr(index), self._get_wd(index)
+    with torch.no_grad():
+        w = weight._data
+        g = grad._data * self.rescale_grad + wd * w
+        state._data.mul_(self.momentum).add_(g)
+        w.add_(-lr * state._data)
+
+
+def same_sgld_noise(torch, mt, seed):
+    """Inside the block SGLD draws its noise on the host from one
+    generator seeded with ``seed`` and moves it to the weight's device,
+    so a card run and a CPU run add the same noise."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def noise(self, weight, lr):
+        return torch.empty(weight.shape, dtype=torch.float32).normal_(
+            0.0, lr ** 0.5, generator=gen).to(weight._data)
+    return replaced(mt.optimizer.SGLD, "_noise", noise)
+
+
+def opt_limits(control):
+    """The card-against-CPU limits of one optimizer from its control (the
+    CPU run against the same run in f64): MNIST_CONTROL_FACTOR times each
+    reading, floored at MNIST_LOSS_FLOOR and MNIST_PARAM_FLOOR, and at
+    most MNIST_AGREE_FLOOR of the elements off where the control had
+    none."""
+    f = MNIST_CONTROL_FACTOR
+    return {"loss_rel_err": max(f * control["loss_rel_err"],
+                                MNIST_LOSS_FLOOR),
+            "param_rel_err": max(f * control["param_rel_err"],
+                                 MNIST_PARAM_FLOOR),
+            "agree_share": 1.0 - max(f * (1.0 - control["agree_share"]),
+                                     MNIST_AGREE_FLOOR)}
+
+
+def opt_failures(name, reading, limits):
+    """What of ``reading`` (card against CPU) is outside ``limits``: the
+    losses always; the step-1 parameters elementwise, or for the sign
+    optimizers by the share of elements that agree; the loss must fall
+    except for Test."""
+    bad = []
+    if reading["loss_rel_err"] > limits["loss_rel_err"]:
+        bad.append("loss")
+    if name in MNIST_SIGN_OPTIMIZERS:
+        if reading["agree_share"] < limits["agree_share"]:
+            bad.append("agree_share")
+    elif reading["param_rel_err"] > limits["param_rel_err"]:
+        bad.append("param")
+    if name != "test" and not reading["falls"]:
+        bad.append("falls")
+    return bad
+
+
+def mnist_phase(torch, mt, fu, nn, kv, seed, card):
+    """examples/train_mnist.py's path on cuda:0: the example's run, every
+    optimizer on the card against the port on the CPU (beside its f64
+    control, with two planted faults), a checkpoint with optimizer states
+    resumed bit for bit, and a Monitor's stats against the CPU's."""
+    import numpy as np
+    dev = mt.gpu(0)
+    x, y, vx, vy = mnist_data()
+    sym = mt.models.get_lenet()
+    out = {"batch": MNIST_BATCH, "epochs": MNIST_EPOCHS,
+           "train_images": len(y), "val_images": len(vy)}
+    failures = []
+
+    # the example's run: LeNet, SGD, 5 epochs, its iterators
+    mt.random.seed(seed)
+    train = mt.io.NDArrayIter(x, y, MNIST_BATCH, shuffle=True,
+                              label_name="softmax_label")
+    val = mt.io.NDArrayIter(vx, vy, MNIST_BATCH, label_name="softmax_label")
+    steps = []
+
+    def on_batch(param):
+        steps.append((param.epoch, param.nbatch, time.perf_counter(),
+                      dict(param.eval_metric.get_name_value())["accuracy"]))
+    mod = mt.mod.Module(sym, context=dev)
+    wrappers = kernel_wrappers(fu, nn, kv)
+    for k in wrappers:
+        k.launches = 0
+    t0 = time.perf_counter()
+    mnist_fit(mt, mod, train, val, [on_batch])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    acc = mt.metric.Accuracy()
+    val.reset()
+    mod.score(val, acc)
+    val_acc = float(acc.get()[1])
+    epoch_acc = [float([s[3] for s in steps if s[0] == e][-1])
+                 for e in range(MNIST_EPOCHS)]
+    intervals = [1e3 * (b[2] - a[2]) for a, b in zip(steps, steps[1:])
+                 if a[0] == b[0]]
+    train.reset()
+    batch = next(iter(train))
+    prof = profile_calls(torch, lambda: (mod.forward_backward(batch),
+                                         mod.update()), 5)
+    out["example"] = {
+        "epoch_train_accuracy": epoch_acc, "val_accuracy": val_acc,
+        "jax_val_accuracy": MNIST_JAX_VAL_ACC, "fit_s": fit_s,
+        "steps": len(steps), "step_ms_within_epochs": intervals,
+        "median_step_ms": _median(intervals), "profile_step": prof,
+        "launches": {k.__name__: k.launches for k in wrappers}}
+    log("  the example: LeNet on %s, SGD, batch %d, %d epochs of %d steps: "
+        "training accuracy by epoch %s, final validation accuracy %.4f "
+        "(the JAX package %.4f); median step %.3f ms, fit %.2f s [%s]" % (
+            dev, MNIST_BATCH, MNIST_EPOCHS, len(steps) // MNIST_EPOCHS,
+            fmt(epoch_acc, "%.4f"), val_acc, MNIST_JAX_VAL_ACC,
+            out["example"]["median_step_ms"], fit_s, card))
+    log_profile("one LeNet training step, batch %d" % MNIST_BATCH, prof,
+                card)
+    if abs(val_acc - MNIST_JAX_VAL_ACC) > MNIST_ACC_TOL:
+        failures.append("example: validation accuracy %.4f, the JAX "
+                        "package's %.4f" % (val_acc, MNIST_JAX_VAL_ACC))
+    if any(out["example"]["launches"].values()):
+        failures.append("example: hand-written kernels launched %s"
+                        % out["example"]["launches"])
+
+    # every optimizer: the card against the CPU, beside the CPU's f64
+    # control, from the same host weights over the same batches
+    args = lenet_weights(sym, seed)
+    n = MNIST_OPT_STEPS * MNIST_BATCH
+    ox, oy = x[:n], y[:n]
+    out["optimizers"] = {}
+    t0 = time.perf_counter()
+    for name in MNIST_OPTIMIZERS:
+        runs = {}
+        for what, ctx, f64 in (("card", dev, False), ("cpu", mt.cpu(), False),
+                               ("f64", mt.cpu(), True)):
+            with same_sgld_noise(torch, mt, seed):
+                losses, first, _ = opt_run(torch, mt, sym, name, args, ox,
+                                           oy, ctx, f64=f64)
+            runs[what] = (losses, first)
+        control = opt_reading(runs["cpu"], runs["f64"])
+        limits = opt_limits(control)
+        reading = opt_reading(runs["card"], runs["cpu"])
+        bad = opt_failures(name, reading, limits)
+        out["optimizers"][name] = {"card_vs_cpu": reading,
+                                   "control": control, "limits": limits,
+                                   "losses": runs["card"][0],
+                                   "failing": bad}
+        log("  %-16s card against CPU: loss %.2e, step-1 parameters %.2e, "
+            "agreeing %.6f (limits %.2e, %.2e, %.6f; f64 control %.2e, "
+            "%.2e, %.6f); loss %.4f -> %.4f%s" % (
+                name, reading["loss_rel_err"], reading["param_rel_err"],
+                reading["agree_share"], limits["loss_rel_err"],
+                limits["param_rel_err"], limits["agree_share"],
+                control["loss_rel_err"], control["param_rel_err"],
+                control["agree_share"], runs["card"][0][0],
+                float(np.mean(runs["card"][0][-MNIST_WINDOW:])),
+                "" if not bad else "  FAILS %s" % bad))
+        if bad:
+            failures.append("optimizer %s: %s outside the limits" % (name,
+                                                                     bad))
+        if name in MNIST_FAULTS:
+            cls, fault, what = MNIST_FAULTS[name]
+            with replaced(getattr(mt.optimizer, cls), "update",
+                          globals()[fault]):
+                losses, first, _ = opt_run(torch, mt, sym, name, args, ox,
+                                           oy, dev)
+            fr = opt_reading((losses, first), runs["cpu"])
+            fbad = opt_failures(name, fr, limits)
+            out["optimizers"][name]["planted_fault"] = dict(fr,
+                                                            failing=fbad)
+            log("  %-16s planted fault (%s): loss %.2e, step-1 parameters "
+                "%.2e: %s" % (name, what, fr["loss_rel_err"],
+                              fr["param_rel_err"],
+                              "fails %s" % fbad if fbad else "PASSES"))
+            if not fbad:
+                failures.append("optimizer %s: the planted fault passed"
+                                % name)
+    # SGLD's own noise, from the card's generator
+    w = mt.nd.zeros((1000, 1000), ctx=dev)
+    mt.random.seed(seed)
+    draw = mt.optimizer.SGLD()._noise(w, 1e-4)
+    out["sgld_noise_std"] = float(draw.std())
+    if draw.device != w._data.device or abs(float(draw.std()) / 1e-2 - 1) \
+            > 0.01:
+        failures.append("SGLD's noise on the card: std %.5f on %s"
+                        % (float(draw.std()), draw.device))
+    out["optimizers_s"] = time.perf_counter() - t0
+
+    # a checkpoint with optimizer states after epoch 1, resumed in a fresh
+    # module, against the run that was not interrupted (cuDNN
+    # deterministic: the same bits)
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = os.path.join(tmp, "lenet")
+            whole, _, wmod = opt_run(torch, mt, sym, "sgd", args, ox, oy,
+                                     dev, epochs=2)
+            mod1 = mt.mod.Module(sym, context=dev)
+            opt_run(torch, mt, sym, "sgd", args, ox, oy, dev, module=mod1,
+                    epoch_end_callback=(
+                        mt.callback.module_checkpoint(
+                            mod1, prefix, save_optimizer_states=True)))
+            files = sorted(os.listdir(tmp))
+            mod2 = mt.mod.Module.load(prefix, 1, load_optimizer_states=True,
+                                      context=dev)
+            resumed, _, mod2 = opt_run(torch, mt, sym, "sgd", None, ox, oy,
+                                       dev, module=mod2, begin_epoch=1)
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+    wp, rp = wmod.get_params()[0], mod2.get_params()[0]
+    same = (whole[MNIST_OPT_STEPS:] == resumed
+            and all(_same_bits(wp[k], rp[k]) for k in wp))
+    out["resume"] = {"files": files, "bit_equal": same,
+                     "losses_whole": whole[MNIST_OPT_STEPS:],
+                     "losses_resumed": resumed}
+    log("  resumed from %s after epoch 1 (with optimizer states): epoch 2's "
+        "losses and parameters equal the uninterrupted run's bit for bit: "
+        "%s" % (files, same))
+    if not same or "lenet-0001.states" not in files:
+        failures.append("resume: files %s, bit-equal %s" % (files, same))
+
+    # a Monitor for two steps, on the card and on the CPU: the outputs (the
+    # softmax's mean |p| is 1/10 whatever the weights), then with
+    # monitor_all the arguments too (the weights as each step finds them)
+    out["monitor"] = {}
+    for monitor_all in (False, True):
+        rows = {}
+        for what, ctx in (("card", dev), ("cpu", mt.cpu())):
+            mon = mt.Monitor(1, pattern=".*", monitor_all=monitor_all)
+            rows[what] = seen = []
+            mon.toc_print = lambda mon=mon, seen=seen: seen.extend(mon.toc())
+            opt_run(torch, mt, sym, "sgd", args, ox[:2 * MNIST_BATCH],
+                    oy[:2 * MNIST_BATCH], ctx, monitor=mon)
+        names = [r[:2] for r in rows["card"]]
+        stat_err = max(abs(float(a[2]) - float(b[2]))
+                       / max(abs(float(b[2])), 1e-30)
+                       for a, b in zip(rows["card"], rows["cpu"]))
+        out["monitor"]["all" if monitor_all else "outputs"] = {
+            "rows_card": rows["card"], "rows_cpu": rows["cpu"],
+            "stat_rel_err": stat_err}
+        log("  Monitor(1, '.*', monitor_all=%s) over 2 steps: %d stats %s; "
+            "card against CPU %.2e" % (monitor_all, len(names),
+                                       sorted({r[1] for r in rows["card"]}),
+                                       stat_err))
+        want = 2 * (len(sym.list_arguments()) + 1 if monitor_all else 1)
+        if names != [r[:2] for r in rows["cpu"]] or len(names) != want \
+                or stat_err > MNIST_MONITOR_RTOL:
+            failures.append("monitor: card %s, CPU %s" % (rows["card"],
+                                                          rows["cpu"]))
+    if failures:
+        raise AssertionError("mnist: " + "; ".join(failures))
+    return out
+
+
 _SOURCES = {
     "fu_mm_fwd": ("mm_fwd", "mxnet_tpu/ops/fused_unit.py:376"),
     "fu_c3_fwd2d": ("c3_fwd2d", "mxnet_tpu/ops/fused_unit.py:457"),
@@ -2939,6 +3429,11 @@ def main():
         "register_kernel_op")
     rtc = rtc_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
+    log("[12] examples/train_mnist.py: LeNet through Module.fit on %s, "
+        "batch %d, every optimizer against the port on the CPU, a resumed "
+        "checkpoint, a Monitor" % (name, MNIST_BATCH))
+    mnist = mnist_phase(torch, mt, fu, nn, kv, opts.seed, card)
+
     table = kernel_table(rows, bwd_rows, kv_rows, serve, train, bench,
                          imagenet, decode, imp, rtc)
     if opts.json:
@@ -2953,9 +3448,9 @@ def main():
                        "imagenet": imagenet,
                        "kv_rows": kv_rows,
                        "decode": decode, "imperative": imp, "rtc": rtc,
-                       "kernels": table,
+                       "mnist": mnist, "kernels": table,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log("[12] done in %.1f s" % (time.perf_counter() - t_start))
+    log("[13] done in %.1f s" % (time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -13,7 +13,10 @@ benchmark step (bench.py's: bfloat16 parameters, batch statistics and
 loss in f32).  The data path of ``examples/train_imagenet.py`` is here
 too: RecordIO files (``recordio``), ``io.ImageRecordIter`` with its
 augmenters (``image``, on host threads or worker processes), the
-learning-rate schedulers and the checkpoint callbacks.  The imperative
+learning-rate schedulers and the checkpoint callbacks, and the rest of
+the training loop of ``examples/train_mnist.py`` (LeNet and the MLP in
+``models``, sixteen optimizers, the initializers, the metrics, Monitor,
+optimizer-state checkpoints).  The imperative
 frontend (``nd.<op>``, ``autograd``) runs the same ops eagerly, and
 ``rtc`` compiles CUDA C++ at run time and registers ops.  Entry points run on the first CUDA card
 unless the caller passes ``ctx=cpu()`` (``context=cpu()`` for Module) or
@@ -49,6 +52,8 @@ from . import optimizer
 from . import optimizer as opt
 from . import lr_scheduler
 from . import metric
+from . import monitor
+from .monitor import Monitor
 from . import io
 from . import recordio
 from . import image

@@ -12,7 +12,6 @@ import logging
 import sys
 import time
 
-from .base import MXNetError
 
 __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
            "Speedometer", "ProgressBar", "LogValidationMetricsCallback"]
@@ -24,18 +23,15 @@ def _fmt_metric(eval_metric):
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
-    """Epoch-end callback: ``mod.save_checkpoint(prefix, epoch)`` every
-    ``period`` epochs (epochs counted from 1).  Optimizer states are not
-    yet saved."""
-    if save_optimizer_states:
-        raise MXNetError("module_checkpoint: save_optimizer_states is not "
-                         "yet ported")
+    """Epoch-end callback: ``mod.save_checkpoint(prefix, epoch,
+    save_optimizer_states)`` every ``period`` epochs (epochs counted from
+    1)."""
     period = max(1, int(period))
 
     def _callback(iter_no, sym=None, arg=None, aux=None):
         epoch = iter_no + 1
         if epoch % period == 0:
-            mod.save_checkpoint(prefix, epoch)
+            mod.save_checkpoint(prefix, epoch, save_optimizer_states)
     return _callback
 
 

@@ -51,10 +51,12 @@
 //          layout.
 //
 // Arithmetic as fu_mma.cuh: bf16 MMA, f32 through 3xTF32 with the split
-// into hi and lo made once as an element is staged.  The halo rows are
-// padded so that the fragment loads of every tap shift are conflict-free
-// (eight consecutive pixels hit eight bank groups; only the zero-row lanes
-// at image edges may share one).  Staging and multiplying are not
+// into hi and lo made once as an element is staged, each k tile (a tap of a
+// 32-channel chunk; in the wgrad a band of 64 pixels) summed from zero and
+// promoted into the accumulator with a round-to-nearest add.  The halo
+// rows are padded so that the fragment loads of every tap shift are
+// conflict-free (eight consecutive pixels hit eight bank groups; only the
+// zero-row lanes at image edges may share one).  Staging and multiplying are not
 // overlapped inside a block (one halo buffer: the f32 halo of a 128-pixel
 // band at W = 56 is 70 KB); two blocks an SM hide each other's staging.
 // On an NVIDIA H100 80GB HBM3 at 700 W (chip_mma_probe.py; PERF.md,
@@ -266,12 +268,7 @@ conv_kernel(const __grid_constant__ Gemm p) {
   };
 
   float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  zero_frags(acc);
 
 #pragma unroll
   for (int j = 0; j < NS - 1; ++j) {
@@ -314,30 +311,36 @@ conv_kernel(const __grid_constant__ Gemm p) {
                                                 : hg.row(m, sh, sw);
       arow[i] = smem_u32(halo + row * HROW + (lane >> 4) * 16);
     }
+    float part[MT][NT][4];   // f32: this k tile's sum (promotion)
+    if constexpr (F32) zero_frags(part);
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
-      uint32_t bh[NT][2], bl[NT][2];
+      // f32 pass by pass, as fu_mma.cuh's loop (mma_pass)
+      const auto load_b = [&](const unsigned char* s, uint32_t (&f)[NT][2]) {
 #pragma unroll
-      for (int jj = 0; jj < NT; jj += 2) {
-        uint32_t b[4];
-        frag_b2<T, BMAJ, BN>(sb, wn0 + jj * 8, ks, lane, b);
+        for (int jj = 0; jj < NT; jj += 2) {
+          uint32_t b[4];
+          frag_b2<T, BMAJ, BN>(s, wn0 + jj * 8, ks, lane, b);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) bh[jj + q / 2][q & 1] = b[q];
-        if constexpr (F32) {
-          frag_b2<T, BMAJ, BN>(sb + PB, wn0 + jj * 8, ks, lane, b);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) bl[jj + q / 2][q & 1] = b[q];
+          for (int q = 0; q < 4; ++q) f[jj + q / 2][q & 1] = b[q];
         }
-      }
-      uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        ldsm_x4(ah[i], arow[i] + ks * 32);
-        if constexpr (F32) ldsm_x4(al[i], arow[i] + plane + ks * 32);
-      }
+      };
+      uint32_t bh[NT][2], ah[MT][4];
+      load_b(sb, bh);
       if constexpr (F32) {
-        mma_tf32x3(acc, ah, al, bh, bl);
+        uint32_t bl[NT][2];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          ldsm_x4(ah[i], arow[i] + plane + ks * 32);
+        mma_pass(part, ah, bh);
+        load_b(sb + PB, bl);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) ldsm_x4(ah[i], arow[i] + ks * 32);
+        mma_pass(part, ah, bl);
+        mma_pass(part, ah, bh);
       } else {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) ldsm_x4(ah[i], arow[i] + ks * 32);
 #pragma unroll
         for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -345,6 +348,7 @@ conv_kernel(const __grid_constant__ Gemm p) {
             mma_bf16(acc[i][jj], ah[i], bh[jj][0], bh[jj][1]);
       }
     }
+    if constexpr (F32) promote(acc, part);
   }
   tile_epilogue<T, BM, BN, SM::EPI, WARPS_M, WARPS_N, MT, NT>(
       p, acc, m0, n0, wm0, wn0, warp, lane);
@@ -452,12 +456,7 @@ wgrad_kernel(const __grid_constant__ Gemm p) {
                           | (unsigned)(dw < 0) << 2 | (unsigned)(dw > 0) << 3;
 
   float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  zero_frags(acc);
 
   for (int p0 = kbeg; p0 < kend; p0 += BAND) {
     const auto gsrc = [&](int e) { return p0 + e; };
@@ -478,44 +477,48 @@ wgrad_kernel(const __grid_constant__ Gemm p) {
     gst.transform(p.b, gs, SM::GPLANE, BAND, kend, o0, p.N, gsrc);
     ast.transform(p.a, hs, hplane, hg.rows, p.K, i0, p.M, asrc);
     __syncthreads();
+    float part[MT][NT][4];   // f32: this band's sum (promotion)
+    if constexpr (F32) zero_frags(part);
 #pragma unroll 2
     for (int ks = 0; ks < KSTEPS; ++ks) {
-      uint32_t bh[NT][2], bl[NT][2];
+      const auto load_b = [&](const unsigned char* s, uint32_t (&f)[NT][2]) {
 #pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        frag_b2<T, MN_MAJOR, WB>(gs, j * 8, ks, lane, b);
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          frag_b2<T, MN_MAJOR, WB>(s, j * 8, ks, lane, b);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) bh[j + q / 2][q & 1] = b[q];
-        if constexpr (F32) {
-          frag_b2<T, MN_MAJOR, WB>(gs + SM::GPLANE, j * 8, ks, lane, b);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) bl[j + q / 2][q & 1] = b[q];
+          for (int q = 0; q < 4; ++q) f[j + q / 2][q & 1] = b[q];
         }
-      }
+      };
+      uint32_t bh[NT][2];
+      load_b(gs, bh);
       // this lane's pixel rows of the k step, tap-shifted in the halo, or
       // the zero row off the image
       const auto hrow = [&](int k) {
         return eb[k] & forbid ? hg.rows : hg.row(k, dh, dw);
       };
-      uint32_t ah[MT][4], al[MT][4];
+      uint32_t ah[MT][4];
       if constexpr (F32) {
+        // pass by pass, as fu_mma.cuh's loop (mma_pass)
         const int k = ks * 8 + tq;
         const uint32_t* h = reinterpret_cast<const uint32_t*>(hs);
         const int ra = hrow(k) * (S / 4) + g, rb = hrow(k + 4) * (S / 4) + g;
-        const int lo = hplane / 4;
+        const auto load_a = [&](int plane) {
 #pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          ah[i][0] = h[ra + i * 16];
-          ah[i][1] = h[ra + i * 16 + 8];
-          ah[i][2] = h[rb + i * 16];
-          ah[i][3] = h[rb + i * 16 + 8];
-          al[i][0] = h[lo + ra + i * 16];
-          al[i][1] = h[lo + ra + i * 16 + 8];
-          al[i][2] = h[lo + rb + i * 16];
-          al[i][3] = h[lo + rb + i * 16 + 8];
-        }
-        mma_tf32x3(acc, ah, al, bh, bl);
+          for (int i = 0; i < MT; ++i) {
+            ah[i][0] = h[plane + ra + i * 16];
+            ah[i][1] = h[plane + ra + i * 16 + 8];
+            ah[i][2] = h[plane + rb + i * 16];
+            ah[i][3] = h[plane + rb + i * 16 + 8];
+          }
+        };
+        uint32_t bl[NT][2];
+        load_a(hplane / 4);
+        mma_pass(part, ah, bh);
+        load_b(gs + SM::GPLANE, bl);
+        load_a(0);
+        mma_pass(part, ah, bl);
+        mma_pass(part, ah, bh);
       } else {
         const int k = ks * 16 + (lane & 7) + ((lane >> 4) << 3);
         const uint32_t base = smem_u32(hs + hrow(k) * S
@@ -529,6 +532,7 @@ wgrad_kernel(const __grid_constant__ Gemm p) {
         }
       }
     }
+    if constexpr (F32) promote(acc, part);
   }
 
   float* out = p.splits == 1

@@ -43,7 +43,18 @@
 // to nearest, ties away from zero), and every product is accumulated as
 // a_lo*b_hi + a_hi*b_lo + a_hi*b_hi on mma.m16n8k8.tf32, small terms first.
 // The dropped lo*lo term and the rounding of lo leave about 2^-21 of each
-// product, f32's own order, where one TF32 pass would keep 2^-11.
+// product, f32's own order, where one TF32 pass would keep 2^-11.  An MMA
+// rounds its sum, its C operand included, toward zero (ops/fused_unit.py
+// _MMA_BITS), so an accumulator that is every MMA's C drifts toward zero by
+// up to an ulp of the running sum per MMA, a bias that grows with the
+// length of the summed axis (2.7e-4 of K5's weight gradient summed over
+// 800K rows on an H100; PERF.md, Findings).  So f32 promotes: each k
+// tile's MMAs run into a partial `part` from zero, and the partial is added
+// into the accumulator with an f32 add, rounded to nearest (promote).  The
+// bias is then bounded by a tile's 12 MMAs, relative to the tile's own
+// sum, whatever the axis' length.  bf16 accumulates in the MMAs' C (its
+// products are exact, and its sums' drift stays under its outputs'
+// rounding).
 //
 // Design (what bounds it, and what the loop does about it).  At ResNet-50
 // widths every call is bound by arithmetic: 2*M*N*K operations against
@@ -626,27 +637,43 @@ struct WarpTiling {
   static constexpr int MT = WTM / 16, NT = WTN / 8;
 };
 
-// One k step of 3xTF32: each accumulator takes a_lo b_hi, a_hi b_lo,
-// a_hi b_hi in that order; the passes run outermost, so neighbouring MMAs
-// are independent.
+// One pass of m16n8k8 tf32 MMAs over a warp tile: acc[i][j] += a[i] b[j].
+// A k step of 3xTF32 is three passes, a_lo b_hi, a_hi b_lo, a_hi b_hi in
+// that order (neighbouring MMAs independent), with each operand's
+// fragments loaded just before its first pass so that three of the four
+// fragment sets are live at once.
 template <int MT, int NT>
-__device__ __forceinline__ void mma_tf32x3(float (&acc)[MT][NT][4],
-                                           const uint32_t (&ah)[MT][4],
-                                           const uint32_t (&al)[MT][4],
-                                           const uint32_t (&bh)[NT][2],
-                                           const uint32_t (&bl)[NT][2]) {
+__device__ __forceinline__ void mma_pass(float (&acc)[MT][NT][4],
+                                         const uint32_t (&a)[MT][4],
+                                         const uint32_t (&b)[NT][2]) {
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], al[i], bh[j][0], bh[j][1]);
+    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], a[i], b[j][0], b[j][1]);
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_frags(float (&f)[MT][NT][4]) {
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah[i], bl[j][0], bl[j][1]);
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) f[i][j][q] = 0.f;
+}
+
+// f32 promotion (see the top of this file): a k tile's partial into the
+// accumulator, rounded to nearest
+template <int MT, int NT>
+__device__ __forceinline__ void promote(float (&acc)[MT][NT][4],
+                                        const float (&part)[MT][NT][4]) {
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah[i], bh[j][0], bh[j][1]);
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        acc[i][j][q] = __fadd_rn(acc[i][j][q], part[i][j][q]);
 }
 
 // Stages of the shared-memory ring: as many (4, 3 or 2) as let two blocks
@@ -807,12 +834,7 @@ mma_kernel(const __grid_constant__ Gemm p) {
   };
 
   float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  zero_frags(acc);
 
 #pragma unroll
   for (int t = 0; t < NS - 1; ++t) {
@@ -838,29 +860,35 @@ mma_kernel(const __grid_constant__ Gemm p) {
       lda.fetch_vecs(p.a, m0, p.M, k0 + BK, kend);
     if constexpr (BMAJ == K_MAJOR && BX != X_RAW)
       ldb.fetch_vecs(p.b, n0, p.N, k0 + BK, kend);
+    float part[MT][NT][4];   // f32: this k tile's sum (promotion)
+    if constexpr (F32) zero_frags(part);
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
-      uint32_t bh[NT][2], bl[NT][2];
+      // f32: b_hi and a_lo, the first pass; then b_lo and a_hi in a_lo's
+      // registers (mma_pass)
+      const auto load_b = [&](const unsigned char* s, uint32_t (&f)[NT][2]) {
 #pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        frag_b2<T, BMAJ, BN>(sb, wn0 + j * 8, ks, lane, b);
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          frag_b2<T, BMAJ, BN>(s, wn0 + j * 8, ks, lane, b);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) bh[j + q / 2][q & 1] = b[q];
-        if constexpr (F32) {
-          frag_b2<T, BMAJ, BN>(sb + PB, wn0 + j * 8, ks, lane, b);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) bl[j + q / 2][q & 1] = b[q];
+          for (int q = 0; q < 4; ++q) f[j + q / 2][q & 1] = b[q];
         }
-      }
+      };
+      uint32_t bh[NT][2];
+      load_b(sb, bh);
       if constexpr (F32) {
-        uint32_t ah[MT][4], al[MT][4];
+        uint32_t a[MT][4], bl[NT][2];
 #pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          frag_a<T, AMAJ, BM>(sa, wm0 + i * 16, ks, lane, ah[i]);
-          frag_a<T, AMAJ, BM>(sa + PA, wm0 + i * 16, ks, lane, al[i]);
-        }
-        mma_tf32x3(acc, ah, al, bh, bl);
+        for (int i = 0; i < MT; ++i)
+          frag_a<T, AMAJ, BM>(sa + PA, wm0 + i * 16, ks, lane, a[i]);
+        mma_pass(part, a, bh);
+        load_b(sb + PB, bl);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          frag_a<T, AMAJ, BM>(sa, wm0 + i * 16, ks, lane, a[i]);
+        mma_pass(part, a, bl);
+        mma_pass(part, a, bh);
       } else {
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
@@ -872,6 +900,7 @@ mma_kernel(const __grid_constant__ Gemm p) {
         }
       }
     }
+    if constexpr (F32) promote(acc, part);
   }
 
   tile_epilogue<T, BM, BN, EPI, WARPS_M, WARPS_N, MT, NT>(p, acc, m0, n0,

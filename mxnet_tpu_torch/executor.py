@@ -15,7 +15,9 @@ the moving averages a second time when the outputs are read before
 ``backward``; the port does not.)  ``backward`` differentiates the
 recorded outputs: loss heads ignore the head gradient, so
 ``backward()`` needs none, and an argument the outputs do not depend on
-gets a zero gradient.
+gets a zero gradient.  ``set_monitor_callback`` reports each output by
+name after every forward (under ``monitor_all`` each argument and aux
+state first), as ``Monitor`` reads them.
 """
 from __future__ import annotations
 
@@ -144,6 +146,26 @@ class Executor:
                                         self.aux_names)
         self.outputs = []
         self._recorded = None
+        self._monitor = None
+        self._monitor_all = False
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """``callback(name, NDArray)`` for each output after every forward;
+        with ``monitor_all`` also for each argument and aux state, before
+        the outputs."""
+        self._monitor = callback
+        self._monitor_all = monitor_all
+
+    def _report(self):
+        if self._monitor is None:
+            return
+        if self._monitor_all:
+            for name in self.arg_names:
+                self._monitor(name, self.arg_dict[name])
+            for name in self.aux_names:
+                self._monitor(name, self.aux_dict[name])
+        for name, out in zip(self.output_names, self.outputs):
+            self._monitor(name, out)
 
     @staticmethod
     def _as_dict(values, names, what, allow_missing=False):
@@ -176,6 +198,7 @@ class Executor:
                 outs, _ = self._graph_fn(
                     [self.arg_dict[n]._data for n in self.arg_names], aux)
             self.outputs = [NDArray(o) for o in outs]
+            self._report()
             return self.outputs
         leaves = {n: self.arg_dict[n]._data.detach().requires_grad_(True)
                   for n in self.arg_names if self._grad_req[n] != "null"}
@@ -187,6 +210,7 @@ class Executor:
             self.aux_dict[n]._data = a.detach()
         self._recorded = (outs, leaves)
         self.outputs = [NDArray(o.detach()) for o in outs]
+        self._report()
         return self.outputs
 
     def backward(self, out_grads=None):

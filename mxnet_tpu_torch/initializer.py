@@ -3,22 +3,30 @@
 Counterpart of ``mxnet_tpu/initializer.py``: ``InitDesc``, the
 ``Initializer.__call__`` dispatch on the parameter's name (``*weight``,
 ``*bias`` -> 0, ``*gamma`` -> 1, ``*beta`` -> 0, ``*moving_mean`` -> 0,
-``*moving_var`` -> 1, ...) and Zero, One, Constant, Uniform, Normal and
-Xavier.  Random draws come from the explicit generator of the array's
-device (``random.generator``), never from a global stream.
+``*moving_var`` -> 1, ...) and Zero, One, Constant, Uniform, Normal,
+Xavier, MSRAPrelu, Orthogonal, Bilinear, LSTMBias, Load and Mixed.  Random
+draws come from the explicit generator of the array's device
+(``random.generator``), never from a global stream.  Orthogonal takes the
+SVD of its draw in float64 on the host, as the reference does; the
+deterministic initializers compute in numpy as the reference does.
+FusedRNN, which packs an RNN cell's weights, waits for the RNN cells.
 """
 from __future__ import annotations
 
 import json
+import logging
 import math
+import re
 
+import numpy as np
 import torch
 
 from .base import MXNetError
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "register", "create"]
+           "Normal", "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear",
+           "LSTMBias", "Load", "Mixed", "FusedRNN", "register", "create"]
 
 _INIT_REGISTRY = {}
 
@@ -51,12 +59,17 @@ def create(name, **kwargs):
     return _INIT_REGISTRY[name.lower()](**kwargs)
 
 
-def _draw(arr, fill):
-    """A float32 tensor of arr's shape on arr's device, filled in place by
-    ``fill(tensor, generator)``."""
-    t = torch.empty(arr.shape, dtype=torch.float32, device=arr._data.device)
+def _draw_shape(arr, shape, fill):
+    """A float32 tensor of ``shape`` on arr's device, filled in place by
+    ``fill(tensor, generator)`` from the device's generator."""
+    t = torch.empty(shape, dtype=torch.float32, device=arr._data.device)
     fill(t, _random.generator(arr.context))
     return t
+
+
+def _draw(arr, fill):
+    """``_draw_shape`` of arr's own shape."""
+    return _draw_shape(arr, arr.shape, fill)
 
 
 class Initializer:
@@ -168,3 +181,139 @@ class Xavier(Initializer):
                                                        generator=g))
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He (MSRA) initialization for PReLU units of negative slope
+    ``slope``: Gaussian Xavier with magnitude 2 / (1 + slope^2)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2. / (1 + slope ** 2))
+
+
+@register
+class Orthogonal(Initializer):
+    """``scale`` times an orthogonal matrix: a singular-vector factor of a
+    (nout, prod(rest)) draw from U(-1, 1) or N(0, 1) (``rand_type``), the
+    SVD taken in float64 on the host as the reference takes it."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _noise(self, arr, shape):
+        """The draw, on arr's device."""
+        if self.rand_type == "uniform":
+            return _draw_shape(arr, shape, lambda t, g: t.uniform_(
+                -1.0, 1.0, generator=g))
+        return _draw_shape(arr, shape, lambda t, g: t.normal_(
+            0.0, 1.0, generator=g))
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        tmp = self._noise(arr, (nout, nin)).double().cpu().numpy()
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        arr[:] = (self.scale * res.reshape(arr.shape)).astype(np.float32)
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a deconvolution: weight (.., ..,
+    h, w) at (y, x) = (1 - |x / f - c|) (1 - |y / f - c|), f = ceil(w /
+    2), c = (2f - 1 - f % 2) / 2f, in float64 as the reference computes
+    it."""
+
+    def _init_weight(self, _, arr):
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.)
+        c = (2 * f - 1 - f % 2) / (2. * f)
+        i = np.arange(int(np.prod(shape)))
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        arr[:] = weight.astype(np.float32).reshape(shape)
+
+
+@register
+class LSTMBias(Initializer):
+    """An LSTM's bias: ``forget_bias`` on the forget gate (the second of
+    the four gates), 0 elsewhere."""
+
+    def __init__(self, forget_bias=1.0):
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        num_hidden = int(arr.shape[0] / 4)
+        arr[:] = 0.0
+        arr[num_hidden:2 * num_hidden] = float(self.forget_bias)
+
+
+@register
+class FusedRNN(Initializer):
+    """The packed parameters of a fused RNN cell: they need the RNN cells,
+    which are not yet ported."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        raise MXNetError("FusedRNN initializer: the RNN cells it packs are "
+                         "not yet ported")
+
+
+@register
+class Load:
+    """Parameters from a dict or a ``.params`` file (``arg:``/``aux:``
+    prefixes dropped), shapes checked; names it lacks go to
+    ``default_init``."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            from .context import cpu
+            from .ndarray import load
+            param = load(param, ctx=cpu())
+        self.param = {(name[4:] if name.startswith(("arg:", "aux:"))
+                       else name): arr for name, arr in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            if arr.shape != self.param[name].shape:
+                raise ValueError(
+                    "Parameter %s cannot be initialized from loading. Shape "
+                    "mismatch, target %s vs loaded %s"
+                    % (name, str(arr.shape), str(self.param[name].shape)))
+            arr[:] = self.param[name]
+            if self.verbose:
+                logging.info("Initialized %s by loading", name)
+        else:
+            if self.default_init is None:
+                raise ValueError(
+                    "Cannot Initialize parameter %s. Not found in loaded "
+                    "param and no default initialization is provided."
+                    % name)
+            self.default_init(name, arr)
+            if self.verbose:
+                logging.info("Initialized %s by default", name)
+
+
+@register
+class Mixed:
+    """The first initializer whose regex pattern matches the name."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers must have the same "
+                             "length")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError(
+            "Parameter name %s did not match any pattern. Consider adding a "
+            "\".*\" pattern at the and with default Initializer." % name)

@@ -1,2 +1,3 @@
 """Model builders (counterpart of ``mxnet_tpu/models``)."""
+from .lenet import get_lenet, get_mlp
 from .resnet import get_resnet_symbol

@@ -1,18 +1,18 @@
 """BaseModule: the train/predict interface and the ``fit`` loop.
 
 Counterpart of ``mxnet_tpu/module/base_module.py``: ``forward_backward``,
-``score`` and ``fit`` (bind, init params and optimizer, then per epoch
-forward_backward / update / ``prepare`` of the next batch / metric with
-batch-end callbacks, and the epoch-end callbacks with a host-consistent
-copy of the parameters).  The reference's step telemetry and monitors are
-not ported.
+``score`` and ``fit`` (bind, install the monitor, init params and
+optimizer, then per epoch forward_backward / update / ``prepare`` of the
+next batch / metric with batch-end callbacks, the monitor ticked before
+each step and printed after it, and the epoch-end callbacks with a
+host-consistent copy of the parameters).  The reference's step telemetry
+is not ported.
 """
 from __future__ import annotations
 
 import logging
 import time
 
-from ..base import MXNetError
 from .. import metric
 from ..initializer import Uniform
 from ..model import BatchEndParam
@@ -115,12 +115,11 @@ class BaseModule:
         them."""
         if num_epoch is None:
             raise ValueError("fit() needs num_epoch")
-        if monitor is not None:
-            raise MXNetError("fit(monitor=...) is not yet ported (it comes "
-                             "with monitor.py)")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -134,11 +133,15 @@ class BaseModule:
             eval_metric.reset()
             for nbatch, (batch, upcoming) in enumerate(
                     _lookahead_iter(train_data)):
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(batch)
                 self.update()
                 if upcoming is not None:
                     self.prepare(upcoming)
                 self.update_metric(eval_metric, batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 for cb in _as_list(batch_end_callback):
                     cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
                                      eval_metric=eval_metric,

@@ -4,7 +4,9 @@ import sys as _sys
 
 from .ndarray import (NDArray, array, from_numpy, zeros, zeros_like, invoke,
                       sgd_update, sgd_mom_update, mp_sgd_update,
-                      mp_sgd_mom_update)
+                      mp_sgd_mom_update, adam_update, rmsprop_update,
+                      rmspropalex_update, ftrl_update, signsgd_update,
+                      signum_update)
 from .utils import save, load
 from . import register as _register
 

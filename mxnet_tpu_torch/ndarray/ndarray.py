@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/ndarray/ndarray.py``: creation, ``asnumpy``,
 ``as_in_context``, ``copyto``, ``copy``, indexing and assignment, shape
 and dtype, the arithmetic operators, the SGD updates (plain and
-multi-precision) with ``out=`` (in place, as the reference writes them),
+multi-precision) and the other update ops (Adam, RMSProp, Ftrl,
+SignSGD, Signum) with ``out=`` (in place, as the reference writes them),
 ``attach_grad`` / ``grad`` / ``backward`` for ``autograd``, and
 ``invoke``, the imperative dispatch that every generated ``mt.nd.<op>``
 calls.
@@ -28,7 +29,9 @@ from ..ops.registry import OpDef, get_op, torch_dtype
 
 __all__ = ["NDArray", "array", "from_numpy", "zeros", "zeros_like",
            "invoke", "sgd_update", "sgd_mom_update", "mp_sgd_update",
-           "mp_sgd_mom_update"]
+           "mp_sgd_mom_update", "adam_update", "rmsprop_update",
+           "rmspropalex_update", "ftrl_update", "signsgd_update",
+           "signum_update"]
 
 
 def _ctx_of(c):
@@ -333,3 +336,26 @@ def mp_sgd_mom_update(weight, grad, mom, weight32, out=None, **attrs):
     out = _update_target(weight, out)
     update(out._data, grad._data, mom._data, weight32._data, **attrs)
     return out
+
+
+def _state_update(name):
+    """``nd.<name>(weight, grad, *states, out=None, **attrs)``: the
+    in-place ``ops.optimizer_ops.<name>`` into ``out`` (a copy of weight
+    when None; ``out=weight`` updates in place), the states updated in
+    place."""
+    def fn(weight, grad, *states, out=None, **attrs):
+        from ..ops import optimizer_ops
+        out = _update_target(weight, out)
+        getattr(optimizer_ops, name)(out._data, grad._data,
+                                     *[st._data for st in states], **attrs)
+        return out
+    fn.__name__ = name
+    return fn
+
+
+adam_update = _state_update("adam_update")
+rmsprop_update = _state_update("rmsprop_update")
+rmspropalex_update = _state_update("rmspropalex_update")
+ftrl_update = _state_update("ftrl_update")
+signsgd_update = _state_update("signsgd_update")
+signum_update = _state_update("signum_update")

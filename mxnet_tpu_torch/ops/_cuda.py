@@ -75,7 +75,13 @@ def stream(device):
 # output tiles of 128 x 128, 128 x 64 or 64 x 128 and a split of the summed
 # axis, chosen from the shapes and the element size alone so that the sum
 # order (and the result) never depends on the device.  MMA_BLOCKS is the block
-# count a plan aims at: one per SM of an H100 SXM.
+# count a plan aims at: one per SM of an H100 SXM.  In f32 each k tile is
+# summed from zero and promoted into the accumulator, which the plans leave
+# as they were: its 32 more registers a thread fit beside 32 x 32 warp tiles
+# because the loops load each operand's fragments just before its first
+# MMA pass; of the main path's f32 instantiations only K7's wgrad spills
+# (40 bytes, at the 96 registers two of its 288-thread blocks leave;
+# PERF.md, Findings).
 MMA_BLOCKS = 132
 MMA_TILES = ((128, 128), (128, 64), (64, 128))
 MMA_K_ALIGN = 64        # chunks are whole 128-byte k tiles of either dtype

@@ -56,8 +56,8 @@ import torch.nn.functional as F
 
 from .registry import register, P
 from ._cuda import (check, check_dims, halo_dgrad_plan, halo_fwd_plan,
-                    halo_wgrad_plan, launch, mma_plan, mma_wgrad_plan,
-                    on_host, stream)
+                    halo_wgrad_band, halo_wgrad_plan, launch, mma_plan,
+                    mma_wgrad_plan, on_host, stream)
 from ..base import MXNetError
 from .. import config
 
@@ -199,35 +199,46 @@ def _mma_step(acc, a, b):
                        torch.nextafter(y, torch.zeros_like(y)), y)
 
 
-def _mm_tf32(a, b, splits, chunk, passes=3, exact=False):
+# k of a tile loop's f32 k tile (128 bytes), which it sums from zero before
+# promoting it into the accumulator: fu_mma.cuh's ring stage, a halo loop's
+# tap of a 32-channel chunk
+MMA_TILE_K = 32
+
+
+def _mm_tf32(a, b, splits, chunk, passes=3, exact=False, tile=MMA_TILE_K):
     """a (m, k) @ b (k, n) as the tensor-core tile loop computes it in
     float32 (csrc/fu_mma.cuh, fu_halo.cuh): each value split into hi =
     tf32(v) and lo = tf32(v - hi); each of the ``splits`` chunks of
-    ``chunk`` k summed from zero in k steps of 8, one MMA each for a_lo
-    b_hi, a_hi b_lo and a_hi b_hi in that order; the chunks' partials
-    added in chunk order.  ``passes=1`` keeps a_hi b_hi alone (one TF32
-    pass).  An MMA adds its eight products in f32 (matmul order), or with
-    ``exact`` as the card does (``_mma_step``, bit for bit, about 30 times
-    slower)."""
+    ``chunk`` k cut into k tiles of ``tile``, each tile summed from zero in
+    k steps of 8, one MMA each for a_lo b_hi, a_hi b_lo and a_hi b_hi in
+    that order, and added into the chunk's f32 accumulator (promotion);
+    the chunks' partials added in chunk order.  ``passes=1`` keeps a_hi
+    b_hi alone (one TF32 pass).  An MMA adds its eight products in f32
+    (matmul order), or with ``exact`` as the card does (``_mma_step``, bit
+    for bit, about 30 times slower)."""
     a, b = a.float(), b.float()
     ah, bh = _tf32(a), _tf32(b)
     al, bl = _tf32(a - ah), _tf32(b - bh)
     k = a.shape[1]
     total = None
     for z in range(splits):
+        end = min(k, (z + 1) * chunk)
         acc = a.new_zeros((a.shape[0], b.shape[1]))
-        for k0 in range(z * chunk, min(k, (z + 1) * chunk), 8):
-            ks = slice(k0, k0 + 8)
-            if exact:
+        for t0 in range(z * chunk, end, tile):
+            part = torch.zeros_like(acc)
+            for k0 in range(t0, min(end, t0 + tile), 8):
+                ks = slice(k0, k0 + 8)
+                if exact:
+                    if passes == 3:
+                        part = _mma_step(part, al[:, ks], bh[ks])
+                        part = _mma_step(part, ah[:, ks], bl[ks])
+                    part = _mma_step(part, ah[:, ks], bh[ks])
+                    continue
                 if passes == 3:
-                    acc = _mma_step(acc, al[:, ks], bh[ks])
-                    acc = _mma_step(acc, ah[:, ks], bl[ks])
-                acc = _mma_step(acc, ah[:, ks], bh[ks])
-                continue
-            if passes == 3:
-                acc = acc + torch.matmul(al[:, ks], bh[ks])
-                acc = acc + torch.matmul(ah[:, ks], bl[ks])
-            acc = acc + torch.matmul(ah[:, ks], bh[ks])
+                    part = part + torch.matmul(al[:, ks], bh[ks])
+                    part = part + torch.matmul(ah[:, ks], bl[ks])
+                part = part + torch.matmul(ah[:, ks], bh[ks])
+            acc = acc + part
         total = acc if total is None else total + acc
     return total
 
@@ -303,23 +314,21 @@ def _taps(t4, sign):
     return torch.cat(cols, dim=-1).reshape(n * h * w_, 9 * c)
 
 
-_HALO_BK = 32       # f32 channels of a halo loop's k tile (128 bytes)
-
-
 def _halo_operands(t4, w9, sign):
     """A product of the halo loops (csrc/fu_halo.cuh) in their k order, k =
-    (chunk of _HALO_BK channels, tap, channel), the channels padded with
+    (chunk of MMA_TILE_K channels, tap, channel), the channels padded with
     zeros to whole chunks as the kernels' tiles are: (A (rows, 9 * C') with
     A[r, (b, t, c)] = t4 at pixel (h + sign * dh, w + sign * dw), channel b
-    * _HALO_BK + c (``_taps``), B (9 * C', N) from w9 (9, C, N), the weight
+    * MMA_TILE_K + c (``_taps``), B (9 * C', N) from w9 (9, C, N), the weight
     of tap t over the summed channels)."""
     c = t4.shape[-1]
-    nb = -(-c // _HALO_BK)
-    pad = nb * _HALO_BK - c
+    nb = -(-c // MMA_TILE_K)
+    pad = nb * MMA_TILE_K - c
     a = _taps(F.pad(t4, (0, pad)), sign)
-    a = a.reshape(-1, 9, nb, _HALO_BK).transpose(1, 2).reshape(a.shape[0], -1)
-    b = F.pad(w9.float(), (0, 0, 0, pad)).reshape(9, nb, _HALO_BK, -1) \
-        .transpose(0, 1).reshape(9 * nb * _HALO_BK, -1)
+    a = a.reshape(-1, 9, nb, MMA_TILE_K).transpose(1, 2).reshape(
+        a.shape[0], -1)
+    b = F.pad(w9.float(), (0, 0, 0, pad)).reshape(9, nb, MMA_TILE_K, -1) \
+        .transpose(0, 1).reshape(9 * nb * MMA_TILE_K, -1)
     return a, b
 
 
@@ -371,7 +380,7 @@ def c3_bwd4d_tf32x3(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh, passes=3,
     of 32 channels of Co, tap, channel), a chunk's nine taps read from one
     staged halo: fin(g)' (R, 9 Co) @ w' with fin(g)'[r, (t, o)] =
     fin(g)[r - off_t, o], ordered as ``_halo_operands`` orders them; the
-    wgrad sums the pixels in order, each tap
+    wgrad sums the pixels in order, band by band, each tap
     apart, as the kernel takes it, transposed: a'^T (9 Ci, R) @ fin(g),
     with a'[r, (t, i)] = act(x)[r + off_t, i] (the activation is the MMA's
     A operand, so its lo part meets g's hi part in the first pass)."""
@@ -387,7 +396,8 @@ def c3_bwd4d_tf32x3(g4d, yraw4d, fin, x4d, w, sc, sh, xs, xh, passes=3,
     da = _mm_tf32(gk, wk, dsplits, 9 * dchunk, passes, exact)
     dp, db, dg = _bwd_epilogue(da, x2d, sc, sh, xs, xh)
     a9 = _taps(_prologue(x2d, sc, sh).reshape(n, h, w_, ci), 1)
-    dw = _mm_tf32(a9.t(), g, wsplits, wchunk, passes, exact).t()
+    dw = _mm_tf32(a9.t(), g, wsplits, wchunk, passes, exact,
+                  halo_wgrad_band()).t()
     return dp.reshape(x4d.shape), dw.reshape(co, 3, 3, ci), db, dg
 
 

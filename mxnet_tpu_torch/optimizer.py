@@ -2,27 +2,43 @@
 
 Counterpart of ``mxnet_tpu/optimizer.py``: the ``Optimizer`` base (lr,
 wd, ``rescale_grad``, ``clip_gradient``, per-parameter ``lr_mult`` and
-``wd_mult`` resolved through ``idx2name``, ``register``/``create``), SGD
-on dense gradients through the in-place update ops (with a float32 master
-copy of float16 weights under ``multi_precision``), and ``Updater`` /
-``get_updater``.  A learning-rate scheduler (``lr_scheduler.py``) gives
-the rate of every update from ``num_update``, the largest update count of
-any index, which starts at ``begin_num_update``.  The reference's other
-optimizers and sparse gradients are not yet ported.
+``wd_mult`` resolved through ``idx2name``, ``register``/``create``), the
+reference's sixteen optimizers on dense gradients (SGD with a float32
+master copy of float16 weights under ``multi_precision``, ccSGD, SignSGD,
+Signum, DCASGD, NAG, SGLD, Adam, AdaGrad, RMSProp, AdaDelta, Ftrl,
+Adamax, Nadam and Test), and ``Updater`` / ``get_updater``.  SGD, Adam,
+RMSProp, Ftrl, SignSGD and Signum run the in-place update ops
+(``ops/optimizer_ops.py``); the others are torch arithmetic on the
+weight's tensor, in the reference's order, in place.  Every state lies on
+its weight's device in its weight's dtype, and SGLD draws its noise from
+the explicit generator of the weight's device (``random.generator``).  A
+learning-rate scheduler (``lr_scheduler.py``) gives the rate of every
+update from ``num_update``, the largest update count of any index, which
+starts at ``begin_num_update``.  ``Updater.get_states`` pickles the states
+as numpy arrays, the JAX package's format, so a state file written by
+either package loads in the other.  Row-sparse gradients are not yet
+ported.
 """
 from __future__ import annotations
 
 import logging
+import math
 import pickle
 
 import numpy as np
 import torch
 
+from .base import MXNetError
 from .context import cpu
+from . import random as _random
 from .ndarray import (NDArray, array, zeros, zeros_like, sgd_update,
-                      sgd_mom_update, mp_sgd_update, mp_sgd_mom_update)
+                      sgd_mom_update, mp_sgd_update, mp_sgd_mom_update,
+                      adam_update, rmsprop_update, rmspropalex_update,
+                      ftrl_update, signsgd_update, signum_update)
 
-__all__ = ["Optimizer", "SGD", "Updater", "get_updater", "create",
+__all__ = ["Optimizer", "SGD", "DCASGD", "NAG", "SGLD", "ccSGD", "Adam",
+           "AdaGrad", "RMSProp", "AdaDelta", "Ftrl", "Adamax", "Nadam",
+           "Signum", "SignSGD", "Test", "Updater", "get_updater", "create",
            "register"]
 
 
@@ -157,6 +173,7 @@ class SGD(Optimizer):
         return zeros_like(weight)
 
     def update(self, index, weight, grad, state):
+        _dense(grad)
         self._update_count(index)
         kwargs = self._common_attrs(index)
         if isinstance(state, (list, tuple)):
@@ -171,6 +188,357 @@ class SGD(Optimizer):
                            momentum=self.momentum, **kwargs)
         else:
             sgd_update(weight, grad, out=weight, **kwargs)
+
+
+def _dense(grad):
+    """Refuse a row-sparse gradient: the reference's lazy row updates are
+    not yet ported."""
+    if getattr(grad, "stype", "default") != "default":
+        raise MXNetError("optimizer: %s gradients are not yet ported (dense "
+                         "gradients only)" % grad.stype)
+
+
+def _scaled_grad(opt, grad):
+    """clip(rescale_grad * grad) as a tensor, the preamble of the
+    optimizers written in torch arithmetic (clipped where
+    ``clip_gradient`` is not None)."""
+    _dense(grad)
+    g = grad._data * opt.rescale_grad
+    if opt.clip_gradient is not None:
+        g = torch.clamp(g, -opt.clip_gradient, opt.clip_gradient)
+    return g
+
+
+@register
+class SignSGD(Optimizer):
+    """The sign of the gradient (``signsgd_update``)."""
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        signsgd_update(weight, grad, out=weight, **self._common_attrs(index))
+
+
+@register
+class Signum(Optimizer):
+    """The sign of the momentum (``signum_update``); SignSGD's update
+    without momentum."""
+
+    def __init__(self, momentum=0.9, wd_lh=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return zeros_like(weight) if self.momentum != 0.0 else None
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        kwargs = self._common_attrs(index)
+        if state is None:
+            signsgd_update(weight, grad, out=weight, **kwargs)
+            return
+        if self.wd_lh:
+            kwargs["wd_lh"] = self.wd_lh
+        signum_update(weight, grad, state, out=weight,
+                      momentum=self.momentum, **kwargs)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD; its state is (momentum or None,
+    the previous weight)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = zeros_like(weight) if self.momentum != 0.0 else None
+        return (mom, weight.copy())
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = _scaled_grad(self, grad)
+        mom, previous = state
+        w, prev = weight._data, previous._data
+        delta = -lr * (g + wd * w + self.lamda * g * g * (w - prev))
+        if mom is not None:
+            mom._data.mul_(self.momentum).add_(delta)
+            delta = mom._data
+        prev.copy_(w)
+        w.add_(delta)
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated SGD."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return zeros_like(weight) if self.momentum != 0.0 else None
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = _scaled_grad(self, grad)
+        w = weight._data
+        if state is None:
+            w.add_(-lr * (g + wd * w))
+            return
+        mom = state._data
+        mom.mul_(self.momentum)
+        g = g + wd * w
+        mom.add_(g)
+        g = g + self.momentum * mom
+        w.add_(-lr * g)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: half a gradient step plus
+    N(0, lr) noise, drawn from the weight device's generator."""
+
+    def _noise(self, weight, lr):
+        t = torch.empty_like(weight._data)
+        return t.normal_(0.0, math.sqrt(lr),
+                         generator=_random.generator(weight.context))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = _scaled_grad(self, grad)
+        w = weight._data
+        w.add_(-lr / 2 * (g + wd * w) + self._noise(weight, lr))
+
+
+@register
+class ccSGD(SGD):
+    """The reference's alias of SGD."""
+
+
+@register
+class Adam(Optimizer):
+    """Adam (``adam_update``), its bias correction folded into the rate:
+    lr * sqrt(1 - beta2^t) / (1 - beta1^t) at the index's update t."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (zeros_like(weight), zeros_like(weight))   # mean, var
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        t = self._index_update_count[index]
+        kwargs = self._common_attrs(index)
+        kwargs["lr"] *= math.sqrt(1. - self.beta2 ** t) / (1. - self.beta1
+                                                          ** t)
+        mean, var = state
+        adam_update(weight, grad, mean, var, out=weight, beta1=self.beta1,
+                    beta2=self.beta2, epsilon=self.epsilon, **kwargs)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: the step over the root of the squared gradients' sum."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return zeros_like(weight)   # history
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = _scaled_grad(self, grad)
+        history, w = state._data, weight._data
+        history.add_(g * g)
+        div = g / torch.sqrt(history + self.float_stable_eps)
+        w.add_((div + w * wd) * -lr)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp: Tieleman and Hinton's (``rmsprop_update``), or Graves'
+    centered form (``rmspropalex_update``)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return tuple(zeros_like(weight) for _ in range(3))  # n, g, delta
+        return zeros_like(weight)   # n
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        kwargs = self._common_attrs(index)
+        kwargs.update(gamma1=self.gamma1, epsilon=self.epsilon)
+        if self.clip_weights:
+            kwargs["clip_weights"] = self.clip_weights
+        if self.centered:
+            rmspropalex_update(weight, grad, *state, out=weight,
+                               gamma2=self.gamma2, **kwargs)
+        else:
+            rmsprop_update(weight, grad, state, out=weight, **kwargs)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta; its state is (accumulated g^2, accumulated delta^2)."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (zeros_like(weight), zeros_like(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        g = _scaled_grad(self, grad)
+        acc_g, acc_delta = (s._data for s in state)
+        w = weight._data
+        acc_g.copy_(self.rho * acc_g + (1. - self.rho) * g * g)
+        delta = (torch.sqrt(acc_delta + self.epsilon)
+                 / torch.sqrt(acc_g + self.epsilon)) * g
+        acc_delta.copy_(self.rho * acc_delta
+                        + (1. - self.rho) * delta * delta)
+        w.sub_(delta + wd * w)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (``ftrl_update``); its state is (z, n)."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (zeros_like(weight), zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        z, n = state
+        ftrl_update(weight, grad, z, n, out=weight, lamda1=self.lamda1,
+                    beta=self.beta, **self._common_attrs(index))
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax, Adam under the infinity norm."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (zeros_like(weight), zeros_like(weight))   # mean, variance
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        lr /= (1. - self.beta1 ** t)
+        w = weight._data
+        g = grad._data * self.rescale_grad + wd * w
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        m, u = (s._data for s in state)
+        m.copy_(self.beta1 * m + (1. - self.beta1) * g)
+        u.copy_(torch.maximum(self.beta2 * u, torch.abs(g)))
+        w.sub_(lr * m / (u + 1e-8))
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov Adam, with the momentum schedule of Dozat (2016)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.
+
+    def create_state(self, index, weight):
+        return (zeros_like(weight), zeros_like(weight))   # mean, variance
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        w = weight._data
+        g = grad._data * self.rescale_grad + wd * w
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        momentum_t = self.beta1 * (1. - 0.5 * (pow(0.96, t * self
+                                                    .schedule_decay)))
+        momentum_t_1 = self.beta1 * (1. - 0.5 * (pow(
+            0.96, (t + 1) * self.schedule_decay)))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        m, v = (s._data for s in state)
+        m.copy_(self.beta1 * m + (1. - self.beta1) * g)
+        v.copy_(self.beta2 * v + (1. - self.beta2) * g * g)
+        grad_prime = g / (1. - self.m_schedule)
+        m_prime = m / (1. - m_schedule_next)
+        v_prime = v / (1. - pow(self.beta2, t))
+        m_bar = (1. - momentum_t) * grad_prime + momentum_t_1 * m_prime
+        w.sub_(lr * m_bar / (torch.sqrt(v_prime) + self.epsilon))
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: weight += rescale_grad * grad, and
+    the state holds the new weight."""
+
+    def create_state(self, index, weight):
+        return zeros_like(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        weight._data.add_(grad._data * self.rescale_grad)
+        state._data.copy_(weight._data)
 
 
 def _map_state(fn, kind, state):

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of ``mxnet_tpu_torch`` and
-neither ``chip_smoke.py`` nor ``chip_mma_probe.py`` imports JAX, the JAX
-package or ``ml_dtypes`` (which the card's machine does not have; the
+neither ``chip_smoke.py``, ``chip_mma_probe.py`` nor ``chip_compare.py``
+imports JAX, the JAX package or ``ml_dtypes`` (which the card's machine does not have; the
 port reads bf16 numpy arrays by their dtype's name), and its entry points run on the card unless the caller asks for
 the CPU."""
 import ast
@@ -24,6 +24,7 @@ def _port_sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "chip_mma_probe.py")
+    yield os.path.join(ROOT, "chip_compare.py")
 
 
 def _imported_roots(path):

@@ -386,6 +386,42 @@ def test_conv1x1_bwd_tf32x3_matches_pallas(rows, ci, co, passes):
         assert errs[0] > TOL, errs
 
 
+def _mma_running_c(a, b, splits, chunk):
+    """``_mm_tf32(exact=True)`` without promotion: every MMA of a chunk
+    takes the chunk's running sum as its C operand (and rounds it toward
+    zero with its products)."""
+    ah, bh = tfu._tf32(a), tfu._tf32(b)
+    al, bl = tfu._tf32(a - ah), tfu._tf32(b - bh)
+    total = None
+    for z in range(splits):
+        acc = a.new_zeros((a.shape[0], b.shape[1]))
+        for k0 in range(z * chunk, min(a.shape[1], (z + 1) * chunk), 8):
+            ks = slice(k0, k0 + 8)
+            for x, y in ((al, bh), (ah, bl), (ah, bh)):
+                acc = tfu._mma_step(acc, x[:, ks], y[ks])
+        total = acc if total is None else total + acc
+    return total
+
+
+def test_promotion_bounds_the_drift_of_a_long_sum():
+    """A (16, 16384) @ (16384, 8) product of positive values, shaped as a
+    weight gradient and split by its own plan (``mma_wgrad_plan``), as the
+    card's MMAs round (``exact``): with each k tile summed from zero and
+    promoted in f32, the error against f64 is at most 4x f32
+    ``torch.matmul``'s; with every MMA taking the running sum as C it is
+    not (the toward-zero rounding accumulates along the axis)."""
+    rng = _rng()
+    a = torch.from_numpy(rng.random((16, 16384), dtype=np.float32))
+    b = torch.from_numpy(rng.random((16384, 8), dtype=np.float32))
+    _, _, splits, chunk = _cuda.mma_wgrad_plan(16, 8, 16384)
+    want = torch.matmul(a.double(), b.double())
+    matmul = _rel(torch.matmul(a, b), want)
+    promoted = _rel(tfu._mm_tf32(a, b, splits, chunk, exact=True), want)
+    running = _rel(_mma_running_c(a, b, splits, chunk), want)
+    assert promoted <= 4 * matmul, (promoted, matmul)
+    assert running > 4 * matmul, (running, matmul)
+
+
 def _main_path_shapes():
     """(kernel, rows, ci, co, side) of every K1-K8 launch on the main path:
     the fused units of ResNet-50 at its four stages; K1 (rows, C, C/4), K2
