@@ -140,7 +140,22 @@ Phases (none catches its own failure; there is no CPU path):
    module, must give the uninterrupted run's epoch 2 bit for bit (cuDNN
    deterministic for this step only), and ``fit(monitor=Monitor(1,
    ".*"))`` the CPU's stats.  No hand-written kernel runs on this path;
-13. the kernel table (K1-K11) as one JSON line, then the result line
+13. Gluon: ``gluon.model_zoo.vision.resnet50_v2(classes=1000)`` (224x224
+   NCHW, weights from ``--seed`` through ``convert.gluon_params_from_numpy``)
+   trained through ``Trainer`` (SGD 0.05, momentum 0.9, wd 1e-4) and
+   ``SoftmaxCrossEntropyLoss`` at batch 64 for 3 steps imperatively and 3
+   hybridized (``CachedOp``) on the same batches: step 1's loss, every
+   gradient and the moving statistics after each step equal bit for bit
+   (cuDNN deterministic), and step 1's gradients again through the net's
+   symbol bound by ``Module``; each mode's median step, images/s, peak
+   memory and one profiled step.  Then the fused symbolic ResNet-50 as a
+   ``SymbolBlock``: a batch-8 forward equal to ``Predictor``'s bit for bit
+   in both 3x3 modes (K1, K2 and K3, or K4, 12 launches each), and one
+   batch-32 training step under ``autograd.record()`` with
+   MXNET_CONV1X1_FUSED_BWD=1 equal to the Executor's gradients bit for
+   bit (K1/K2/K3/K5/K6/K8 12/12/12/24/12/3); K5 with its dW zeroed is a
+   planted fault that must fail;
+14. the kernel table (K1-K11) as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -3165,6 +3180,321 @@ def mnist_phase(torch, mt, fu, nn, kv, seed, card):
     return out
 
 
+# phase 13, Gluon: the model zoo's ResNet-50 v2 (BASELINE.json config 3)
+# at its published widths, NCHW, trained through Gluon's Trainer
+# imperatively and hybridized from the same weights on the same batches;
+# then the fused symbolic ResNet-50 (NHWC, fused units) as a SymbolBlock,
+# served and trained through Gluon's CachedOp and autograd
+GLUON_FAMILY, GLUON_CLASSES, GLUON_IMAGE = "resnet50_v2", 1000, 224
+GLUON_BATCH, GLUON_STEPS = 64, 3
+GLUON_SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+# the SymbolBlock's serve and train batches; the launches of each kernel
+# in one serve forward per 3x3 mode and in one training step
+GLUON_SERVE_BATCH, GLUON_TRAIN_BATCH = 8, 32
+GLUON_SERVE_LAUNCHES = {mode: dict.fromkeys(names, 12)
+                        for mode, names in SERVE_KERNELS.items()}
+GLUON_TRAIN_LAUNCHES = TRAIN_LAUNCHES["2d"]
+
+
+def fused_resnet_symbol(mt):
+    """The fused symbolic ResNet-50 the SymbolBlock wraps, and its input
+    side."""
+    return mt.models.get_resnet_symbol(num_layers=50, layout="NHWC",
+                                       unit_impl="fused"), 224
+
+
+def gluon_train(torch, mt, net, batches, hybrid, card, profile=False):
+    """GLUON_STEPS Trainer steps of the Gluon ``net`` (on cuda:0, weights
+    set) over ``batches`` (host arrays) with SoftmaxCrossEntropyLoss:
+    per-step loss (mean) and host wall at the step's end, step 1's
+    gradients and every BatchNorm's moving statistics after each step (on
+    the host), the peak memory, and one profiled step."""
+    ctx = mt.gpu(0)
+    if hybrid:
+        net.hybridize()
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_SGD))
+    params = net.collect_params()
+    stats_names = [k for k in params.keys()
+                   if k.endswith(("running_mean", "running_var"))]
+    data = [(mt.nd.array(x, ctx=ctx), mt.nd.array(y, ctx=ctx))
+            for x, y in batches]
+
+    def step(xs, ys):
+        with mt.autograd.record():
+            loss = loss_fn(net(xs), ys)
+        loss.backward()
+        trainer.step(xs.shape[0])
+        return loss
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ends, stats, grads = [], [], [], None
+    t0 = time.perf_counter()
+    for xs, ys in data:
+        loss = step(xs, ys)
+        losses.append(float(loss.asnumpy().mean()))
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        if grads is None:
+            grads = {k: p.grad()._data.to("cpu", copy=True)
+                     for k, p in params.items() if p.grad_req != "null"}
+        stats.append({k: params[k].data()._data.to("cpu", copy=True)
+                      for k in stats_names})
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_calls(torch, lambda: step(*data[0]), 2) if profile \
+        else None
+    return {"losses": losses, "step_s": [b - a for a, b in
+                                         zip([t0] + ends, ends)],
+            "grads": grads, "stats": stats, "peak": peak, "profile": prof}
+
+
+def gluon_module_grads(torch, mt, net, weights, batch):
+    """Step 1's gradients again, through the port's Module: the net's
+    symbol composed with the loss, bound on the card with the same weights
+    and fed the same batch."""
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    sym = loss_fn(net(mt.sym.var("data")), mt.sym.var("label"))
+    x, y = batch
+    mod = mt.mod.Module(sym, data_names=("data",), label_names=("label",),
+                        context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", x.shape)], label_shapes=[("label",
+                                                             y.shape)])
+    full = {net.prefix + k: v for k, v in weights.items()}
+    args = set(sym.list_arguments())
+    arg_nd, aux_nd = mt.convert.params_from_numpy(
+        {k: v for k, v in full.items() if k in args},
+        {k: v for k, v in full.items() if k not in args}, device=mt.gpu(0))
+    mod.init_params(arg_params=arg_nd, aux_params=aux_nd)
+    mod.forward_backward(mt.io.DataBatch(
+        [mt.nd.array(x, ctx=mt.gpu(0))], [mt.nd.array(y, ctx=mt.gpu(0))]))
+    torch.cuda.synchronize()
+    return {k: g._data.to("cpu", copy=True)
+            for k, g in mod._exec.grad_dict.items() if k not in ("data",
+                                                                 "label")}
+
+
+def symbol_block_phase(torch, mt, fu, nn, kv, seed, card):
+    """The fused symbolic ResNet-50 as a SymbolBlock: a predict-mode
+    forward at GLUON_SERVE_BATCH against Predictor in both 3x3 modes, bit
+    for bit, and one training step under autograd.record() at
+    GLUON_TRAIN_BATCH (MXNET_CONV1X1_FUSED_BWD=1) against the Executor's
+    gradients, bit for bit (cuDNN deterministic for the whole block);
+    each counted.  A planted fault at K5's launch (its dW zeroed) must
+    fail the training check."""
+    import numpy as np
+    wrappers = kernel_wrappers(fu, nn, kv)
+    sym, side = fused_resnet_symbol(mt)
+    args, aux = mt.convert.random_params(sym, {"data": (1, side, side, 3)},
+                                         seed=seed + 30)
+    rng = np.random.default_rng(seed + 31)
+    xs = rng.standard_normal((GLUON_SERVE_BATCH, side, side, 3)) \
+        .astype(np.float32)
+    xt = rng.standard_normal((GLUON_TRAIN_BATCH, side, side, 3)) \
+        .astype(np.float32)
+    yt = rng.integers(0, 1000, GLUON_TRAIN_BATCH).astype(np.float32)
+    ctx = mt.gpu(0)
+
+    def block():
+        blk = mt.gluon.SymbolBlock(sym, [mt.sym.var("data"),
+                                         mt.sym.var("softmax_label")])
+        for k, p in blk.collect_params().items():
+            p._load_init(mt.nd.array({**args, **aux}[k], ctx=mt.cpu()), ctx)
+        return blk
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in wrappers:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches for k in wrappers}
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("2d", "4d"):
+            with c3_mode("4d" if mode == "4d" else "auto"):
+                pred = mt.Predictor(sym, *mt.convert.params_from_numpy(
+                    args, aux, device=ctx),
+                    {"data": xs.shape}, ctx=ctx)
+                want = torch.from_numpy(pred.forward(data=xs).get_output(0))
+                blk = block()
+                x_nd = mt.nd.array(xs, ctx=ctx)
+                label = mt.nd.zeros((GLUON_SERVE_BATCH,), ctx=ctx)
+                got, launches = counted(lambda: blk(x_nd, label))
+                got = got._data.to("cpu", copy=True)
+                equal = torch.equal(got, want)
+                log("  SymbolBlock forward at batch %d, %s: %s Predictor's "
+                    "(max |diff| %.3g); launches %s" % (
+                        GLUON_SERVE_BATCH, mode,
+                        "bit-equal to" if equal else "DIFFERS from",
+                        float((got - want).abs().max()), launches))
+                _launch_check("gluon SymbolBlock serve, %s" % mode, launches,
+                              GLUON_SERVE_LAUNCHES[mode], 1)
+                if not equal:
+                    raise AssertionError("the SymbolBlock's %s forward "
+                                         "differs from Predictor's" % mode)
+                out["serve_" + mode] = {"launches": launches,
+                                        "bit_equal": equal}
+                del pred, blk
+        os.environ["MXNET_CONV1X1_FUSED_BWD"] = "1"
+        ex = sym.bind(ctx, {**{k: mt.nd.array(v, ctx=ctx)
+                               for k, v in args.items()},
+                            "data": mt.nd.array(xt, ctx=ctx),
+                            "softmax_label": mt.nd.array(yt, ctx=ctx)},
+                      aux_states={k: mt.nd.array(v, ctx=ctx)
+                                  for k, v in aux.items()})
+        ex.forward(is_train=True)
+        ex.backward()
+        want = {k: ex.grad_dict[k]._data.to("cpu", copy=True) for k in args}
+        del ex
+
+        def train_step(blk):
+            x_nd, y_nd = mt.nd.array(xt, ctx=ctx), mt.nd.array(yt, ctx=ctx)
+
+            def run():
+                with mt.autograd.record():
+                    o = blk(x_nd, y_nd)
+                o.backward()
+            _, launches = counted(run)
+            params = blk.collect_params()
+            return ({k: params[k].grad()._data.to("cpu", copy=True)
+                     for k in args}, launches)
+        runs = {"kernels": train_step(block())}
+        with replaced(fu, "launch", _dw_zeroed("fu_mm_bwd")(fu.launch)):
+            runs["fault: K5 dW zeroed"] = train_step(block())
+    finally:
+        os.environ.pop("MXNET_CONV1X1_FUSED_BWD", None)
+        torch.backends.cudnn.deterministic = False
+    for name, (grads, launches) in runs.items():
+        differ = [k for k in want if not torch.equal(grads[k], want[k])]
+        worst = max(float((grads[k] - want[k]).abs().max()) for k in want)
+        log("  SymbolBlock training step, %s: %d of %d gradients differ "
+            "from the Executor's (max |diff| %.3g); launches %s"
+            % (name, len(differ), len(want), worst, launches))
+        if name.startswith("fault"):
+            if not differ:
+                raise AssertionError("%s passed the SymbolBlock training "
+                                     "check" % name)
+            continue
+        _launch_check("gluon SymbolBlock train", launches,
+                      GLUON_TRAIN_LAUNCHES, 1)
+        if differ:
+            raise AssertionError("the SymbolBlock's gradients differ from "
+                                 "the Executor's: %s" % differ[:5])
+        out["train"] = {"launches": launches, "differ": differ}
+    return out
+
+
+def gluon_phase(torch, mt, fu, nn, kv, seed, card):
+    """Phase 13.  (a) ``gluon.model_zoo.vision.resnet50_v2(classes=1000)``
+    at 224x224 NCHW, batch 64, weights from ``seed`` (numpy, through
+    ``convert.gluon_params_from_numpy``), trained GLUON_STEPS steps
+    imperatively and GLUON_STEPS hybridized on the same seeded batches:
+    step 1's loss, every gradient and the moving statistics after each
+    step held bit for bit, hybridized against imperative (cuDNN
+    deterministic in both), and step 1's gradients against the same
+    net's symbol bound through Module; then each mode timed over steps
+    2..GLUON_STEPS, its peak memory read and one step profiled.  (b)
+    ``symbol_block_phase``.  Kernel launches: (b)'s runs."""
+    import numpy as np
+    wrappers = kernel_wrappers(fu, nn, kv)
+    zoo = mt.gluon.model_zoo.vision
+    shape = (1, 3, GLUON_IMAGE, GLUON_IMAGE)
+    net0 = getattr(zoo, GLUON_FAMILY)(classes=GLUON_CLASSES,
+                                      prefix="resnet_")
+    weights = mt.convert.gluon_random_params(net0, shape, seed=seed + 20)
+    rng = np.random.default_rng(seed + 21)
+    batches = [(rng.standard_normal((GLUON_BATCH, 3, GLUON_IMAGE,
+                                     GLUON_IMAGE)).astype(np.float32),
+                rng.integers(0, GLUON_CLASSES, GLUON_BATCH)
+                .astype(np.float32)) for _ in range(GLUON_STEPS)]
+    for k in wrappers:
+        k.launches = 0
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for hybrid in (False, True):
+            net = getattr(zoo, GLUON_FAMILY)(classes=GLUON_CLASSES,
+                                             prefix="resnet_")
+            mt.convert.gluon_params_from_numpy(net, weights, ctx=mt.gpu(0))
+            runs[hybrid] = gluon_train(torch, mt, net, batches, hybrid, card)
+            del net
+            torch.cuda.empty_cache()
+        net = getattr(zoo, GLUON_FAMILY)(classes=GLUON_CLASSES,
+                                         prefix="resnet_")
+        mod_grads = gluon_module_grads(torch, mt, net, weights, batches[0])
+        del net
+    finally:
+        torch.backends.cudnn.deterministic = False
+    zoo_launches = {k.__name__: k.launches for k in wrappers}
+    imp, hyb = runs[False], runs[True]
+    grad_differ = [k for k in imp["grads"]
+                   if not torch.equal(imp["grads"][k], hyb["grads"][k])]
+    stat_differ = [(i + 1, k) for i, (a, b) in
+                   enumerate(zip(imp["stats"], hyb["stats"]))
+                   for k in a if not torch.equal(a[k], b[k])]
+    mod_differ = [k for k in hyb["grads"]
+                  if not torch.equal(mod_grads[k], hyb["grads"][k])]
+    mod_err = max(float((mod_grads[k] - hyb["grads"][k]).abs().max())
+                  for k in hyb["grads"])
+    log("  %s, batch %d, %d steps each: losses imperative %s, hybridized "
+        "%s" % (GLUON_FAMILY, GLUON_BATCH, GLUON_STEPS, fmt(imp["losses"]),
+                fmt(hyb["losses"])))
+    log("  hybridized against imperative: step-1 loss %s, %d of %d "
+        "gradients differ, %d moving statistics differ over %d steps; "
+        "Module's step-1 gradients: %d differ from the hybridized (max "
+        "|diff| %.3g)" % ("equal" if imp["losses"][0] == hyb["losses"][0]
+                          else "DIFFERS", len(grad_differ), len(imp["grads"]),
+                          len(stat_differ), GLUON_STEPS, len(mod_differ),
+                          mod_err))
+    failures = []
+    if imp["losses"][0] != hyb["losses"][0] or grad_differ or stat_differ:
+        failures.append("hybridized differs from imperative: loss %s/%s, "
+                        "gradients %s, statistics %s"
+                        % (imp["losses"][0], hyb["losses"][0],
+                           grad_differ[:3], stat_differ[:3]))
+    if mod_differ:
+        failures.append("Module's gradients differ: %s" % mod_differ[:3])
+    if not all(np.isfinite(r["losses"]).all() for r in runs.values()):
+        failures.append("non-finite loss")
+    # timing and profile, cuDNN free to choose, from the same weights
+    out = {"family": GLUON_FAMILY, "batch": GLUON_BATCH,
+           "steps": GLUON_STEPS, "zoo_launches": zoo_launches}
+    for hybrid in (False, True):
+        mode = "hybridized" if hybrid else "imperative"
+        net = getattr(zoo, GLUON_FAMILY)(classes=GLUON_CLASSES,
+                                         prefix="resnet_")
+        mt.convert.gluon_params_from_numpy(net, weights, ctx=mt.gpu(0))
+        r = gluon_train(torch, mt, net, batches, hybrid, card, profile=True)
+        del net
+        torch.cuda.empty_cache()
+        step_ms = sorted(1e3 * s for s in r["step_s"][1:])
+        median = _median(step_ms)
+        log("  %s: losses %s; median step (2..%d) %.2f ms, %.1f images/s, "
+            "first step %.2f s, max_memory_allocated %.2f GB [%s]" % (
+                mode, fmt(r["losses"]), GLUON_STEPS, median,
+                GLUON_BATCH * 1e3 / median, r["step_s"][0],
+                r["peak"] / 1e9, card))
+        log_profile("one %s training step" % mode, r["profile"], card)
+        out[mode] = {"losses": r["losses"], "step_ms_2_to_n": step_ms,
+                     "median_step_ms": median,
+                     "images_per_s": GLUON_BATCH * 1e3 / median,
+                     "first_step_s": r["step_s"][0],
+                     "max_memory_allocated": r["peak"],
+                     "profile_step": r["profile"]}
+    out["checks"] = {"grad_differ": grad_differ, "stat_differ": stat_differ,
+                     "module_differ": mod_differ,
+                     "module_max_abs_diff": mod_err}
+    torch.cuda.empty_cache()
+    out["symbol_block"] = sb = symbol_block_phase(torch, mt, fu, nn, kv,
+                                                  seed, card)
+    out["launches"] = {name: sum(r["launches"][name] for r in sb.values())
+                       for name in sb["train"]["launches"]}
+    if failures:
+        raise AssertionError("gluon: " + "; ".join(failures))
+    return out
+
+
 _SOURCES = {
     "fu_mm_fwd": ("mm_fwd", "mxnet_tpu/ops/fused_unit.py:376"),
     "fu_c3_fwd2d": ("c3_fwd2d", "mxnet_tpu/ops/fused_unit.py:457"),
@@ -3188,7 +3518,7 @@ _LOOPS.update(dict.fromkeys(("fu_c3_fwd4d", "fu_c3_bwd4d"),
 
 
 def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
-                 decode, imp, rtc):
+                 decode, imp, rtc, gluon):
     """One entry per kernel.  K1-K4: times per ResNet-50 forward at batch
     8 (each stage's shape weighted by its number of fused units) and
     launches in the serve phase of their mode (K4: 4d); K5-K8: times per
@@ -3202,7 +3532,9 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
     config of the bench phase), in each ImageNet fit (4 steps and 2
     validation batches; plain and fused) with the fused fit's errors
     against the plain versions, per decode step, per imperative unit and
-    in the rtc phase; K1-K8 also their bfloat16 times (kernel, library
+    in the rtc phase and in the gluon phase's SymbolBlock runs (a serve
+    forward in each 3x3 mode and a training step); K1-K8 also their
+    bfloat16 times (kernel, library
     and bound) at the same shapes, and K2-K8 their kernel and library
     times in both dtypes with the L2 cache flushed before each call; K1-K8
     name the tensor-core loop they run on (``loop``)."""
@@ -3308,7 +3640,9 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
             "launches_per_decode_step": per_decode,
             "launches_per_imperative_unit":
                 imp["launches"][wrapper] / imp["units"],
-            "launches_in_rtc_phase": rtc["launches"][wrapper]}, **entry))
+            "launches_in_rtc_phase": rtc["launches"][wrapper],
+            "launches_in_gluon_phase": gluon["launches"][wrapper]},
+            **entry))
     return table
 
 
@@ -3434,8 +3768,15 @@ def main():
         "checkpoint, a Monitor" % (name, MNIST_BATCH))
     mnist = mnist_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
+    log("[13] Gluon: model_zoo %s (%d classes, %dx%d NCHW) trained "
+        "imperatively and hybridized on %s at batch %d; the fused symbolic "
+        "ResNet-50 as a SymbolBlock" % (GLUON_FAMILY, GLUON_CLASSES,
+                                        GLUON_IMAGE, GLUON_IMAGE, name,
+                                        GLUON_BATCH))
+    gluon = gluon_phase(torch, mt, fu, nn, kv, opts.seed, card)
+
     table = kernel_table(rows, bwd_rows, kv_rows, serve, train, bench,
-                         imagenet, decode, imp, rtc)
+                         imagenet, decode, imp, rtc, gluon)
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)),
                     exist_ok=True)
@@ -3448,9 +3789,9 @@ def main():
                        "imagenet": imagenet,
                        "kv_rows": kv_rows,
                        "decode": decode, "imperative": imp, "rtc": rtc,
-                       "mnist": mnist, "kernels": table,
+                       "mnist": mnist, "gluon": gluon, "kernels": table,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log("[13] done in %.1f s" % (time.perf_counter() - t_start))
+    log("[14] done in %.1f s" % (time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

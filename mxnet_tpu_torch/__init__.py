@@ -17,8 +17,10 @@ learning-rate schedulers and the checkpoint callbacks, and the rest of
 the training loop of ``examples/train_mnist.py`` (LeNet and the MLP in
 ``models``, sixteen optimizers, the initializers, the metrics, Monitor,
 optimizer-state checkpoints).  The imperative
-frontend (``nd.<op>``, ``autograd``) runs the same ops eagerly, and
-``rtc`` compiles CUDA C++ at run time and registers ops.  Entry points run on the first CUDA card
+frontend (``nd.<op>``, ``autograd``) runs the same ops eagerly, ``gluon``
+builds Blocks over it (the model zoo's networks, hybridized through
+``CachedOp``), and ``rtc`` compiles CUDA C++ at run time and registers
+ops.  Entry points run on the first CUDA card
 unless the caller passes ``ctx=cpu()`` (``context=cpu()`` for Module) or
 opens a ``with cpu():`` scope.
 """
@@ -62,4 +64,7 @@ from . import module
 from . import module as mod
 from . import bench_step
 from . import rtc
+from . import cached_op
+from .cached_op import CachedOp
+from . import gluon
 from . import test_utils

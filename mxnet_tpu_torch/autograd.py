@@ -1,6 +1,6 @@
 """Autograd for the imperative frontend, over torch's autograd.
 
-Counterpart of ``mxnet_tpu/autograd.py`` (first order).  The reference
+Counterpart of ``mxnet_tpu/autograd.py``.  The reference
 records each op's ``jax.vjp`` closure on a tape of its own; here torch
 records the graph itself: ``ndarray.invoke`` runs ops with torch's
 gradient recording on while ``record()`` is active, so every result
@@ -11,9 +11,15 @@ the variables its heads depend on by walking the recorded graph from the
 heads, takes their gradients with ``torch.autograd.grad`` and writes or
 adds them into the buffers; ``grad`` returns them instead.
 
+``grad(create_graph=True)`` records the gradient computation itself
+(torch's ``create_graph``), so its results can be differentiated again.
+``Function`` is a user-defined operation: its ``forward`` and
+``backward`` run on NDArrays with recording paused, joined to the
+recorded graph by a ``torch.autograd.Function``.  ``get_symbol`` raises,
+as the reference's does: the recorded graph is torch's, not a Symbol.
+
 Recording and training are flags of the calling thread, as in the
-reference.  Left out (ROADMAP, Queue A item 4): ``create_graph`` /
-higher-order ``grad``, ``autograd.Function`` and ``get_symbol``.
+reference.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad"]
+           "backward", "grad", "get_symbol", "Function"]
 
 
 class _Scope(threading.local):
@@ -152,12 +158,15 @@ def _variables(outs):
     found, seen = [], set()
     stack = [t.grad_fn for t in outs if t.grad_fn is not None]
     stack += [t for t in outs if t.grad_fn is None]    # heads that are leaves
-    visited = set()
+    # id -> node: holding each visited node keeps its Python wrapper
+    # alive, so a later wrapper cannot take a freed one's id and be
+    # skipped as visited
+    visited = {}
     while stack:
         node = stack.pop()
         if node is None or id(node) in visited:
             continue
-        visited.add(id(node))
+        visited[id(node)] = node
         leaf = node if isinstance(node, torch.Tensor) \
             else getattr(node, "variable", None)
         if leaf is not None:
@@ -205,20 +214,85 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
          create_graph=False, train_mode=True):
     """Gradients of ``heads`` with respect to ``variables`` (NDArrays with
     attach_grad), returned as new NDArrays; zeros for a variable the heads
-    do not depend on.  First order only: ``create_graph`` raises."""
+    do not depend on.  With ``create_graph`` the gradients are themselves
+    recorded (differentiable again); ``retain_graph`` defaults to
+    ``create_graph``."""
     from .ndarray.ndarray import NDArray
-    if create_graph:
-        raise MXNetError("autograd.grad(create_graph=True) (higher-order "
-                         "gradients) is not ported")
+    if retain_graph is None:
+        retain_graph = create_graph
     outs, grads = _heads(heads, head_grads)
     variables = _as_list(variables)
     for v in variables:
         if not v._data.requires_grad:
             raise MXNetError("grad: a variable has no gradient; call "
                              "attach_grad() before record()")
-    with _RecordingStateScope(False, train_mode):
+    with _RecordingStateScope(create_graph, train_mode):
         got = torch.autograd.grad(outs, [v._data for v in variables], grads,
                                   retain_graph=bool(retain_graph),
+                                  create_graph=create_graph,
                                   allow_unused=True)
     return [NDArray(torch.zeros_like(v._data.detach()) if g is None
-                    else g.detach()) for v, g in zip(variables, got)]
+                    else g if create_graph else g.detach())
+            for v, g in zip(variables, got)]
+
+
+def get_symbol(x):
+    """The reference cannot rebuild a Symbol from its tape, and neither can
+    the port from torch's graph: use a HybridBlock's or CachedOp's
+    symbol."""
+    raise NotImplementedError(
+        "get_symbol on the recorded graph is not supported; use HybridBlock/"
+        "CachedOp tracing for a graph view")
+
+
+class _FunctionNode(torch.autograd.Function):
+    """Joins a ``Function``'s outputs to the recorded graph: forward runs
+    the user's ``forward`` and backward the user's ``backward``, both on
+    NDArrays with recording paused."""
+
+    @staticmethod
+    def forward(ctx, func, *tensors):
+        from .ndarray.ndarray import NDArray
+        with pause():
+            outs = func.forward(*[NDArray(t) for t in tensors])
+        ctx.func = func
+        func._single = not isinstance(outs, (list, tuple))
+        return tuple(o._data for o in _as_list(outs))
+
+    @staticmethod
+    def backward(ctx, *out_grads):
+        from .ndarray.ndarray import NDArray
+        with pause():
+            in_grads = ctx.func.backward(*[NDArray(g) for g in out_grads])
+        return (None,) + tuple(getattr(g, "_data", g)
+                               for g in _as_list(in_grads))
+
+
+class Function:
+    """A user-defined differentiable operation (the reference's
+    ``autograd.Function``): subclass it and override ``forward`` (NDArrays
+    in, NDArray or list out) and ``backward`` (one gradient per output in,
+    one per input out).  Both run with recording paused; under
+    ``record()`` the call is one node of the recorded graph."""
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+        if not is_recording():
+            with pause():
+                return self.forward(*inputs)
+        outs = _FunctionNode.apply(self, *[i._data for i in inputs])
+        wrapped = [NDArray(o) for o in outs]
+        return wrapped[0] if self._single else wrapped
+
+    def save_for_backward(self, *args):
+        self._saved_tensors = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved_tensors
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError

@@ -10,7 +10,7 @@ from __future__ import annotations
 import threading
 
 __all__ = ["MXNetError", "ParamError", "Param", "normalize_attrs",
-           "attrs_to_strings", "NameManager", "AttrScope"]
+           "attrs_to_strings", "NameManager", "Prefix", "AttrScope"]
 
 
 class MXNetError(Exception):
@@ -75,7 +75,8 @@ class Param:
 
     def convert(self, value, name, op_name=""):
         try:
-            if value is None and self.ptype in ("shape", "int_or_none",
+            if value is None and self.ptype in ("shape", "shape_or_none",
+                                                "int_or_none",
                                                 "float_or_none",
                                                 "str_or_none"):
                 return None
@@ -88,8 +89,10 @@ class Param:
                 v = _parse_bool(value)
             elif self.ptype is str:
                 v = str(value)
-            elif self.ptype == "shape":
+            elif self.ptype in ("shape", "shape_or_none"):
                 v = _parse_tuple(value, int)
+            elif self.ptype == "float_tuple":
+                v = _parse_tuple(value, float)
             elif self.ptype == "int_or_none":
                 s = str(value).strip()
                 v = None if s in ("None", "null", "") else int(float(s))
@@ -179,6 +182,18 @@ class NameManager:
             v = NameManager()
             NameManager._current.value = v
         return v
+
+
+class Prefix(NameManager):
+    """A NameManager that puts ``prefix`` before every name (Gluon's
+    ``Block.name_scope``)."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        return self._prefix + super().get(name, hint)
 
 
 class AttrScope:

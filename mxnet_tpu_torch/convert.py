@@ -9,7 +9,11 @@ numpy arrays that either package takes.  Checkpoints need no conversion:
 ``model.save_checkpoint`` (and ``Module.save_checkpoint`` after training)
 writes the files ``mxnet_tpu.model.load_checkpoint`` reads, and
 ``model.load_checkpoint`` reads the JAX package's
-(tests/test_torch_train.py).
+(tests/test_torch_train.py).  Gluon's parameters carry over by the names
+``Block.save_params`` writes (the net's prefix stripped):
+``gluon_params_from_numpy``, ``gluon_params_to_numpy`` and
+``gluon_random_params``; a ``.params`` file either package's
+``save_params`` wrote loads in the other's ``load_params``.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ from .context import cpu, current_context
 from . import ndarray as nd
 
 __all__ = ["params_from_numpy", "params_to_numpy", "load_params",
-           "random_params"]
+           "random_params", "gluon_params_from_numpy",
+           "gluon_params_to_numpy", "gluon_random_params"]
 
 
 def params_from_numpy(arg_params, aux_params, device=None, dtype=None):
@@ -78,3 +83,39 @@ def random_params(symbol, data_shapes, seed=0):
             else rng.standard_normal(shape) * 0.1
         aux[name] = v.astype(np.float32)
     return args, aux
+
+
+def _stripped(net):
+    """{name without the net's prefix: Parameter}, as ``save_params``
+    names them."""
+    return {k[len(net.prefix):]: p for k, p in net.collect_params().items()}
+
+
+def gluon_params_from_numpy(net, arrays, ctx=None):
+    """Set every parameter of the Gluon ``net`` from ``arrays`` ({name
+    without the net's prefix: numpy array}), on ``ctx`` (else
+    ``current_context()``) for a parameter not initialized yet, else into
+    its own array.  Raises on a missing or an extra name."""
+    params = _stripped(net)
+    missing = sorted(set(params) - set(arrays))
+    extra = sorted(set(arrays) - set(params))
+    if missing or extra:
+        raise ValueError("gluon_params_from_numpy: missing %s, extra %s"
+                         % (missing, extra))
+    for name, p in params.items():
+        p._load_init(nd.array(np.asarray(arrays[name]), ctx=cpu()), ctx)
+
+
+def gluon_params_to_numpy(net):
+    """{name without the net's prefix: numpy array} of every parameter."""
+    return {k: p.data().asnumpy() for k, p in _stripped(net).items()}
+
+
+def gluon_random_params(net, data_shape, seed=0):
+    """Seeded float32 numpy arrays for every parameter of the Gluon
+    ``net`` at input ``data_shape`` (``random_params`` over the net's
+    symbol), keyed without the net's prefix."""
+    from . import symbol
+    sym = net(symbol.var("data"))
+    args, aux = random_params(sym, {"data": tuple(data_shape)}, seed)
+    return {k[len(net.prefix):]: v for k, v in {**args, **aux}.items()}

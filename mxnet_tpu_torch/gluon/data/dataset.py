@@ -1,0 +1,105 @@
+"""Datasets (counterpart of ``mxnet_tpu/gluon/data/dataset.py``): Dataset,
+SimpleDataset, ArrayDataset and RecordFileDataset over the port's
+``recordio``."""
+from __future__ import annotations
+
+import os
+
+from ... import recordio, ndarray
+
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
+
+
+class Dataset(object):
+    """Abstract dataset: __getitem__ + __len__."""
+
+    def __getitem__(self, idx):
+        raise NotImplementedError
+
+    def __len__(self):
+        raise NotImplementedError
+
+    def transform(self, fn, lazy=True):
+        """Returns a new dataset with each sample transformed by fn."""
+        trans = _LazyTransformDataset(self, fn)
+        if lazy:
+            return trans
+        return SimpleDataset([trans[i] for i in range(len(trans))])
+
+    def transform_first(self, fn, lazy=True):
+        """Transform only the first element of each sample."""
+        def base_fn(x, *args):
+            if args:
+                return (fn(x),) + args
+            return fn(x)
+        return self.transform(base_fn, lazy)
+
+
+class SimpleDataset(Dataset):
+    """Wrap a list or array as a Dataset."""
+
+    def __init__(self, data):
+        self._data = data
+
+    def __len__(self):
+        return len(self._data)
+
+    def __getitem__(self, idx):
+        return self._data[idx]
+
+
+class _LazyTransformDataset(Dataset):
+    def __init__(self, data, fn):
+        self._data = data
+        self._fn = fn
+
+    def __len__(self):
+        return len(self._data)
+
+    def __getitem__(self, idx):
+        item = self._data[idx]
+        if isinstance(item, tuple):
+            return self._fn(*item)
+        return self._fn(item)
+
+
+class ArrayDataset(Dataset):
+    """Combine multiple array-likes; samples are tuples."""
+
+    def __init__(self, *args):
+        if not args:
+            raise ValueError("Needs at least 1 arrays")
+        self._length = len(args[0])
+        self._data = []
+        for i, data in enumerate(args):
+            if len(data) != self._length:
+                raise ValueError(
+                    "All arrays must have the same length; array[0] has "
+                    "length %d while array[%d] has %d."
+                    % (self._length, i, len(data)))
+            if isinstance(data, ndarray.NDArray) and data.ndim == 1:
+                data = data.asnumpy()
+            self._data.append(data)
+
+    def __getitem__(self, idx):
+        if len(self._data) == 1:
+            return self._data[0][idx]
+        return tuple(data[idx] for data in self._data)
+
+    def __len__(self):
+        return self._length
+
+
+class RecordFileDataset(Dataset):
+    """The records of a RecordIO file (``.rec`` beside its ``.idx``), each
+    the raw bytes ``recordio.pack`` wrote."""
+
+    def __init__(self, filename):
+        idx_file = os.path.splitext(filename)[0] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

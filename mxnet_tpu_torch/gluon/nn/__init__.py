@@ -1,0 +1,5 @@
+"""Gluon neural-network layers (counterpart of ``mxnet_tpu/gluon/nn``)."""
+from .basic_layers import *  # noqa: F401,F403
+from .conv_layers import *  # noqa: F401,F403
+from . import basic_layers
+from . import conv_layers

@@ -48,7 +48,7 @@ def register(klass):
 
 
 def create(name, **kwargs):
-    if isinstance(name, Initializer):
+    if isinstance(name, Initializer) or callable(name):
         return name
     if name.startswith("["):
         # a variable's __init__ attr: [name, kwargs] as JSON

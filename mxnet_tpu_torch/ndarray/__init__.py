@@ -2,7 +2,9 @@
 ``mt.nd.<op>`` for every op the registry holds."""
 import sys as _sys
 
-from .ndarray import (NDArray, array, from_numpy, zeros, zeros_like, invoke,
+from .ndarray import (NDArray, array, from_numpy, zeros, zeros_like, ones,
+                      ones_like, full, empty, arange, concatenate, waitall,
+                      invoke,
                       sgd_update, sgd_mom_update, mp_sgd_update,
                       mp_sgd_mom_update, adam_update, rmsprop_update,
                       rmspropalex_update, ftrl_update, signsgd_update,

@@ -54,15 +54,18 @@ def build_namespace():
 
 
 # the reference's generated NDArray methods that forward to the op of the
-# same name (mxnet_tpu/ndarray/register.py _NDARRAY_METHODS), where the
-# port registers that op
+# same name (mxnet_tpu/ndarray/register.py _NDARRAY_METHODS)
 _NDARRAY_METHODS = [
-    "sum", "mean", "prod", "max", "min", "norm", "argmax", "argmin", "abs",
-    "sign", "square", "sqrt", "exp", "log", "tanh", "sigmoid", "relu",
-    "softmax", "log_softmax", "flatten", "expand_dims", "squeeze", "tile",
-    "repeat", "pad", "swapaxes", "split", "slice", "slice_axis", "take",
-    "one_hot", "pick", "sort", "argsort", "topk", "clip", "transpose",
-    "flip", "reciprocal",
+    "sum", "mean", "prod", "nansum", "nanprod", "max", "min", "norm",
+    "argmax", "argmin", "abs", "sign", "round", "ceil", "floor", "trunc",
+    "rint", "fix", "square", "sqrt", "rsqrt", "cbrt", "rcbrt", "exp", "log",
+    "log10", "log2", "log1p", "expm1", "sin", "cos", "tan", "arcsin",
+    "arccos", "arctan", "sinh", "cosh", "tanh", "arcsinh", "arccosh",
+    "arctanh", "degrees", "radians", "sigmoid", "relu", "softmax",
+    "log_softmax", "flatten", "expand_dims", "squeeze", "tile", "repeat",
+    "pad", "swapaxes", "split", "slice", "slice_axis", "take", "one_hot",
+    "pick", "sort", "argsort", "topk", "clip", "transpose", "flip",
+    "reciprocal",
 ]
 
 
@@ -106,3 +109,21 @@ def attach_methods():
     for name in _NDARRAY_METHODS:
         if name in known and not hasattr(NDArray, name):
             setattr(NDArray, name, make_method(name))
+
+    # the methods whose positional arguments the reference reads its own
+    # way
+    def clip(self, a_min=None, a_max=None, out=None):
+        return invoke("clip", [self], {"a_min": float(a_min),
+                                       "a_max": float(a_max)}, out=out)
+
+    def transpose(self, axes=None):
+        return invoke("transpose", [self],
+                      {"axes": tuple(axes) if axes else ()})
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return invoke("dot", [self, other], {"transpose_a": transpose_a,
+                                             "transpose_b": transpose_b})
+    NDArray.clip = clip
+    NDArray.transpose = transpose
+    NDArray.dot = dot
+    NDArray.__matmul__ = lambda self, other: invoke("dot", [self, other])

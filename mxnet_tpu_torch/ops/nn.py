@@ -3,7 +3,8 @@
 Counterpart of the ResNet ops in ``mxnet_tpu/ops/nn.py``: Convolution,
 Pooling, BatchNorm, the fused input BatchNorm and stem convolution
 ``_contrib_BNStemConv``, Activation, FullyConnected and SoftmaxOutput, and
-the attention decoder's Embedding and softmax, with
+the attention decoder's Embedding and softmax, and Gluon's
+Deconvolution, log_softmax, InstanceNorm and Dropout, with
 the same parameter schemas (so symbol JSON interchanges) and the same
 layouts at the op boundary (NHWC data with OHWI weights when ``layout``
 ends in C, else NCHW/OIHW).  None of these was a Pallas kernel in the
@@ -15,6 +16,8 @@ reference's arithmetic, and with MXNET_CONV1X1_FUSED_BWD a stride-1 1x1
 convolution's backward is the hand-written CUDA kernel K8
 (``conv1x1_bwd``, csrc/nn_conv1x1_bwd.cu).
 """
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -22,7 +25,9 @@ from .registry import register, P
 from ._cuda import (check, check_dims, launch, mma_plan, mma_wgrad_plan,
                     on_host, stream)
 from .. import config
+from .. import random as _random
 from ..base import MXNetError
+from ..context import Context
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +259,58 @@ def convolution(attrs, data, weight, bias=None):
     return out
 
 
+def _deconv_fill(attrs, in_shapes):
+    out = list(in_shapes)
+    data = out[0]
+    if data is not None:
+        k = tuple(attrs["kernel"])
+        nf = attrs["num_filter"]
+        ng = attrs.get("num_group", 1)
+        if _channels_last(attrs):
+            wshape = (data[-1],) + k + (nf // ng,)
+        else:
+            wshape = (data[1], nf // ng) + k
+        if len(out) > 1 and out[1] is None:
+            out[1] = wshape
+        if len(out) > 2 and out[2] is None:
+            out[2] = (nf,)
+    return out
+
+
+_CONVT_FN = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+             3: F.conv_transpose3d}
+
+
+@register("Deconvolution", aliases=["deconvolution"],
+          nin=lambda attrs: 2 if (attrs or {}).get("no_bias", True) else 3,
+          input_names=["data", "weight", "bias"], fill_shapes=_deconv_fill,
+          params={**_CONV_PARAMS, "adj": P("shape", ()),
+                  "target_shape": P("shape", ()), "no_bias": P(bool, True)})
+def deconvolution(attrs, data, weight, bias=None):
+    """Transposed convolution as the reference computes it: the input
+    dilated by ``stride``, padded by ``(k - 1) * dilate - pad`` (plus
+    ``adj`` at the high end) and correlated with the weight as it is
+    stored, (C_in, num_filter / num_group, *kernel) (channels-last: C_in,
+    *kernel, num_filter / num_group).  torch's transposed convolution
+    correlates with the kernel flipped, so the weight goes in flipped."""
+    nd = data.ndim - 2
+    stride = tuple(attrs["stride"]) or (1,) * nd
+    dilate = tuple(attrs["dilate"]) or (1,) * nd
+    pad = tuple(attrs["pad"]) or (0,) * nd
+    adj = tuple(attrs["adj"]) or (0,) * nd
+    cl = _channels_last(attrs)
+    x = _to_channels_first(data) if cl else data
+    w = weight.permute(0, weight.ndim - 1, *range(1, weight.ndim - 1)) \
+        if cl else weight
+    w = torch.flip(w, tuple(range(2, w.ndim)))
+    out = _CONVT_FN[nd](x, w, stride=stride, padding=pad,
+                        output_padding=adj, groups=attrs["num_group"],
+                        dilation=dilate)
+    if bias is not None and not attrs["no_bias"]:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return _to_channels_last(out) if cl else out
+
+
 # ---------------------------------------------------------------------------
 # Pooling
 # ---------------------------------------------------------------------------
@@ -283,20 +340,41 @@ def pooling(attrs, data):
         if pt == "sum":
             return data.sum(dim=spatial, keepdim=True)
         return data.mean(dim=spatial, keepdim=True)
-    if pt == "sum" or attrs["pooling_convention"] == "full":
-        raise MXNetError("Pooling: pool_type=sum and "
-                         "pooling_convention=full are not yet ported")
     k = tuple(attrs["kernel"])
     stride = tuple(attrs["stride"]) or (1,) * nd
     pad = tuple(attrs["pad"]) or (0,) * nd
     x = _to_channels_first(data) if cl else data
-    if pt == "max":
+    if pt == "sum" or attrs["pooling_convention"] == "full":
+        y = _pool_padded(x, pt, k, stride, pad,
+                         attrs["pooling_convention"] == "full")
+    elif pt == "max":
         # torch pads max pooling with -inf, as the reference does
         y = _POOL_FN["max"][nd](x, k, stride, pad)
     else:
         # the reference divides by the full window, padding included
         y = _POOL_FN["avg"][nd](x, k, stride, pad, count_include_pad=True)
     return _to_channels_last(y) if cl else y
+
+
+def _pool_padded(x, pt, k, stride, pad, full):
+    """Pooling over the input padded explicitly, as the reference pools:
+    under the ``full`` convention each axis gets the extra high padding
+    that makes its last partial window count; max pads with -inf, avg and
+    sum with 0, and avg divides by the whole window."""
+    nd = x.ndim - 2
+    pads = []
+    for i in reversed(range(nd)):
+        lo = hi = pad[i]
+        rem = (x.shape[2 + i] + 2 * pad[i] - k[i]) % stride[i]
+        if full and rem:
+            hi += stride[i] - rem
+        pads += [lo, hi]
+    fill = float("-inf") if pt == "max" else 0.0
+    xp = F.pad(x, pads, value=fill)
+    if pt == "max":
+        return _POOL_FN["max"][nd](xp, k, stride)
+    y = _POOL_FN["avg"][nd](xp, k, stride)
+    return y * float(math.prod(k)) if pt == "sum" else y
 
 
 # ---------------------------------------------------------------------------
@@ -649,3 +727,60 @@ def softmax_op(attrs, x):
     if t:
         x = x / t
     return torch.softmax(x, dim=attrs["axis"])
+
+
+@register("log_softmax", params={"axis": P(int, -1),
+                                 "temperature": P("float_or_none", None)})
+def log_softmax_op(attrs, x):
+    t = attrs["temperature"]
+    if t:
+        x = x / t
+    return torch.log_softmax(x, dim=attrs["axis"])
+
+
+# ---------------------------------------------------------------------------
+# InstanceNorm, Dropout
+# ---------------------------------------------------------------------------
+
+def _in_fill(attrs, s):
+    out = list(s)
+    if s[0] is not None:
+        for i in (1, 2):
+            if len(out) > i and out[i] is None:
+                out[i] = (s[0][1],)
+    return out
+
+
+@register("InstanceNorm", aliases=["instance_norm"],
+          nin=3, input_names=["data", "gamma", "beta"], fill_shapes=_in_fill,
+          params={"eps": P(float, 1e-3)})
+def instance_norm(attrs, data, gamma, beta):
+    """Each sample's channels normalized over their spatial axes (the
+    biased variance), then scaled by gamma and shifted by beta."""
+    red = tuple(range(2, data.ndim))
+    mean = data.mean(red, keepdim=True)
+    var = data.var(red, unbiased=False, keepdim=True)
+    bshape = (1, -1) + (1,) * (data.ndim - 2)
+    out = (data - mean) * torch.rsqrt(var + attrs["eps"])
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("Dropout", aliases=["dropout"], mode_dependent=True,
+          params={"p": P(float, 0.5),
+                  "mode": P(str, "training", choices=["training", "always"]),
+                  "axes": P("shape", ())})
+def dropout(attrs, x):
+    """In training (or with mode ``always``) each element is kept with
+    probability 1 - p and scaled by 1 / (1 - p); the mask is drawn from
+    the explicit generator of ``x``'s device (``random.generator``), one
+    draw per element, shared along ``axes``.  Otherwise ``x`` itself."""
+    p = attrs["p"]
+    active = attrs.get("_training", False) or attrs["mode"] == "always"
+    if not active or p <= 0 or x.device.type == "meta":
+        return x
+    shape = tuple(1 if i in attrs["axes"] else d
+                  for i, d in enumerate(x.shape))
+    gen = _random.generator(Context.of(x.device))
+    u = torch.rand(shape, generator=gen, device=x.device)
+    keep = (u < 1.0 - p).to(x.dtype)
+    return x * keep / (1.0 - p)

@@ -11,6 +11,9 @@ Output-tuple convention: the impl returns its ``nout`` graph outputs
 first, then one entry per ``mutate_aux`` target; ``mutate_aux`` maps an
 input index to the output index holding that aux input's new value.
 
+A ``variable_inputs`` op (Concat, add_n, stack) takes any number of
+inputs, counted in its ``key_var_num_args`` attr.
+
 ``inplace`` maps an input index to the output index that IS that input,
 written in place (the KV-cache writes).  Outside training the executor
 hands such an op a copy of the input unless the graph owns the buffer
@@ -24,7 +27,7 @@ import torch
 from ..base import Param, normalize_attrs, MXNetError
 
 __all__ = ["OpDef", "register", "register_opdef", "get_op", "list_ops",
-           "P", "invoke", "torch_dtype"]
+           "P", "invoke", "torch_dtype", "dtype_name"]
 
 _REGISTRY = {}
 _ALIASES = {}
@@ -41,11 +44,18 @@ def torch_dtype(dt):
     return getattr(torch, name if name == "bfloat16" else np.dtype(name).name)
 
 
+def dtype_name(dt):
+    """The name of a torch or numpy dtype or dtype name (``"float32"``,
+    ``"bfloat16"``), as op attrs and symbol JSON carry it."""
+    return str(torch_dtype(dt)).replace("torch.", "")
+
+
 class OpDef:
     def __init__(self, name, impl, params=None, nin=1, nout=1,
                  input_names=None, mode_dependent=False, mutate_aux=None,
                  fill_shapes=None, num_visible_outputs=None, aux_inputs=(),
-                 inplace=None, doc=""):
+                 inplace=None, variable_inputs=False, key_var_num_args=None,
+                 doc=""):
         self.name = name
         self.impl = impl
         self.params = params or {}
@@ -59,12 +69,19 @@ class OpDef:
                                     is not None else nout)
         self.aux_inputs = tuple(aux_inputs)
         self.inplace = inplace or {}
+        self.variable_inputs = variable_inputs
+        self.key_var_num_args = key_var_num_args
         self.doc = doc or (impl.__doc__ or "")
 
     def normalize(self, attrs):
         return normalize_attrs(self.params, attrs, self.name)
 
     def input_names(self, attrs=None, num_inputs=None):
+        if self.variable_inputs:
+            n = num_inputs
+            if n is None and attrs:
+                n = attrs.get(self.key_var_num_args or "num_args")
+            return ["arg%d" % i for i in range(int(n or 0))]
         if self.input_names_spec is not None:
             names = list(self.input_names_spec)
             n = self.nin(attrs) if callable(self.nin) else self.nin

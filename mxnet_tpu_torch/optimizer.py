@@ -61,7 +61,7 @@ class Optimizer:
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
-                 sym=None, begin_num_update=0):
+                 sym=None, begin_num_update=0, param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -74,6 +74,9 @@ class Optimizer:
         self.clip_gradient = clip_gradient
         self.idx2name = dict(param_idx2name or {})
         self.sym = sym
+        # Gluon's Trainer: {index: Parameter}, whose lr_mult and wd_mult
+        # come before every other multiplier
+        self.param_dict = dict(param_dict or {})
         self.set_lr_mult({})
         self.set_wd_mult({})
 
@@ -108,7 +111,9 @@ class Optimizer:
         self._index_update_count[index] = count
         self.num_update = max(count, self.num_update)
 
-    def _multiplier(self, index, table):
+    def _multiplier(self, index, table, param_attr):
+        if index in self.param_dict:
+            return getattr(self.param_dict[index], param_attr)
         if index in table:
             return table[index]
         name = self.idx2name.get(index)
@@ -119,10 +124,10 @@ class Optimizer:
         ``num_update`` (else ``lr``) times its multiplier."""
         base = self.lr_scheduler(self.num_update) \
             if self.lr_scheduler is not None else self.lr
-        return base * self._multiplier(index, self.lr_mult)
+        return base * self._multiplier(index, self.lr_mult, "lr_mult")
 
     def _get_wd(self, index):
-        return self.wd * self._multiplier(index, self.wd_mult)
+        return self.wd * self._multiplier(index, self.wd_mult, "wd_mult")
 
     def _common_attrs(self, index):
         a = {"lr": self._get_lr(index), "wd": self._get_wd(index),
@@ -132,13 +137,17 @@ class Optimizer:
         return a
 
     def __getstate__(self):
+        # the symbol and Gluon's Parameters stay with the program; a
+        # Trainer that loads states gives its Parameters back
         d = self.__dict__.copy()
         d.pop("sym", None)
+        d.pop("param_dict", None)
         return d
 
     def __setstate__(self, state):
         self.__dict__.update(state)
         self.sym = None
+        self.param_dict = {}
 
 
 register = Optimizer.register

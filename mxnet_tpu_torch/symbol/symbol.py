@@ -5,7 +5,10 @@ output entries over a DAG of (op, attrs, inputs) nodes.  Its JSON keeps
 the reference's node-list layout (op/"null", name, attrs as strings,
 inputs as [node_id, out_idx, version]) and is written exactly as the JAX
 package writes it, so the two packages load each other's
-``-symbol.json``.  Shape inference runs each op on meta tensors.
+``-symbol.json``.  Shape and type inference run each op on meta tensors;
+``infer_shape_partial`` stops where shapes are unknown instead of
+raising.  Variables carry the reference's ``__shape__``, ``__dtype__``,
+``__lr_mult__``, ``__wd_mult__`` and ``__init__`` attributes.
 """
 from __future__ import annotations
 
@@ -16,10 +19,10 @@ import numpy as np
 from ..base import MXNetError, NameManager, AttrScope, attrs_to_strings, \
     _parse_tuple
 from ..ops import get_op
-from ..ops.registry import OpDef
+from ..ops.registry import OpDef, dtype_name
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
-           "copy_graph"]
+           "copy_graph", "zeros", "ones"]
 
 
 class SymNode:
@@ -76,9 +79,38 @@ class Symbol:
     def __len__(self):
         return len(self._outputs)
 
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
     def __getitem__(self, index):
-        """Output ``index`` as a Symbol of its own."""
+        """Output ``index`` (a position, a slice or an output name) as a
+        Symbol of its own."""
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError("output %r not found in %s" % (index, names))
+            index = names.index(index)
+        if isinstance(index, slice):
+            return Symbol(self._outputs[index])
         return Symbol([self._outputs[index]])
+
+    def __copy__(self):
+        return Symbol(list(self._outputs))
+
+    def __deepcopy__(self, memo):
+        return copy_graph(self)[0]
+
+    def get_internals(self):
+        """A Symbol of every node's every output, in topological order."""
+        return Symbol([(n, i) for n in _topo(self._outputs)
+                       for i in range(n.num_outputs())])
+
+    def get_children(self):
+        """The inputs of this symbol's node as a Symbol, None for a
+        variable."""
+        if len(self._outputs) != 1 or not self._outputs[0][0].inputs:
+            return None
+        return Symbol(list(self._outputs[0][0].inputs))
 
     # -- listing -----------------------------------------------------------
     def list_outputs(self):
@@ -114,17 +146,40 @@ class Symbol:
         return [n.name for n in _topo(self._outputs)
                 if n.op is None and id(n) in aux]
 
+    def list_inputs(self):
+        """Every variable, arguments and aux states, in topological
+        order."""
+        return [n.name for n in _topo(self._outputs) if n.op is None]
+
+    def attr(self, key):
+        """Attribute ``key`` of this symbol's node, None if it has none."""
+        if len(self._outputs) != 1:
+            return None
+        v = self._outputs[0][0].attrs.get(key)
+        return None if v is None else attrs_to_strings({key: v})[key]
+
+    def _set_attr(self, **kwargs):
+        for node, _ in self._outputs:
+            node.attrs.update(kwargs)
+
     # -- shape inference ----------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the known input
         shapes; raises naming the first node it could not get past."""
+        return self._infer_shape(False, args, kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """``infer_shape`` that leaves None where a shape stays unknown."""
+        return self._infer_shape(True, args, kwargs)
+
+    def _infer_shape(self, partial, args, kwargs):
         known = {}
         for n, s in zip(self.list_arguments(), args):
             if s is not None:
                 known[n] = tuple(s)
         known.update({k: tuple(v) for k, v in kwargs.items()
                       if v is not None})
-        shapes = infer_graph_env(self._outputs, known)[0]
+        shapes = infer_graph_env(self._outputs, known, partial=partial)[0]
         topo = _topo(self._outputs)
         aux = self._aux_nodes()
         arg_shapes = [shapes.get((id(n), 0)) for n in topo
@@ -132,7 +187,8 @@ class Symbol:
         aux_shapes = [shapes.get((id(n), 0)) for n in topo
                       if n.op is None and id(n) in aux]
         out_shapes = [shapes.get((id(n), i)) for (n, i) in self._outputs]
-        if any(s is None for s in arg_shapes + aux_shapes + out_shapes):
+        if not partial and any(s is None for s in
+                               arg_shapes + aux_shapes + out_shapes):
             missing = [nm for nm, s in zip(self.list_arguments(), arg_shapes)
                        if s is None]
             blocked = ""
@@ -149,13 +205,39 @@ class Symbol:
                              % (missing, blocked))
         return arg_shapes, out_shapes, aux_shapes
 
+    def infer_type(self, *args, **kwargs):
+        """(arg_types, out_types, aux_types) as numpy dtypes from the
+        known input types (a variable's ``__dtype__``, else float32); an
+        output whose shapes are unknown is taken as float32, as the
+        reference takes it."""
+        known = {}
+        for n, t in zip(self.list_arguments(), args):
+            if t is not None:
+                known[n] = t
+        known.update({k: v for k, v in kwargs.items() if v is not None})
+        dtypes = infer_graph_env(self._outputs, {}, known, partial=True)[1]
+        topo = _topo(self._outputs)
+        aux = self._aux_nodes()
+
+        def np_dtype(key):
+            d = dtypes.get(key)
+            return np.dtype(np.float32) if d is None \
+                else np.dtype(dtype_name(d))
+        arg_types = [np_dtype((id(n), 0)) for n in topo
+                     if n.op is None and id(n) not in aux]
+        aux_types = [np_dtype((id(n), 0)) for n in topo
+                     if n.op is None and id(n) in aux]
+        out_types = [np_dtype(k) for k in self._outputs]
+        return arg_types, out_types, aux_types
+
     # -- arithmetic composition ----------------------------------------------
-    def _binary(self, other, op, scalar_op, reverse=False):
+    def _binary(self, other, op, scalar_op, rscalar_op=None, reverse=False):
         if isinstance(other, Symbol):
             a, b = (other, self) if reverse else (self, other)
             return _create(op, [a, b], {})
         if isinstance(other, (int, float, np.number, bool)):
-            return _create(scalar_op, [self], {"scalar": float(other)})
+            name = rscalar_op if reverse and rscalar_op else scalar_op
+            return _create(name, [self], {"scalar": float(other)})
         raise TypeError("cannot combine Symbol with %s" % type(other))
 
     def __add__(self, o):
@@ -167,17 +249,54 @@ class Symbol:
         return self._binary(o, "elemwise_sub", "_minus_scalar")
 
     def __rsub__(self, o):
-        if isinstance(o, (int, float, np.number, bool)):
-            return _create("_rminus_scalar", [self], {"scalar": float(o)})
-        return self._binary(o, "elemwise_sub", "_minus_scalar", reverse=True)
+        return self._binary(o, "elemwise_sub", "_minus_scalar",
+                            "_rminus_scalar", reverse=True)
 
     def __mul__(self, o):
         return self._binary(o, "elemwise_mul", "_mul_scalar")
 
     __rmul__ = __mul__
 
+    def __truediv__(self, o):
+        return self._binary(o, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "elemwise_div", "_div_scalar",
+                            "_rdiv_scalar", reverse=True)
+
+    def __pow__(self, o):
+        return self._binary(o, "_power", "_power_scalar")
+
+    def __rpow__(self, o):
+        return self._binary(o, "_power", "_power_scalar", "_rpow_scalar",
+                            reverse=True)
+
+    def __mod__(self, o):
+        return self._binary(o, "_mod", "_mod_scalar")
+
+    def __neg__(self):
+        return _create("negative", [self], {})
+
+    def __eq__(self, o):
+        return self._binary(o, "equal", "_equal_scalar")
+
+    def __ne__(self, o):
+        return self._binary(o, "not_equal", "_not_equal_scalar")
+
     def __gt__(self, o):
         return self._binary(o, "greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binary(o, "greater_equal", "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binary(o, "lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binary(o, "lesser_equal", "_lesser_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
 
     # -- serialization ------------------------------------------------------
     def tojson(self):
@@ -237,19 +356,21 @@ def copy_graph(symbol):
         mapping
 
 
-def infer_graph_env(heads, known_shapes, known_dtypes=None):
+def infer_graph_env(heads, known_shapes, known_dtypes=None, partial=False):
     """Forward fixed point over the DAG: variables seed shapes (and
-    dtypes, float32 unless ``known_dtypes`` names one), each op's
-    ``fill_shapes`` completes its parameter shapes, then the op runs on
-    meta tensors for its output shapes and dtypes.  Returns
-    ({(id(node), out_idx): shape}, {...: torch dtype})."""
+    dtypes: ``known_dtypes``, else the variable's ``__dtype__``, else
+    float32), each op's ``fill_shapes`` completes its parameter shapes,
+    then the op runs on meta tensors for its output shapes and dtypes.
+    With ``partial`` an op that fails is left unknown instead of raising.
+    Returns ({(id(node), out_idx): shape}, {...: torch dtype})."""
     from ..ops.registry import torch_dtype
     topo = _topo(heads)
     shapes, dtypes = {}, {}
     for n in topo:
         if n.op is None:
             dtypes[(id(n), 0)] = torch_dtype(
-                (known_dtypes or {}).get(n.name) or "float32")
+                (known_dtypes or {}).get(n.name)
+                or n.attrs.get("__dtype__") or "float32")
             if n.name in known_shapes:
                 shapes[(id(n), 0)] = tuple(known_shapes[n.name])
             elif "__shape__" in n.attrs:
@@ -277,6 +398,8 @@ def infer_graph_env(heads, known_shapes, known_dtypes=None):
                 _, out_shapes, out_dtypes = n.op.infer(
                     attrs, in_shapes, [dtypes.get(k) for k in keys])
             except Exception as e:
+                if partial:
+                    continue
                 raise MXNetError("shape inference failed at %s(%s): %s"
                                  % (n.op.name, n.name, e))
             for i, (s, d) in enumerate(zip(out_shapes, out_dtypes)):
@@ -292,10 +415,23 @@ def infer_graph_env(heads, known_shapes, known_dtypes=None):
 # construction
 # ---------------------------------------------------------------------------
 
-def var(name, attr=None, shape=None, **kwargs):
+def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
+        init=None, stype=None, **kwargs):
+    """A variable; ``shape``, ``dtype``, ``lr_mult``, ``wd_mult`` and
+    ``init`` (a name, or an initializer's JSON) become its ``__shape__``,
+    ``__dtype__``, ``__lr_mult__``, ``__wd_mult__`` and ``__init__``
+    attributes, as in the reference."""
     attrs = AttrScope.current().get(attr or {})
     if shape is not None:
         attrs["__shape__"] = tuple(shape)
+    if dtype is not None:
+        attrs["__dtype__"] = dtype_name(dtype)
+    if lr_mult is not None:
+        attrs["__lr_mult__"] = float(lr_mult)
+    if wd_mult is not None:
+        attrs["__wd_mult__"] = float(wd_mult)
+    if init is not None:
+        attrs["__init__"] = init if isinstance(init, str) else init.dumps()
     attrs.update(kwargs)
     return Symbol([(SymNode(None, name, attrs, []), 0)])
 
@@ -333,9 +469,23 @@ def _create(op_name, input_syms, attrs, name=None):
     for miss in expected[len(entries):]:
         entries.append(var("%s_%s" % (name, miss))._outputs[0])
     keep = dict(norm)
+    if opdef.variable_inputs and opdef.key_var_num_args:
+        keep[opdef.key_var_num_args] = len(entries)
     keep.update({k: v for k, v in scope_attrs.items() if k.startswith("__")})
     node = SymNode(opdef, name, keep, entries)
     return Symbol([(node, i) for i in range(node.num_outputs())])
+
+
+def zeros(shape, dtype=None, **kwargs):
+    return _create("_zeros", [], {"shape": (shape,) if isinstance(shape, int)
+                                  else tuple(shape),
+                                  "dtype": np.dtype(dtype or np.float32).name})
+
+
+def ones(shape, dtype=None, **kwargs):
+    return _create("_ones", [], {"shape": (shape,) if isinstance(shape, int)
+                                 else tuple(shape),
+                                 "dtype": np.dtype(dtype or np.float32).name})
 
 
 # ---------------------------------------------------------------------------
