@@ -155,7 +155,26 @@ Phases (none catches its own failure; there is no CPU path):
    MXNET_CONV1X1_FUSED_BWD=1 equal to the Executor's gradients bit for
    bit (K1/K2/K3/K5/K6/K8 12/12/12/24/12/3); K5 with its dW zeroed is a
    planted fault that must fail;
-14. the kernel table (K1-K11) as one JSON line, then the result line
+14. RNN: ``examples/rnn_ptb.py``'s path on cuda:0 at the example's
+   widths (hidden 200, embed 200, 2 layers, batch 32, buckets 10-40, SGD
+   at lr 1.0, Xavier, ``Perplexity(ignore_label=0)``) over its synthetic
+   corpus (copied here): ``BucketingModule`` over two unrolled LSTMCells
+   for 2 epochs (cut from 10); perplexity must fall and step 1's
+   gradients be within 1e-3 (relative L2) of the port's CPU run from the
+   same weights and batch.  Then PTB's vocabulary (10000) through
+   ``models/lstm_lm.py``'s fused RNN op for one epoch over a seeded Zipf
+   corpus of 2000 sentences of 6-40 tokens; one batch of bucket 40 fused
+   against the example's unrolled cells with the weights carried by
+   ``FusedRNNCell.unpack_weights`` (loss within 1e-5 relative, every
+   gradient within 1e-4 relative L2), and with layer 0's i and f gate
+   blocks swapped in the blob, a planted fault that must fail.  Then
+   ``gluon.rnn.LSTM(200, num_layers=2)`` on (40, 32, 200) TNC:
+   hybridized equal to imperative bit for bit, and the same weights as
+   LSTMCells (imperative and hybridized, bit for bit) within 1e-5.  Step
+   ms by bucket, non-padding tokens/s, one profiled step's idle share and
+   peak memory for both models.  No hand-written kernel runs here (the
+   JAX op is a ``lax.scan``, no Pallas kernel); the counters must read 0;
+15. the kernel table (K1-K11) as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -3495,6 +3514,467 @@ def gluon_phase(torch, mt, fu, nn, kv, seed, card):
     return out
 
 
+# examples/rnn_ptb.py at its own widths (--num-hidden 200 --num-embed 200
+# --num-layers 2, batch 32, buckets 10-40, lr 1.0), over its synthetic
+# corpus; PTB's vocabulary through models/lstm_lm.py's fused op
+RNN_HIDDEN, RNN_EMBED, RNN_LAYERS, RNN_BATCH = 200, 200, 2, 32
+RNN_BUCKETS = [10, 20, 30, 40]
+RNN_LR, RNN_EPOCHS = 1.0, 2         # the example's 10 epochs cut to 2
+RNN_GRAD_RTOL = 1e-3                # step 1 on the card against the CPU
+PTB_VOCAB, PTB_SENTENCES, PTB_LENGTHS, PTB_ZIPF = 10000, 2000, (6, 40), 1.2
+PTB_LR = 0.1
+PTB_LOSS_RTOL, PTB_GRAD_RTOL = 1e-5, 1e-4   # fused against unrolled
+GLUON_RNN_SHAPE = (40, 32, 200)             # (T, N, C), TNC
+GLUON_RNN_TOL = 1e-5                        # the layer against its cells
+
+
+def synthetic_corpus(n=2000, vocab_size=64, seed=0):
+    """examples/rnn_ptb.py's ``synthetic_corpus``, copied (the example
+    imports the JAX package): a Markov-chain language of ``n`` sentences
+    of 6-29 tokens over ids 1..vocab_size-1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    trans = rng.dirichlet(np.ones(vocab_size - 1) * 0.1,
+                          size=vocab_size - 1)
+    out = []
+    for _ in range(n):
+        ln = int(rng.integers(6, 30))
+        s = [int(rng.integers(1, vocab_size))]
+        for _ in range(ln - 1):
+            s.append(int(rng.choice(vocab_size - 1,
+                                    p=trans[s[-1] - 1])) + 1)
+        out.append(s)
+    return out, {i: i for i in range(vocab_size)}
+
+
+def zipf_corpus(seed):
+    """PTB_SENTENCES sentences of PTB_LENGTHS tokens, their ids
+    Zipf-distributed over 1..PTB_VOCAB-1 (the example's Markov chain would
+    need a PTB_VOCAB^2 matrix)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(PTB_LENGTHS[0], PTB_LENGTHS[1] + 1, PTB_SENTENCES)
+    ids = (rng.zipf(PTB_ZIPF, int(lens.sum())) - 1) % (PTB_VOCAB - 1) + 1
+    cuts = np.cumsum(lens)[:-1]
+    return [[int(t) for t in s] for s in np.split(ids, cuts)]
+
+
+def lstm_stack(mt):
+    """The example's SequentialRNNCell of RNN_LAYERS LSTMCells."""
+    stack = mt.rnn.SequentialRNNCell()
+    for i in range(RNN_LAYERS):
+        stack.add(mt.rnn.LSTMCell(RNN_HIDDEN, prefix="lstm_l%d_" % i))
+    return stack
+
+
+def example_sym_gen(mt, stack, vocab, head="example"):
+    """examples/rnn_ptb.py's ``sym_gen`` over ``stack`` at ``vocab``; with
+    head="lm" the loss head of models/lstm_lm.py (SoftmaxOutput without
+    ignore_label), so that it computes what the fused model does."""
+    def sym_gen(seq_len):
+        data = mt.sym.Variable("data")
+        label = mt.sym.Variable("softmax_label")
+        embed = mt.sym.Embedding(data, input_dim=vocab,
+                                 output_dim=RNN_EMBED, name="embed")
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mt.sym.Reshape(outputs, shape=(-1, RNN_HIDDEN))
+        pred = mt.sym.FullyConnected(pred, num_hidden=vocab, name="pred")
+        label_f = mt.sym.Reshape(label, shape=(-1,))
+        if head == "lm":
+            out = mt.sym.SoftmaxOutput(pred, label_f, name="softmax")
+        else:
+            out = mt.sym.SoftmaxOutput(pred, label_f, name="softmax",
+                                       use_ignore=True, ignore_label=0,
+                                       normalization="valid")
+        return out, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def fused_sym_gen(mt, vocab):
+    def sym_gen(seq_len):
+        return mt.models.lstm_lm_symbol(seq_len, vocab_size=vocab,
+                                        num_embed=RNN_EMBED,
+                                        num_hidden=RNN_HIDDEN,
+                                        num_layers=RNN_LAYERS)
+    return sym_gen
+
+
+FUSED_STATES = ("lstm_init_h", "lstm_init_c")
+
+
+def bucket_fit(torch, mt, sym_gen, it, weights, lr, epochs, card,
+               state_names=()):
+    """``BucketingModule.fit`` on cuda:0 from ``weights`` (host arrays;
+    Xavier for the rest) with ``Perplexity(ignore_label=0)``: per-epoch
+    perplexity, per-step (bucket, non-padding tokens, seconds), step 1's
+    batch and gradients, the module, the fit's wall and peak memory (and
+    the peak above what was allocated when the fit began: earlier phases
+    leave arrays behind)."""
+    import numpy as np
+    ctx = mt.gpu(0)
+    mod = mt.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=ctx, state_names=list(state_names))
+    steps, ppl, first = [], {}, {}
+    last = [None]
+
+    def on_batch(param):
+        now = time.perf_counter()
+        batch = param.locals["batch"]
+        steps.append((batch.bucket_key,
+                      int(np.count_nonzero(batch.data[0].asnumpy())),
+                      now - last[0]))
+        last[0] = now
+        ppl[param.epoch] = float(param.eval_metric.get()[1])
+        if not first:
+            ex = mod._curr_module._exec
+            first["batch"] = batch
+            first["grads"] = {k: ex.grad_dict[k]._data.to("cpu", copy=True)
+                              for k in weights}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = last[0] = time.perf_counter()
+    mod.fit(it, num_epoch=epochs,
+            eval_metric=mt.metric.Perplexity(ignore_label=0),
+            initializer=mt.init.Xavier(),
+            arg_params={k: mt.nd.array(v, ctx=ctx)
+                        for k, v in weights.items()},
+            optimizer_params={"learning_rate": lr},
+            batch_end_callback=[mt.callback.Speedometer(RNN_BATCH, 50),
+                                on_batch])
+    torch.cuda.synchronize()
+    return {"mod": mod, "steps": steps, "ppl": [ppl[e] for e in
+                                                sorted(ppl)],
+            "first": first, "fit_s": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated(), "base": base}
+
+
+def step_reading(torch, mt, run, it, card, what):
+    """Step ms by bucket (each bucket's first step, which binds it, left
+    out), non-padding tokens/s over those steps, and one profiled step
+    of the largest bucket that had batches (the example's corpus has no
+    sentence for bucket 40); logged beside the card."""
+    by_bucket = {}
+    seen = set()
+    tokens = secs = 0.0
+    for key, ntok, s in run["steps"]:
+        if key not in seen:
+            seen.add(key)
+            continue
+        by_bucket.setdefault(key, []).append(1e3 * s)
+        tokens += ntok
+        secs += s
+    medians = {k: _median(sorted(v)) for k, v in sorted(by_bucket.items())}
+    it.reset()
+    top = max(key for key, _, _ in run["steps"])
+    big = next(b for b in it if b.bucket_key == top)
+    mod = run["mod"]
+    prof = profile_calls(torch, lambda: (mod.forward_backward(big),
+                                         mod.update()), 3)
+    rate = tokens / secs if secs else None
+    log("  %s: %d steps in %.2f s, perplexity by epoch %s; median step ms "
+        "by bucket %s; %.1f non-padding tokens/s; max_memory_allocated "
+        "%.3f GB, %.3f GB above the fit's start [%s]" % (
+            what, len(run["steps"]), run["fit_s"], fmt(run["ppl"], "%.3f"),
+            {k: round(v, 3) for k, v in medians.items()}, rate or 0.0,
+            run["peak"] / 1e9, (run["peak"] - run["base"]) / 1e9, card))
+    log_profile("one %s step at bucket %d" % (what, big.bucket_key), prof,
+                card)
+    return {"steps": len(run["steps"]), "fit_s": run["fit_s"],
+            "perplexity_by_epoch": run["ppl"],
+            "median_step_ms_by_bucket": medians,
+            "step_ms_by_bucket": by_bucket,
+            "non_padding_tokens_per_s": rate,
+            "max_memory_allocated": run["peak"],
+            "peak_above_start": run["peak"] - run["base"],
+            "profile_step": prof}
+
+
+def module_grads(torch, mt, sym_gen, weights, batch, ctx, state_names=()):
+    """One forward/backward of ``batch`` through a BucketingModule on
+    ``ctx`` from ``weights``: (the outputs, {name: gradient}) on the
+    host."""
+    mod = mt.mod.BucketingModule(sym_gen, default_bucket_key=batch.bucket_key,
+                                 context=ctx, state_names=list(state_names))
+    mod.bind(batch.provide_data, batch.provide_label)
+    mod.init_params(arg_params={k: mt.nd.array(v, ctx=ctx)
+                                for k, v in weights.items()})
+    mod.forward_backward(batch)
+    ex = mod._curr_module._exec
+    return (ex.outputs[0]._data.to("cpu", copy=True),
+            {k: ex.grad_dict[k]._data.to("cpu", copy=True)
+             for k in weights})
+
+
+def rel_l2(torch, got, want):
+    """Relative L2 of dicts of tensors, over all of them together."""
+    num = sum(float((got[k].double() - want[k].double()).norm()) ** 2
+              for k in want)
+    den = sum(float(want[k].double().norm()) ** 2 for k in want)
+    return (num / den) ** 0.5
+
+
+def lm_loss(torch, probs, batch):
+    """The mean cross-entropy of SoftmaxOutput's probabilities against the
+    batch's labels, in f64."""
+    lab = batch.label[0]._data.reshape(-1).long()
+    p = probs.double()[torch.arange(lab.numel()), lab]
+    return float(-p.clamp_min(1e-30).log().mean())
+
+
+def swapped_if(mt, cell, blob):
+    """``blob`` (a host array) with the i and f gate blocks of layer 0's
+    i2h and h2h weights and biases swapped: a planted fault."""
+    import numpy as np
+    bad = blob.copy()
+    entries, _ = cell._blob_entries(RNN_EMBED)
+    where = {name: (shape, off) for name, shape, off in entries}
+    for group in ("i2h", "h2h"):
+        for kind in ("weight", "bias"):
+            (shape, oi) = where["lstm_l0_%s_i_%s" % (group, kind)]
+            (_, of) = where["lstm_l0_%s_f_%s" % (group, kind)]
+            n = int(np.prod(shape))
+            bad[oi:oi + n], bad[of:of + n] = blob[of:of + n], blob[oi:oi + n]
+    return bad
+
+
+def fused_vs_unrolled(torch, mt, weights, batch, ctx, blob=None):
+    """One batch through models/lstm_lm.py's fused graph (its packed
+    ``lstm_parameters``, or ``blob``) and through the example's unrolled
+    LSTMCells with the same weights (FusedRNNCell.unpack_weights, then the
+    cells' pack_weights) and the fused model's head: (loss relative
+    error, worst per-gate/per-array gradient relative L2, {name: rel})."""
+    fw = dict(weights)
+    if blob is not None:
+        fw["lstm_parameters"] = blob
+    probs_f, grads_f = module_grads(torch, mt, fused_sym_gen(mt, PTB_VOCAB),
+                                   fw, batch, ctx, FUSED_STATES)
+    cell = mt.rnn.FusedRNNCell(RNN_HIDDEN, num_layers=RNN_LAYERS,
+                               mode="lstm", prefix="lstm_")
+    stack = lstm_stack(mt)
+    per_gate = mt.convert.rnn_params_to_numpy(cell, {
+        "lstm_parameters": mt.nd.array(weights["lstm_parameters"],
+                                       ctx=mt.cpu())})
+    unrolled_w = {k: v.asnumpy() for k, v in mt.convert.rnn_params_from_numpy(
+        stack, per_gate, device=mt.cpu()).items()}
+    unrolled_w.update({k: v for k, v in weights.items()
+                       if k != "lstm_parameters"})
+    probs_u, grads_u = module_grads(
+        torch, mt, example_sym_gen(mt, stack, PTB_VOCAB, head="lm"),
+        unrolled_w, batch, ctx)
+
+    def gates(c, grads, name_filter):
+        nd = {k: mt.nd.NDArray(v) for k, v in grads.items()
+              if name_filter(k)}
+        return {k: v._data for k, v in c.unpack_weights(nd).items()}
+    gf = gates(cell, grads_f, lambda k: k == "lstm_parameters")
+    gu = gates(stack, grads_u, lambda k: k.startswith("lstm_l"))
+    for k in ("embed_weight", "pred_weight", "pred_bias"):
+        gf[k], gu[k] = grads_f[k], grads_u[k]
+    assert sorted(gf) == sorted(gu)
+    rels = {k: rel_l2(torch, {k: gf[k]}, {k: gu[k]}) for k in gu}
+    lf, lu = lm_loss(torch, probs_f, batch), lm_loss(torch, probs_u, batch)
+    return abs(lf - lu) / abs(lu), max(rels.values()), rels, (lf, lu)
+
+
+def gluon_rnn_check(torch, mt, seed, card):
+    """(c) ``gluon.rnn.LSTM(200, num_layers=2)`` on (40, 32, 200) TNC:
+    imperative and hybridized (a Block: the same eager path) forward and
+    backward bit for bit; the same weights as two LSTMCells (the layer's
+    ``_unfuse``) unrolled imperatively and hybridized (a CachedOp a step),
+    which agree bit for bit, against the layer within GLUON_RNN_TOL."""
+    import numpy as np
+    ctx = mt.gpu(0)
+    T, N, C = GLUON_RNN_SHAPE
+    rng = np.random.default_rng(seed + 50)
+    x = rng.standard_normal(GLUON_RNN_SHAPE).astype(np.float32)
+    cot = rng.standard_normal((T, N, RNN_HIDDEN)).astype(np.float32)
+    weights = None
+
+    def run(kind, hybrid):
+        nonlocal weights
+        layer = mt.gluon.rnn.LSTM(RNN_HIDDEN, num_layers=RNN_LAYERS,
+                                  prefix="lstm_")
+        if weights is None:
+            weights = mt.convert.gluon_random_params(layer, GLUON_RNN_SHAPE,
+                                                     seed=seed + 51)
+        mt.convert.gluon_params_from_numpy(layer, weights, ctx=ctx)
+        block = layer if kind == "layer" else layer._unfuse()
+        if hybrid:
+            block.hybridize()
+        xs = mt.nd.array(x, ctx=ctx)
+        xs.attach_grad()
+        with mt.autograd.record():
+            if kind == "layer":
+                y = block(xs)
+            else:
+                y, _ = block.unroll(T, xs, layout="TNC", merge_outputs=True)
+            loss = (y * mt.nd.array(cot, ctx=ctx)).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {k: p.grad()._data.to("cpu", copy=True)
+                 for k, p in layer.collect_params().items()}
+        grads["data"] = xs.grad._data.to("cpu", copy=True)
+        return y._data.detach().to("cpu", copy=True), grads
+    runs = {(k, h): run(k, h) for k in ("layer", "cells")
+            for h in (False, True)}
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and all(
+            torch.equal(a[1][k], b[1][k]) for k in a[1])
+    layer_bits = same(runs["layer", False], runs["layer", True])
+    cell_bits = same(runs["cells", False], runs["cells", True])
+    ly, lg = runs["layer", False]
+    cy, cg = runs["cells", False]
+    y_err = float((ly - cy).abs().max())
+    g_err = max(float((lg[k] - cg[k]).abs().max())
+                / max(float(cg[k].abs().max()), 1e-30) for k in cg)
+    log("  (c) gluon.rnn.LSTM(%d, num_layers=%d) on %s TNC: hybridized %s "
+        "imperative; its LSTMCells hybridized %s imperative; layer against "
+        "cells: output max |diff| %.3g, gradients max |diff| / max |g| "
+        "%.3g (limit %g) [%s]" % (
+            RNN_HIDDEN, RNN_LAYERS, GLUON_RNN_SHAPE,
+            "bit-equal to" if layer_bits else "DIFFERS from",
+            "bit-equal to" if cell_bits else "DIFFER from", y_err, g_err,
+            GLUON_RNN_TOL, card))
+    failures = []
+    if not layer_bits:
+        failures.append("the hybridized LSTM layer differs from the "
+                        "imperative one")
+    if not cell_bits:
+        failures.append("the hybridized LSTMCells differ from the "
+                        "imperative ones")
+    if y_err > GLUON_RNN_TOL or g_err > GLUON_RNN_TOL:
+        failures.append("the LSTM layer differs from its cells: %.3g, %.3g"
+                        % (y_err, g_err))
+    return {"layer_bit_equal": layer_bits, "cells_bit_equal": cell_bits,
+            "layer_vs_cells_max_abs": y_err,
+            "layer_vs_cells_grad_rel": g_err}, failures
+
+
+def rnn_phase(torch, mt, fu, nn, kv, seed, card):
+    """Phase 14.  (a) examples/rnn_ptb.py's run at its widths over its
+    synthetic corpus: BucketingModule over two unrolled LSTMCells, 2
+    epochs; perplexity must fall, and step 1's gradients must be within
+    RNN_GRAD_RTOL of the port's CPU run from the same weights and batch.
+    (b) PTB's vocabulary through models/lstm_lm.py's fused RNN op over a
+    Zipf corpus, one epoch; one batch of bucket 40 fused against the
+    example's unrolled cells with the same weights, and with the i and f
+    gate blocks swapped (a planted fault that must fail).  (c)
+    ``gluon_rnn_check``.  No hand-written kernel runs on this path: every
+    launch counter must read 0."""
+    import numpy as np
+    ctx = mt.gpu(0)
+    wrappers = kernel_wrappers(fu, nn, kv)
+    for k in wrappers:
+        k.launches = 0
+    failures = []
+    out = {}
+
+    # (a) the example
+    sentences, _ = synthetic_corpus()
+    vocab = 64
+    it = mt.rnn.BucketSentenceIter(sentences, RNN_BATCH, buckets=RNN_BUCKETS,
+                                   invalid_label=0)
+    stack = lstm_stack(mt)
+    sym_gen = example_sym_gen(mt, stack, vocab)
+    mt.random.seed(seed)
+    draw = mt.mod.BucketingModule(sym_gen,
+                                  default_bucket_key=it.default_bucket_key,
+                                  context=ctx)
+    draw.bind(it.provide_data, it.provide_label)
+    draw.init_params(initializer=mt.init.Xavier())
+    weights = {k: v.asnumpy() for k, v in draw.get_params()[0].items()}
+    del draw
+    run = bucket_fit(torch, mt, sym_gen, it, weights, RNN_LR, RNN_EPOCHS,
+                     card)
+    batch = run["first"]["batch"]
+    _, cpu_grads = module_grads(torch, mt, sym_gen, weights, batch,
+                                mt.cpu())
+    grad_rel = rel_l2(torch, run["first"]["grads"], cpu_grads)
+    out["example"] = step_reading(torch, mt, run, it, card,
+                                  "examples/rnn_ptb.py")
+    out["example"].update(step1_grad_rel_l2=grad_rel,
+                          step1_bucket=batch.bucket_key,
+                          buckets_bound=sorted(run["mod"]._buckets))
+    ppl = run["ppl"]
+    log("  (a) step 1 (bucket %d): gradients on the card against the CPU's "
+        "from the same weights, relative L2 over all %d parameters %.3g "
+        "(limit %g); buckets bound %s" % (
+            batch.bucket_key, len(cpu_grads), grad_rel, RNN_GRAD_RTOL,
+            sorted(run["mod"]._buckets)))
+    if not ppl[-1] < ppl[0]:
+        failures.append("(a) perplexity did not fall: %s" % ppl)
+    if not grad_rel <= RNN_GRAD_RTOL:
+        failures.append("(a) step 1's gradients %.3g from the CPU's"
+                        % grad_rel)
+    if sorted(run["mod"]._buckets) != RNN_BUCKETS:
+        failures.append("(a) buckets bound %s" % sorted(run["mod"]._buckets))
+    del run
+    torch.cuda.empty_cache()
+
+    # (b) PTB's vocabulary through the fused op
+    ptb = mt.rnn.BucketSentenceIter(zipf_corpus(seed + 40), RNN_BATCH,
+                                    buckets=RNN_BUCKETS, invalid_label=0)
+    fsym = fused_sym_gen(mt, PTB_VOCAB)
+    args, _ = mt.convert.random_params(
+        fsym(max(RNN_BUCKETS))[0],
+        {"data": (RNN_BATCH, max(RNN_BUCKETS)),
+         "softmax_label": (RNN_BATCH, max(RNN_BUCKETS))}, seed=seed + 41)
+    for k in FUSED_STATES:
+        args.pop(k)
+    big = next(b for b in ptb if b.bucket_key == max(RNN_BUCKETS))
+    ptb.reset()
+    loss_rel, grad_worst, rels, losses = fused_vs_unrolled(torch, mt, args,
+                                                           big, ctx)
+    cell = mt.rnn.FusedRNNCell(RNN_HIDDEN, num_layers=RNN_LAYERS,
+                               mode="lstm", prefix="lstm_")
+    f_loss, f_grad, _, _ = fused_vs_unrolled(
+        torch, mt, args, big, ctx,
+        blob=swapped_if(mt, cell, args["lstm_parameters"]))
+    log("  (b) fused LSTM (models/lstm_lm.py, vocab %d) against the "
+        "example's unrolled LSTMCells, one batch of bucket %d: loss %.7f "
+        "vs %.7f, relative %.3g (limit %g); worst gradient relative L2 %.3g "
+        "(limit %g) over %d arrays [%s]" % (
+            PTB_VOCAB, big.bucket_key, losses[0], losses[1], loss_rel,
+            PTB_LOSS_RTOL, grad_worst, PTB_GRAD_RTOL, len(rels), card))
+    log("  (b) fault: the i and f gate blocks of layer 0 swapped in the "
+        "blob: loss relative %.3g, worst gradient %.3g" % (f_loss, f_grad))
+    if loss_rel > PTB_LOSS_RTOL or grad_worst > PTB_GRAD_RTOL:
+        failures.append("(b) fused differs from unrolled: loss %.3g, "
+                        "gradient %.3g" % (loss_rel, grad_worst))
+    if f_loss <= PTB_LOSS_RTOL and f_grad <= PTB_GRAD_RTOL:
+        failures.append("(b) the swapped-gate fault passed")
+    mt.random.seed(seed + 42)
+    prun = bucket_fit(torch, mt, fsym, ptb, args, PTB_LR, 1, card,
+                      state_names=FUSED_STATES)
+    out["ptb"] = step_reading(torch, mt, prun, ptb, card,
+                              "models/lstm_lm.py fused, vocab %d"
+                              % PTB_VOCAB)
+    out["ptb"].update(fused_vs_unrolled={
+        "loss_rel": loss_rel, "worst_grad_rel_l2": grad_worst,
+        "grad_rel_l2": rels, "losses": losses,
+        "fault_loss_rel": f_loss, "fault_worst_grad_rel_l2": f_grad})
+    if not np.isfinite(prun["ppl"]).all():
+        failures.append("(b) perplexity not finite: %s" % prun["ppl"])
+    del prun
+    torch.cuda.empty_cache()
+
+    # (c) Gluon
+    out["gluon"], more = gluon_rnn_check(torch, mt, seed, card)
+    failures += more
+    out["launches"] = {k.__name__: k.launches for k in wrappers}
+    log("  launches of the hand-written kernels in this phase: %s"
+        % out["launches"])
+    if any(out["launches"].values()):
+        failures.append("hand-written kernels launched: %s"
+                        % out["launches"])
+    if failures:
+        raise AssertionError("rnn: " + "; ".join(failures))
+    return out
+
+
 _SOURCES = {
     "fu_mm_fwd": ("mm_fwd", "mxnet_tpu/ops/fused_unit.py:376"),
     "fu_c3_fwd2d": ("c3_fwd2d", "mxnet_tpu/ops/fused_unit.py:457"),
@@ -3518,7 +3998,7 @@ _LOOPS.update(dict.fromkeys(("fu_c3_fwd4d", "fu_c3_bwd4d"),
 
 
 def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
-                 decode, imp, rtc, gluon):
+                 decode, imp, rtc, gluon, rnn):
     """One entry per kernel.  K1-K4: times per ResNet-50 forward at batch
     8 (each stage's shape weighted by its number of fused units) and
     launches in the serve phase of their mode (K4: 4d); K5-K8: times per
@@ -3532,8 +4012,9 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
     config of the bench phase), in each ImageNet fit (4 steps and 2
     validation batches; plain and fused) with the fused fit's errors
     against the plain versions, per decode step, per imperative unit and
-    in the rtc phase and in the gluon phase's SymbolBlock runs (a serve
-    forward in each 3x3 mode and a training step); K1-K8 also their
+    in the rtc phase, in the gluon phase's SymbolBlock runs (a serve
+    forward in each 3x3 mode and a training step) and in the rnn phase
+    (none); K1-K8 also their
     bfloat16 times (kernel, library
     and bound) at the same shapes, and K2-K8 their kernel and library
     times in both dtypes with the L2 cache flushed before each call; K1-K8
@@ -3641,7 +4122,8 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
             "launches_per_imperative_unit":
                 imp["launches"][wrapper] / imp["units"],
             "launches_in_rtc_phase": rtc["launches"][wrapper],
-            "launches_in_gluon_phase": gluon["launches"][wrapper]},
+            "launches_in_gluon_phase": gluon["launches"][wrapper],
+            "launches_in_rnn_phase": rnn["launches"][wrapper]},
             **entry))
     return table
 
@@ -3775,8 +4257,18 @@ def main():
                                         GLUON_BATCH))
     gluon = gluon_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
+    log("[14] RNN: examples/rnn_ptb.py's bucketed LSTM (hidden %d, embed "
+        "%d, %d layers, batch %d, buckets %s) through BucketingModule on %s; "
+        "PTB's vocabulary (%d) through the fused RNN op; gluon.rnn.LSTM"
+        % (RNN_HIDDEN, RNN_EMBED, RNN_LAYERS, RNN_BATCH, RNN_BUCKETS, name,
+           PTB_VOCAB))
+    t0 = time.perf_counter()
+    rnn = rnn_phase(torch, mt, fu, nn, kv, opts.seed, card)
+    rnn["phase_s"] = time.perf_counter() - t0
+    log("  phase 14 took %.1f s" % rnn["phase_s"])
+
     table = kernel_table(rows, bwd_rows, kv_rows, serve, train, bench,
-                         imagenet, decode, imp, rtc, gluon)
+                         imagenet, decode, imp, rtc, gluon, rnn)
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)),
                     exist_ok=True)
@@ -3789,9 +4281,10 @@ def main():
                        "imagenet": imagenet,
                        "kv_rows": kv_rows,
                        "decode": decode, "imperative": imp, "rtc": rtc,
-                       "mnist": mnist, "gluon": gluon, "kernels": table,
+                       "mnist": mnist, "gluon": gluon, "rnn": rnn,
+                       "kernels": table,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log("[14] done in %.1f s" % (time.perf_counter() - t_start))
+    log("[15] done in %.1f s" % (time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

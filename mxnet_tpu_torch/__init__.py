@@ -62,6 +62,7 @@ from . import image
 from . import callback
 from . import module
 from . import module as mod
+from . import rnn
 from . import bench_step
 from . import rtc
 from . import cached_op

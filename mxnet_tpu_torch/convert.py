@@ -13,7 +13,10 @@ writes the files ``mxnet_tpu.model.load_checkpoint`` reads, and
 ``Block.save_params`` writes (the net's prefix stripped):
 ``gluon_params_from_numpy``, ``gluon_params_to_numpy`` and
 ``gluon_random_params``; a ``.params`` file either package's
-``save_params`` wrote loads in the other's ``load_params``.
+``save_params`` wrote loads in the other's ``load_params``.  An RNN
+cell's weights carry as the fused blob (``<prefix>parameters``, one
+array like any other) or unpacked per gate (``rnn_params_from_numpy``,
+``rnn_params_to_numpy``).
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from . import ndarray as nd
 
 __all__ = ["params_from_numpy", "params_to_numpy", "load_params",
            "random_params", "gluon_params_from_numpy",
-           "gluon_params_to_numpy", "gluon_random_params"]
+           "gluon_params_to_numpy", "gluon_random_params",
+           "rnn_params_from_numpy", "rnn_params_to_numpy"]
 
 
 def params_from_numpy(arg_params, aux_params, device=None, dtype=None):
@@ -57,6 +61,19 @@ def load_params(fname, device=None, dtype=None):
     return params_from_numpy(args, aux, device, dtype)
 
 
+def _random_arg(rng, name, shape):
+    """One seeded argument: He-scaled for a weight, in [0.5, 1) for a
+    BatchNorm scale, N(0, 0.1) otherwise."""
+    if name.endswith("_weight"):
+        fan_in = int(np.prod(shape[1:]))
+        v = rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)
+    elif name.endswith("_gamma"):
+        v = rng.uniform(0.5, 1.0, shape)
+    else:
+        v = rng.standard_normal(shape) * 0.1
+    return v.astype(np.float32)
+
+
 def random_params(symbol, data_shapes, seed=0):
     """Seeded float32 numpy parameters for every argument and aux state of
     ``symbol`` (data and ``*_label`` inputs excluded): He-scaled weights,
@@ -65,18 +82,9 @@ def random_params(symbol, data_shapes, seed=0):
     changes the answer.  Returns (arg_params, aux_params)."""
     rng = np.random.default_rng(seed)
     arg_shapes, _, aux_shapes = symbol.infer_shape(**data_shapes)
-    args = {}
-    for name, shape in zip(symbol.list_arguments(), arg_shapes):
-        if name in data_shapes or name.endswith("_label"):
-            continue
-        if name.endswith("_weight"):
-            fan_in = int(np.prod(shape[1:]))
-            v = rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)
-        elif name.endswith("_gamma"):
-            v = rng.uniform(0.5, 1.0, shape)
-        else:
-            v = rng.standard_normal(shape) * 0.1
-        args[name] = v.astype(np.float32)
+    args = {name: _random_arg(rng, name, shape)
+            for name, shape in zip(symbol.list_arguments(), arg_shapes)
+            if name not in data_shapes and not name.endswith("_label")}
     aux = {}
     for name, shape in zip(symbol.list_auxiliary_states(), aux_shapes):
         v = rng.uniform(0.5, 1.5, shape) if name.endswith("_var") \
@@ -114,8 +122,36 @@ def gluon_params_to_numpy(net):
 def gluon_random_params(net, data_shape, seed=0):
     """Seeded float32 numpy arrays for every parameter of the Gluon
     ``net`` at input ``data_shape`` (``random_params`` over the net's
-    symbol), keyed without the net's prefix."""
+    symbol), keyed without the net's prefix.  A net that is no
+    HybridBlock (``gluon.rnn``'s fused layers) has no symbol: its arrays
+    take the parameters' own shapes, each unknown (0) dimension, the
+    first layer's input width, from ``data_shape``'s last axis."""
     from . import symbol
+    from .gluon import HybridBlock
+    if not isinstance(net, HybridBlock):
+        rng = np.random.default_rng(seed)
+        return {k: _random_arg(rng, k, tuple(d or data_shape[-1]
+                                             for d in p.shape))
+                for k, p in _stripped(net).items()}
     sym = net(symbol.var("data"))
     args, aux = random_params(sym, {"data": tuple(data_shape)}, seed)
     return {k[len(net.prefix):]: v for k, v in {**args, **aux}.items()}
+
+
+def rnn_params_from_numpy(cells, arrays, device=None):
+    """``arrays`` ({name: numpy array}, each cell's weights unpacked per
+    gate, as the JAX package's ``unpack_weights`` gives them) ->
+    {name: NDArray} on ``device`` (else ``current_context()``), each of
+    ``cells``' weights packed (a fused cell's into its blob)."""
+    args, _ = params_from_numpy(arrays, {}, device)
+    for cell in cells if isinstance(cells, (list, tuple)) else [cells]:
+        args = cell.pack_weights(args)
+    return args
+
+
+def rnn_params_to_numpy(cells, arg_params):
+    """The reverse: each of ``cells``' weights unpacked per gate, then
+    every NDArray to a host numpy array."""
+    for cell in cells if isinstance(cells, (list, tuple)) else [cells]:
+        arg_params = cell.unpack_weights(arg_params)
+    return params_to_numpy(arg_params, {})[0]

@@ -1,8 +1,8 @@
 """Gluon, the imperative-first API (counterpart of ``mxnet_tpu/gluon``):
 Blocks run define-by-run on NDArrays, and ``hybridize()`` runs a
-HybridBlock's symbol through a ``CachedOp``.  The recurrent cells and
-layers (``gluon.rnn``) and the vision datasets are not ported yet
-(``ROADMAP.md`` Queue A items 2-3)."""
+HybridBlock's symbol through a ``CachedOp``; ``rnn`` holds the recurrent
+cells and the fused RNN layers.  The vision datasets are not ported yet
+(``ROADMAP.md`` Queue A item 2)."""
 from .parameter import (Parameter, Constant, ParameterDict,
                         DeferredInitializationError)
 from .block import Block, HybridBlock, SymbolBlock
@@ -12,3 +12,4 @@ from . import loss
 from . import utils
 from . import data
 from . import model_zoo
+from . import rnn

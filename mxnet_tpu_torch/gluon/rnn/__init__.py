@@ -1,0 +1,6 @@
+"""Gluon's recurrent cells and fused RNN layers (counterpart of
+``mxnet_tpu/gluon/rnn``)."""
+from .rnn_cell import *  # noqa: F401,F403
+from .rnn_layer import *  # noqa: F401,F403
+from . import rnn_cell
+from . import rnn_layer

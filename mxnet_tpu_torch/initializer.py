@@ -4,12 +4,12 @@ Counterpart of ``mxnet_tpu/initializer.py``: ``InitDesc``, the
 ``Initializer.__call__`` dispatch on the parameter's name (``*weight``,
 ``*bias`` -> 0, ``*gamma`` -> 1, ``*beta`` -> 0, ``*moving_mean`` -> 0,
 ``*moving_var`` -> 1, ...) and Zero, One, Constant, Uniform, Normal,
-Xavier, MSRAPrelu, Orthogonal, Bilinear, LSTMBias, Load and Mixed.  Random
+Xavier, MSRAPrelu, Orthogonal, Bilinear, LSTMBias, FusedRNN, Load and
+Mixed, and ``dumps`` (the JSON a variable's ``init=`` keeps).  Random
 draws come from the explicit generator of the array's device
 (``random.generator``), never from a global stream.  Orthogonal takes the
 SVD of its draw in float64 on the host, as the reference does; the
 deterministic initializers compute in numpy as the reference does.
-FusedRNN, which packs an RNN cell's weights, waits for the RNN cells.
 """
 from __future__ import annotations
 
@@ -73,7 +73,16 @@ def _draw(arr, fill):
 
 
 class Initializer:
-    """Base initializer: dispatch on the parameter's name."""
+    """Base initializer: dispatch on the parameter's name.  ``kwargs``
+    are the constructor's arguments, which ``dumps`` serializes."""
+
+    def __init__(self, **kwargs):
+        self._kwargs = kwargs
+
+    def dumps(self):
+        """``[name, kwargs]`` as JSON, the reference's form (a variable's
+        ``__init__`` attribute; ``create`` reads it back)."""
+        return json.dumps([type(self).__name__.lower(), self._kwargs])
 
     def __call__(self, desc, arr):
         if not isinstance(desc, str):
@@ -121,6 +130,7 @@ _INIT_REGISTRY["ones"] = One
 @register
 class Constant(Initializer):
     def __init__(self, value=0.0):
+        super().__init__(value=value)
         self.value = value
 
     def _init_weight(self, _, arr):
@@ -132,6 +142,7 @@ class Uniform(Initializer):
     """U(-scale, scale)."""
 
     def __init__(self, scale=0.07):
+        super().__init__(scale=scale)
         self.scale = scale
 
     def _init_weight(self, _, arr):
@@ -144,6 +155,7 @@ class Normal(Initializer):
     """N(0, sigma)."""
 
     def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
         self.sigma = sigma
 
     def _init_weight(self, _, arr):
@@ -157,6 +169,8 @@ class Xavier(Initializer):
     from the weight's shape."""
 
     def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        super().__init__(rnd_type=rnd_type, factor_type=factor_type,
+                         magnitude=magnitude)
         self.rnd_type = rnd_type
         self.factor_type = factor_type
         self.magnitude = float(magnitude)
@@ -190,6 +204,7 @@ class MSRAPrelu(Xavier):
 
     def __init__(self, factor_type="avg", slope=0.25):
         super().__init__("gaussian", factor_type, 2. / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
 
 
 @register
@@ -199,6 +214,7 @@ class Orthogonal(Initializer):
     SVD taken in float64 on the host as the reference takes it."""
 
     def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
         self.scale = scale
         self.rand_type = rand_type
 
@@ -243,6 +259,7 @@ class LSTMBias(Initializer):
     the four gates), 0 elsewhere."""
 
     def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
         self.forget_bias = forget_bias
 
     def _init_weight(self, name, arr):
@@ -253,13 +270,44 @@ class LSTMBias(Initializer):
 
 @register
 class FusedRNN(Initializer):
-    """The packed parameters of a fused RNN cell: they need the RNN cells,
-    which are not yet ported."""
+    """The packed blob of a fused RNN cell: unpacked into its per-gate
+    weights and biases (``rnn.FusedRNNCell.unpack_weights``), each drawn by
+    ``init`` (an initializer or its JSON; the global initializer when
+    None), the LSTM's forget-gate biases set to ``forget_bias``, then
+    packed back."""
 
     def __init__(self, init, num_hidden, num_layers, mode,
                  bidirectional=False, forget_bias=1.0):
-        raise MXNetError("FusedRNN initializer: the RNN cells it packs are "
-                         "not yet ported")
+        if isinstance(init, str):
+            init = create(init)
+        super().__init__(init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from .rnn import rnn_cell
+        cell = rnn_cell.FusedRNNCell(self._num_hidden, self._num_layers,
+                                     self._mode, self._bidirectional,
+                                     forget_bias=self._forget_bias,
+                                     prefix="")
+        args = cell.unpack_weights({cell._parameter.name: arr})
+        for name, piece in args.items():
+            if self._mode == "lstm" and name.endswith("_f_bias"):
+                piece[:] = self._forget_bias
+            elif self._init is None:
+                desc.global_init(InitDesc(name, global_init=desc.global_init),
+                                 piece)
+            else:
+                self._init(InitDesc(name, global_init=desc.global_init),
+                           piece)
+        arr[:] = cell.pack_weights(args)[cell._parameter.name]
 
 
 @register

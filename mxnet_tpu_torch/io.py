@@ -45,15 +45,16 @@ class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
 
 
 class DataBatch:
-    """One batch: lists of data and label NDArrays, and the number of
-    padding rows at its end."""
+    """One batch: lists of data and label NDArrays, the number of padding
+    rows at its end, and the bucket it belongs to (``BucketingModule``)."""
 
     def __init__(self, data, label=None, pad=None, index=None,
-                 provide_data=None, provide_label=None):
+                 bucket_key=None, provide_data=None, provide_label=None):
         self.data = data
         self.label = label
         self.pad = pad
         self.index = index
+        self.bucket_key = bucket_key
         self.provide_data = provide_data
         self.provide_label = provide_label
 

@@ -10,3 +10,4 @@ from . import optimizer_ops  # noqa: F401
 from . import linalg        # noqa: F401
 from . import reduce        # noqa: F401
 from . import cache         # noqa: F401
+from . import rnn           # noqa: F401

@@ -4,7 +4,8 @@ Counterpart of the ResNet ops in ``mxnet_tpu/ops/nn.py``: Convolution,
 Pooling, BatchNorm, the fused input BatchNorm and stem convolution
 ``_contrib_BNStemConv``, Activation, FullyConnected and SoftmaxOutput, and
 the attention decoder's Embedding and softmax, and Gluon's
-Deconvolution, log_softmax, InstanceNorm and Dropout, with
+Deconvolution, log_softmax, InstanceNorm and Dropout, and the recurrent
+cells' SequenceMask, SequenceLast and SequenceReverse, with
 the same parameter schemas (so symbol JSON interchanges) and the same
 layouts at the op boundary (NHWC data with OHWI weights when ``layout``
 ends in C, else NCHW/OIHW).  None of these was a Pallas kernel in the
@@ -784,3 +785,66 @@ def dropout(attrs, x):
     u = torch.rand(shape, generator=gen, device=x.device)
     keep = (u < 1.0 - p).to(x.dtype)
     return x * keep / (1.0 - p)
+
+
+# ---------------------------------------------------------------------------
+# Sequence ops: data (T, batch, ...) unless ``axis`` says otherwise
+# ---------------------------------------------------------------------------
+
+def _seq_nin(attrs):
+    return 2 if (attrs or {}).get("use_sequence_length") else 1
+
+
+@register("SequenceMask", aliases=["sequence_mask"], nin=_seq_nin,
+          input_names=["data", "sequence_length"],
+          params={"use_sequence_length": P(bool, False),
+                  "value": P(float, 0.0), "axis": P(int, 0)})
+def sequence_mask(attrs, data, seq_len=None):
+    """Steps at or past each sequence's length set to ``value``.  Time on
+    axis 0 is the reference's (T, batch, ...) layout; any other time axis
+    takes the batch on axis 0."""
+    if not attrs["use_sequence_length"]:
+        return data
+    ax = attrs["axis"]
+    T = data.shape[ax]
+    steps = torch.arange(T, device=data.device)
+    sl = seq_len.long()
+    if ax == 0:
+        mask = steps[:, None] < sl[None, :]
+        mask = mask.reshape(mask.shape + (1,) * (data.ndim - 2))
+    else:
+        mask = (steps.reshape((1,) * ax + (T,) + (1,) * (data.ndim - ax - 1))
+                < sl.reshape((sl.shape[0],) + (1,) * (data.ndim - 1)))
+    return torch.where(mask, data, torch.full((), attrs["value"],
+                                              dtype=data.dtype,
+                                              device=data.device))
+
+
+@register("SequenceLast", aliases=["sequence_last"], nin=_seq_nin,
+          input_names=["data", "sequence_length"],
+          params={"use_sequence_length": P(bool, False), "axis": P(int, 0)})
+def sequence_last(attrs, data, seq_len=None):
+    """Each sequence's last valid step: time on ``axis`` 0 indexes
+    (T, batch, ...), any other axis (batch, T, ...)."""
+    ax = attrs["axis"]
+    if not attrs["use_sequence_length"]:
+        return data.select(ax, data.shape[ax] - 1)
+    idx = seq_len.long() - 1
+    rows = torch.arange(idx.shape[0], device=data.device)
+    return data[idx, rows] if ax == 0 else data[rows, idx]
+
+
+@register("SequenceReverse", aliases=["sequence_reverse"], nin=_seq_nin,
+          input_names=["data", "sequence_length"],
+          params={"use_sequence_length": P(bool, False), "axis": P(int, 0)})
+def sequence_reverse(attrs, data, seq_len=None):
+    """Each sequence's valid steps reversed along axis 0, the padding left
+    in place (the whole axis 0 without ``use_sequence_length``)."""
+    if not attrs["use_sequence_length"]:
+        return torch.flip(data, dims=(0,))
+    T = data.shape[0]
+    sl = seq_len.long()[None, :]
+    t = torch.arange(T, device=data.device)[:, None]
+    src = torch.where(t < sl, sl - 1 - t, t)                  # (T, batch)
+    src = src.reshape(src.shape + (1,) * (data.ndim - 2)).expand(data.shape)
+    return torch.gather(data, 0, src)

@@ -112,6 +112,20 @@ def test_msra_prelu_matches_jax_by_its_scale():
 
 
 def test_fused_rnn_raises_a_named_error():
-    with pytest.raises(mt.MXNetError, match="RNN cells"):
-        mt.init.create("fusedrnn", init=None, num_hidden=4, num_layers=1,
-                       mode="lstm")
+    """FusedRNN (ported with the RNN cells) fills a blob of its cell's
+    size through a variable's ``__init__`` JSON, the forget gates' biases
+    at forget_bias, and names the fault for a blob of no cell's size."""
+    init = mt.init.create("fusedrnn", init=None, num_hidden=4, num_layers=1,
+                          mode="lstm", forget_bias=2.0)
+    desc = mt.init.InitDesc("f_parameters", {"__init__": init.dumps()})
+    size = mt.ops.rnn.rnn_param_size("lstm", 3, 4, 1, False)
+    with mt.cpu():
+        good, bad = mt.nd.zeros((size,)), mt.nd.zeros((size + 1,))
+    mt.init.Uniform(0.1)(desc, good)
+    blob = good.asnumpy()
+    biases = blob[-32:]
+    np.testing.assert_array_equal(biases[4:8], 2.0)       # i2h forget
+    np.testing.assert_array_equal(biases[20:24], 2.0)     # h2h forget
+    assert np.abs(blob[:-32]).max() > 0
+    with pytest.raises(mt.MXNetError, match="fused parameter size"):
+        mt.init.Uniform(0.1)(desc, bad)

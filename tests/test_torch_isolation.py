@@ -94,6 +94,28 @@ def test_entry_points_with_cpu_ctx_run_without_a_card(no_card):
                                   [[0.0, 0.0, 2.0]])
 
 
+def test_rnn_entry_points_want_a_card_unless_given_cpu(no_card):
+    """BucketingModule binds its Modules on the card, and Gluon's RNN
+    layer initializes there, unless told the CPU."""
+    def sym_gen(seq_len):
+        return mt.sym.Activation(mt.sym.Variable("data"),
+                                 act_type="relu"), ("data",), None
+    mod = mt.mod.BucketingModule(sym_gen, default_bucket_key=3)
+    with pytest.raises(mt.MXNetError, match="ctx=cpu"):
+        mod.bind([("data", (1, 3))], for_training=False)
+    layer = mt.gluon.rnn.LSTM(4, input_size=3)
+    with pytest.raises(mt.MXNetError, match="ctx=cpu"):
+        layer.initialize()
+    mod = mt.mod.BucketingModule(sym_gen, default_bucket_key=3,
+                                 context=mt.cpu())
+    mod.bind([("data", (1, 3))], for_training=False)
+    mod.init_params()
+    mod.forward(mt.io.DataBatch([mt.nd.array([[-1.0, 0.0, 2.0]],
+                                             ctx=mt.cpu())], bucket_key=3))
+    np.testing.assert_array_equal(mod.get_outputs()[0].asnumpy(),
+                                  [[0.0, 0.0, 2.0]])
+
+
 def test_contexts_name_torch_devices():
     assert mt.cpu().device == torch.device("cpu")
     assert mt.gpu(1).device == torch.device("cuda", 1)
