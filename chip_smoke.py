@@ -174,7 +174,33 @@ Phases (none catches its own failure; there is no CPU path):
    ms by bucket, non-padding tokens/s, one profiled step's idle share and
    peak memory for both models.  No hand-written kernel runs here (the
    JAX op is a ``lax.scan``, no Pallas kernel); the counters must read 0;
-15. the kernel table (K1-K11) as one JSON line, then the result line
+15. SSD: ``examples/train_ssd.py``'s path on cuda:0 at its published
+   widths: ``vgg16_reduced`` (ceil-mode pool3, atrous fc6) with 20 classes
+   and background, 300x300, 6 scales, 8040 anchors, 25,167,662
+   parameters in float32.  256 seeded JPEG records of 320-400 pixels a
+   side, each with 1-8 boxes filled in their class's colour (labels by
+   ``pack_det_label``, padded to 24), read by ``io.ImageDetRecordIter``
+   with the example's arguments (batch 32, mirror, crop with probability
+   0.5, shuffle, its means, the threaded pool); Xavier weights from
+   ``--seed`` carried by ``convert.params_from_numpy``; ``Module.fit``
+   with its settings (SGD, lr 0.004, momentum 0.9, wd 1e-4, kvstore
+   local) for 3 epochs of 8 steps, ``eval_metric`` ``Loss`` over
+   loc_loss_output (the default "acc" raises).  The median step,
+   images/s, one profiled step, peak memory and the masked class
+   cross-entropy, which must fall.  Step 1 of the first batch's first 4
+   images on the card against the port on the CPU from the same weights:
+   the gradients within 10x a control (the CPU's f32 step against its
+   f64 step), MultiBoxTarget's cls_target and loc_mask equal apart from
+   the printed anchors flipped by mining ties, loc_target within 1e-5;
+   ``_encode_box`` with x and y swapped on the card is a planted fault
+   that must fail.  Then the detect graph with the trained weights
+   through ``Predictor`` at batch 32, nms_topk 400: output (32, 8040,
+   6), ms a batch, MultiBoxDetection's ms and its NMS loop's share, peak
+   memory, and the kept detections of 2 images equal to the CPU
+   ``Predictor``'s (class ids equal, scores and boxes within 1e-5).  No
+   hand-written kernel runs here (the JAX ops are ``jnp`` code and VGG's
+   convolutions were never Pallas kernels); the counters must read 0;
+16. the kernel table (K1-K11) as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -3975,6 +4001,404 @@ def rnn_phase(torch, mt, fu, nn, kv, seed, card):
     return out
 
 
+SSD_NETWORK, SSD_CLASSES, SSD_IMAGE = "vgg16_reduced", 20, 300
+SSD_BATCH, SSD_PAD = 32, 24         # examples/train_ssd.py's defaults
+SSD_RECORDS, SSD_EPOCHS = 256, 3    # 8 batches an epoch
+SSD_STORED = (320, 400)             # sides of the stored JPEGs
+SSD_MEAN = (123.68, 116.779, 103.939)
+SSD_SGD = {"learning_rate": 0.004, "momentum": 0.9, "wd": 1e-4}
+SSD_PARAMS = 25167662               # vgg16_reduced, 20 classes
+SSD_CHECK_IMAGES, SSD_DETECT_IMAGES = 4, 2
+SSD_GRAD_FACTOR = 10                # limit: 10x the CPU's f32 error
+SSD_LOC_ATOL, SSD_DET_ATOL = 1e-5, 1e-5
+SSD_DETECT_REPS = 5
+
+
+def write_det_records(mt, prefix, n, seed):
+    """``n`` seeded JPEG detection records, each side in SSD_STORED: a
+    smooth random background and 1-8 filled boxes, each in its class's
+    colour (classes 0..SSD_CLASSES-1), labels packed by
+    ``pack_det_label``."""
+    import numpy as np
+    rio = mt.recordio
+    rng = np.random.default_rng(seed)
+    colours = rng.integers(0, 256, (SSD_CLASSES, 3))
+    w = rio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    try:
+        for i in range(n):
+            h, wd = rng.integers(SSD_STORED[0], SSD_STORED[1] + 1, 2)
+            small = rng.integers(0, 256, (h // 40 + 1, wd // 40 + 1, 3))
+            img = np.kron(small, np.ones((40, 40, 1)))[:h, :wd]
+            objs = []
+            for _ in range(rng.integers(1, 9)):
+                cls = int(rng.integers(0, SSD_CLASSES))
+                bw, bh = rng.uniform(0.1, 0.6, 2)
+                x0, y0 = rng.uniform(0, 1 - bw), rng.uniform(0, 1 - bh)
+                img[int(y0 * h):int((y0 + bh) * h),
+                    int(x0 * wd):int((x0 + bw) * wd)] = colours[cls]
+                objs.append([cls, x0, y0, x0 + bw, y0 + bh])
+            label = mt.image.pack_det_label(np.array(objs))
+            w.write_idx(i, rio.pack_img(rio.IRHeader(0, label, i, 0),
+                                        img.astype(np.uint8), quality=95))
+    finally:
+        w.close()
+    return prefix + ".rec"
+
+
+def ssd_iter(mt, rec, seed):
+    """examples/train_ssd.py's iterator over ``rec``: 300x300, batch 32,
+    24 label rows, mirror, crop with probability 0.5, shuffle, its means,
+    the threaded pool with one thread per host core."""
+    args = dict(path_imgrec=rec, data_shape=(3, SSD_IMAGE, SSD_IMAGE),
+                batch_size=SSD_BATCH, label_pad_count=SSD_PAD,
+                rand_mirror=True, rand_crop_prob=0.5, shuffle=True,
+                preprocess_threads=os.cpu_count(), seed=seed,
+                data_name="data", label_name="label")
+    args.update(zip(("mean_r", "mean_g", "mean_b"), SSD_MEAN))
+    return mt.io.ImageDetRecordIter(**args)
+
+
+def class_ce(torch, outs):
+    """The masked class cross-entropy of one SSD training step (as
+    tests/test_ssd.py computes it), on the device: -log p over the anchors
+    whose cls_target is not ignored."""
+    probs, labels = outs[0]._data, outs[2]._data
+    mask = labels >= 0
+    p = probs.gather(1, labels.clamp_min(0).long()[:, None])[:, 0]
+    return -(p.clamp(1e-8, 1).log() * mask).sum() / mask.sum()
+
+
+def ssd_fit(torch, mt, sym, it, weights, card):
+    """examples/train_ssd.py's ``fit`` on cuda:0 from ``weights`` (host
+    arrays, carried by ``convert.params_from_numpy``): SGD with the
+    example's settings, kvstore local, ``Loss`` over loc_loss_output
+    (the default "acc" raises: three outputs, one label).  Returns the
+    module, per-step seconds and class cross-entropies, the first
+    batch's first SSD_CHECK_IMAGES images and labels, the fit's wall and
+    peak memory (and the peak above what was allocated when it began)."""
+    ctx = mt.gpu(0)
+    args, _ = mt.convert.params_from_numpy(weights, {}, device=ctx)
+    n_params = sum(v.size for v in args.values())
+    if n_params != SSD_PARAMS:
+        raise AssertionError("ssd: params_from_numpy carried %d parameters, "
+                             "not %d" % (n_params, SSD_PARAMS))
+    mod = mt.mod.Module(sym, context=ctx, data_names=("data",),
+                        label_names=("label",))
+    steps, ces, first = [], [], {}
+    last = [None]
+
+    def on_batch(param):
+        now = time.perf_counter()
+        steps.append(now - last[0])
+        last[0] = now
+        ces.append(class_ce(torch, mod.get_outputs()))
+        if not first:
+            batch = param.locals["batch"]
+            first["x"] = batch.data[0].asnumpy()[:SSD_CHECK_IMAGES]
+            first["y"] = batch.label[0].asnumpy()[:SSD_CHECK_IMAGES]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = last[0] = time.perf_counter()
+    mod.fit(it, num_epoch=SSD_EPOCHS, kvstore="local", optimizer="sgd",
+            optimizer_params=SSD_SGD, initializer=mt.init.Xavier(),
+            eval_metric=mt.metric.Loss(output_names=["loc_loss_output"]),
+            arg_params=args, batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    return {"mod": mod, "steps": steps, "n_params": n_params,
+            "ce": [float(c) for c in ces], "first": first,
+            "fit_s": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated(), "base": base}
+
+
+def ssd_check_symbol(mt, sym):
+    """The train graph's three outputs, then MultiBoxTarget's loc_target
+    and loc_mask."""
+    inner = sym.get_internals()
+    return mt.sym.Group([sym[i] for i in range(3)] + [
+        inner["multibox_target_output0"], inner["multibox_target_output1"]])
+
+
+def ssd_step(torch, mt, sym, weights, x, y, ctx, dtype):
+    """One training forward and backward of ``sym`` through the Executor
+    on ``ctx`` in ``dtype``: (outputs, {name: gradient}) on the host in
+    float64."""
+    args = {k: mt.nd.array(v, ctx=ctx, dtype=dtype)
+            for k, v in weights.items()}
+    args["data"] = mt.nd.array(x, ctx=ctx, dtype=dtype)
+    args["label"] = mt.nd.array(y, ctx=ctx, dtype=dtype)
+    req = {n: "null" if n in ("data", "label") else "write"
+           for n in sym.list_arguments()}
+    ex = sym.bind(ctx, args=args, grad_req=req)
+    outs = ex.forward(is_train=True)
+    ex.backward()
+    return ([o._data.to("cpu", torch.float64) for o in outs],
+            {k: ex.grad_dict[k]._data.to("cpu", torch.float64)
+             for k in weights})
+
+
+def ssd_target_reading(torch, got, want):
+    """MultiBoxTarget on two runs: anchors whose cls_target differs
+    (only negatives against ignored ones, the mining ties, are allowed),
+    loc_mask equal, loc_target's largest difference."""
+    cls_g, cls_w = got[2], want[2]
+    diff = cls_g != cls_w
+    ties = diff & (cls_g <= 0) & (cls_w <= 0)
+    return {"mining_ties_flipped": int(ties.sum()),
+            "other_cls_target_diffs": int((diff & ~ties).sum()),
+            "loc_mask_diffs": int((got[4] != want[4]).sum()),
+            "loc_target_max_abs": float((got[3] - want[3]).abs().max())}
+
+
+def ssd_grad_check(torch, mt, sym, weights, x, y, card):
+    """(b): one step of the first SSD_CHECK_IMAGES images on the card and
+    on the CPU from the same weights; the limit on the gradients is
+    SSD_GRAD_FACTOR times a control, the CPU's float32 step against its
+    float64 step.  Then the same with ``_encode_box``'s x and y swapped
+    on the card: a planted fault that must fail."""
+    from mxnet_tpu_torch.ops import contrib_det
+    import numpy as np
+    csym = ssd_check_symbol(mt, sym)
+    cpu32 = ssd_step(torch, mt, csym, weights, x, y, mt.cpu(), np.float32)
+    cpu64 = ssd_step(torch, mt, csym, weights, x, y, mt.cpu(), np.float64)
+    control = rel_l2(torch, cpu32[1], cpu64[1])
+    limit = SSD_GRAD_FACTOR * control
+
+    def reading(run):
+        r = {"grad_rel_l2": rel_l2(torch, run[1], cpu32[1]),
+             "grad_rel_l2_f64": rel_l2(torch, run[1], cpu64[1])}
+        r.update(ssd_target_reading(torch, run[0], cpu32[0]))
+        r["fails"] = [k for k, bad in (
+            ("gradients", not r["grad_rel_l2"] <= limit),
+            ("cls_target", r["other_cls_target_diffs"] > 0),
+            ("loc_mask", r["loc_mask_diffs"] > 0),
+            ("loc_target", not r["loc_target_max_abs"] <= SSD_LOC_ATOL))
+            if bad]
+        return r
+    card_run = reading(ssd_step(torch, mt, csym, weights, x, y, mt.gpu(0),
+                                np.float32))
+    encode = contrib_det._encode_box
+
+    def swapped(anchor, gt, variances):
+        return encode(anchor[..., [1, 0, 3, 2]], gt[..., [1, 0, 3, 2]],
+                      variances)
+    with replaced(contrib_det, "_encode_box", swapped):
+        fault = reading(ssd_step(torch, mt, csym, weights, x, y, mt.gpu(0),
+                                 np.float32))
+    ctrl_ties = ssd_target_reading(torch, cpu64[0], cpu32[0])
+    log("  (b) step 1 of %d images, card against the CPU from the same "
+        "weights: gradients relative L2 %.3g (against f64 %.3g), limit %.3g "
+        "= %d x the control (the CPU's f32 step against its f64 step, "
+        "%.3g); MultiBoxTarget: %d anchors flipped by mining ties (control "
+        "%d), %d other cls_target and %d loc_mask differences, loc_target "
+        "within %.3g (limit %g) [%s]" % (
+            len(x), card_run["grad_rel_l2"], card_run["grad_rel_l2_f64"],
+            limit, SSD_GRAD_FACTOR, control,
+            card_run["mining_ties_flipped"],
+            ctrl_ties["mining_ties_flipped"],
+            card_run["other_cls_target_diffs"], card_run["loc_mask_diffs"],
+            card_run["loc_target_max_abs"], SSD_LOC_ATOL, card))
+    log("  (b) fault: _encode_box with x and y swapped on the card: "
+        "gradients %.3g, loc_target %.3g; fails on %s" % (
+            fault["grad_rel_l2"], fault["loc_target_max_abs"],
+            fault["fails"] or "nothing"))
+    failures = ["(b) the card's step fails on %s" % card_run["fails"]] \
+        if card_run["fails"] else []
+    if not fault["fails"]:
+        failures.append("(b) the swapped-encode fault passed")
+    return {"control_grad_rel_l2": control, "limit": limit,
+            "control_mining_ties_flipped": ctrl_ties["mining_ties_flipped"],
+            "card": card_run, "fault": fault}, failures
+
+
+def kept_match(got, want, atol):
+    """Kept detections (class id >= 0) of one image, card against CPU:
+    each card row matched to an unused CPU row of the same class with
+    score and box within ``atol``.  Rows of nearly equal score may come
+    in either order.  Returns (kept on the card, kept on the CPU, rows
+    matched, rows matched at another position)."""
+    import numpy as np
+    g = got[got[:, 0] >= 0]
+    w = want[want[:, 0] >= 0]
+    used = np.zeros(len(w), bool)
+    matched = moved = 0
+    for i, row in enumerate(g):
+        close = (~used) & (w[:, 0] == row[0]) \
+            & (np.abs(w[:, 1:] - row[1:]).max(axis=1) <= atol)
+        if close.any():
+            j = int(np.argmax(close))
+            used[j] = True
+            matched += 1
+            moved += j != i
+    return len(g), len(w), matched, moved
+
+
+def ssd_detect(torch, mt, trained, x, n_anchors, card):
+    """(c): the detect graph with the trained weights through
+    ``Predictor`` on cuda:0 at batch SSD_BATCH, nms_topk 400: its output,
+    ms per batch, MultiBoxDetection's and its NMS loop's ms on the same
+    inputs, peak memory; held against the CPU ``Predictor`` on
+    SSD_DETECT_IMAGES images."""
+    from mxnet_tpu_torch.ops import contrib_det
+    from mxnet_tpu_torch.ops.registry import invoke
+    ctx = mt.gpu(0)
+    dsym = mt.models.get_ssd_symbol(SSD_NETWORK, num_classes=SSD_CLASSES,
+                                    mode="detect")
+    params = {k: v for k, v in trained.items()
+              if k in dsym.list_arguments()}
+    shape = {"data": (SSD_BATCH, 3, SSD_IMAGE, SSD_IMAGE)}
+    xd = mt.nd.array(x, ctx=ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pred = mt.Predictor(dsym, params, {}, shape, ctx=ctx)
+    out = pred.forward(data=xd).get_output(0)
+    secs = []
+    for _ in range(SSD_DETECT_REPS):
+        t0 = time.perf_counter()
+        pred.forward(data=xd)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    inner = dsym.get_internals()
+    heads = mt.Predictor(mt.sym.Group([
+        inner[n] for n in ("cls_prob_output", "multibox_loc_pred_output",
+                           "multibox_anchors_output")]), params, {}, shape,
+        ctx=ctx)
+    heads.forward(data=xd)
+    ins = [o._data for o in heads._exec.outputs]
+    attrs = {"nms_threshold": 0.45, "nms_topk": 400, "clip": True,
+             "force_suppress": False}
+
+    def op_ms():
+        ts = []
+        for _ in range(SSD_DETECT_REPS):
+            t0 = time.perf_counter()
+            invoke("_contrib_MultiBoxDetection", attrs, *ins)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return 1e3 * _median(ts)
+    full = op_ms()
+    with replaced(contrib_det, "nms_keep", lambda keep, suppress: keep):
+        without = op_ms()
+    detect_ms = 1e3 * _median(secs)
+    with mt.cpu():
+        cpu_params = {k: v.as_in_context(mt.cpu()) for k, v in params.items()}
+        cpu_pred = mt.Predictor(
+            dsym, cpu_params, {},
+            {"data": (SSD_DETECT_IMAGES, 3, SSD_IMAGE, SSD_IMAGE)},
+            ctx=mt.cpu())
+        want = cpu_pred.forward(data=x[:SSD_DETECT_IMAGES]).get_output(0)
+    matches = [kept_match(out[i], want[i], SSD_DET_ATOL)
+               for i in range(SSD_DETECT_IMAGES)]
+    r = {"shape": list(out.shape), "detect_ms": detect_ms,
+         "images_per_s": SSD_BATCH / (detect_ms / 1e3),
+         "multibox_detection_ms": full, "nms_loop_ms": full - without,
+         "nms_share": (full - without) / detect_ms,
+         "max_memory_allocated": peak, "peak_above_start": peak - base,
+         "kept": [int((out[i][:, 0] >= 0).sum()) for i in range(len(out))],
+         "cpu_match": matches}
+    log("  (c) detect: Predictor on %s at batch %d, nms_topk 400: output %s, "
+        "%.3f ms a batch (%.1f images/s), MultiBoxDetection %.3f ms of it, "
+        "its NMS loop %.3f ms (share of the batch %.3f); max_memory_"
+        "allocated %.3f GB, %.3f GB above the start; kept per image %s "
+        "[%s]" % (SSD_NETWORK, SSD_BATCH, tuple(out.shape), detect_ms,
+                  r["images_per_s"], full, r["nms_loop_ms"], r["nms_share"],
+                  peak / 1e9, (peak - base) / 1e9, r["kept"][:8], card))
+    log("  (c) against the CPU Predictor on %d images: (kept on the card, "
+        "on the CPU, matched within %g, matched at another position) %s"
+        % (SSD_DETECT_IMAGES, SSD_DET_ATOL, matches))
+    failures = []
+    if tuple(out.shape) != (SSD_BATCH, n_anchors, 6):
+        failures.append("(c) output %s" % (tuple(out.shape),))
+    if not all(g == w == m for g, w, m, _ in matches):
+        failures.append("(c) detections differ from the CPU's: %s" % matches)
+    if not sum(r["kept"]):
+        failures.append("(c) nothing detected")
+    return r, failures
+
+
+def ssd_phase(torch, mt, fu, nn, kv, seed, card):
+    """Phase 15.  examples/train_ssd.py's path: (a) ``Module.fit`` of the
+    SSD train graph over ``io.ImageDetRecordIter``; (b)
+    ``ssd_grad_check``; (c) ``ssd_detect``.  No hand-written kernel
+    runs on this path: every launch counter must read 0."""
+    import numpy as np
+    ctx = mt.gpu(0)
+    wrappers = kernel_wrappers(fu, nn, kv)
+    for k in wrappers:
+        k.launches = 0
+    failures = []
+    sym = mt.models.get_ssd_symbol(SSD_NETWORK, num_classes=SSD_CLASSES,
+                                   mode="train")
+    n_anchors = sym.infer_shape(data=(1, 3, SSD_IMAGE, SSD_IMAGE),
+                                label=(1, SSD_PAD, 5))[1][0][2]
+    with tempfile.TemporaryDirectory(prefix="ssd") as tmp:
+        t0 = time.perf_counter()
+        rec = write_det_records(mt, os.path.join(tmp, "train"), SSD_RECORDS,
+                                seed + 50)
+        write_s = time.perf_counter() - t0
+        it = ssd_iter(mt, rec, seed)
+        mt.random.seed(seed)
+        draw = mt.mod.Module(sym, context=ctx, data_names=("data",),
+                             label_names=("label",))
+        draw.bind(it.provide_data, it.provide_label)
+        draw.init_params(initializer=mt.init.Xavier())
+        weights = {k: v.asnumpy() for k, v in draw.get_params()[0].items()}
+        del draw
+        run = ssd_fit(torch, mt, sym, it, weights, card)
+        mod = run["mod"]
+        it.reset()
+        batch = next(iter(it))
+        x = batch.data[0].asnumpy()
+        prof = profile_calls(torch, lambda: (mod.forward_backward(batch),
+                                             mod.update()), 3)
+        it.close()
+    steps = run["steps"][1:]
+    med = _median(steps)
+    out = {"records": SSD_RECORDS, "write_s": write_s,
+           "steps": len(run["steps"]), "fit_s": run["fit_s"],
+           "step_ms": [1e3 * s for s in run["steps"]],
+           "median_step_ms": 1e3 * med, "images_per_s": SSD_BATCH / med,
+           "class_ce": run["ce"], "n_params": run["n_params"],
+           "max_memory_allocated": run["peak"],
+           "peak_above_start": run["peak"] - run["base"],
+           "profile_step": prof}
+    log("  (a) %d JPEG records written in %.2f s; Module.fit of %s (%d "
+        "parameters, %d classes + background, %d anchors) at batch %d: %d "
+        "steps in %.2f s, median step %.3f ms (%.1f images/s); class "
+        "cross-entropy %.4f at step 1, %.4f at the last; max_memory_"
+        "allocated %.3f GB, %.3f GB above the fit's start [%s]" % (
+            SSD_RECORDS, write_s, SSD_NETWORK, run["n_params"], SSD_CLASSES,
+            n_anchors, SSD_BATCH, len(run["steps"]),
+            run["fit_s"], 1e3 * med, SSD_BATCH / med, run["ce"][0],
+            run["ce"][-1], run["peak"] / 1e9,
+            (run["peak"] - run["base"]) / 1e9, card))
+    log_profile("one SSD training step", prof, card)
+    if not np.isfinite(run["ce"]).all() or not run["ce"][-1] < run["ce"][0]:
+        failures.append("(a) the class loss did not fall: %s"
+                        % fmt(run["ce"], "%.4f"))
+    first = run["first"]
+    trained = {k: v.as_in_context(ctx)
+               for k, v in mod.get_params()[0].items()}
+    del mod, run
+    torch.cuda.empty_cache()
+    out["grad_check"], more = ssd_grad_check(torch, mt, sym, weights,
+                                             first["x"], first["y"], card)
+    failures += more
+    out["detect"], more = ssd_detect(torch, mt, trained, x, n_anchors, card)
+    failures += more
+    out["launches"] = {k.__name__: k.launches for k in wrappers}
+    log("  launches of the hand-written kernels in this phase: %s"
+        % out["launches"])
+    if any(out["launches"].values()):
+        failures.append("hand-written kernels launched: %s"
+                        % out["launches"])
+    if failures:
+        raise AssertionError("ssd: " + "; ".join(failures))
+    return out
+
+
 _SOURCES = {
     "fu_mm_fwd": ("mm_fwd", "mxnet_tpu/ops/fused_unit.py:376"),
     "fu_c3_fwd2d": ("c3_fwd2d", "mxnet_tpu/ops/fused_unit.py:457"),
@@ -3998,7 +4422,7 @@ _LOOPS.update(dict.fromkeys(("fu_c3_fwd4d", "fu_c3_bwd4d"),
 
 
 def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
-                 decode, imp, rtc, gluon, rnn):
+                 decode, imp, rtc, gluon, rnn, ssd):
     """One entry per kernel.  K1-K4: times per ResNet-50 forward at batch
     8 (each stage's shape weighted by its number of fused units) and
     launches in the serve phase of their mode (K4: 4d); K5-K8: times per
@@ -4013,8 +4437,8 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
     validation batches; plain and fused) with the fused fit's errors
     against the plain versions, per decode step, per imperative unit and
     in the rtc phase, in the gluon phase's SymbolBlock runs (a serve
-    forward in each 3x3 mode and a training step) and in the rnn phase
-    (none); K1-K8 also their
+    forward in each 3x3 mode and a training step) and in the rnn and ssd
+    phases (none); K1-K8 also their
     bfloat16 times (kernel, library
     and bound) at the same shapes, and K2-K8 their kernel and library
     times in both dtypes with the L2 cache flushed before each call; K1-K8
@@ -4123,7 +4547,8 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
                 imp["launches"][wrapper] / imp["units"],
             "launches_in_rtc_phase": rtc["launches"][wrapper],
             "launches_in_gluon_phase": gluon["launches"][wrapper],
-            "launches_in_rnn_phase": rnn["launches"][wrapper]},
+            "launches_in_rnn_phase": rnn["launches"][wrapper],
+            "launches_in_ssd_phase": ssd["launches"][wrapper]},
             **entry))
     return table
 
@@ -4267,8 +4692,17 @@ def main():
     rnn["phase_s"] = time.perf_counter() - t0
     log("  phase 14 took %.1f s" % rnn["phase_s"])
 
+    log("[15] SSD: examples/train_ssd.py's %s (%d classes, %dx%d, batch %d) "
+        "through io.ImageDetRecordIter and Module.fit on %s; the card's step "
+        "against the CPU's; the detect graph through Predictor"
+        % (SSD_NETWORK, SSD_CLASSES, SSD_IMAGE, SSD_IMAGE, SSD_BATCH, name))
+    t0 = time.perf_counter()
+    ssd = ssd_phase(torch, mt, fu, nn, kv, opts.seed, card)
+    ssd["phase_s"] = time.perf_counter() - t0
+    log("  phase 15 took %.1f s" % ssd["phase_s"])
+
     table = kernel_table(rows, bwd_rows, kv_rows, serve, train, bench,
-                         imagenet, decode, imp, rtc, gluon, rnn)
+                         imagenet, decode, imp, rtc, gluon, rnn, ssd)
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)),
                     exist_ok=True)
@@ -4282,9 +4716,9 @@ def main():
                        "kv_rows": kv_rows,
                        "decode": decode, "imperative": imp, "rtc": rtc,
                        "mnist": mnist, "gluon": gluon, "rnn": rnn,
-                       "kernels": table,
+                       "ssd": ssd, "kernels": table,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log("[15] done in %.1f s" % (time.perf_counter() - t_start))
+    log("[16] done in %.1f s" % (time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 card (counterpart of ``mxnet_tpu/image``).
 
 Augmenters are numpy (and, for decode and resize, cv2 or PIL) functions
-of an explicit ``numpy.random.Generator``.  The detection iterators are
-not yet ported.
+of an explicit ``numpy.random.Generator``.  ``detection`` holds the
+detection iterators, which crop and mirror the boxes with the images.
 """
 from .image import (
     imdecode, imread, imresize, resize_short, fixed_crop, center_crop,
@@ -16,6 +16,8 @@ from .image import (
     ImageIter,
 )
 from .iter import ImageRecordIterImpl, ImageRecordUInt8Iter
+from .detection import (ImageDetRecordIterImpl, ImageDetRecordIter,
+                        ImageDetIter, parse_det_label, pack_det_label)
 
 __all__ = [
     "imdecode", "imread", "imresize", "resize_short", "fixed_crop",
@@ -26,4 +28,6 @@ __all__ = [
     "SaturationJitterAug", "HueJitterAug", "ColorJitterAug", "LightingAug",
     "ColorNormalizeAug", "RandomGrayAug", "CastAug", "CreateAugmenter",
     "ImageIter", "ImageRecordIterImpl", "ImageRecordUInt8Iter",
+    "ImageDetRecordIterImpl", "ImageDetRecordIter", "ImageDetIter",
+    "parse_det_label", "pack_det_label",
 ]

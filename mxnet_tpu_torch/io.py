@@ -3,12 +3,13 @@
 Counterpart of ``mxnet_tpu/io.py``: ``DataDesc``, ``DataBatch``,
 ``DataIter``, ``ResizeIter``, ``PrefetchingIter``, ``NDArrayIter`` (pad,
 discard and roll_over), ``MNISTIter``, ``CSVIter`` and the factories
-``ImageRecordIter`` and ``ImageRecordUInt8Iter`` (``image/``).  Batches
-are host NDArrays of a fixed shape (the last one padded, wrapped or
-discarded); the executor moves each to the device when it is fed.
+``ImageRecordIter``, ``ImageRecordUInt8Iter`` and ``ImageDetRecordIter``
+(``image/``).  Batches are host NDArrays of a fixed shape (the last one
+padded, wrapped or discarded); the executor moves each to the device
+when it is fed.
 ``NDArrayIter`` shuffles from the explicit CPU generator of ``random``.
-``LibSVMIter`` (CSR arrays), ``ImageDetRecordIter`` and the reference's
-per-batch telemetry are not yet ported.
+``LibSVMIter`` (CSR arrays) and the reference's per-batch telemetry are
+not yet ported.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from . import random as _random
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
            "PrefetchingIter", "NDArrayIter", "MNISTIter", "CSVIter",
-           "ImageRecordIter", "ImageRecordUInt8Iter"]
+           "ImageRecordIter", "ImageRecordUInt8Iter", "ImageDetRecordIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -459,3 +460,9 @@ def ImageRecordUInt8Iter(**kwargs):
     """The uint8 record-file pipeline: decode, crop and mirror only."""
     from .image import ImageRecordUInt8Iter as impl
     return impl(**kwargs)
+
+
+def ImageDetRecordIter(**kwargs):
+    """The detection record iterator (``image.ImageDetRecordIterImpl``)."""
+    from .image import ImageDetRecordIterImpl
+    return ImageDetRecordIterImpl(**kwargs)

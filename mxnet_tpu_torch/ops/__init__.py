@@ -11,3 +11,4 @@ from . import linalg        # noqa: F401
 from . import reduce        # noqa: F401
 from . import cache         # noqa: F401
 from . import rnn           # noqa: F401
+from . import contrib_det   # noqa: F401

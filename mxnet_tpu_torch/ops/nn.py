@@ -4,18 +4,18 @@ Counterpart of the ResNet ops in ``mxnet_tpu/ops/nn.py``: Convolution,
 Pooling, BatchNorm, the fused input BatchNorm and stem convolution
 ``_contrib_BNStemConv``, Activation, FullyConnected and SoftmaxOutput, and
 the attention decoder's Embedding and softmax, and Gluon's
-Deconvolution, log_softmax, InstanceNorm and Dropout, and the recurrent
-cells' SequenceMask, SequenceLast and SequenceReverse, with
-the same parameter schemas (so symbol JSON interchanges) and the same
-layouts at the op boundary (NHWC data with OHWI weights when ``layout``
-ends in C, else NCHW/OIHW).  None of these was a Pallas kernel in the
-reference, so they run on torch's own operators (cuDNN/cuBLAS on the
-card) and take their gradients from autograd, except where the reference
-wrote the backward by hand: BatchNorm's and the stem's training backward
-and SoftmaxOutput's loss gradient are ``torch.autograd.Function``s with the
-reference's arithmetic, and with MXNET_CONV1X1_FUSED_BWD a stride-1 1x1
-convolution's backward is the hand-written CUDA kernel K8
-(``conv1x1_bwd``, csrc/nn_conv1x1_bwd.cu).
+Deconvolution, log_softmax, InstanceNorm and Dropout, the recurrent
+cells' SequenceMask, SequenceLast and SequenceReverse, and SSD's
+MakeLoss, with the same parameter schemas (so symbol JSON interchanges)
+and the same layouts at the op boundary (NHWC data with OHWI weights when
+``layout`` ends in C, else NCHW/OIHW).  None of these was a Pallas kernel
+in the reference, so they run on torch's own operators (cuDNN/cuBLAS on
+the card) and take their gradients from autograd, except where the
+reference wrote the backward by hand: BatchNorm's and the stem's training
+backward and the loss gradients of SoftmaxOutput and MakeLoss are
+``torch.autograd.Function``s with the reference's arithmetic, and with
+MXNET_CONV1X1_FUSED_BWD a stride-1 1x1 convolution's backward is the
+hand-written CUDA kernel K8 (``conv1x1_bwd``, csrc/nn_conv1x1_bwd.cu).
 """
 import math
 
@@ -701,6 +701,41 @@ class _SoftmaxOutput(torch.autograd.Function):
         elif a["normalization"] == "valid":
             grad = grad / (valid if valid is not None else label.numel())
         return grad * a["grad_scale"], torch.zeros_like(label), None
+
+
+@register("MakeLoss",
+          params={"grad_scale": P(float, 1.0),
+                  "valid_thresh": P(float, 0.0),
+                  "normalization": P(str, "null",
+                                     choices=["null", "batch", "valid"])})
+def make_loss_layer(attrs, data):
+    """The identity forward; its gradient is ``grad_scale`` everywhere,
+    whatever the head gradient (``_MakeLoss``)."""
+    return _MakeLoss.apply(data, attrs["grad_scale"], attrs["normalization"])
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Legacy loss layer (make_loss-inl.h): d(data) = grad_scale, divided
+    by shape[0] under "batch" and, as the JAX package does, by the element
+    count under "valid" (the reference counts the elements above
+    ``valid_thresh``)."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale, normalization):
+        scale = grad_scale
+        if normalization == "batch":
+            scale = scale / data.shape[0]
+        elif normalization == "valid":
+            scale = scale / float(math.prod(data.shape))
+        ctx.scale = scale
+        ctx.meta = (data.shape, data.dtype, data.device)
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, _head):
+        shape, dtype, device = ctx.meta
+        return torch.full(shape, ctx.scale, dtype=dtype, device=device), \
+            None, None
 
 
 # ---------------------------------------------------------------------------

@@ -388,11 +388,14 @@ def test_op_bf16_matches_jax(op, attrs, shapes, diff, aux, env,
             x[i] = v
         outs = invoke_jax(op, attrs, *x, training=True)
         return jnp.sum(outs[0].astype(jnp.float32) * r), outs
-    ref_outs = jax.jit(lambda *x: invoke_jax(op, attrs, *x,
-                                             training=True))(*jins)
-    r = rng.standard_normal(ref_outs[0].shape).astype(np.float32)
-    ref_grads = jax.jit(jax.grad(jloss, argnums=tuple(range(len(diff))),
-                                 has_aux=True))(*[jins[i] for i in diff])[0]
+    # one jitted program gives the gradients and, as its aux, the outputs
+    shape = jax.eval_shape(lambda *x: invoke_jax(op, attrs, *x,
+                                                 training=True),
+                           *jins)[0].shape
+    r = rng.standard_normal(shape).astype(np.float32)
+    ref_grads, ref_outs = jax.jit(jax.grad(
+        jloss, argnums=tuple(range(len(diff))), has_aux=True))(
+        *[jins[i] for i in diff])
     for i in diff:
         tins[i].requires_grad_(True)
     outs = invoke(op, attrs, *tins, training=True)

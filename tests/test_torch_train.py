@@ -70,34 +70,12 @@ def _close(got, want, what):
     assert err <= TOL, (what, err)
 
 
-def test_executor_gradients_match_jax(net, fused_1x1_bwd):
-    jsym, tsym, args, aux, x, y = net
-    shapes = {"data": (BATCH, 64, 64, 3), "softmax_label": (BATCH,)}
-    feed = dict(data=x[:BATCH], softmax_label=y[:BATCH])
-    execs = [jsym.simple_bind(mj.cpu(), grad_req="write", **shapes),
-             tsym.simple_bind(mt.cpu(), grad_req="write", **shapes)]
-    for ex, pkg in zip(execs, (mj, mt)):
-        ex.copy_params_from(
-            {k: pkg.nd.array(v, ctx=pkg.cpu()) for k, v in args.items()},
-            {k: pkg.nd.array(v, ctx=pkg.cpu()) for k, v in aux.items()})
-        # the order Module.fit uses: forward, backward, then the outputs
-        ex.forward(is_train=True, **feed)
-        ex.backward()
-    jex, tex = execs
-    # K8 took the five stride-1 1x1 convolutions at H*W <= 256: conv1,
-    # conv3 and the shortcut of stage 1's transition unit, conv1 and conv3
-    # of stage 2's
-    assert len(fused_1x1_bwd) == 5
-    _close(tex.outputs[0].asnumpy(), jex.outputs[0].asnumpy(), "output")
-    for n, g in zip(tsym.list_arguments(), tex.grad_arrays):
-        _close(g.asnumpy(), jex.grad_dict[n].asnumpy(), n)
-    for n in tsym.list_auxiliary_states():
-        _close(tex.aux_dict[n].asnumpy(), jex.aux_dict[n].asnumpy(), n)
-
-
-def _fit(pkg, sym, args, aux, x, y, ctx):
+def _fit(pkg, sym, args, aux, x, y, ctx, first=None):
     """Three SGD steps through Module.fit; returns (per-step cumulative
-    (accuracy, cross-entropy), parameters after step 1, the module)."""
+    (accuracy, cross-entropy), parameters after step 1, the module).
+    ``first``, a dict, also gets step 1's output, gradients (the data's
+    too: the module is bound with ``inputs_need_grad``) and aux
+    states."""
     steps, after_first = [], {}
 
     def on_batch(param):
@@ -105,8 +83,17 @@ def _fit(pkg, sym, args, aux, x, y, ctx):
         if param.nbatch == 0:
             ex = param.locals["self"]._exec
             after_first.update({k: ex.arg_dict[k].asnumpy() for k in args})
+            if first is not None:
+                first["output"] = ex.outputs[0].asnumpy()
+                first["grads"] = {k: g.asnumpy()
+                                  for k, g in ex.grad_dict.items()}
+                first["aux"] = {k: a.asnumpy()
+                                for k, a in ex.aux_dict.items()}
     mod = pkg.mod.Module(sym, context=ctx)
-    mod.fit(pkg.io.NDArrayIter(x, y, batch_size=BATCH),
+    it = pkg.io.NDArrayIter(x, y, batch_size=BATCH)
+    if first is not None:
+        mod.bind(it.provide_data, it.provide_label, inputs_need_grad=True)
+    mod.fit(it,
             eval_metric=["acc", "ce"], optimizer="sgd",
             optimizer_params=SGD, kvstore="local", num_epoch=1,
             arg_params={k: pkg.nd.array(v, ctx=ctx) for k, v in args.items()},
@@ -116,10 +103,46 @@ def _fit(pkg, sym, args, aux, x, y, ctx):
     return np.array(steps), after_first, mod
 
 
-def test_module_fit_matches_jax_and_checkpoints_interchange(
-        net, fused_1x1_bwd, tmp_path):
+@pytest.fixture(scope="module")
+def jax_fit(net):
+    """The JAX package's Module.fit (``_fit``), run once for the module:
+    its step 1 is also the JAX side of the Executor test (forward,
+    backward, then the outputs, as fit orders them)."""
+    jsym, _, args, aux, x, y = net
+    first = {}
+    jsteps, jfirst, jmod = _fit(mj, jsym, args, aux, x, y, mj.cpu(), first)
+    return jsteps, jfirst, jmod, first
+
+
+def test_executor_gradients_match_jax(net, jax_fit, fused_1x1_bwd):
     jsym, tsym, args, aux, x, y = net
-    jsteps, jfirst, jmod = _fit(mj, jsym, args, aux, x, y, mj.cpu())
+    want = jax_fit[3]
+    shapes = {"data": (BATCH, 64, 64, 3), "softmax_label": (BATCH,)}
+    tex = tsym.simple_bind(mt.cpu(), grad_req="write", **shapes)
+    tex.copy_params_from(
+        {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in args.items()},
+        {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in aux.items()})
+    # the order Module.fit uses: forward, backward, then the outputs
+    tex.forward(is_train=True, data=x[:BATCH], softmax_label=y[:BATCH])
+    tex.backward()
+    # K8 took the five stride-1 1x1 convolutions at H*W <= 256: conv1,
+    # conv3 and the shortcut of stage 1's transition unit, conv1 and conv3
+    # of stage 2's
+    assert len(fused_1x1_bwd) == 5
+    _close(tex.outputs[0].asnumpy(), want["output"], "output")
+    for n, g in zip(tsym.list_arguments(), tex.grad_arrays):
+        if n == "softmax_label":          # the loss head's: zeros
+            assert not g.asnumpy().any()
+        else:
+            _close(g.asnumpy(), want["grads"][n], n)
+    for n in tsym.list_auxiliary_states():
+        _close(tex.aux_dict[n].asnumpy(), want["aux"][n], n)
+
+
+def test_module_fit_matches_jax_and_checkpoints_interchange(
+        net, jax_fit, fused_1x1_bwd, tmp_path):
+    jsym, tsym, args, aux, x, y = net
+    jsteps, jfirst, jmod, _ = jax_fit
     tsteps, tfirst, tmod = _fit(mt, tsym, args, aux, x, y, mt.cpu())
     assert tsteps.shape == jsteps.shape == (3, 2)
     assert np.isfinite(tsteps).all()
