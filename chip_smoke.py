@@ -109,7 +109,10 @@ Phases (none catches its own failure; there is no CPU path):
    stream must equal the k=0 engine's, ``greedy_decode``'s through the
    kernels, the engine's with the plain scatter and with selection off;
    the served graph must hold 12 ``_cache_write_row`` and no ``one_hot``,
-   and K9 and K10 must launch exactly as the graphs imply per step.
+   and K9 and K10 must launch exactly as the graphs imply per step.  Each
+   engine's step and draft verdicts must be row-local and its selections
+   (step, draft and commit) adopted through the optimizer's verdict gate
+   (``SELECT_OPT_PASSES``).
    Tokens/s, step p50/p99, accept rate and tokens per step, and one
    profiled step at k = 0 and 4;
 10. the imperative path: ``mt.nd._contrib_FusedBottleneckUnit`` at the
@@ -200,7 +203,34 @@ Phases (none catches its own failure; there is no CPU path):
    ``Predictor``'s (class ids equal, scores and boxes within 1e-5).  No
    hand-written kernel runs here (the JAX ops are ``jnp`` code and VGG's
    convolutions were never Pallas kernels); the counters must read 0;
-16. the kernel table (K1-K11) as one JSON line, then the result line
+16. analysis (``mxnet_tpu_torch.analysis`` and the gates it drives):
+   (a) the fused ResNet-50 of phase 4 (224x224, NHWC) served as one batch
+   of 32 seeded requests by ``ServingEngine`` on cuda:0 (``max_batch``
+   32) with ``MXNET_SERVE_OPTIMIZE`` on and off: the preflight's batch
+   verdict must be row-local, the optimizer's plan accepted with no
+   crash or rejection warning, the two runs' probabilities equal bit for
+   bit and K1-K3 launched 12 times a batch; the plan's actions and the
+   report's counts are printed.  The fused ResNet gives the default
+   passes nothing to rewrite, so a second graph does: ResNet-50's
+   classifier over 2048 pooled features with a per-class scale built from
+   creation ops and a duplicated ``tanh`` (``folding_head``), served the
+   same way; its plan must fold, merge and sweep, the baked scale must be
+   the card's ``exp``, and its bits must agree on against off.  (b) the
+   decoder's verdicts and gated selections, held in phase 9's runs, are
+   reported here.  (c)
+   ``count_flops`` of ``bench_step.TrainStep``'s ResNet-50 step on its
+   plain graph (conv7 stem, plain units) at 224x224, batch 256,
+   bfloat16, against ``FlopCounterMode`` over one eager step of it on
+   the card: within 10%.  (d) ``predict_peak_bytes`` of (a)'s forward
+   and (c)'s step beside ``torch.cuda.max_memory_allocated`` over the
+   same runs (the ratio is printed, not held); ``device_memory_budget``
+   positive and at most the card's memory.  (e) planted faults: a served
+   softmax over the batch axis raises ``AnalysisError`` under
+   ``MXNET_ANALYSIS_STRICT=1``, and without it serves at ``max_batch=1``
+   with a warning, each answer bit for bit a batch-1 ``Predictor``'s; a
+   decode step summing its state over the slot axis raises under strict.
+   One JSON line ``{"analysis": {...}}`` sums it up;
+17. the kernel table (K1-K11) as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -2526,6 +2556,18 @@ def decode_phase(torch, mt, fu, nn, kv, seed, card):
         if others:
             raise AssertionError("decode launched %s" % others)
         spec = st["spec"]
+        ana, opt = st["analysis"], st["optimizer"]
+        verdicts = (ana["step_verdict"], ana["draft_verdict"])
+        if verdicts != ("row-local", "row-local" if k else None):
+            raise AssertionError("%s: step and draft verdicts %s"
+                                 % (name, verdicts))
+        if not (opt["accepted"] and opt["selection"]
+                and "verdict gate" in opt["gate"]) \
+                or (k and not (spec["commit_accepted"]
+                               and spec["commit_selection"])):
+            raise AssertionError("%s: the selection was not adopted "
+                                 "through the verdict gate: %s %s"
+                                 % (name, opt, spec))
         out["runs"][name] = {
             "k": k, "steps": steps, "wall_s": wall,
             "tokens_per_s": st["tokens_generated"] / wall,
@@ -2533,16 +2575,24 @@ def decode_phase(torch, mt, fu, nn, kv, seed, card):
             "step_ms_p99": st["step_ms"]["p99"],
             "accept_rate": spec.get("accept_rate"),
             "tokens_per_step": spec.get("tokens_per_step"),
-            "launches": launches}
+            "launches": launches,
+            "analysis": {"step_verdict": verdicts[0],
+                         "draft_verdict": verdicts[1],
+                         "rewrites": opt["rewrites"],
+                         "selection": len(opt["selection"]),
+                         "commit_selection": len(spec.get(
+                             "commit_selection") or [])}}
         log("  %s: %d requests, %d tokens in %d steps, %.3f s: %.1f "
             "tokens/s, step p50 %.3f ms p99 %.3f ms, accept rate %s, tokens "
-            "per slot-step %s; K9 %d (%d/step), K10 %d [%s]"
+            "per slot-step %s; K9 %d (%d/step), K10 %d; verdicts %s, %d "
+            "rewrites through the verdict gate [%s]"
             % (name, len(jobs), st["tokens_generated"], steps, wall,
                out["runs"][name]["tokens_per_s"], st["step_ms"]["p50"],
                st["step_ms"]["p99"], fmt_opt(spec.get("accept_rate")),
                fmt_opt(spec.get("tokens_per_step")),
                launches["cache_write_row"], launches_per_step(k, blocks)[0],
-               launches["cache_write_rows"], card))
+               launches["cache_write_rows"], verdicts, opt["rewrites"],
+               card))
     out["reference_runs"] = {}
     for name, (_s, _r, st, wall, _l, _sv) in other_runs.items():
         out["reference_runs"][name] = {
@@ -4701,6 +4751,13 @@ def main():
     ssd["phase_s"] = time.perf_counter() - t0
     log("  phase 15 took %.1f s" % ssd["phase_s"])
 
+    log("[16] analysis: the verifier, shapes, retrace, padding, FLOP and "
+        "memory passes and the optimizer, through ServingEngine (ResNet-50 "
+        "224x224, fused units) and DecodeEngine (phase 9's decoder) on %s"
+        % name)
+    analysis = analysis_phase(torch, mt, fu, nn, kv, opts.seed, card,
+                              decode)
+
     table = kernel_table(rows, bwd_rows, kv_rows, serve, train, bench,
                          imagenet, decode, imp, rtc, gluon, rnn, ssd)
     if opts.json:
@@ -4716,14 +4773,396 @@ def main():
                        "kv_rows": kv_rows,
                        "decode": decode, "imperative": imp, "rtc": rtc,
                        "mnist": mnist, "gluon": gluon, "rnn": rnn,
-                       "ssd": ssd, "kernels": table,
+                       "ssd": ssd, "analysis": analysis, "kernels": table,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log("[16] done in %.1f s" % (time.perf_counter() - t_start))
+    log("[17] done in %.1f s" % (time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+# phase 16: the static-analysis core and the gates it drives
+ANALYSIS_IMAGE = 224
+ANALYSIS_SERVE_BATCH = 32
+ANALYSIS_FLOP_BATCH = 256
+ANALYSIS_FLOP_RTOL = 0.10       # the JAX package's bar against XLA
+
+
+def analysis_serve(torch, mt, wrappers, sym, args, aux, xs, optimize):
+    """``xs`` as one batch through a ServingEngine on cuda:0 (max_batch
+    len(xs)) with MXNET_SERVE_OPTIMIZE on or off; the launch counters are
+    set to 0 just before the requests and read after.  Returns (outputs,
+    engine, launches, stats, peak allocated bytes from before the
+    engine's parameters to after the batch); fails when the optimizer
+    is on and the engine did not adopt an accepted plan (a crash or a
+    rejection serves the unoptimized graph with a warning)."""
+    import warnings
+    import numpy as np
+    with env_vars({"MXNET_SERVE_OPTIMIZE": "1" if optimize else "0",
+                   "MXNET_ANALYSIS_STRICT": None}):
+        targs, taux = mt.convert.params_from_numpy(args, aux,
+                                                   device=mt.cpu())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = mt.ServingEngine(sym, targs, taux, {"data": xs.shape[1:]},
+                                   ctx=mt.gpu(0),
+                                   policy=mt.serving.BucketPolicy(len(xs)),
+                                   batch_timeout_ms=1000.0, start=False)
+        try:
+            failed = [str(w.message) for w in caught
+                      if "optimization crashed" in str(w.message)
+                      or "optimization rejected" in str(w.message)]
+            plan = eng.opt_plan
+            if optimize and (failed or plan is None or not plan.accepted):
+                raise AssertionError("the engine served the unoptimized "
+                                     "graph: plan %s, warnings %s" % (
+                                         plan and plan.reason, failed))
+            for w in wrappers:
+                w.launches = 0
+            futs = [eng.submit(x) for x in xs]
+            eng.start()
+            outs = np.stack([f.result(timeout=600) for f in futs])
+            launches = {w.__name__: w.launches for w in wrappers}
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            st = eng.stats()
+        finally:
+            eng.close()
+    return outs, eng, launches, st, peak
+
+
+def folding_head(mt, classes=1000, features=2048):
+    """ResNet-50's classifier over its pooled features, planted with what
+    the default passes rewrite: a per-class scale built from creation ops
+    (``exp`` of a ramp, plus zeros: ``algebraic`` drops the add, ``fold``
+    bakes the rest on the engine's device, ``dce`` sweeps the ramp) and
+    the same ``tanh`` twice (``cse`` merges them)."""
+    S = mt.sym
+    fc = S.FullyConnected(S.Variable("data"), num_hidden=classes, name="fc")
+    ramp = S.reshape(S._arange(start=0, stop=classes), shape=(1, classes))
+    scale = S.exp(ramp * -0.003, name="scale") + S.zeros((1, classes))
+    both = S.tanh(fc, name="t1") + S.tanh(fc, name="t2")
+    return S.softmax(S.broadcast_mul(both, scale), axis=-1, name="prob")
+
+
+def analysis_fold(torch, mt, wrappers, seed, card):
+    """(a), second graph: ``folding_head`` served with the optimizer on
+    and off.  The plan must fold, merge and sweep, the two runs' bits
+    must agree, and the baked constant must be the card's ``exp``; the
+    count of its elements that a fold on the CPU would have moved is
+    printed."""
+    import numpy as np
+    sym = folding_head(mt)
+    rng = np.random.default_rng(seed + 7)
+    args = {"fc_weight": (rng.standard_normal((1000, 2048)) * 0.02)
+            .astype(np.float32),
+            "fc_bias": np.zeros(1000, np.float32)}
+    xs = rng.standard_normal((ANALYSIS_SERVE_BATCH, 2048)).astype(np.float32)
+    runs = {}
+    for optimize in (True, False):
+        outs, eng, launches, st, _peak = analysis_serve(
+            torch, mt, wrappers, sym, args, {}, xs, optimize)
+        runs[optimize] = outs
+        if any(launches.values()) or st["batches"] != 1 \
+                or eng._verdicts != {"batch": "row-local"}:
+            raise AssertionError("folding head: launches %s, %d batches, "
+                                 "verdicts %s" % (launches, st["batches"],
+                                                  eng._verdicts))
+        if optimize:
+            plan, served = eng.opt_plan, eng.served_sym
+    kinds = sorted({a.pass_name for a in plan.actions} - {"fuse"})
+    if kinds != ["algebraic", "cse", "dce", "fold"]:
+        raise AssertionError("folding head: the plan rewrote by %s" % kinds)
+    if not np.array_equal(runs[True], runs[False]):
+        raise AssertionError("folding head: the optimizer changed the "
+                             "served bits")
+
+    def baked(graph):
+        node = next(n for n in mt.symbol.symbol._topo(graph._outputs)
+                    if n.op is not None and n.op.name == "_constant")
+        return np.asarray(node.attrs["value"], np.float32)
+    on_card = baked(served)
+    ramp = torch.arange(0, 1000, dtype=torch.float32)
+    want = torch.exp(ramp.to(mt.gpu(0).device) * -0.003).cpu().numpy()
+    if not np.array_equal(on_card, want):
+        raise AssertionError("folding head: the baked scale is not the "
+                             "card's exp")
+    cpu_plan = mt.analysis.optimize_graph(
+        sym, data_shapes={"data": xs.shape}, device="cpu")
+    moved = int((baked(cpu_plan.symbol) != on_card).sum())
+    out = {"rewrites": len(plan.rewrites), "passes": kinds,
+           "nodes": [plan.nodes_before, plan.nodes_after],
+           "cpu_fold_would_move": moved}
+    log("  folding head, %d requests: plan %d -> %d nodes by %s, the "
+        "scale baked on the card (a fold on the CPU would move %d of its "
+        "1000 values); probabilities equal bit for bit, optimizer on and "
+        "off [%s]" % (len(xs), plan.nodes_before, plan.nodes_after,
+                      ", ".join(kinds), moved, card))
+    return out
+
+
+def analysis_flops(torch, mt, seed, card):
+    """(c) and half of (d): count_flops of the plain ResNet-50 step beside
+    FlopCounterMode over one eager step on the card, and the step's
+    predicted peak beside its measured one."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+    side, batch = ANALYSIS_IMAGE, ANALYSIS_FLOP_BATCH
+    sym = mt.models.get_resnet_symbol(
+        num_classes=1000, num_layers=50, image_shape=(3, side, side),
+        layout="NHWC", stem="conv7", unit_impl="plain")
+    shapes = {"data": (batch, side, side, 3), "softmax_label": (batch,)}
+    t0 = time.perf_counter()
+    flops = mt.analysis.count_flops(sym, shapes, training=True)
+    count_s = time.perf_counter() - t0
+    step = mt.bench_step.TrainStep(sym, dtype=torch.bfloat16, lr=BENCH_LR)
+    dtypes = {n: "bfloat16" for n in step.param_names + ["data"]}
+    predicted = mt.analysis.predict_peak_bytes(sym, shapes, dtypes=dtypes,
+                                               training=True)
+    args, aux = mt.convert.random_params(sym, {"data": (1, side, side, 3)},
+                                         seed=seed)
+    dev = mt.gpu(0).device
+    rng = np.random.default_rng(seed + 5)
+    u8 = torch.from_numpy(rng.integers(0, 256, shapes["data"],
+                                       dtype=np.uint8)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 1000, batch)
+                              .astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tuple(torch.from_numpy(args[n]).to(dev, torch.bfloat16)
+                   for n in step.param_names)
+    auxs = tuple(torch.from_numpy(aux[n]).to(dev) for n in step.aux_names)
+    with FlopCounterMode(display=False) as counter:
+        loss, grads, params, auxs = step(u8, labels, params, auxs)
+        torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated()
+    counted = counter.get_total_flops()
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError("the plain step's loss is not finite")
+    del grads, params, auxs
+    torch.cuda.empty_cache()
+    gap = (flops["total"] - counted) / counted
+    log("  FLOPs of one training step, batch %d: count_flops %.4f "
+        "GFLOP (fwd %.4f, bwd %.4f, %.4f modeled, %.2f s to count), "
+        "FlopCounterMode %.4f GFLOP, count/counter - 1 = %+.4f (limit "
+        "%.2f) [%s]" % (batch, flops["total"] / 1e9, flops["fwd"] / 1e9,
+                        flops["bwd"] / 1e9, flops["modeled_fraction"],
+                        count_s, counted / 1e9, gap, ANALYSIS_FLOP_RTOL,
+                        card))
+    if abs(gap) > ANALYSIS_FLOP_RTOL:
+        raise AssertionError("count_flops %.4g against FlopCounterMode "
+                             "%.4g" % (flops["total"], counted))
+    return {"batch": batch, "count_flops_gflop": flops["total"] / 1e9,
+            "fwd_gflop": flops["fwd"] / 1e9, "bwd_gflop": flops["bwd"] / 1e9,
+            "modeled_fraction": flops["modeled_fraction"],
+            "flop_counter_gflop": counted / 1e9, "gap": gap,
+            "count_s": count_s,
+            "memory": {"predicted_bytes": predicted,
+                       "measured_bytes": measured,
+                       "ratio": measured / predicted}}
+
+
+def slot_mixing_step(mt, vocab=16, d=8):
+    """A decode step whose next state adds every slot's state: a planted
+    cross-position step."""
+    import numpy as np
+    tok, s = mt.sym.Variable("token"), mt.sym.Variable("s")
+    emb = mt.sym.Embedding(tok, input_dim=vocab, output_dim=d, name="emb")
+    s2 = mt.sym.broadcast_add(s + emb, mt.sym.sum(s, axis=0, keepdims=True),
+                              name="mix")
+    logits = mt.sym.FullyConnected(s2, num_hidden=vocab, name="out_fc")
+    rng = np.random.default_rng(0)
+    params = {"emb_weight": rng.standard_normal((vocab, d)),
+              "out_fc_weight": rng.standard_normal((vocab, d)),
+              "out_fc_bias": np.zeros(vocab)}
+    params = mt.convert.params_from_numpy(
+        {k: v.astype(np.float32) for k, v in params.items()}, {},
+        device=mt.gpu(0))[0]
+    return mt.sym.Group([logits, s2]), params, [{"name": "s",
+                                                 "shape": (d,)}]
+
+
+def analysis_faults(torch, mt, seed, card):
+    """(e): the planted faults the gates must catch."""
+    import warnings
+    import numpy as np
+    mix = mt.sym.softmax(mt.sym.Variable("data"), axis=0, name="mix")
+    policy = mt.serving.BucketPolicy(8)
+    out = {}
+    with env_vars({"MXNET_ANALYSIS_STRICT": "1"}):
+        try:
+            mt.ServingEngine(mix, {}, {}, {"data": (16,)}, ctx=mt.gpu(0),
+                             policy=policy, start=False).close()
+            out["serve_strict_raised"] = False
+        except mt.analysis.AnalysisError as e:
+            out["serve_strict_raised"] = "[padding]" in str(e)
+        step, params, info = slot_mixing_step(mt)
+        try:
+            mt.serving.DecodeEngine(step, params, {}, info, num_slots=4,
+                                    max_len=8, ctx=mt.gpu(0),
+                                    start=False).close()
+            out["decode_strict_raised"] = False
+        except mt.analysis.AnalysisError as e:
+            out["decode_strict_raised"] = "SLOT axis" in str(e)
+    with env_vars({"MXNET_ANALYSIS_STRICT": None}), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng = mt.ServingEngine(mix, {}, {}, {"data": (16,)}, ctx=mt.gpu(0),
+                               policy=policy, batch_timeout_ms=50.0,
+                               start=False)
+    try:
+        xs = np.random.default_rng(seed + 6).standard_normal(
+            (8, 16)).astype(np.float32)
+        futs = [eng.submit(x) for x in xs]
+        eng.start()
+        got = np.stack([f.result(timeout=120) for f in futs])
+        st = eng.stats()
+    finally:
+        eng.close()
+    pred = mt.Predictor(mix, {}, {}, {"data": (1, 16)}, ctx=mt.gpu(0))
+    want = np.stack([pred.forward(data=x[None]).get_output(0)[0]
+                     for x in xs])
+    out["serve_warned"] = any("max_batch=1" in str(w.message)
+                              for w in caught)
+    out["serve_max_batch"] = st["max_batch"]
+    out["serve_batches"] = st["batches"]
+    out["serve_equals_predictor"] = bool(np.array_equal(got, want))
+    log("  planted faults: softmax over the batch axis under strict "
+        "raised %s; without strict warned %s, max_batch %d, %d batches for "
+        "%d requests, answers equal a batch-1 Predictor's %s; a slot-mixing "
+        "decode step under strict raised %s [%s]" % (
+            out["serve_strict_raised"], out["serve_warned"],
+            out["serve_max_batch"], out["serve_batches"], len(xs),
+            out["serve_equals_predictor"], out["decode_strict_raised"],
+            card))
+    if not (out["serve_strict_raised"] and out["decode_strict_raised"]
+            and out["serve_warned"] and out["serve_max_batch"] == 1
+            and out["serve_batches"] == len(xs)
+            and out["serve_equals_predictor"]):
+        raise AssertionError("a planted fault got through: %s" % out)
+    return out
+
+
+def analysis_phase(torch, mt, fu, nn, kv, seed, card, decode):
+    """Phase 16 (see the module docstring): (a)-(e); ``decode`` is phase
+    9's result, whose runs hold (b)."""
+    import numpy as np
+    t_phase = time.perf_counter()
+    wrappers = kernel_wrappers(fu, nn, kv)
+    side, batch = ANALYSIS_IMAGE, ANALYSIS_SERVE_BATCH
+    sym = mt.models.get_resnet_symbol(
+        num_classes=1000, num_layers=50, image_shape=(3, side, side),
+        layout="NHWC", unit_impl="fused")
+    n_fused = sym.tojson().count('"_contrib_FusedBottleneckUnit"')
+    args, aux = mt.convert.random_params(sym, {"data": (1, side, side, 3)},
+                                         seed=seed)
+    xs = np.random.default_rng(seed + 4).standard_normal(
+        (batch, side, side, 3)).astype(np.float32)
+    out = {"serve": {}}
+    runs = {}
+    for optimize in (True, False):
+        t0 = time.perf_counter()
+        outs, eng, launches, st, peak = analysis_serve(
+            torch, mt, wrappers, sym, args, aux, xs, optimize)
+        name = "optimizer on" if optimize else "optimizer off"
+        runs[name] = outs
+        report = eng.analysis_report
+        plan = eng.opt_plan
+        counts = {sev: len(report.by_severity(sev))
+                  for sev in ("error", "warning", "info")}
+        want = {k: n_fused * st["batches"] if k in SERVE_KERNELS["2d"]
+                else 0 for k in launches}
+        if launches != want or st["batches"] != 1:
+            raise AssertionError("%s: launches %s in %d batches, not %s"
+                                 % (name, launches, st["batches"], want))
+        if eng._verdicts != {"batch": "row-local"}:
+            raise AssertionError("%s: the batch verdict is %s"
+                                 % (name, eng._verdicts))
+        if not (np.isfinite(outs).all() and outs.shape == (batch, 1000)):
+            raise AssertionError("%s: outputs %s" % (name, outs.shape))
+        out["serve"][name] = {
+            "verdicts": dict(eng._verdicts), "report": counts,
+            "plan": None if plan is None else {
+                "accepted": plan.accepted, "reason": plan.reason,
+                "rewrites": len(plan.rewrites),
+                "actions": [list(a) for a in plan.actions],
+                "nodes": [plan.nodes_before, plan.nodes_after]},
+            "launches": {k: v for k, v in launches.items() if v},
+            "batches": st["batches"], "peak_bytes": peak,
+            "engine_s": time.perf_counter() - t0}
+        log("  serve, %s: batch verdict %s; report %s; %d batch, launches "
+            "%s; peak allocated %s [%s]" % (
+                name, eng._verdicts["batch"], counts, st["batches"],
+                {k: v for k, v in launches.items() if v},
+                mt.analysis.memory.format_bytes(peak), card))
+        if plan is not None:
+            for line in plan.describe().splitlines():
+                log("    " + line)
+    if not np.array_equal(runs["optimizer on"], runs["optimizer off"]):
+        raise AssertionError("the optimizer changed the served bits")
+    np.testing.assert_allclose(runs["optimizer on"].sum(1), 1.0, rtol=1e-4)
+    predicted = mt.analysis.predict_peak_bytes(
+        sym, {"data": (batch, side, side, 3)})
+    measured = out["serve"]["optimizer on"]["peak_bytes"]
+    out["serve"]["memory"] = {"predicted_bytes": predicted,
+                              "measured_bytes": measured,
+                              "ratio": measured / predicted}
+    log("  served probabilities equal bit for bit, optimizer on and off")
+    out["fold"] = analysis_fold(torch, mt, wrappers, seed, card)
+
+    # (b): phase 9 served the decoder through the gated pipeline and
+    # held its verdicts, selections, launches and streams
+    out["decode"] = {name: run["analysis"]
+                     for name, run in decode["runs"].items()}
+    log("  (b) decode, from phase 9: %s" % "; ".join(
+        "%s: verdicts %s/%s, %d rewrites, %d selections" % (
+            name, a["step_verdict"], a["draft_verdict"], a["rewrites"],
+            a["selection"]) for name, a in out["decode"].items()))
+
+    log("  (c) FLOPs and (d) memory")
+    out["flops"] = analysis_flops(torch, mt, seed, card)
+    budget = mt.analysis.device_memory_budget()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not budget or budget > total:
+        raise AssertionError("device_memory_budget %s, card %d"
+                             % (budget, total))
+    out["memory"] = {"serve_forward": out["serve"]["memory"],
+                     "train_step": out["flops"]["memory"],
+                     "device_budget_bytes": budget,
+                     "device_total_bytes": total}
+    for what, m in (("serve forward, batch %d, f32" % batch,
+                     out["serve"]["memory"]),
+                    ("plain training step, batch %d, bf16"
+                     % ANALYSIS_FLOP_BATCH, out["flops"]["memory"])):
+        log("  memory, %s: predict_peak_bytes %s, max_memory_allocated %s, "
+            "measured / predicted %.3f [%s]" % (
+                what, mt.analysis.memory.format_bytes(m["predicted_bytes"]),
+                mt.analysis.memory.format_bytes(m["measured_bytes"]),
+                m["ratio"], card))
+    log("  device_memory_budget %s of %s [%s]" % (
+        mt.analysis.memory.format_bytes(budget),
+        mt.analysis.memory.format_bytes(total), card))
+
+    log("  (e) planted faults")
+    out["faults"] = analysis_faults(torch, mt, seed, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("  phase 16 took %.1f s" % out["phase_s"])
+    log(json.dumps({"analysis": {
+        "serve": {k: {"verdicts": v["verdicts"], "report": v["report"],
+                      "rewrites": v["plan"] and v["plan"]["rewrites"],
+                      "launches": v["launches"]}
+                  for k, v in out["serve"].items() if k != "memory"},
+        "fold": out["fold"], "decode": out["decode"],
+        "flops": {k: v for k, v in out["flops"].items() if k != "memory"},
+        "memory": out["memory"], "faults": out["faults"],
+        "phase_s": out["phase_s"]}}))
+    return out
 
 
 def fmt(vals, spec="%.5f"):

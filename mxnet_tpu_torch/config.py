@@ -84,15 +84,36 @@ VARIABLES = {v.name: v for v in [
          "_cache_write_rows kernel when the selection adopts it.  0 = "
          "the single-token engine.  DecodeEngine(spec_k=) overrides."),
     _Var("MXNET_SERVE_OPTIMIZE", bool, True,
-         "Run the graph optimizer (analysis/optimize.py; only its "
-         "'select' pass is ported) over the decode engine's step, draft "
-         "and commit graphs.  0 = serve the graphs exactly as handed "
-         "in."),
+         "Run the verdict-gated optimizing pass pipeline "
+         "(analysis/optimize.py: algebraic identities, constant "
+         "folding, CSE, dead-node elimination) over the graph the "
+         "serving ProgramCache runs, and the kernel-selection pipeline "
+         "over the decode engine's step, draft and commit graphs.  A "
+         "candidate is adopted ONLY when re-analysis verdicts — output "
+         "shapes/dtypes and padded-axis soundness — are no worse than "
+         "the input graph's.  Requires MXNET_ANALYSIS_ON (the "
+         "acceptance protocol IS analysis); 0 = serve the graph exactly "
+         "as handed in."),
     _Var("MXNET_OPT_SELECT_KERNELS", bool, True,
-         "The optimizer's fused-op selection: swap the one-hot-blend "
-         "KV-cache writes (O(max_len*d) per token) for the "
-         "_cache_write_row / _cache_write_rows kernels (O(d)).  Requires "
-         "MXNET_SERVE_OPTIMIZE.  0 = serve the blends."),
+         "The optimizer's fused-op selection (analysis/optimize.py "
+         "'select' pass): swap the one-hot-blend KV-cache writes "
+         "(O(max_len*d) per token) for the _cache_write_row / "
+         "_cache_write_rows kernels (O(d)) behind the same verdict gate "
+         "as every other rewrite (re-analysis no worse, slot-axis "
+         "row-locality preserved under pad-dirty seeding; a rejected "
+         "plan serves the unmodified graph).  Requires "
+         "MXNET_SERVE_OPTIMIZE and MXNET_ANALYSIS_ON.  0 = serve the "
+         "blends."),
+    _Var("MXNET_ANALYSIS_ON", bool, True,
+         "Run the static-analysis passes (mxnet_tpu_torch.analysis) at "
+         "Predictor/ServingEngine construction: the IR verifier always, "
+         "plus the padding-soundness classifier for the engine's padded "
+         "axes.  Findings warn by default; see MXNET_ANALYSIS_STRICT."),
+    _Var("MXNET_ANALYSIS_STRICT", bool, False,
+         "Escalate construction-time analysis findings from warnings to "
+         "MXNetError: malformed graphs refuse to build, and a serving "
+         "graph classified cross-position along a padded axis refuses "
+         "the unsound bucketing instead of degrading it."),
     _Var("MXNET_SERVE_DEFAULT_DEADLINE_MS", float, 0.0,
          "Default per-request deadline; requests still queued past it "
          "fail with DeadlineExceededError.  0 = no default deadline."),

@@ -106,6 +106,16 @@ def clip(attrs, x):
     return torch.clamp(x, attrs["a_min"], attrs["a_max"])
 
 
+# f(0) = 0 unary ops (the reference's sparsity-preserving set): the
+# padding analysis (analysis/padding.py) reads it beside ``_UNARY`` to
+# know which unaries keep zero pad slots zero.
+_SPARSITY_PRESERVING = frozenset([
+    "relu", "abs", "sign", "round", "rint", "ceil", "floor", "trunc",
+    "fix", "square", "sqrt", "cbrt", "negative", "degrees", "radians",
+    "expm1", "log1p", "erf", "erfinv", "sin", "tan", "arcsin", "arctan",
+    "sinh", "tanh", "arcsinh", "arctanh",
+])
+
 # ---------------------------------------------------------------------------
 # Binary: elemwise_*, broadcast_* and the bare names, all broadcasting
 # ---------------------------------------------------------------------------

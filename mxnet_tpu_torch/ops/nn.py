@@ -801,7 +801,8 @@ def instance_norm(attrs, data, gamma, beta):
     return out * gamma.reshape(bshape) + beta.reshape(bshape)
 
 
-@register("Dropout", aliases=["dropout"], mode_dependent=True,
+@register("Dropout", aliases=["dropout"], stochastic=True,
+          mode_dependent=True,
           params={"p": P(float, 0.5),
                   "mode": P(str, "training", choices=["training", "always"]),
                   "axes": P("shape", ())})

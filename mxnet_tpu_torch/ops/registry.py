@@ -14,6 +14,10 @@ input index to the output index holding that aux input's new value.
 A ``variable_inputs`` op (Concat, add_n, stack) takes any number of
 inputs, counted in its ``key_var_num_args`` attr.
 
+``stochastic`` (Dropout, RNN) and ``host_sync`` mark what the analysis
+passes must not fold, merge or hide in a hot path; they change nothing at
+run time.
+
 ``inplace`` maps an input index to the output index that IS that input,
 written in place (the KV-cache writes).  Outside training the executor
 hands such an op a copy of the input unless the graph owns the buffer
@@ -55,7 +59,7 @@ class OpDef:
                  input_names=None, mode_dependent=False, mutate_aux=None,
                  fill_shapes=None, num_visible_outputs=None, aux_inputs=(),
                  inplace=None, variable_inputs=False, key_var_num_args=None,
-                 doc=""):
+                 stochastic=False, host_sync=False, doc=""):
         self.name = name
         self.impl = impl
         self.params = params or {}
@@ -71,6 +75,12 @@ class OpDef:
         self.inplace = inplace or {}
         self.variable_inputs = variable_inputs
         self.key_var_num_args = key_var_num_args
+        # flags the analysis reads (analysis/shapes.py, retrace.py and the
+        # optimizer's fold and CSE guards): a stochastic op draws random
+        # numbers, so two of them never merge or fold; a host_sync op
+        # reads device values back on the host at every dispatch
+        self.stochastic = stochastic
+        self.host_sync = host_sync
         self.doc = doc or (impl.__doc__ or "")
 
     def normalize(self, attrs):

@@ -142,8 +142,8 @@ def _rnn_nout(attrs):
 
 @register("RNN", aliases=["rnn"], nin=_rnn_nin,
           input_names=["data", "parameters", "state", "state_cell"],
-          nout=_rnn_nout, mode_dependent=True, fill_shapes=_rnn_fill,
-          params=_RNN_PARAMS)
+          nout=_rnn_nout, mode_dependent=True, stochastic=True,
+          fill_shapes=_rnn_fill, params=_RNN_PARAMS)
 def rnn(attrs, data, parameters, state, state_cell=None):
     """data (T, N, I) time-major; state (and, for the LSTM, state_cell)
     (layers * directions, N, H).  Outputs: the last layer's (T, N, H *

@@ -186,15 +186,6 @@ def slice_op(attrs, x):
                                        attrs["step"], x.shape))
 
 
-@register("slice_axis",
-          params={"axis": P(int), "begin": P(int, 0),
-                  "end": P("int_or_none", None)})
-def slice_axis(attrs, x):
-    sl = [slice(None)] * x.dim()
-    sl[attrs["axis"] % x.dim()] = slice(attrs["begin"], attrs["end"])
-    return x[tuple(sl)]
-
-
 def _slice_index(attrs, shape, device):
     """Flat indices of the elements ``_norm_slice`` selects (what a slice
     assignment writes), shaped as the selection."""
@@ -289,26 +280,6 @@ def split(attrs, x):
     if attrs["squeeze_axis"]:
         parts = [p.squeeze(ax) for p in parts]
     return tuple(parts)
-
-
-@register("Pad", aliases=["pad"],
-          params={"mode": P(str, "constant",
-                            choices=["constant", "edge", "reflect"]),
-                  "pad_width": P("shape", ()),
-                  "constant_value": P(float, 0.0)})
-def pad(attrs, x):
-    """``pad_width`` holds (before, after) for every axis in order; the
-    constant mode fills with ``constant_value``."""
-    if attrs["mode"] != "constant":
-        raise MXNetError("Pad: mode=%s is not yet ported (constant only)"
-                         % attrs["mode"])
-    pw = attrs["pad_width"]
-    if len(pw) != 2 * x.ndim:
-        raise MXNetError("Pad: pad_width needs 2 entries per axis of a %d-D "
-                         "input, got %d" % (x.ndim, len(pw)))
-    # F.pad takes the pairs last axis first
-    flat = [p for i in reversed(range(x.ndim)) for p in pw[2 * i:2 * i + 2]]
-    return F.pad(x, flat, mode="constant", value=attrs["constant_value"])
 
 
 # ---------------------------------------------------------------------------

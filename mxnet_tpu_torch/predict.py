@@ -2,20 +2,42 @@
 
 Counterpart of ``mxnet_tpu/predict.py`` (the c_predict_api runtime):
 built from the checkpoint format Module writes, bound once on one
-device.  Loss-head label inputs are bound with placeholder zeros and
-never read at inference.  With no ``ctx`` it runs on the first CUDA card
-and raises when there is none; pass ``ctx=cpu()`` for the CPU.
+device.  Construction verifies the graph first (``analysis.verify``): a
+malformed graph warns with node provenance, or raises under
+``MXNET_ANALYSIS_STRICT=1``.  Loss-head label inputs are bound with
+placeholder zeros and never read at inference.  With no ``ctx`` it runs
+on the first CUDA card and raises when there is none; pass ``ctx=cpu()``
+for the CPU.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 
 from .base import MXNetError
 from .context import default_context
+from . import config
 from . import ndarray as nd
 from . import symbol as sym
 
 __all__ = ["Predictor", "load_checkpoint_predictor"]
+
+
+def _verify_graph(symbol, what):
+    """Construction-time IR verification (mxnet_tpu_torch.analysis):
+    catch a malformed graph here, with node provenance, instead of deep
+    inside bind/dispatch.  Warn by default; MXNET_ANALYSIS_STRICT=1
+    raises."""
+    if not config.get("MXNET_ANALYSIS_ON"):
+        return
+    from .analysis import verify
+    report = verify(symbol)
+    if not report.ok:
+        if config.get("MXNET_ANALYSIS_STRICT"):
+            report.raise_if_errors()    # message names the failing pass
+        warnings.warn("%s: graph verification failed:\n%s"
+                      % (what, report.format()))
 
 
 def _label_like(names):
@@ -59,6 +81,7 @@ class Predictor(object):
             symbol = sym.load_json(symbol)
         ctx = default_context(ctx)
         data_shapes = dict(data_shapes)
+        _verify_graph(symbol, "Predictor")
         arg_names = symbol.list_arguments()
         missing = [n for n in arg_names
                    if n not in arg_params and n not in data_shapes]

@@ -24,14 +24,22 @@ this engine schedules at the *iteration* level instead:
   request's tokens do not depend on its company;
 - **teacher-forced prompts**: a prompt is consumed token by token
   through the running step batch;
+- **soundness preflight** (``MXNET_ANALYSIS_ON``): the step graph (and
+  the draft's) must be row-local along the SLOT axis with the state
+  seeded pad-dirty (``analysis.check_decode_step``) — a cross-position
+  step would let one request's (or a dead slot's stale) values bleed
+  into a co-resident request's tokens.  It warns, or raises under
+  ``MXNET_ANALYSIS_STRICT=1``; ``step_verdict``, ``draft_verdict`` and
+  ``analysis_report`` keep the result;
 - **fused-op selection** (``MXNET_SERVE_OPTIMIZE`` +
   ``MXNET_OPT_SELECT_KERNELS``, both on by default): before any program
-  is built, the optimizer's ``select`` pass swaps the step graph's (and
-  the draft's) one-hot-blend cache writes for ``_cache_write_row`` (K9)
-  and the speculative commit's blend chains for ``_cache_write_rows``
-  (K10).  The reference adopts a selection only through its padding
-  verdict gate, which is not ported: here a selection is adopted whenever
-  the matcher proves the exact blend pattern, and ``stats()`` says so;
+  is built, ``analysis.SELECT_OPT_PASSES`` runs over the step graph
+  (and the draft's): the ``select`` pass swaps the one-hot-blend cache
+  writes for ``_cache_write_row`` (K9) and the speculative commit's
+  blend chains for ``_cache_write_rows`` (K10), then the default passes
+  fold, merge and sweep.  A plan is adopted only through the verdict
+  gate (re-analysis no worse, the slot axis still row-local under
+  pad-dirty seeding); ``stats()`` names the gate;
 - **speculative draft-k-verify** (``spec_k``, greedy): see
   ``serving/spec.py``.  The draft and target chains run on working
   copies of the caches (one copy per cache per speculative step), so the
@@ -47,7 +55,7 @@ would leave the first live steps to build them again).
 
 Not ported (ROADMAP): replicas and the router, sharding plans, the AOT
 cache, telemetry, fault injection, the supervisor and ``rehabilitate``,
-the analysis preflight and the memory preflight, ``prefill_sym``
+the memory preflight, ``prefill_sym``
 (coalesced bucketed prefill), SSE streams, and the stochastic samplers.
 
 Step-graph contract: ``step_sym`` outputs ``[logits] + next_states`` over
@@ -226,7 +234,8 @@ class StepProgram(object):
         return template, {n: order.index(n) for n in feeds}
 
     def _init_spec(self, dspec, pos_name):
-        dspec.build(self.num_slots, self.state_info, self._dtype)
+        dspec.build(self.num_slots, self.state_info, self._dtype,
+                    device=self._ctx.device)
         dsym = sym.Group(list(dspec.draft_sym))
         d_args = dsym.list_arguments()
         d_auxs = dsym.list_auxiliary_states()
@@ -608,13 +617,28 @@ class DecodeEngine(object):
         self.eos_id = eos_id
         self._dtype = np.dtype(dtype)
         self._default_deadline_s = float(default_deadline_ms) / 1e3
+        self.analysis_report = None
+        self.step_verdict = None
+        self.draft_verdict = None
+        if config.get("MXNET_ANALYSIS_ON"):
+            self.step_verdict, self.analysis_report = self._preflight(
+                step_sym, state_info, token_name, pos_name, valid_name,
+                config.get("MXNET_ANALYSIS_STRICT"), what="step")
+            if self._spec_k:
+                # the draft's states ride the SAME slot pool: the same
+                # soundness bar as the target's
+                self.draft_verdict, _ = self._preflight(
+                    draft_sym, draft_state_info or [], token_name,
+                    pos_name, valid_name,
+                    config.get("MXNET_ANALYSIS_STRICT"), what="draft")
         if self._spec_k:
             self._check_draft_heads(step_sym, draft_sym, state_info,
                                     draft_state_info or [], token_name,
                                     pos_name, valid_name)
         self.opt_plan = self.selection = self.draft_opt_plan = None
         if config.get("MXNET_SERVE_OPTIMIZE") \
-                and config.get("MXNET_OPT_SELECT_KERNELS"):
+                and config.get("MXNET_OPT_SELECT_KERNELS") \
+                and config.get("MXNET_ANALYSIS_ON"):
             step_sym, self.opt_plan, self.selection = self._optimize_step(
                 step_sym, state_info, token_name, pos_name, valid_name,
                 what="step")
@@ -631,7 +655,8 @@ class DecodeEngine(object):
                 draft_aux_params=draft_aux_params,
                 draft_state_info=draft_state_info, token_name=token_name,
                 pos_name=pos_name, valid_name=valid_name)
-            self._spec_cfg.build(self.num_slots, state_info, dtype)
+            self._spec_cfg.build(self.num_slots, state_info, dtype,
+                                 device=self._ctx.device)
         self._rep = DecodeReplica(StepProgram(
             step_sym, arg_params, aux_params, state_info, self.num_slots,
             token_name=token_name, pos_name=pos_name,
@@ -685,28 +710,78 @@ class DecodeEngine(object):
                 "head scores %s — draft and target must share one "
                 "vocabulary" % (t_shape, d_shape))
 
+    def _slot_spec(self, step_sym, state_info, token_name, pos_name,
+                   valid_name):
+        """Slot-pool shapes and dtypes of the step graph's per-slot
+        inputs, and its state names (the pad-dirty seeds)."""
+        n = self.num_slots
+        arg_names = set(step_sym.list_arguments())
+        shapes = {token_name: (n,)}
+        dtypes = {token_name: np.dtype(np.float32)}
+        state_names = []
+        for info in state_info:
+            shapes[info["name"]] = (n,) + tuple(info["shape"])
+            dtypes[info["name"]] = np.dtype(info.get("dtype")
+                                            or self._dtype)
+            state_names.append(info["name"])
+        for extra in (pos_name, valid_name):
+            if extra in arg_names:
+                shapes[extra] = (n,)
+                dtypes[extra] = np.dtype(np.float32)
+        return shapes, dtypes, state_names
+
+    def _preflight(self, step_sym, state_info, token_name, pos_name,
+                   valid_name, strict, what="step"):
+        """Construction-time soundness lint: the masked step must be
+        row-local along the SLOT axis with state seeded pad-dirty
+        (analysis.check_decode_step).  Returns (verdict, report)."""
+        from ..analysis import check_decode_step, AnalysisError
+        shapes, _dtypes, state_names = self._slot_spec(
+            step_sym, state_info, token_name, pos_name, valid_name)
+        verdict, report = check_decode_step(
+            step_sym, shapes, state_names=state_names,
+            valid_name=valid_name if valid_name in shapes else None)
+        if report.errors:
+            if strict:
+                report.raise_if_errors()
+            warnings.warn("DecodeEngine: %s-graph verification "
+                          "failed:\n%s" % (what, report.format()))
+            return verdict, report
+        if verdict == "cross-position":
+            detail = "\n".join("  " + str(d) for d in report.warnings) \
+                or "  (see report)"
+            msg = ("[padding] DecodeEngine: %s graph is cross-position "
+                   "along the SLOT axis — co-resident requests (and stale "
+                   "state in freed slots) would contaminate each other's "
+                   "tokens:\n%s" % (what, detail))
+            if strict:
+                raise AnalysisError(msg)
+            warnings.warn(msg + "\ncontinuing because "
+                          "MXNET_ANALYSIS_STRICT=0; decoded output "
+                          "WILL differ from single-request decode")
+        return verdict, report
+
     def _optimize_step(self, step_sym, state_info, token_name, pos_name,
                        valid_name, what="step"):
-        """Run the kernel-selection pass over the step graph at the slot
-        pool's shapes.  Returns ``(graph, plan, selection)``, the graph
-        being what StepProgram should run (the input graph on rejection or
-        crash)."""
+        """Run the kernel-selection pipeline
+        (``analysis.SELECT_OPT_PASSES``) over the step graph under the
+        SAME spec the preflight uses — slot-pool shapes, slot padded
+        axis, state inputs seeded pad-DIRTY — so a selection is adopted
+        only via an accepted verdict-gated OptPlan.  Constants fold on
+        the engine's device.  Returns ``(graph, plan, selection)``, the
+        graph being what StepProgram should run (the input graph on
+        rejection or crash)."""
         from ..analysis import optimize_graph, SELECT_OPT_PASSES
         try:
-            n = self.num_slots
-            arg_names = set(step_sym.list_arguments())
-            shapes = {token_name: (n,)}
-            dtypes = {token_name: np.dtype(np.float32)}
-            for info in state_info:
-                shapes[info["name"]] = (n,) + tuple(info["shape"])
-                dtypes[info["name"]] = np.dtype(info.get("dtype")
-                                                or self._dtype)
-            for extra in (pos_name, valid_name):
-                if extra in arg_names:
-                    shapes[extra] = (n,)
-                    dtypes[extra] = np.dtype(np.float32)
-            plan = optimize_graph(step_sym, data_shapes=shapes,
-                                  dtypes=dtypes, passes=SELECT_OPT_PASSES)
+            shapes, dtypes, state_names = self._slot_spec(
+                step_sym, state_info, token_name, pos_name, valid_name)
+            plan = optimize_graph(
+                step_sym, data_shapes=shapes, dtypes=dtypes,
+                pad_axes={"slot": {name: 0 for name in shapes}},
+                valid_lengths=({"slot": valid_name}
+                               if valid_name in shapes else None),
+                pad_dirty=tuple(state_names), passes=SELECT_OPT_PASSES,
+                device=self._ctx.device)
         except Exception as e:    # optimizer crash must never block
             warnings.warn("DecodeEngine: %s-graph optimization crashed "
                           "(%r); serving the unmodified graph" % (what, e))
@@ -1153,6 +1228,10 @@ class DecodeEngine(object):
                 "requests_served": self._requests_served,
                 "programs_built": self.programs_built,
                 "sampler": self._sampler.describe(),
+                "analysis": {
+                    "step_verdict": self.step_verdict,
+                    "draft_verdict": self.draft_verdict,
+                },
                 "optimizer": {
                     "accepted": (bool(plan.accepted) if plan is not None
                                  else None),

@@ -14,14 +14,25 @@ engine, warmup included: cuBLAS handles and cuDNN's execution plans are
 kept per thread, so a warmup on any other thread would leave the first
 live batches to build them again.
 
-Not yet ported: replicas, sharding plans, the analysis preflight and
-graph optimizer, the AOT program cache, telemetry, fault injection, the
-supervisor and the overload regulator.
+Construction runs the analysis preflight (``MXNET_ANALYSIS_ON``): the
+verifier, shapes, retrace and padding passes over the graph at the
+largest bucket.  A graph that mixes rows along the zero-padded batch
+axis warns and serves one request per batch (``max_batch=1``), or
+raises under ``MXNET_ANALYSIS_STRICT=1``; the retrace linter's findings
+are kept as ``hazard_fingerprints``.  Then the verdict-gated optimizer
+(``MXNET_SERVE_OPTIMIZE``) rewrites the graph the ``ProgramCache`` runs,
+adopted only when re-analysis is no worse.
+
+Not yet ported: the sequence axis (seq buckets, and with them the
+preflight's masking repair and seq degrade, ROADMAP Queue A item 3),
+the memory preflight, replicas, sharding plans, the AOT program cache,
+telemetry, fault injection, the supervisor and the overload regulator.
 """
 from __future__ import annotations
 
 import threading
 import time
+import warnings
 from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
@@ -63,7 +74,23 @@ class ServingEngine(object):
         self._default_deadline_s = float(default_deadline_ms) / 1e3
         self._data_shapes = {k: tuple(v) for k, v in dict(data_shapes).items()}
         self._dtype = np.dtype(dtype)
-        self._cache = ProgramCache(symbol, arg_params, aux_params,
+        # static preflight: IR verifier + shapes + retrace + padding over
+        # the batch axis this engine zero-pads; a cross-position verdict
+        # is refused (strict) or de-fanged (max_batch=1)
+        self._serve_sym = symbol         # what the ProgramCache runs
+        self.analysis_report = None
+        self.hazard_fingerprints = {}
+        self._verdicts = None            # padded-axis verdicts, if analyzed
+        pre = None
+        if config.get("MXNET_ANALYSIS_ON"):
+            pre = self._preflight(symbol, config.get("MXNET_ANALYSIS_STRICT"))
+        # the verdict-gated optimizer rewrites the graph the ProgramCache
+        # runs; its acceptance protocol IS analysis, so both knobs gate it
+        self.opt_plan = None
+        if config.get("MXNET_SERVE_OPTIMIZE") \
+                and config.get("MXNET_ANALYSIS_ON"):
+            self._optimize_preflight(arg_params, aux_params, pre)
+        self._cache = ProgramCache(self._serve_sym, arg_params, aux_params,
                                    list(self._data_shapes), ctx=self._ctx,
                                    dtype=dtype)
         self._adm = AdmissionController(max_queue=max_queue)
@@ -87,6 +114,105 @@ class ServingEngine(object):
         kwargs["ctx"] = default_context(kwargs.get("ctx"))
         symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
         return cls(symbol, arg_params, aux_params, data_shapes, **kwargs)
+
+    # ------------------------------------------------------------ preflight
+    def _preflight(self, symbol, strict):
+        """Construction-time static analysis (mxnet_tpu_torch.analysis).
+
+        Verifier errors raise under ``MXNET_ANALYSIS_STRICT``.  A graph
+        cross-position along the **batch** axis stops coalescing
+        requests (``max_batch=1``): with positions mixing across the
+        batch axis, even unpadded batching would blend requests.  Under
+        strict it raises instead.  (The JAX package also repairs or
+        degrades a bucketed seq axis; the port's policy has none.)
+        Returns the analysis' ``(report, ctx)`` for the optimizer to
+        reuse, or None when a degrade changed the padded shapes."""
+        from ..analysis import check_serving_graph, AnalysisError
+        verdicts, report, ctx = check_serving_graph(
+            symbol, self._data_shapes, self._policy, with_ctx=True)
+        self.analysis_report = report
+        self._verdicts = dict(verdicts)
+        self._harvest_hazards(report)
+        if report.errors:
+            if strict:
+                report.raise_if_errors()    # names the failing passes
+            warnings.warn("ServingEngine: graph verification failed:\n%s"
+                          % report.format())
+        cross = [lb for lb, v in verdicts.items() if v == "cross-position"]
+        if not cross:
+            return report, ctx
+        detail = "\n".join(
+            "  " + str(d) for d in report.warnings) or "  (see report)"
+        if strict:
+            raise AnalysisError(
+                "[padding] ServingEngine: graph is cross-position along "
+                "padded axis(es) %s — zero-pad slots would bleed into "
+                "live outputs:\n%s" % (cross, detail))
+        if "batch" in cross:
+            warnings.warn(
+                "ServingEngine: graph mixes positions across the BATCH "
+                "axis; disabling request coalescing (max_batch=1) so "
+                "requests cannot contaminate each other:\n%s" % detail)
+            self._policy = BucketPolicy(max_batch=1)
+        return None
+
+    def _harvest_hazards(self, report):
+        """Keep the report's retrace-linter warnings under their hazard
+        fingerprints (the JAX package labels runtime retraces with the
+        same keys)."""
+        from ..analysis import hazard_fingerprint
+        for d in report.warnings:
+            if d.pass_name != "retrace":
+                continue
+            fp = hazard_fingerprint(d.node, d.op, d.message)
+            self.hazard_fingerprints.setdefault(fp, str(d))
+
+    def _optimize_preflight(self, arg_params, aux_params, pre):
+        """Optimize the graph the ProgramCache runs.  The candidate is
+        served only when the plan's re-analysis verdicts are no worse
+        than the input graph's — padded-axis verdicts, output shapes,
+        and output dtypes all intact.  Constants fold on the engine's
+        device, so the optimized graph computes the unoptimized one's
+        bits there.  ``pre`` is the preflight's ``(report, ctx)`` over the
+        same graph and spec, or None.  A rejected (or crashed)
+        optimization leaves the engine serving the unoptimized graph, and
+        says so."""
+        from ..analysis import optimize_graph
+        from ..analysis.core import same_dtype
+        from ..analysis.rewrite import serving_pad_spec
+        try:
+            full, pad_axes = serving_pad_spec(self._data_shapes,
+                                              self._policy)
+            dtypes = {n: self._dtype for n in self._data_shapes}
+            for src in (arg_params or {}), (aux_params or {}):
+                for k, v in src.items():
+                    dt = getattr(v, "dtype", None)
+                    if dt is not None:
+                        dtypes.setdefault(k, dt)
+            # the preflight assumed float32 throughout, so any other
+            # dtype re-analyzes
+            if not all(same_dtype(d, np.float32) for d in dtypes.values()):
+                pre = None
+            plan = optimize_graph(self._serve_sym, data_shapes=full,
+                                  dtypes=dtypes, policy=self._policy,
+                                  pad_axes=pad_axes, training=False,
+                                  precomputed=pre, device=self._ctx.device)
+        except Exception as e:      # optimizer crash must never block
+            warnings.warn("ServingEngine: graph optimization crashed "
+                          "(%r); serving the unoptimized graph" % (e,))
+            return
+        self.opt_plan = plan
+        if plan.accepted and plan.symbol is not None and plan.rewrites:
+            self._serve_sym = plan.symbol
+        elif not plan.accepted:
+            warnings.warn("ServingEngine: graph optimization rejected "
+                          "(%s); serving the unoptimized graph"
+                          % plan.reason)
+
+    @property
+    def served_sym(self):
+        """The graph the ProgramCache runs (optimized when adopted)."""
+        return self._serve_sym
 
     # ------------------------------------------------------------ lifecycle
     def start(self):
@@ -243,6 +369,12 @@ class ServingEngine(object):
                 "compile_count": self.compile_count,
                 "max_batch": self._policy.max_batch,
                 "device": str(self._ctx.device),
+                "pad_verdicts": dict(self._verdicts or {}),
+                "optimizer": None if self.opt_plan is None else {
+                    "accepted": self.opt_plan.accepted,
+                    "rewrites": len(self.opt_plan.rewrites),
+                    "reason": self.opt_plan.reason,
+                },
             })
         for q in (50, 90, 99):
             snap["latency_p%d_ms" % q] = (

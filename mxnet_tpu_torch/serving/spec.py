@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..context import default_context
 
 __all__ = ["SpecConfig", "build_commit_sym", "select_commit",
            "greedy_accept", "commit_select", "gather_rows"]
@@ -87,16 +88,20 @@ def _build_commit_sym(sym, cache_specs, K):
     return sym.Group(outs), shapes, cache_names, rows_names
 
 
-def select_commit(commit, shapes):
-    """Run the ``_cache_write_rows`` selection over a built commit graph
-    at its input ``shapes``.  Returns ``(served_sym, selection, plan)``:
-    the optimized graph and its selections when the plan accepted with
-    rewrites, else the input graph (selection ``[]``).  (The reference
-    also takes the cache and rows names, which its verdict gate seeds
-    pad-dirty; the gate is not ported.)"""
+def select_commit(commit, shapes, cache_names, rows_names, device=None):
+    """Run the verdict-gated ``_cache_write_rows`` selection over a built
+    commit graph at its input ``shapes``: slot axis 0 padded everywhere,
+    caches AND rows pad-dirty.  Returns ``(served_sym, selection,
+    plan)``: the optimized graph and its selections when the plan
+    accepted with rewrites, else the input graph (selection ``[]``).
+    ``device`` is where the commit runs (constants fold there; None =
+    the current context, as in :func:`~..analysis.optimize_graph`)."""
     from ..analysis import optimize_graph, SELECT_OPT_PASSES
-    plan = optimize_graph(commit, data_shapes=shapes,
-                          passes=SELECT_OPT_PASSES)
+    plan = optimize_graph(
+        commit, data_shapes=shapes,
+        pad_axes={"slot": {n: 0 for n in shapes}},
+        pad_dirty=tuple(cache_names) + tuple(rows_names),
+        passes=SELECT_OPT_PASSES, device=device)
     if plan.accepted and plan.symbol is not None and plan.rewrites:
         sel = [{"op": "_cache_write_rows", "site": a.node}
                for a in plan.actions if a.kind == "select"]
@@ -149,10 +154,14 @@ class SpecConfig(object):
                 for s in self.draft_state_info if s.get("cache")]
         return out
 
-    def build(self, num_slots, state_info, dtype):
-        """Build the commit graph and run the selection over it, once."""
+    def build(self, num_slots, state_info, dtype, device=None):
+        """Build the commit graph and run the selection over it, once
+        (``device``: where the commit runs; None = the current
+        context)."""
         if self._built:
             return self
+        if device is None:
+            device = default_context().device
         specs = []
         for key, info in self.cache_infos(state_info):
             dt = np.dtype(info.get("dtype") or dtype)
@@ -161,15 +170,17 @@ class SpecConfig(object):
         if not specs:
             self._built = True
             return self
-        commit, shapes, _cache_names, _rows_names = build_commit_sym(
+        commit, shapes, cache_names, rows_names = build_commit_sym(
             specs, self.K)
         served = commit
         from .. import config
         if config.get("MXNET_SERVE_OPTIMIZE") \
-                and config.get("MXNET_OPT_SELECT_KERNELS"):
+                and config.get("MXNET_OPT_SELECT_KERNELS") \
+                and config.get("MXNET_ANALYSIS_ON"):
             try:
                 served, self.selection, self.commit_plan = \
-                    select_commit(commit, shapes)
+                    select_commit(commit, shapes, cache_names, rows_names,
+                                  device=device)
             except Exception as e:    # optimizer crash must never block
                 warnings.warn("speculative commit optimization crashed "
                               "(%r); serving the blend-chain commit"

@@ -32,7 +32,7 @@ from mxnet_tpu.analysis import SELECT_OPT_PASSES as J_SELECT
 from mxnet_tpu.serving.decode import StepProgram as JStepProgram
 from mxnet_tpu.serving.spec import SpecConfig as JSpecConfig
 import mxnet_tpu_torch as mt
-from mxnet_tpu_torch.analysis import optimize_graph
+from mxnet_tpu_torch.analysis import optimize_graph, SELECT_OPT_PASSES
 from mxnet_tpu_torch.serving import (DecodeEngine, StepProgram,
                                      greedy_decode)
 from mxnet_tpu_torch.serving import spec as tspec
@@ -89,6 +89,16 @@ def _shapes(info, extra=("token", "pos")):
     return out
 
 
+def _gated(symbol, info):
+    """The decode engine's selection: SELECT_OPT_PASSES through the
+    verdict gate, slot axis padded, state pad-dirty."""
+    shapes = _shapes(info)
+    return optimize_graph(symbol, data_shapes=shapes,
+                          pad_axes={"slot": {n: 0 for n in shapes}},
+                          pad_dirty=tuple(s["name"] for s in info),
+                          passes=SELECT_OPT_PASSES, device="cpu")
+
+
 def _engine(m, k=0, draft=None, draft_params=None, **kw):
     p = _nd(m["params"])
     spec = {}
@@ -125,13 +135,14 @@ def test_chip_smoke_builder_gives_build_spec_models_json(models):
     ("s", "s_info", 2), ("t", "t_info", 2 * SMALL["layers"]),
     ("d", "d_info", 2)])
 def test_select_pass_swaps_every_blend_write(models, graph, info, writes):
-    plan = optimize_graph(models[graph],
-                          data_shapes=_shapes(models[info]))
+    plan = _gated(models[graph], models[info])
     assert plan.accepted, plan.reason
     ops = _ops(plan.symbol)
     assert ops.count("_cache_write_row") == writes
     assert "one_hot" not in ops
-    assert [a.kind for a in plan.actions] == ["select"] * writes
+    assert [a.kind for a in plan.actions
+            if a.pass_name == "select"] == ["select"] * writes
+    assert plan.verdicts_after == {"slot": "row-local"}
     assert "_cache_write_row" not in _ops(models[graph])   # input untouched
 
 
@@ -139,8 +150,9 @@ def test_select_pass_swaps_every_blend_write(models, graph, info, writes):
 def test_select_pass_swaps_the_commit_chains(models, K):
     specs = [(s["name"], (SLOTS,) + s["shape"], np.float32)
              for s in models["t_info"]]
-    commit, shapes, _cnames, _rnames = tspec.build_commit_sym(specs, K)
-    served, sel, plan = tspec.select_commit(commit, shapes)
+    commit, shapes, cnames, rnames = tspec.build_commit_sym(specs, K)
+    served, sel, plan = tspec.select_commit(commit, shapes, cnames, rnames,
+                                            device="cpu")
     ops = _ops(served)
     assert plan.accepted and len(sel) == len(specs)
     assert ops.count("_cache_write_rows") == len(specs)
@@ -158,7 +170,8 @@ def _selected_both(m, name, info):
                              pad_dirty=tuple(s["name"] for s in m[info]),
                              passes=J_SELECT)
     assert jplan.accepted
-    plan = optimize_graph(m[name], data_shapes=shapes)
+    plan = _gated(m[name], m[info])
+    assert plan.accepted
     return jplan.symbol, plan.symbol
 
 
@@ -332,7 +345,8 @@ def test_engine_matches_greedy_decode_under_churn(models, reference):
     stream is its exact prefix, and churn builds no program."""
     eng = _engine(models)
     assert eng.stats()["decode"]["optimizer"]["selection"]
-    assert "not ported" in eng.stats()["decode"]["optimizer"]["gate"]
+    assert "verdict gate" in eng.stats()["decode"]["optimizer"]["gate"]
+    assert eng.step_verdict == "row-local"
     built = eng.warmup()
     streams = {}
     lock = threading.Lock()
@@ -409,10 +423,9 @@ def test_cache_after_speculative_step_keeps_unaccepted_rows(models):
     the accepted rows are the chains' rows."""
     m = models
     p = _nd(m["params"])
-    cfg = tspec.SpecConfig(2, optimize_graph(
-        m["d"], data_shapes=_shapes(m["d_info"])).symbol,
+    cfg = tspec.SpecConfig(2, _gated(m["d"], m["d_info"]).symbol,
         draft_arg_params=p, draft_state_info=m["d_info"])
-    tsym = optimize_graph(m["t"], data_shapes=_shapes(m["t_info"])).symbol
+    tsym = _gated(m["t"], m["t_info"]).symbol
     prog = StepProgram(tsym, p, {}, m["t_info"], SLOTS, ctx=mt.cpu(),
                        spec=cfg)
     tokens, pos, states = _feeds(m, "t_info", 4)
