@@ -230,7 +230,39 @@ Phases (none catches its own failure; there is no CPU path):
    with a warning, each answer bit for bit a batch-1 ``Predictor``'s; a
    decode step summing its state over the slot axis raises under strict.
    One JSON line ``{"analysis": {...}}`` sums it up;
-17. the kernel table (K1-K11) as one JSON line, then the result line
+17. serving: (a) phase 4's fused ResNet-50 (224x224) under
+   ``overload_policy="shed-oldest"`` with ``max_queue`` 4: 32 requests
+   staged on a stopped engine, 28 shed with ``ServerOverloadError``, none
+   rejected, the 4 survivors against the plain versions' Predictor (phase
+   4's tolerance) and K1-K3 12 times a batch; the memory preflight's
+   watermark for each warm program beside ``max_memory_allocated``,
+   nothing refused; ``MXNET_SERVE_PAD_CHECK=1`` silent on ResNet-50 (K1-K3
+   24 times a batch: two dispatches) and failing ``softmax(axis=0)``
+   with "contamination" (analysis off).  (b) ``models/lstm_lm.py``'s
+   model at PTB's widths (vocab 10000, 200, 200, 2 layers; begin states
+   from ``_begin_state``, ``FullyConnected(flatten=False)``, softmax)
+   served per request with ``seq_axis=0`` and ``examples/rnn_ptb.py``'s
+   buckets (10, 20, 30, 40), ``max_batch`` 8, 32 requests of lengths
+   3-40: the padding pass gives the JAX package's verdicts (cross-position
+   along batch and seq), so the engine serves exact lengths one at a
+   time, each within 1e-6 of a Predictor ``reshape``d to its length; the
+   seq-axis softmax over (T, 200) served from the grid through the
+   masking repair (``MXNET_SERVE_REPAIR=1``, at most 16 programs, all
+   built at warmup) and at exact lengths without it, within 1e-6 of the
+   exact softmax.  (c) phase 9's decoder under ``TemperatureSampler(0.8,
+   top_k=40, seed=--seed)`` at k = 0, 2 and 4 (32 of phase 9's
+   requests): two engines replay every stream bit for bit, K9 and K10
+   launch as the graphs imply, the target as its own draft at k = 2
+   accepts every proposal, ``top_k=1`` at k = 2 gives phase 9's greedy
+   streams; tokens/s, accept rate, tokens per step.  (d)
+   ``perf/decode_bench.py``'s ``build_prefill_model`` (copied here) at
+   vocab 10000, d 200, 8 slots, 32 requests with 4-24-token prompts:
+   coalesced, serial (``MXNET_DECODE_COALESCE_PREFILL=0``) and
+   teacher-forced give the same tokens, prefill with spec k = 2 gives
+   ``greedy_decode``'s, fewer step dispatches with prefill; the decode
+   memory preflight beside ``max_memory_allocated``.  One JSON line
+   ``{"serving": {...}}`` sums it up;
+18. the kernel table (K1-K11) as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -242,6 +274,7 @@ file.
 """
 import argparse
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -2443,16 +2476,17 @@ def decode_jobs(seed):
 
 
 def decode_run(mt, target, t_info, draft, d_info, params, jobs, k,
-               wrappers):
+               wrappers, **engine_kw):
     """Serve ``jobs`` through a warm DecodeEngine on cuda:0 at spec width
-    ``k``; every launch counter is set to 0 after the warmup and read at
-    the end.  Returns (token lists, finish reasons, stats, wall seconds,
+    ``k`` (``engine_kw``: further DecodeEngine arguments, a sampler);
+    every launch counter is set to 0 after the warmup and read at the
+    end.  Returns (token lists, finish reasons, stats, wall seconds,
     launches, the served step graph)."""
     eng = mt.serving.DecodeEngine(
         target, params, {}, t_info, num_slots=DECODE_SLOTS,
         max_len=DECODER["max_len"], ctx=mt.gpu(0), default_deadline_ms=0,
         draft_sym=draft if k else None, draft_arg_params=params,
-        draft_state_info=d_info, spec_k=k)
+        draft_state_info=d_info, spec_k=k, **engine_kw)
     try:
         eng.warmup()
         for w in wrappers:
@@ -2540,7 +2574,8 @@ def decode_phase(torch, mt, fu, nn, kv, seed, card):
                                  "k=0 engine's, first request %d"
                                  % (len(bad), name, bad[0]))
     out = {"jobs": len(jobs), "prompted": DECODE_PROMPTED,
-           "tokens": sum(want_len), "checks": sorted(checks), "runs": {}}
+           "tokens": sum(want_len), "checks": sorted(checks), "runs": {},
+           "streams": [[int(t) for t in s] for s in streams]}
     for name, (k, _dr, _di, blocks) in plan.items():
         _s, _r, st, wall, launches, _sv = runs[name]
         steps = st["steps"]
@@ -4472,7 +4507,7 @@ _LOOPS.update(dict.fromkeys(("fu_c3_fwd4d", "fu_c3_bwd4d"),
 
 
 def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
-                 decode, imp, rtc, gluon, rnn, ssd):
+                 decode, imp, rtc, gluon, rnn, ssd, serving):
     """One entry per kernel.  K1-K4: times per ResNet-50 forward at batch
     8 (each stage's shape weighted by its number of fused units) and
     launches in the serve phase of their mode (K4: 4d); K5-K8: times per
@@ -4487,8 +4522,9 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
     validation batches; plain and fused) with the fused fit's errors
     against the plain versions, per decode step, per imperative unit and
     in the rtc phase, in the gluon phase's SymbolBlock runs (a serve
-    forward in each 3x3 mode and a training step) and in the rnn and ssd
-    phases (none); K1-K8 also their
+    forward in each 3x3 mode and a training step), in the rnn and ssd
+    phases (none) and in each run of the serving phase
+    (``launches_in_serving_phase``); K1-K8 also their
     bfloat16 times (kernel, library
     and bound) at the same shapes, and K2-K8 their kernel and library
     times in both dtypes with the L2 cache flushed before each call; K1-K8
@@ -4598,7 +4634,10 @@ def kernel_table(rows, bwd_rows, kv_rows, serve, train, bench, imagenet,
             "launches_in_rtc_phase": rtc["launches"][wrapper],
             "launches_in_gluon_phase": gluon["launches"][wrapper],
             "launches_in_rnn_phase": rnn["launches"][wrapper],
-            "launches_in_ssd_phase": ssd["launches"][wrapper]},
+            "launches_in_ssd_phase": ssd["launches"][wrapper],
+            "launches_in_serving_phase": {
+                run: launches[wrapper]
+                for run, launches in serving["launches"].items()}},
             **entry))
     return table
 
@@ -4758,8 +4797,16 @@ def main():
     analysis = analysis_phase(torch, mt, fu, nn, kv, opts.seed, card,
                               decode)
 
+    log("[17] the rest of serving on %s: ResNet-50 under shed-oldest, the "
+        "pad probe and the memory preflight; sequence buckets (the LSTM LM "
+        "at PTB's widths, the seq softmax's masking repair); the decoder "
+        "under TemperatureSampler at k = 0, %s; bucketed prefill"
+        % (name, ", ".join(map(str, SPEC_KS))))
+    serving = serving_phase(torch, mt, fu, nn, kv, opts.seed, card, decode)
+
     table = kernel_table(rows, bwd_rows, kv_rows, serve, train, bench,
-                         imagenet, decode, imp, rtc, gluon, rnn, ssd)
+                         imagenet, decode, imp, rtc, gluon, rnn, ssd,
+                         serving)
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)),
                     exist_ok=True)
@@ -4773,9 +4820,10 @@ def main():
                        "kv_rows": kv_rows,
                        "decode": decode, "imperative": imp, "rtc": rtc,
                        "mnist": mnist, "gluon": gluon, "rnn": rnn,
-                       "ssd": ssd, "analysis": analysis, "kernels": table,
+                       "ssd": ssd, "analysis": analysis,
+                       "serving": serving, "kernels": table,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log("[17] done in %.1f s" % (time.perf_counter() - t_start))
+    log("[18] done in %.1f s" % (time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
@@ -5161,6 +5209,634 @@ def analysis_phase(torch, mt, fu, nn, kv, seed, card, decode):
         "fold": out["fold"], "decode": out["decode"],
         "flops": {k: v for k, v in out["flops"].items() if k != "memory"},
         "memory": out["memory"], "faults": out["faults"],
+        "phase_s": out["phase_s"]}}))
+    return out
+
+
+# phase 17: the rest of serving
+SERVING_IMAGE = 224
+SHED_REQUESTS, SHED_MAX_QUEUE = 32, 4
+PROBE_REQUESTS = 5
+LM = dict(vocab=10000, embed=200, hidden=200, layers=2)
+LM_BUCKETS = (10, 20, 30, 40)       # examples/rnn_ptb.py --buckets
+LM_MAX_BATCH, LM_REQUESTS, LM_LENGTHS = 8, 32, (3, 40)
+LM_TOL = 1e-6                       # of the largest probability
+SEQ_SOFTMAX_WIDTH = 200
+SAMPLER = dict(temperature=0.8, top_k=40)
+SAMPLING_REQUESTS = 32
+PREFILL_MODEL = dict(vocab=10000, d=200)
+PREFILL_REQUESTS, PREFILL_PROMPTS, PREFILL_NEW = 32, (4, 24), (4, 16)
+
+
+def counted(wrappers, fn):
+    """``fn()`` with every launch counter set to 0 just before and read
+    just after; returns (its result, {kernel: launches})."""
+    for w in wrappers:
+        w.launches = 0
+    out = fn()
+    return out, {w.__name__: w.launches for w in wrappers}
+
+
+def _no_launches(what, launches):
+    if any(launches.values()):
+        raise AssertionError("%s launched %s" % (
+            what, {k: v for k, v in launches.items() if v}))
+
+
+def _fused_launches(what, launches, dispatches, n_fused):
+    """K1-K3 launch once per fused unit (12 in ResNet-50) per dispatch,
+    nothing else runs."""
+    want = {k: n_fused * dispatches if k in SERVE_KERNELS["2d"] else 0
+            for k in launches}
+    if launches != want:
+        raise AssertionError("%s: launches %s for %d dispatches, not %s"
+                             % (what, launches, dispatches, want))
+
+
+def serving_resnet(torch, mt, fu, nn, wrappers, seed, card):
+    """(a): the fused ResNet-50 of phase 4 under shed-oldest, through the
+    pad probe, and its memory preflight beside the allocator."""
+    import numpy as np
+    side = SERVING_IMAGE
+    shape = (side, side, 3)
+    sym = mt.models.get_resnet_symbol(
+        num_classes=1000, num_layers=50, image_shape=(3, side, side),
+        layout="NHWC", unit_impl="fused")
+    n_fused = sym.tojson().count('"_contrib_FusedBottleneckUnit"')
+    args, aux = mt.convert.random_params(sym, {"data": (1,) + shape},
+                                         seed=seed)
+    xs = np.random.default_rng(seed + 17).standard_normal(
+        (SHED_REQUESTS,) + shape).astype(np.float32)
+    targs, taux = mt.convert.params_from_numpy(args, aux, device=mt.cpu())
+    out = {}
+    eng = mt.ServingEngine(sym, targs, taux, {"data": shape}, ctx=mt.gpu(0),
+                           policy=mt.serving.BucketPolicy(BATCH),
+                           max_queue=SHED_MAX_QUEUE,
+                           overload_policy="shed-oldest",
+                           batch_timeout_ms=50.0, start=False)
+    try:
+        eng.warmup()
+        futs = [eng.submit(x) for x in xs]
+
+        def serve():
+            eng.start()
+            return [f.exception(timeout=600) for f in futs]
+        errs, launches = counted(wrappers, serve)
+        st = eng.stats()
+        shed = [i for i, e in enumerate(errs)
+                if isinstance(e, mt.serving.ServerOverloadError)]
+        kept = [i for i, e in enumerate(errs) if e is None]
+        if shed != list(range(SHED_REQUESTS - SHED_MAX_QUEUE)) \
+                or kept != list(range(SHED_REQUESTS - SHED_MAX_QUEUE,
+                                      SHED_REQUESTS)) \
+                or (st["shed"], st["rejected"]) \
+                != (SHED_REQUESTS - SHED_MAX_QUEUE, 0):
+            raise AssertionError("shed-oldest: shed %s, kept %s, stats %s"
+                                 % (shed, kept, {k: st[k] for k in (
+                                     "shed", "rejected", "admitted")}))
+        _fused_launches("shed-oldest", launches, st["batches"], n_fused)
+        survivors = np.stack([futs[i].result() for i in kept])
+        # the memory preflight's watermark beside the allocator's, one
+        # warm program at a time: the engine's resident parameters plus
+        # the dispatch's own high-water mark
+        plan = eng.memory_plan
+        if not plan or plan["budget_ok"] is not True:
+            raise AssertionError("the memory preflight refused: %s" % plan)
+        resident = sum(t.numel() * t.element_size() for t in
+                       list(eng._cache._params.values()) + eng._cache._aux)
+        rows = []
+        for bb in eng._policy.batch_buckets():
+            feeds = {"data": np.zeros((bb,) + shape, np.float32)}
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            eng._on_device_thread(eng._cache.run, feeds)
+            torch.cuda.synchronize()
+            measured = resident + torch.cuda.max_memory_allocated() - before
+            predicted = mt.analysis.predict_peak_bytes(
+                eng.served_sym, {"data": (bb,) + shape})
+            rows.append({"program": "b%d" % bb, "predicted_bytes": predicted,
+                         "measured_bytes": measured,
+                         "ratio": measured / predicted})
+    finally:
+        eng.close()
+    ref_args, ref_aux = mt.convert.params_from_numpy(args, aux,
+                                                     device=mt.gpu(0))
+    pred = mt.Predictor(sym, ref_args, ref_aux,
+                        {"data": (len(kept),) + shape}, ctx=mt.gpu(0))
+    with plain_kernels(fu, nn):
+        ref = pred.forward(data=xs[kept]).get_output(0)
+    np.testing.assert_allclose(survivors, ref, rtol=SERVE_RTOL,
+                               atol=SERVE_ATOL)
+    out["shed"] = {"requests": SHED_REQUESTS, "max_queue": SHED_MAX_QUEUE,
+                   "shed": st["shed"], "rejected": st["rejected"],
+                   "batches": st["batches"], "launches": launches,
+                   "max_abs_err": float(np.abs(survivors - ref).max())}
+    log("  (a) shed-oldest, max_queue %d: %d requests staged, %d shed with "
+        "ServerOverloadError, %d rejected; the %d survivors in %d batch, "
+        "max |prob - plain Predictor| %.3g (rtol %g, atol %g); K1-K3 %s "
+        "[%s]" % (SHED_MAX_QUEUE, SHED_REQUESTS, st["shed"], st["rejected"],
+                  len(kept), st["batches"], out["shed"]["max_abs_err"],
+                  SERVE_RTOL, SERVE_ATOL,
+                  [launches[k] for k in SERVE_KERNELS["2d"]], card))
+    out["memory"] = {"predicted_peak_bytes": plan["predicted_peak_bytes"],
+                     "offender": plan["offender"],
+                     "budget_bytes": plan["budget_bytes"], "programs": rows}
+    fb = mt.analysis.memory.format_bytes
+    log("  memory preflight: warm set %s (program %s), budget %s, nothing "
+        "refused; per warm program, predicted / max_memory_allocated: %s "
+        "[%s]" % (fb(plan["predicted_peak_bytes"]), plan["offender"],
+                  fb(plan["budget_bytes"]), ", ".join(
+                      "%s %s / %s (%.2f)" % (r["program"],
+                                             fb(r["predicted_bytes"]),
+                                             fb(r["measured_bytes"]),
+                                             r["ratio"]) for r in rows),
+                  card))
+
+    # the pad probe: silent on ResNet-50 (its fused units are row-local)
+    with env_vars({"MXNET_SERVE_PAD_CHECK": "1"}):
+        eng = mt.ServingEngine(sym, targs, taux, {"data": shape},
+                               ctx=mt.gpu(0),
+                               policy=mt.serving.BucketPolicy(BATCH),
+                               batch_timeout_ms=50.0, start=False)
+    try:
+        eng.warmup()
+        futs = [eng.submit(x) for x in xs[:PROBE_REQUESTS]]
+
+        def serve():
+            eng.start()
+            return [f.result(timeout=600) for f in futs]
+        probed, launches = counted(wrappers, serve)
+        st = eng.stats()
+    finally:
+        eng.close()
+    # two dispatches a batch: the given pads, then the sentinel's
+    _fused_launches("pad probe", launches, 2 * st["batches"], n_fused)
+    probed = np.stack(probed)
+    pred = mt.Predictor(sym, ref_args, ref_aux,
+                        {"data": (PROBE_REQUESTS,) + shape}, ctx=mt.gpu(0))
+    with plain_kernels(fu, nn):
+        ref = pred.forward(data=xs[:PROBE_REQUESTS]).get_output(0)
+    np.testing.assert_allclose(probed, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+    # ... and it catches a graph that mixes the batch, analysis off
+    mix = mt.sym.softmax(mt.sym.Variable("data"), axis=0, name="mix")
+    with env_vars({"MXNET_SERVE_PAD_CHECK": "1", "MXNET_ANALYSIS_ON": "0"}):
+        bad = mt.ServingEngine(mix, {}, {}, {"data": (1000,)},
+                               ctx=mt.gpu(0),
+                               policy=mt.serving.BucketPolicy(BATCH),
+                               batch_timeout_ms=50.0, start=False)
+    try:
+        futs = [bad.submit(x) for x in np.random.default_rng(
+            seed + 21).standard_normal((3, 1000)).astype(np.float32)]
+        bad.start()
+        caught = [str(f.exception(timeout=120)) for f in futs]
+    finally:
+        bad.close()
+    if not all("contamination" in m for m in caught):
+        raise AssertionError("the pad probe let softmax(axis=0) through: %s"
+                             % caught)
+    out["pad_probe"] = {"requests": PROBE_REQUESTS, "batches": st["batches"],
+                        "launches": launches,
+                        "max_abs_err": float(np.abs(probed - ref).max()),
+                        "contamination_caught": len(caught)}
+    log("  pad probe (MXNET_SERVE_PAD_CHECK=1): ResNet-50, %d requests in %d "
+        "batch, silent, max |prob - plain| %.3g, K1-K3 %s (two dispatches a "
+        "batch); softmax(axis=0) with the analysis off: all %d requests "
+        "failed with contamination [%s]"
+        % (PROBE_REQUESTS, st["batches"], out["pad_probe"]["max_abs_err"],
+           [launches[k] for k in SERVE_KERNELS["2d"]], len(caught), card))
+    return out
+
+
+def lm_symbol(S, vocab, embed, hidden, layers):
+    """``models/lstm_lm.py``'s language model as a served graph: begin
+    states made in the graph from the input by ``_begin_state`` (expanded
+    to (layers, N, hidden)), the fused time-major LSTM,
+    ``FullyConnected(flatten=False)`` (no Reshape folds the batch into
+    time) and a label-free softmax."""
+    data = S.Variable("data")
+    emb = S.Embedding(data, input_dim=vocab, output_dim=embed, name="embed")
+    states = [S.broadcast_axis(S.expand_dims(
+        S._begin_state(data, num_hidden=hidden, name=n), axis=0),
+        axis=0, size=layers) for n in ("h0", "c0")]
+    out = S.RNN(S.transpose(emb, axes=(1, 0, 2)),
+                S.Variable("lstm_parameters"), *states, state_size=hidden,
+                num_layers=layers, mode="lstm", name="lstm")
+    pred = S.FullyConnected(S.transpose(out, axes=(1, 0, 2)),
+                            num_hidden=vocab, flatten=False, name="pred")
+    return S.softmax(pred, axis=-1, name="prob")
+
+
+def seq_serve(torch, mt, wrappers, sym, args, xs, data_shape, what):
+    """Stage ``xs`` on a warm seq-bucketed engine on cuda:0 and serve
+    them; returns (engine, outputs, stats, programs after warmup,
+    launches, warnings)."""
+    import warnings
+    policy = mt.serving.BucketPolicy(LM_MAX_BATCH, seq_axis=0,
+                                     seq_buckets=LM_BUCKETS)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng = mt.ServingEngine(sym, args, {}, {"data": data_shape},
+                               ctx=mt.gpu(0), policy=policy,
+                               batch_timeout_ms=50.0, start=False)
+    try:
+        warm = eng.warmup()
+        futs = [eng.submit(x) for x in xs]
+
+        def serve():
+            eng.start()
+            return [f.result(timeout=600) for f in futs]
+        outs, launches = counted(wrappers, serve)
+        st = eng.stats()
+    finally:
+        eng.close()
+    _no_launches(what, launches)
+    return eng, outs, st, warm, launches, [str(w.message) for w in caught]
+
+
+def _reshaped_reference(mt, pred, xs):
+    return [pred.reshape({"data": (1,) + x.shape}).forward(
+        data=x[None]).get_output(0)[0] for x in xs]
+
+
+def serving_seq(torch, mt, wrappers, seed, card):
+    """(b): the LSTM language model at PTB's widths per request with
+    examples/rnn_ptb.py's buckets, and the seq-axis softmax with the
+    masking repair on and off."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 18)
+    lo, hi = LM_LENGTHS
+    lengths = rng.integers(lo, hi + 1, LM_REQUESTS)
+    sym = lm_symbol(mt.sym, **LM)
+    args = mt.convert.random_params(sym, {"data": (1, hi)}, seed=seed)[0]
+    args = mt.convert.params_from_numpy(args, {}, device=mt.gpu(0))[0]
+    xs = [rng.integers(0, LM["vocab"], n).astype(np.float32)
+          for n in lengths]
+    eng, outs, st, warm, _l, msgs = seq_serve(torch, mt, wrappers, sym, args,
+                                              xs, (hi,), "LSTM LM")
+    # the JAX package's padding pass has no rule for _begin_state and reads
+    # FullyConnected(flatten=False) as contracting the padded seq axis: it
+    # drops the seq buckets and the batching (ROADMAP Queue C), and the
+    # port gives the same verdicts
+    if eng._verdicts != {"batch": "cross-position", "seq": "cross-position"} \
+            or eng._policy.seq_buckets or st["max_batch"] != 1 \
+            or st["batches"] != LM_REQUESTS \
+            or not any("disabling seq buckets" in m for m in msgs):
+        raise AssertionError("LSTM LM: verdicts %s, seq buckets %s, %d "
+                             "batches at max_batch %d" % (
+                                 eng._verdicts, eng._policy.seq_buckets,
+                                 st["batches"], st["max_batch"]))
+    built = st["compile_count"] - warm
+    if built != len(set(lengths) - {hi}) or st["retraces"]:
+        raise AssertionError("LSTM LM: %d programs built for %d lengths, %d "
+                             "retraces" % (built, len(set(lengths)),
+                                           st["retraces"]))
+    pred = mt.Predictor(sym, args, {}, {"data": (1, hi)}, ctx=mt.gpu(0))
+    refs = _reshaped_reference(mt, pred, xs)
+    err = max(float(np.abs(o - r).max()) for o, r in zip(outs, refs))
+    scale = max(float(np.abs(r).max()) for r in refs)
+    for x, o in zip(xs, outs):
+        if o.shape != (len(x), LM["vocab"]) or not np.isfinite(o).all():
+            raise AssertionError("LSTM LM output %s for length %d"
+                                 % (o.shape, len(x)))
+    if err > LM_TOL * scale:
+        raise AssertionError("LSTM LM: max |out - Predictor| %.3g" % err)
+    out = {"lstm_lm": {"requests": LM_REQUESTS,
+                       "lengths": sorted(set(int(n) for n in lengths)),
+                       "verdicts": dict(eng._verdicts),
+                       "programs_warm": warm, "programs_built": built,
+                       "max_abs_err": err,
+                       "memory": eng.memory_plan and {
+                           k: eng.memory_plan[k] for k in (
+                               "predicted_peak_bytes", "offender")}}}
+    log("  (b) LSTM LM (vocab %d, %d embed, %d hidden, %d layers), %d "
+        "requests of lengths %d-%d, seq buckets %s, max_batch %d: verdicts "
+        "%s, as the JAX package's (no padding rule for _begin_state; "
+        "FullyConnected(flatten=False) read as contracting seq), so the seq "
+        "buckets and the batching are dropped: %d batches, %d exact-length "
+        "programs built after warmup, each output within %.3g of a "
+        "Predictor reshaped to its length (limit %g of the largest) [%s]"
+        % (LM["vocab"], LM["embed"], LM["hidden"], LM["layers"],
+           LM_REQUESTS, lo, hi, LM_BUCKETS, LM_MAX_BATCH, eng._verdicts,
+           st["batches"], built, err, LM_TOL, card))
+
+    # the seq-axis softmax: repaired and served from the grid, or dropped
+    soft = mt.sym.softmax(mt.sym.Variable("data"), axis=1, name="attn")
+    sx = [rng.standard_normal((n, SEQ_SOFTMAX_WIDTH)).astype(np.float32)
+          for n in lengths]
+    pred = mt.Predictor(soft, {}, {}, {"data": (1, hi, SEQ_SOFTMAX_WIDTH)},
+                        ctx=mt.gpu(0))
+    refs = _reshaped_reference(mt, pred, sx)
+    grid = len(LM_BUCKETS) * len(mt.serving.BucketPolicy(
+        LM_MAX_BATCH).batch_buckets())
+    for repair in (True, False):
+        with env_vars({"MXNET_SERVE_REPAIR": "1" if repair else "0"}):
+            eng, outs, st, warm, _l, msgs = seq_serve(
+                torch, mt, wrappers, soft, {}, sx, (hi, SEQ_SOFTMAX_WIDTH),
+                "seq softmax")
+        err = max(float(np.abs(o - r).max() / np.abs(r).max())
+                  for o, r in zip(outs, refs))
+        if any(o.shape != x.shape for o, x in zip(outs, sx)) \
+                or err > LM_TOL:
+            raise AssertionError("seq softmax, repair %s: relative error "
+                                 "%.3g" % (repair, err))
+        buckets = list(eng._policy.seq_buckets)
+        if repair and not (st["repairs"]["applied"]
+                           and warm == st["compile_count"] <= grid
+                           and buckets == list(LM_BUCKETS)
+                           and st["batches"] < LM_REQUESTS):
+            raise AssertionError("seq softmax, repair on: seq buckets %s, %s"
+                                 % (buckets, {k: st[k] for k in (
+                                     "repairs", "compile_count",
+                                     "batches")}))
+        if not repair and (buckets or st["repairs"]["applied"]):
+            raise AssertionError("seq softmax, repair off: seq buckets %s, "
+                                 "%s" % (buckets, st["repairs"]))
+        name = "seq_softmax_repair_%s" % ("on" if repair else "off")
+        out[name] = {"programs_warm": warm,
+                     "programs": st["compile_count"],
+                     "batches": st["batches"],
+                     "repairs": st["repairs"]["applied"],
+                     "valid_length_input":
+                         st["repairs"]["valid_length_input"],
+                     "seq_buckets": buckets,
+                     "max_rel_err": err}
+        log("  seq softmax over (T, %d), %d requests, MXNET_SERVE_REPAIR=%d: "
+            "%d masks spliced (valid lengths %r), seq buckets %s, %d programs "
+            "(%d warm, grid %d), %d batches, largest error %.3g of the "
+            "exact softmax [%s]"
+            % (SEQ_SOFTMAX_WIDTH, LM_REQUESTS, repair,
+               st["repairs"]["applied"],
+               st["repairs"]["valid_length_input"], buckets,
+               st["compile_count"], warm, grid, st["batches"], err, card))
+    return out
+
+
+def sampling_jobs(seed):
+    return decode_jobs(seed)[:SAMPLING_REQUESTS]
+
+
+def serving_sampling(torch, mt, fu, nn, kv, seed, card, decode):
+    """(c): phase 9's decoder under TemperatureSampler at k = 0, 2 and 4
+    (the 1-block draft): seeded replays bit for bit in two engines,
+    top_k=1 equal to phase 9's greedy streams, K9 and K10 launches as the
+    graphs imply."""
+    wrappers = kernel_wrappers(fu, nn, kv)
+    target, t_info, draft, d_info, np_params = build_spec_models(
+        mt, seed=seed, **DECODER)
+    params = mt.convert.params_from_numpy(np_params, {},
+                                          device=mt.gpu(0))[0]
+    jobs = sampling_jobs(seed)
+    want_len = [min(n, DECODER["max_len"] - len(p)) for p, n in jobs]
+
+    def sampler(**kw):
+        return mt.serving.TemperatureSampler(**dict(SAMPLER, seed=seed,
+                                                    **kw))
+    out = {"requests": len(jobs), "runs": {}}
+    for k in (0,) + SPEC_KS:
+        runs = [decode_run(mt, target, t_info, draft, d_info, params, jobs,
+                           k, wrappers, sampler=sampler())
+                for _ in range(2)]
+        streams, reasons, st, wall, launches, _sv = runs[0]
+        if runs[1][0] != streams:
+            raise AssertionError("k=%d: two engines with seed %d drew "
+                                 "different streams" % (k, seed))
+        if [len(s) for s in streams] != want_len \
+                or not all(0 <= t < DECODER["vocab"]
+                           for s in streams for t in s):
+            raise AssertionError("k=%d: stream lengths %s" % (
+                k, [len(s) for s in streams]))
+        for lname, per in zip(("cache_write_row", "cache_write_rows"),
+                              launches_per_step(k)):
+            for run in runs:
+                if run[4][lname] != per * run[2]["steps"]:
+                    raise AssertionError(
+                        "k=%d: %s launched %d times in %d steps, not %d per "
+                        "step" % (k, lname, run[4][lname], run[2]["steps"],
+                                  per))
+        spec = st["spec"]
+        out["runs"]["k=%d" % k] = {
+            "steps": st["steps"], "wall_s": wall,
+            "tokens_per_s": st["tokens_generated"] / wall,
+            "accept_rate": spec.get("accept_rate"),
+            "tokens_per_step": spec.get("tokens_per_step"),
+            "launches": launches,
+            "memory_predicted_bytes": st["memory"].get(
+                "predicted_peak_bytes")}
+        log("  (c) temperature %.1f, top_k %d, seed %d, k=%d: %d requests, "
+            "%d tokens in %d steps, %.3f s: %.1f tokens/s, accept rate %s, "
+            "tokens per slot-step %s; a second engine replayed every stream "
+            "bit for bit; K9 %d (%d/step), K10 %d [%s]"
+            % (SAMPLER["temperature"], SAMPLER["top_k"], seed, k, len(jobs),
+               st["tokens_generated"], st["steps"], wall,
+               st["tokens_generated"] / wall, fmt_opt(spec.get(
+                   "accept_rate")), fmt_opt(spec.get("tokens_per_step")),
+               launches["cache_write_row"], launches_per_step(k)[0],
+               launches["cache_write_rows"], card))
+    # the target as its own draft: p == q, so every proposal passes
+    k = min(SPEC_KS)
+    streams, _r, st, wall, launches, _sv = decode_run(
+        mt, target, t_info, target, t_info, params, jobs, k, wrappers,
+        sampler=sampler())
+    per = launches_per_step(k, DECODER["layers"])
+    if st["spec"]["accept_rate"] != 1.0 \
+            or [len(s) for s in streams] != want_len \
+            or (launches["cache_write_row"], launches["cache_write_rows"]) \
+            != (per[0] * st["steps"], per[1] * st["steps"]):
+        raise AssertionError("self-draft k=%d: accept rate %s, launches %s "
+                             "in %d steps" % (k, st["spec"]["accept_rate"],
+                                              launches, st["steps"]))
+    out["runs"]["k=%d, self-draft" % k] = {
+        "steps": st["steps"], "wall_s": wall,
+        "tokens_per_s": st["tokens_generated"] / wall,
+        "accept_rate": st["spec"]["accept_rate"],
+        "tokens_per_step": st["spec"]["tokens_per_step"],
+        "launches": launches}
+    log("  (c) the target as its own draft, k=%d: %d tokens in %d steps, "
+        "%.1f tokens/s, accept rate %s, tokens per slot-step %s; K9 %d "
+        "(%d/step), K10 %d [%s]"
+        % (k, st["tokens_generated"], st["steps"],
+           st["tokens_generated"] / wall, fmt_opt(st["spec"]["accept_rate"]),
+           fmt_opt(st["spec"]["tokens_per_step"]),
+           launches["cache_write_row"], per[0], launches["cache_write_rows"],
+           card))
+    greedy = decode["streams"][:len(jobs)]
+    top1 = decode_run(mt, target, t_info, draft, d_info, params, jobs, 2,
+                      wrappers, sampler=sampler(top_k=1))[0]
+    if top1 != greedy:
+        raise AssertionError("TemperatureSampler(top_k=1) at k=2 differs "
+                             "from phase 9's greedy streams")
+    out["top_k_1_equals_greedy"] = True
+    log("  TemperatureSampler(%.1f, top_k=1) at k=2: every stream equals "
+        "phase 9's greedy stream" % SAMPLER["temperature"])
+    return out
+
+
+def build_prefill_model(mt, vocab, d, seed):
+    """``perf/decode_bench.py``'s build_prefill_model, built with the port:
+    an additive state ``s' = s + emb(token)``; its prefill graph masks the
+    padded prompt with the live length and sums.  Returns (step, prefill,
+    numpy params, state_info)."""
+    import numpy as np
+    S = mt.sym
+    tok, s = S.Variable("token"), S.Variable("s")
+    s2 = s + S.Embedding(tok, input_dim=vocab, output_dim=d, name="emb")
+    step = S.Group([S.FullyConnected(s2, num_hidden=vocab, name="out_fc"),
+                    s2])
+    pemb = S.Embedding(S.Variable("prompt"), input_dim=vocab, output_dim=d,
+                       name="emb")
+    srow = S.sum(S.SequenceMask(pemb, use_sequence_length=True,
+                                sequence_length=S.Variable("plen"), axis=1),
+                 axis=1)
+    prefill = S.Group([S.FullyConnected(srow, num_hidden=vocab,
+                                        name="out_fc"), srow])
+    rng = np.random.default_rng(seed)
+    params = {"emb_weight": rng.standard_normal((vocab, d)).astype(
+        np.float32),
+              "out_fc_weight": rng.standard_normal((vocab, d)).astype(
+                  np.float32),
+              "out_fc_bias": np.zeros((vocab,), np.float32)}
+    return step, prefill, params, [{"name": "s", "shape": (d,)}]
+
+
+def prefill_run(torch, mt, wrappers, step, prefill, np_params, info, jobs,
+                np_draft=None, **engine_kw):
+    """Serve ``jobs`` staged on a warm DecodeEngine on cuda:0 (the first
+    iteration seats a full pool); returns (tokens, decode stats, memory
+    plan, peak allocated bytes from before the parameters' upload to the
+    end, launches)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = mt.convert.params_from_numpy(np_params, {},
+                                          device=mt.gpu(0))[0]
+    if np_draft is not None:
+        engine_kw["draft_arg_params"] = mt.convert.params_from_numpy(
+            np_draft, {}, device=mt.gpu(0))[0]
+    eng = mt.serving.DecodeEngine(
+        step, params, {}, info, num_slots=DECODE_SLOTS,
+        max_len=DECODER["max_len"], ctx=mt.gpu(0), default_deadline_ms=0,
+        prefill_sym=prefill, start=False, **engine_kw)
+    try:
+        eng.warmup()
+        futs = [eng.submit(p, max_new_tokens=n) for p, n in jobs]
+
+        def serve():
+            eng.start()
+            return [list(f.result(timeout=600).tokens) for f in futs]
+        toks, launches = counted(wrappers, serve)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        st = eng.stats()["decode"]
+    finally:
+        eng.close()
+    return toks, st, eng.memory_plan, peak, launches
+
+
+def serving_prefill(torch, mt, fu, nn, kv, seed, card):
+    """(d): bucketed prefill, coalesced, serial and teacher-forced, and in
+    front of speculative decode."""
+    import numpy as np
+    wrappers = kernel_wrappers(fu, nn, kv)
+    step, prefill, np_params, info = build_prefill_model(
+        mt, seed=seed, **PREFILL_MODEL)
+    rng = np.random.default_rng(seed + 19)
+    jobs = [([int(t) for t in rng.integers(0, PREFILL_MODEL["vocab"],
+                                           int(rng.integers(*PREFILL_PROMPTS)
+                                               + 1))],
+             int(rng.integers(*PREFILL_NEW) + 1))
+            for _ in range(PREFILL_REQUESTS)]
+    runs = {}
+    for name, env, pf in (("coalesced", None, prefill),
+                          ("serial", "0", prefill),
+                          ("teacher-forced", None, None)):
+        with env_vars({"MXNET_DECODE_COALESCE_PREFILL": env}):
+            runs[name] = prefill_run(torch, mt, wrappers, step, pf,
+                                     np_params, info, jobs)
+        _no_launches("prefill " + name, runs[name][4])
+    toks = runs["coalesced"][0]
+    for name, run in runs.items():
+        if run[0] != toks:
+            raise AssertionError("prefill: the %s run's tokens differ from "
+                                 "the coalesced run's" % name)
+    if [len(t) for t in toks] != [n for _p, n in jobs]:
+        raise AssertionError("prefill: lengths %s" % [len(t) for t in toks])
+    steps = {name: run[1]["steps"] for name, run in runs.items()}
+    if not steps["coalesced"] < steps["teacher-forced"]:
+        raise AssertionError("prefill: %s step dispatches" % steps)
+    # prefill in front of speculative decode, against greedy_decode
+    drng = np.random.default_rng(seed + 20)
+    dparams = {k: v + drng.standard_normal(v.shape).astype(np.float32)
+               * np.float32(0.3) for k, v in np_params.items()}
+    spec_toks, spec_st, _p, _m, launches = prefill_run(
+        torch, mt, wrappers, step, prefill, np_params, info, jobs,
+        np_draft=dparams, spec_k=2, draft_sym=step, draft_state_info=info)
+    _no_launches("prefill, spec k=2", launches)
+    params = mt.convert.params_from_numpy(np_params, {},
+                                          device=mt.gpu(0))[0]
+    prog = mt.serving.StepProgram(step, params, {}, info, DECODE_SLOTS,
+                                  ctx=mt.gpu(0))
+    greedy = [list(mt.serving.greedy_decode(prog, p, n)) for p, n in jobs]
+    del prog
+    if spec_toks != greedy or toks != greedy:
+        raise AssertionError("prefill: spec k=2 or coalesced tokens differ "
+                             "from greedy_decode's")
+    out = {"requests": len(jobs), "runs": {}}
+    fb = mt.analysis.memory.format_bytes
+    for name, (_t, st, plan, peak, _l) in list(runs.items()) + [
+            ("coalesced, spec k=2", (spec_toks, spec_st, _p, _m, launches))]:
+        out["runs"][name] = {
+            "steps": st["steps"], "prefill_dispatches":
+                st["prefill_dispatches"],
+            "programs": st["programs_built"],
+            "accept_rate": st["spec"].get("accept_rate"),
+            "memory": {"predicted_bytes": plan["predicted_peak_bytes"],
+                       "offender": plan["offender"],
+                       "measured_bytes": peak,
+                       "ratio": peak / plan["predicted_peak_bytes"]}}
+        log("  (d) %s: %d requests (prompts %d-%d tokens), %d step "
+            "dispatches, %d prefill dispatches, %d programs; memory "
+            "preflight %s (%s) beside max_memory_allocated %s (%.2f)%s [%s]"
+            % (name, len(jobs), PREFILL_PROMPTS[0], PREFILL_PROMPTS[1],
+               st["steps"], st["prefill_dispatches"], st["programs_built"],
+               fb(plan["predicted_peak_bytes"]), plan["offender"], fb(peak),
+               peak / plan["predicted_peak_bytes"],
+               "" if not st["spec"].get("enabled") else
+               ", accept rate %s" % fmt_opt(st["spec"]["accept_rate"]),
+               card))
+    log("  coalesced, serial and teacher-forced give the same tokens, and "
+        "so does prefill with spec k=2: greedy_decode's")
+    return out
+
+
+def serving_phase(torch, mt, fu, nn, kv, seed, card, decode):
+    """Phase 17 (see the module docstring): (a)-(d); ``decode`` is phase
+    9's result, whose greedy streams (c) is held against."""
+    t_phase = time.perf_counter()
+    wrappers = kernel_wrappers(fu, nn, kv)
+    out = {"resnet": serving_resnet(torch, mt, fu, nn, wrappers, seed, card),
+           "seq": serving_seq(torch, mt, wrappers, seed, card),
+           "sampling": serving_sampling(torch, mt, fu, nn, kv, seed, card,
+                                        decode),
+           "prefill": serving_prefill(torch, mt, fu, nn, kv, seed, card)}
+    out["launches"] = {
+        "shed-oldest": out["resnet"]["shed"]["launches"],
+        "pad probe": out["resnet"]["pad_probe"]["launches"]}
+    out["launches"].update(("sampling, " + name, r["launches"])
+                           for name, r in out["sampling"]["runs"].items())
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("  phase 17 took %.1f s" % out["phase_s"])
+    log(json.dumps({"serving": {
+        "shed": {k: v for k, v in out["resnet"]["shed"].items()
+                 if k != "launches"},
+        "memory": out["resnet"]["memory"],
+        "seq": out["seq"],
+        "sampling": {k: {kk: vv for kk, vv in r.items() if kk != "launches"}
+                     for k, r in out["sampling"]["runs"].items()},
+        "prefill": out["prefill"]["runs"],
         "phase_s": out["phase_s"]}}))
     return out
 

@@ -49,18 +49,20 @@ Entry points::
         sym, {"data": (6,)}, policy)
 
 Runtime wiring: ``Predictor`` construction verifies, ``ServingEngine``
-classifies its batch axis and optimizes the graph it serves, and
-``DecodeEngine`` checks its step (and draft) graph along the slot axis
-and selects its cache-write kernels through the verdict gate — all by
-default (``MXNET_ANALYSIS_ON``); findings warn, or raise with
-``MXNET_ANALYSIS_STRICT=1``.
+classifies its batch and seq axes (repairing a cross-position seq axis,
+or degrading), optimizes the graph it serves and prices its warm
+programs against the device budget, and ``DecodeEngine`` checks its
+step (and draft) graph along the slot axis, selects its cache-write
+kernels through the verdict gate and prices its step, draft and prefill
+programs with the slot pool's donation gated — all by default
+(``MXNET_ANALYSIS_ON``, ``MXNET_MEMORY_PLAN``); findings warn, or raise
+with ``MXNET_ANALYSIS_STRICT=1``.
 
 Not ported yet (ROADMAP Queue A): the sharding-plan checks
 (``sharding.py``: ``ShardingCheck``, ``check_sharding_plan``,
-``audit_sharding_plan``; item 7, with ``parallel/mesh.py``), the lock
+``audit_sharding_plan``; item 7, with ``parallel/mesh.py``) and the lock
 lint (``concurrency.py``: ``analyze_concurrency``; item 4, with the
-``graph_lint`` CLI), and the serving engine's sequence-axis repair and
-memory preflights (item 3).  Those names are not exported.
+``graph_lint`` CLI).  Those names are not exported.
 """
 from .diagnostics import (Severity, Diagnostic, Report, AnalysisError,
                           hazard_fingerprint)
@@ -113,8 +115,8 @@ def check_serving_graph(symbol, data_shapes, policy, training=False,
     ``ServingEngine`` receives; graph coordinates gain the batch axis at
     0, so the padded axes are batch=0 and, when the policy seq-buckets,
     ``policy.seq_axis + 1``.  Returns ({label: verdict}, Report) with
-    labels "batch" and, for a policy with seq buckets (the port's
-    ``BucketPolicy`` has none), "seq" — plus the AnalysisContext when
+    labels "batch" and, for a policy with seq buckets, "seq" — plus the
+    AnalysisContext when
     ``with_ctx`` (the engine forwards it to the repair path so the
     pre-repair analysis is not repeated).
     """

@@ -520,14 +520,17 @@ def check_donation(symbol, data_shapes, donate, dtypes=None,
 
 
 def device_memory_budget(device=None):
-    """Per-device memory budget in bytes for an OOM preflight: the CUDA
-    card's total memory (``torch.cuda.mem_get_info``).  ``device`` is a
+    """Per-device memory budget in bytes for an OOM preflight:
+    ``MXNET_MEMORY_BUDGET_BYTES`` when set (>0), else the CUDA card's
+    total memory (``torch.cuda.mem_get_info``).  ``device`` is a
     Context, a torch device or a card index; None is the current card.
-    Returns None on the CPU or without a card — prediction still runs,
-    capacity refusal does not.  (The JAX package also takes an override
-    from ``MXNET_MEMORY_BUDGET_BYTES``; the port has no caller that
-    needs one.)"""
+    Returns None on the CPU or without a card and no override —
+    prediction still runs, capacity refusal does not."""
     import torch
+    from .. import config
+    b = int(config.get("MXNET_MEMORY_BUDGET_BYTES"))
+    if b > 0:
+        return b
     dev = getattr(device, "device", device)
     if dev is None:
         if not torch.cuda.is_available():

@@ -2,11 +2,11 @@
 serving sound for cross-position graphs.
 
 Counterpart of ``mxnet_tpu/analysis/rewrite.py``: the same plans and the
-same repaired JSON for the same graph.  The port's serving engine does
-not call it yet — it repairs along a bucketed SEQUENCE axis, and the
-port's ``BucketPolicy`` has none (ROADMAP Queue A, item 3) — so
-:func:`serving_pad_spec` gives such a policy only the ``"batch"`` label
-and :func:`repair_serving_graph` rejects it.
+same repaired JSON for the same graph.  ``ServingEngine`` calls
+:func:`repair_serving_graph` at construction when its graph is
+cross-position along the bucketed SEQUENCE axis; a policy without seq
+buckets gets only the ``"batch"`` label from :func:`serving_pad_spec`,
+and the repair rejects it.
 
 The padding pass (padding.py) CLASSIFIES — row-local vs cross-position
 along serving's zero-padded axes — and until now the engine could only

@@ -1,8 +1,9 @@
 """Runtime configuration: the MXNET_* environment variables this package reads.
 
 Counterpart of ``mxnet_tpu/config.py``, keeping only the variables the
-ResNet-50 serving and training paths, the image pipeline and the decode
-engine read, under the same names and defaults.
+ResNet-50 serving and training paths, the image pipeline, the serving
+and decode engines and the analysis gates read, under the same names and
+defaults.
 """
 from __future__ import annotations
 
@@ -59,8 +60,22 @@ VARIABLES = {v.name: v for v in [
          "up to a power of two; pending requests pad up to the smallest "
          "bucket that fits."),
     _Var("MXNET_SERVE_MAX_QUEUE", int, 256,
-         "Bound on the serving admission queue; a full queue rejects new "
-         "work with QueueFullError (backpressure)."),
+         "Bound on the serving admission queue.  A full queue either "
+         "rejects new work (QueueFullError backpressure) or sheds the "
+         "oldest pending request, per MXNET_SERVE_OVERLOAD_POLICY."),
+    _Var("MXNET_SERVE_OVERLOAD_POLICY", str, "reject",
+         "What the serving engine does when the admission queue is "
+         "full: 'reject' raises QueueFullError to the submitting "
+         "client (backpressure); 'shed-oldest' evicts the longest-"
+         "queued request (its future fails with ServerOverloadError) "
+         "to admit the new one — graceful degradation under overload."),
+    _Var("MXNET_SERVE_SEQ_BUCKETS", str, "",
+         "Comma-separated sequence-length buckets (e.g. '32,64,128') "
+         "for the serving engine.  When set, per-example axis 0 is "
+         "padded up to the next bucket so length-polymorphic traffic "
+         "shares programs; outputs are un-padded on the same axis "
+         "(model must be row-independent along it).  Empty = off: "
+         "every distinct example shape is its own bucket."),
     _Var("MXNET_SERVE_BATCH_TIMEOUT_MS", float, 2.0,
          "Dynamic-batching window: a partial batch waits at most this "
          "long (from its oldest request's enqueue) for company."),
@@ -83,6 +98,14 @@ VARIABLES = {v.name: v for v in [
          "greedy_decode).  Accepted cache rows commit through the "
          "_cache_write_rows kernel when the selection adopts it.  0 = "
          "the single-token engine.  DecodeEngine(spec_k=) overrides."),
+    _Var("MXNET_DECODE_COALESCE_PREFILL", bool, True,
+         "Coalesce concurrent decode joiners through the bucketed "
+         "prefill path (serving/decode.py): requests joining in the "
+         "same scheduler iteration whose prompts pad to the same pow2 "
+         "seq bucket prefill in ONE dispatch (batch padded onto pow2 "
+         "batch buckets, output state rows scattered into each "
+         "request's slot) instead of one batch-1 dispatch each.  0 = "
+         "the serial per-joiner prefill."),
     _Var("MXNET_SERVE_OPTIMIZE", bool, True,
          "Run the verdict-gated optimizing pass pipeline "
          "(analysis/optimize.py: algebraic identities, constant "
@@ -114,6 +137,37 @@ VARIABLES = {v.name: v for v in [
          "MXNetError: malformed graphs refuse to build, and a serving "
          "graph classified cross-position along a padded axis refuses "
          "the unsound bucketing instead of degrading it."),
+    _Var("MXNET_MEMORY_PLAN", bool, True,
+         "Run the static memory planner (analysis/memory.py) at "
+         "ServingEngine/DecodeEngine construction: liveness-based "
+         "peak-memory prediction over the full warm program set, the "
+         "donation/aliasing soundness gate over the decode slot pool, "
+         "and the OOM preflight against the device budget — all "
+         "BEFORE any program is built.  Requires MXNET_ANALYSIS_ON.  "
+         "Findings warn by default (MXNET_ANALYSIS_STRICT=1 raises); "
+         "the planner only diagnoses, so served outputs are "
+         "bitwise-identical with it on or off."),
+    _Var("MXNET_MEMORY_BUDGET_BYTES", int, 0,
+         "Per-device memory budget in bytes for the memory planner's "
+         "OOM preflight.  0 = the CUDA card's total memory "
+         "(torch.cuda.mem_get_info); the CPU has none, so prediction "
+         "still runs and capacity refusal is skipped.  Set explicitly "
+         "to preflight against a target card from any host."),
+    _Var("MXNET_SERVE_REPAIR", bool, True,
+         "Attempt an automatic masking repair (analysis/rewrite.py) "
+         "before degrading a serving graph the padding pass classifies "
+         "cross-position along the bucketed seq axis: SequenceMask "
+         "nodes driven by a per-request valid-length input neutralize "
+         "pad slots (-inf for softmax, 0 for sums, renormalized count "
+         "for mean), and the repair is adopted only when re-analysis "
+         "verdicts the rewritten graph row-local.  0 = always degrade "
+         "(exact-length programs / max_batch=1)."),
+    _Var("MXNET_SERVE_PAD_CHECK", bool, False,
+         "Runtime padding-soundness probe (debug; doubles dispatch "
+         "cost): every serving batch is dispatched twice — zero pads "
+         "and sentinel-filled pads — and live output rows must match "
+         "bitwise, catching cross-position contamination the static "
+         "pass could not prove (serving/buckets.py run_pad_probe)."),
     _Var("MXNET_SERVE_DEFAULT_DEADLINE_MS", float, 0.0,
          "Default per-request deadline; requests still queued past it "
          "fail with DeadlineExceededError.  0 = no default deadline."),

@@ -92,11 +92,17 @@ class Predictor(object):
                   if n in arg_params and n not in data_shapes}
         aux = {n: aux_params[n].as_in_context(ctx)
                for n in symbol.list_auxiliary_states()}
+        self._bind(symbol, ctx, data_shapes,
+                   _assemble_args(symbol, data_shapes, ctx, params), aux)
+
+    def _bind(self, symbol, ctx, data_shapes, args, aux):
+        """Where every Predictor, constructed or ``reshape``d, gets its
+        attributes and bound executor."""
+        self._sym = symbol
         self._ctx = ctx
         self._data_names = list(data_shapes)
-        self._exec = symbol.bind(
-            ctx, args=_assemble_args(symbol, data_shapes, ctx, params),
-            grad_req="null", aux_states=aux)
+        self._exec = symbol.bind(ctx, args=args, grad_req="null",
+                                 aux_states=aux)
         self._outputs = None
 
     def set_input(self, name=None, value=None, **named):
@@ -122,6 +128,42 @@ class Predictor(object):
         if self._outputs is None:
             raise MXNetError("forward() has not run")
         return self._outputs[index].asnumpy()
+
+    def get_outputs(self, as_numpy=True):
+        """All outputs in one call; ``as_numpy=False`` returns the
+        device-resident NDArrays without a copy to the host."""
+        if self._outputs is None:
+            raise MXNetError("forward() has not run")
+        if as_numpy:
+            return [o.asnumpy() for o in self._outputs]
+        return list(self._outputs)
+
+    @property
+    def output_shapes(self):
+        """The outputs' shapes at the bound input shapes."""
+        shapes = {n: self._exec.arg_dict[n].shape for n in self._data_names}
+        _, out_shapes, _ = self._sym.infer_shape(**shapes)
+        return [tuple(s) for s in out_shapes]
+
+    def reshape(self, data_shapes):
+        """A Predictor for new input shapes (MXPredReshape) that shares
+        this one's device-resident parameters and auxiliary states: no
+        copy, no upload.  Only the data (and placeholder label) buffers
+        are new."""
+        data_shapes = dict(data_shapes)
+        if set(data_shapes) != set(self._data_names):
+            raise MXNetError("reshape: data_shapes %s must cover exactly "
+                             "the bound inputs %s"
+                             % (sorted(data_shapes), self._data_names))
+        arg_names = self._sym.list_arguments()
+        labels = set(_label_like(arg_names))
+        params = {n: self._exec.arg_dict[n] for n in arg_names
+                  if n not in data_shapes and n not in labels}
+        new = object.__new__(Predictor)
+        new._bind(self._sym, self._ctx, data_shapes,
+                  _assemble_args(self._sym, data_shapes, self._ctx, params),
+                  dict(self._exec.aux_dict))
+        return new
 
 
 def load_checkpoint_predictor(prefix, epoch, data_shapes, ctx=None):

@@ -4,7 +4,17 @@ Counterpart of ``mxnet_tpu/serving/admission.py`` (its core): a bounded
 queue of pending requests in front of the dispatcher.
 
 - **backpressure**: at most ``max_queue`` requests wait; beyond that
-  ``admit`` raises :class:`QueueFullError` to the submitting client.
+  ``admit`` either raises :class:`QueueFullError` to the submitting
+  client (policy ``reject``) or evicts the oldest pending request, whose
+  future fails with :class:`ServerOverloadError` (policy
+  ``shed-oldest``: old work is the least likely to still meet its
+  deadline);
+- **pressure**: :meth:`AdmissionController.apply_pressure` tightens the
+  effective queue limit below ``max_queue``, shedding the highest-cost
+  requests (``Request.cost``, padded elements) first; these sheds are
+  counted apart from the policy's (``pressure_shed``).  Nothing in the
+  port sets pressure yet: the overload regulator that does is not
+  ported.
 - **deadlines**: a request may carry an absolute expiry; every queue
   interaction (and the blocking ``take`` wait) sweeps, so an expired
   request fails with :class:`DeadlineExceededError` instead of taking a
@@ -29,15 +39,22 @@ import time
 from ..base import MXNetError
 
 __all__ = ["AdmissionController", "Request", "QueueFullError",
-           "DeadlineExceededError", "EngineClosedError"]
+           "DeadlineExceededError", "ServerOverloadError",
+           "EngineClosedError"]
 
 
 class QueueFullError(MXNetError):
-    """The bounded queue is full (backpressure)."""
+    """The bounded queue is full and the overload policy is ``reject``
+    (backpressure)."""
 
 
 class DeadlineExceededError(MXNetError):
     """The request's deadline passed while it was still queued."""
+
+
+class ServerOverloadError(MXNetError):
+    """Set on the future of a request shed under the ``shed-oldest``
+    overload policy, or by queue pressure."""
 
 
 class EngineClosedError(MXNetError):
@@ -55,31 +72,47 @@ def _fail_future(fut, exc):
 
 class Request(object):
     """One pending request: ``inputs`` maps data name to a per-example
-    host array; ``group`` is the engine's coalescing key.
+    host array; ``group`` is the engine's coalescing key (the padded
+    per-example shapes).  ``out_rows`` holds the per-example output
+    shapes the graph infers at the UNPADDED input, which the engine
+    slices dispatched rows back to (None without seq buckets).
+
+    ``cost`` is the request's padded-element price (the serving engine
+    computes it from the bucket-padded group shapes; decode uses prompt
+    plus generation budget): under pressure the highest-cost queued
+    request sheds first.  None ranks as zero.
 
     ``on_expire(exc)``, when set, turns a deadline expiry from a failure
     into a completion: the sweep delivers its return value as the
     future's RESULT (a decode request's partial tokens with the
     ``expired`` flag); returning None falls back to the exception."""
     __slots__ = ("inputs", "group", "future", "t_enqueue", "deadline",
-                 "on_expire")
+                 "out_rows", "on_expire", "cost")
 
     def __init__(self, inputs, group, future, deadline=None,
-                 on_expire=None):
+                 out_rows=None, on_expire=None, cost=None):
         self.inputs = inputs
         self.group = group
         self.future = future
         self.t_enqueue = time.monotonic()
         self.deadline = deadline            # absolute time.monotonic()
+        self.out_rows = out_rows
         self.on_expire = on_expire
+        self.cost = cost                    # padded elements
 
     def expired(self, now):
         return self.deadline is not None and now >= self.deadline
 
 
 class AdmissionController(object):
-    def __init__(self, max_queue=256, sweep_interval=0.05):
+    def __init__(self, max_queue=256, overload_policy="reject",
+                 sweep_interval=0.05):
+        if overload_policy not in ("reject", "shed-oldest", "shed_oldest"):
+            raise MXNetError("unknown overload policy %r "
+                             "(use 'reject' or 'shed-oldest')"
+                             % (overload_policy,))
         self.max_queue = int(max_queue)
+        self.overload_policy = overload_policy.replace("_", "-")
         self._sweep_interval = sweep_interval
         self._queue = collections.deque()
         self._cond = threading.Condition()
@@ -87,25 +120,61 @@ class AdmissionController(object):
         self._woken = False
         self.admitted = 0
         self.rejected = 0
+        self.shed = 0
+        # pressure sheds are counted apart from policy sheds (the JAX
+        # package's burn-rate rule reads the policy count; feeding it
+        # pressure sheds would close a loop that only tightens)
+        self.pressure_shed = 0
         self.expired = 0
+        self._pressure = None       # tightened queue limit, or None
 
     def admit(self, req):
-        """Enqueue, or raise QueueFullError when the queue is full."""
+        """Enqueue, or apply the overload policy when the queue is full:
+        ``reject`` raises QueueFullError here, ``shed-oldest`` fails the
+        oldest queued request with ServerOverloadError and admits this
+        one.  Under pressure, below ``max_queue``, the highest-cost
+        pending request (this one included) is shed instead."""
+        reject = None
         with self._cond:
             if self._closed:
                 raise EngineClosedError("serving engine is closed")
             failures = self._sweep_locked()
-            full = len(self._queue) >= self.max_queue
-            if full:
-                self.rejected += 1
-            else:
+            pressure = self._pressure
+            if pressure is not None and len(self._queue) >= pressure \
+                    and len(self._queue) < self.max_queue:
+                victim = max(list(self._queue) + [req], key=self._cost_key)
+                self.pressure_shed += 1
+                exc = ServerOverloadError(
+                    "request shed under queue pressure: queue at the "
+                    "tightened limit (%d < max_queue %d) and this is the "
+                    "highest-cost pending request"
+                    % (pressure, self.max_queue))
+                if victim is req:
+                    reject = exc
+                else:
+                    self._queue.remove(victim)
+                    failures.append((victim, exc))
+            elif len(self._queue) >= self.max_queue:
+                if self.overload_policy == "shed-oldest":
+                    victim = self._queue.popleft()
+                    self.shed += 1
+                    failures.append((victim, ServerOverloadError(
+                        "request shed after %.1f ms queued: queue full "
+                        "(%d) under shed-oldest overload policy"
+                        % ((time.monotonic() - victim.t_enqueue) * 1e3,
+                           self.max_queue))))
+                else:
+                    self.rejected += 1
+                    reject = QueueFullError(
+                        "serving queue full (%d pending): backpressure"
+                        % self.max_queue)
+            if reject is None:
                 self._queue.append(req)
                 self.admitted += 1
                 self._cond.notify()
         self._deliver(failures)
-        if full:
-            raise QueueFullError("serving queue full (%d pending): "
-                                 "backpressure" % self.max_queue)
+        if reject is not None:
+            raise reject
 
     def take(self, max_batch, window_s):
         """Block until a batch is ready and return the oldest request's
@@ -169,6 +238,48 @@ class AdmissionController(object):
         also does)."""
         with self._cond:
             failures = self._sweep_locked()
+        self._deliver(failures)
+
+    def expire_request(self, req, detail=""):
+        """Deliver deadline expiry to a request already POPPED from this
+        queue, with the queued sweep's contract (``on_expire``) and
+        accounting, so ``stats()["expired"]`` is one number however a
+        deadline was hit."""
+        exc = DeadlineExceededError(
+            "deadline exceeded after %.1f ms%s"
+            % ((time.monotonic() - req.t_enqueue) * 1e3,
+               " (%s)" % detail if detail else ""))
+        with self._cond:
+            self.expired += 1
+        self._deliver([(req, exc)])
+
+    # ------------------------------------------------------------ pressure
+    @staticmethod
+    def _cost_key(r):
+        """Cost-aware shed ranking: highest padded-element cost first,
+        oldest first among equals."""
+        return (r.cost if r.cost is not None else 0, -r.t_enqueue)
+
+    @property
+    def pressure(self):
+        return self._pressure
+
+    def apply_pressure(self, limit):
+        """Set (or withdraw, ``None``) a tightened queue limit, shedding
+        cost-aware down to it at once.  Futures fail outside the lock."""
+        failures = []
+        with self._cond:
+            self._pressure = None if limit is None else max(1, int(limit))
+            shed_to = self._pressure
+            while shed_to is not None and len(self._queue) > shed_to:
+                victim = max(self._queue, key=self._cost_key)
+                self._queue.remove(victim)
+                self.pressure_shed += 1
+                failures.append((victim, ServerOverloadError(
+                    "request shed under queue pressure after %.1f ms "
+                    "queued: queue tightened to %d (max_queue %d)"
+                    % ((time.monotonic() - victim.t_enqueue) * 1e3,
+                       shed_to, self.max_queue))))
         self._deliver(failures)
 
     def _pop_group_locked(self, group, max_batch):
@@ -244,6 +355,10 @@ class AdmissionController(object):
         with self._cond:
             return {"queue_depth": len(self._queue),
                     "max_queue": self.max_queue,
+                    "pressure": self._pressure,
+                    "overload_policy": self.overload_policy,
                     "admitted": self.admitted,
                     "rejected": self.rejected,
+                    "shed": self.shed,
+                    "pressure_shed": self.pressure_shed,
                     "expired": self.expired}

@@ -1,8 +1,15 @@
-"""Batch buckets and the per-bucket program cache of the serving engine.
+"""Shape buckets and the per-bucket program cache of the serving engine.
 
-Counterpart of ``mxnet_tpu/serving/buckets.py``.  A batch of n requests
-pads up to the next power of two up to ``max_batch``, so at most
-log2(max_batch)+1 batch shapes ever run.  :class:`ProgramCache` holds
+Counterpart of ``mxnet_tpu/serving/buckets.py``.  All traffic is
+quantized onto a small grid:
+
+- **batch buckets**: a batch of n requests pads up to the next power of
+  two up to ``max_batch``, so at most log2(max_batch)+1 batch shapes run;
+- **seq buckets** (optional): one designated per-example axis pads up to
+  the next configured bucket, for length-polymorphic models whose
+  outputs are row-independent along that axis.
+
+:class:`ProgramCache` holds
 the parameters on the device once and one callable per bucket shape:
 the graph function with every non-data input (params, aux, placeholder
 labels sized for that bucket) already in place.  Torch runs eagerly, so
@@ -22,7 +29,7 @@ from ..executor import build_graph_fn
 from ..ops.registry import torch_dtype
 from ..predict import _infer_label_shapes, _label_like
 
-__all__ = ["BucketPolicy", "ProgramCache"]
+__all__ = ["BucketPolicy", "ProgramCache", "pad_valid_lengths"]
 
 
 def _next_pow2(n):
@@ -32,18 +39,41 @@ def _next_pow2(n):
     return p
 
 
-class BucketPolicy(object):
-    """Quantizes request-batch sizes onto the power-of-two bucket grid."""
+def pad_valid_lengths(lengths, bucket):
+    """Batch-pad a per-request live-length vector onto the bucket grid:
+    slot i carries request i's live extent along the repaired axis and
+    the pad rows carry 0, so every spliced SequenceMask masks them
+    entirely.  Always float32: the spliced variable declares float32,
+    and a half-precision length would round onto the wrong mask
+    boundary (float16 cannot represent 2049)."""
+    out = np.zeros((bucket,), dtype=np.float32)
+    out[:len(lengths)] = lengths
+    return out
 
-    def __init__(self, max_batch=8):
+
+class BucketPolicy(object):
+    """Quantizes request-batch sizes (and optionally one per-example
+    axis) onto the bucket grid the program cache builds for."""
+
+    def __init__(self, max_batch=8, seq_axis=None, seq_buckets=()):
         if max_batch < 1:
             raise MXNetError("max_batch must be >= 1, got %d" % max_batch)
         self.max_batch = _next_pow2(int(max_batch))
+        self.seq_axis = seq_axis
+        self.seq_buckets = tuple(sorted(int(b) for b in seq_buckets))
+        if self.seq_buckets and seq_axis is None:
+            raise MXNetError("seq_buckets given without seq_axis")
 
     @classmethod
     def from_config(cls):
+        """Build from ``MXNET_SERVE_MAX_BATCH`` and
+        ``MXNET_SERVE_SEQ_BUCKETS`` (which buckets per-example axis 0)."""
         from .. import config
-        return cls(max_batch=config.get("MXNET_SERVE_MAX_BATCH"))
+        raw = config.get("MXNET_SERVE_SEQ_BUCKETS").strip()
+        seq_buckets = tuple(int(t) for t in raw.split(",") if t.strip())
+        return cls(max_batch=config.get("MXNET_SERVE_MAX_BATCH"),
+                   seq_axis=0 if seq_buckets else None,
+                   seq_buckets=seq_buckets)
 
     def batch_buckets(self):
         out, b = [], 1
@@ -59,6 +89,29 @@ class BucketPolicy(object):
             raise MXNetError("batch %d exceeds max_batch %d"
                              % (n, self.max_batch))
         return _next_pow2(n)
+
+    def seq_bucket(self, length):
+        """Smallest configured seq bucket >= length (identity when seq
+        bucketing is off)."""
+        if not self.seq_buckets:
+            return length
+        for b in self.seq_buckets:
+            if length <= b:
+                return b
+        raise MXNetError(
+            "sequence length %d exceeds largest seq bucket %d"
+            % (length, self.seq_buckets[-1]))
+
+    def example_shape(self, shape):
+        """Pad a per-example shape onto the bucket grid."""
+        if self.seq_axis is None:
+            return tuple(shape)
+        if self.seq_axis >= len(shape):
+            raise MXNetError("seq_axis %d out of range for shape %s"
+                             % (self.seq_axis, tuple(shape)))
+        s = list(shape)
+        s[self.seq_axis] = self.seq_bucket(s[self.seq_axis])
+        return tuple(s)
 
 
 class ProgramCache(object):
@@ -121,16 +174,51 @@ class ProgramCache(object):
             self._programs[shape_key] = prog
             return prog
 
-    def run(self, feeds):
+    @property
+    def bucket_keys(self):
+        """The bucket signatures built so far."""
+        with self._lock:
+            return sorted(self._programs)
+
+    def run(self, feeds, host=True, dtypes=None):
         """Dispatch one padded batch: ``feeds`` maps data name to a host
         array WITH batch dim, already padded to a bucket shape.  Returns
-        the outputs as host arrays (still batch-padded)."""
+        the outputs as host arrays (still batch-padded), or as tensors
+        on the device with ``host=False``.  Inputs take the cache's
+        dtype, except those ``dtypes`` names (a repaired graph's
+        float32 valid lengths)."""
         shape_key = tuple(sorted((k, tuple(v.shape))
                                  for k, v in feeds.items()))
         prog = self._program_for(shape_key)
+        dtypes = dtypes or {}
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-            self._device, self._dtype, non_blocking=False)
+            self._device, torch_dtype(dtypes[k]) if k in dtypes
+            else self._dtype, non_blocking=False)
                for k, v in feeds.items()}
-        outs = prog(dev)
+        outs = prog(dev)[:self._n_out]
+        if not host:
+            return list(outs)
         return [o.float().cpu().numpy() if o.dtype == torch.bfloat16
-                else o.cpu().numpy() for o in outs[:self._n_out]]
+                else o.cpu().numpy() for o in outs]
+
+    def run_pad_probe(self, feeds, live_masks, sentinel=7.5, dtypes=None):
+        """The runtime padding-soundness check (``MXNET_SERVE_PAD_CHECK``):
+        dispatch the batch twice, once as given (zero pads) and once
+        with every pad slot set to ``sentinel``.  A graph that is truly
+        row-local along the padded axes computes live outputs from live
+        inputs only, so the two runs agree bitwise on live rows (same
+        program, same live operands); any divergence is contamination.
+        Returns (base_outs, probed_outs); the engine compares each
+        request's live region.  ``live_masks`` maps input name to a bool
+        array of the batch-padded shape, True on live slots."""
+        base = self.run(feeds, dtypes=dtypes)
+        probed_feeds = {}
+        for name, arr in feeds.items():
+            mask = live_masks.get(name)
+            if mask is None:
+                probed_feeds[name] = arr
+            else:
+                probed_feeds[name] = np.where(
+                    mask, arr, np.asarray(sentinel, arr.dtype))
+        probed = self.run(probed_feeds, dtypes=dtypes)
+        return base, probed

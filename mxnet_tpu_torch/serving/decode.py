@@ -22,8 +22,20 @@ this engine schedules at the *iteration* level instead:
 - **masked dead slots** ride along holding whatever a finished request
   left; every op along the slot axis reads only its own row, so a
   request's tokens do not depend on its company;
-- **teacher-forced prompts**: a prompt is consumed token by token
-  through the running step batch;
+- **bucketed prefill**: a prompt is consumed either token by token
+  through the running step batch (teacher forcing, no extra programs),
+  or, with a ``prefill_sym``, in ONE dispatch through a
+  :class:`~.buckets.ProgramCache` at pow2 prompt buckets, its output
+  state rows written into the slot.  Concurrent joiners coalesce
+  (``MXNET_DECODE_COALESCE_PREFILL``, on by default): requests joining in
+  the same scheduler iteration whose prompts pad to the same bucket
+  share one dispatch at the next pow2 batch extent;
+- **samplers**: the default greedy head is an ``argmax`` spliced into
+  the step graph; :class:`TemperatureSampler` (temperature, top-k,
+  Gumbel-max) samples on the device after the step graph from noise
+  drawn from a ``torch.Generator`` on the engine's device, seeded by
+  ``seed`` and the step's tick, so a seeded engine replays bit for bit
+  and only token ids cross to the host;
 - **soundness preflight** (``MXNET_ANALYSIS_ON``): the step graph (and
   the draft's) must be row-local along the SLOT axis with the state
   seeded pad-dirty (``analysis.check_decode_step``) — a cross-position
@@ -40,30 +52,36 @@ this engine schedules at the *iteration* level instead:
   fold, merge and sweep.  A plan is adopted only through the verdict
   gate (re-analysis no worse, the slot axis still row-local under
   pad-dirty seeding); ``stats()`` names the gate;
-- **speculative draft-k-verify** (``spec_k``, greedy): see
-  ``serving/spec.py``.  The draft and target chains run on working
-  copies of the caches (one copy per cache per speculative step), so the
-  commit writes only the accepted rows into the ORIGINAL buffers, which
-  keep every other row bit for bit;
-- **per-token streaming** (``on_token``), **admission** (bounded queue)
-  and **per-step deadlines**: an expired request, queued or
-  mid-generation, completes with its PARTIAL output.
+- **speculative draft-k-verify** (``spec_k``): see ``serving/spec.py``;
+  greedy acceptance is exact prefix match, a stochastic sampler's is
+  rejection sampling (``spec.rejection_accept``).  The draft and target
+  chains run on working copies of the caches (one copy per cache per
+  speculative step), so the commit writes only the accepted rows into
+  the ORIGINAL buffers, which keep every other row bit for bit;
+- **memory preflight** (``MXNET_MEMORY_PLAN``): the step (and draft)
+  programs at slot-pool shapes with the pool's state-for-state donation
+  gated for soundness, plus the largest prefill bucket over the resident
+  pool, priced against the device budget before any program runs;
+- **per-token streaming** (``on_token``), **admission** (bounded queue,
+  ``reject`` or ``shed-oldest``) and **per-step deadlines**: an expired
+  request, queued or mid-generation, completes with its PARTIAL
+  output.
 
 One scheduler thread does all of the engine's device work, warmup
 included (cuBLAS handles are per thread; a warmup on another thread
 would leave the first live steps to build them again).
 
-Not ported (ROADMAP): replicas and the router, sharding plans, the AOT
-cache, telemetry, fault injection, the supervisor and ``rehabilitate``,
-the memory preflight, ``prefill_sym``
-(coalesced bucketed prefill), SSE streams, and the stochastic samplers.
+Not ported (ROADMAP Queue A, items 4 and 7): replicas and the router,
+sharding plans, the AOT cache, telemetry and SSE streams, fault
+injection, the supervisor and ``rehabilitate``, and the overload
+regulator.
 
 Step-graph contract: ``step_sym`` outputs ``[logits] + next_states`` over
 arguments ``token`` (slot vector of last token ids), the state names from
 ``state_info`` (each ``(slots,) + per_slot_shape``), and optionally
-``pos`` (per-slot write position) and ``valid`` (1/0 occupancy).  The
-engine appends a greedy ``argmax`` head so only token ids cross to the
-host.
+``pos`` (per-slot write position) and ``valid`` (1/0 occupancy).  Under
+the greedy sampler the engine appends an ``argmax`` head so only token
+ids cross to the host.
 """
 from __future__ import annotations
 
@@ -83,16 +101,58 @@ from ..executor import build_graph_fn
 from ..ops.registry import torch_dtype
 from .admission import (AdmissionController, Request, EngineClosedError,
                         _fail_future)
+from .buckets import ProgramCache, _next_pow2
+from .engine import _memory_stats_block
 from . import spec as _spec_mod
 
 __all__ = ["DecodeEngine", "DecodeResult", "StepProgram", "greedy_decode",
-           "Sampler", "GreedySampler"]
+           "Sampler", "GreedySampler", "TemperatureSampler", "gumbel",
+           "categorical"]
+
+
+def gumbel(u):
+    """Standard Gumbel noise from uniforms in [0, 1), as the JAX
+    package's ``jax.random.gumbel`` makes it: the uniform clamped below
+    at float32's smallest normal (so no draw is infinite), then
+    ``-log(-log(u))``."""
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(z, g):
+    """One Gumbel-max draw per row: ``argmax(z + g)`` over the last axis
+    (the first index on ties), as ``jax.random.categorical`` draws from
+    log-space ``z`` with its own Gumbel noise ``g``."""
+    return torch.argmax(z + g.to(z.dtype), dim=-1)
 
 
 class Sampler(object):
-    """Token-selection head of the decode step.  ``greedy=True`` keeps
-    the in-graph ``argmax`` head.  Only the greedy sampler is ported."""
+    """Token-selection head of the decode step.
+
+    The step graph's contract is ``[logits] + next_states``; a sampler
+    turns each slot's logits row into its token id.  ``greedy=True``
+    keeps the in-graph ``argmax`` head (bitwise ``greedy_decode``).  A
+    stochastic sampler runs on the device after the step graph, on noise
+    the step program draws from its generator (a pure function of the
+    sampler's ``seed`` and the step's tick), so a seeded engine replays
+    bit for bit against the same submission history; its draws also
+    depend on which ticks and slots a request rode through."""
     greedy = False
+
+    def sample(self, logits, noise):
+        """``(slots, vocab)`` logits and Gumbel noise of the same shape ->
+        ``(slots,)`` sampled ids in the logits' dtype."""
+        raise NotImplementedError
+
+    def spec_logits(self, logits):
+        """Raw logits -> the sampler's log-space distribution
+        (temperature, top-k mask): what speculative rejection sampling
+        verifies draft proposals against, applied alike to target and
+        draft logits.  Greedy samplers never call it."""
+        raise MXNetError(
+            "%s does not support speculative decode: implement "
+            "spec_logits() (the distribution rejection sampling "
+            "verifies against)" % type(self).__name__)
 
     def describe(self):
         return {"kind": type(self).__name__}
@@ -105,6 +165,51 @@ class GreedySampler(Sampler):
 
     def describe(self):
         return {"kind": "greedy"}
+
+
+class TemperatureSampler(Sampler):
+    """Temperature (optionally top-k-truncated) categorical sampling:
+    ``logits / temperature``, then every logit below the k-th largest
+    pinned to ``-inf`` (ties with the k-th are kept), then one
+    Gumbel-max draw per slot.  ``top_k=1`` is argmax whatever the noise.
+    ``seed`` fixes the noise stream for replays; None draws it from the
+    port's random stream (``mxnet_tpu_torch.random``)."""
+
+    def __init__(self, temperature=1.0, top_k=None, seed=None):
+        if temperature <= 0:
+            raise MXNetError("TemperatureSampler: temperature must be "
+                             "> 0, got %r (top_k=1 IS argmax)"
+                             % (temperature,))
+        if top_k is not None and int(top_k) < 1:
+            raise MXNetError("TemperatureSampler: top_k must be >= 1")
+        self.temperature = float(temperature)
+        self.top_k = None if top_k is None else int(top_k)
+        self.seed = seed
+
+    def sample(self, logits, noise):
+        return categorical(self.spec_logits(logits), noise).to(logits.dtype)
+
+    def spec_logits(self, logits):
+        z = logits / self.temperature
+        if self.top_k is not None and self.top_k < z.shape[-1]:
+            kth = torch.topk(z, self.top_k, dim=-1).values[..., -1:]
+            z = torch.where(z < kth, torch.full_like(z, -float("inf")), z)
+        return z
+
+    def describe(self):
+        return {"kind": "temperature", "temperature": self.temperature,
+                "top_k": self.top_k, "seed": self.seed}
+
+
+def _mix_seed(seed, tick):
+    """A 63-bit generator seed from (seed, tick): splitmix64's finalizer
+    over their combination, so neighbouring ticks seed unrelated
+    streams."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(tick) + 1) \
+        & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
 
 
 class DecodeResult(object):
@@ -158,8 +263,9 @@ class StepProgram(object):
     """The persistent decode step over a fixed slot pool.
 
     Wraps ``step_sym`` (outputs ``[logits] + next_states``) with a greedy
-    ``argmax`` head, or, with a :class:`~.spec.SpecConfig`, with the
-    speculative draft-k-verify unroll.  Parameters are placed on the
+    ``argmax`` head, with a stochastic sampler's draw after the graph, or,
+    with a :class:`~.spec.SpecConfig`, with the speculative
+    draft-k-verify unroll.  Parameters are placed on the
     device once; per-slot state lives there between calls as the tensors
     :meth:`init_states` made.  A step DONATES the state tensors it is
     given: it may write them in place, and the caller reads the returned
@@ -176,8 +282,6 @@ class StepProgram(object):
         self.num_slots = int(num_slots)
         self._dtype = np.dtype(dtype)
         self.sampler = sampler if sampler is not None else GreedySampler()
-        if not self.sampler.greedy:
-            raise MXNetError("only the greedy sampler is ported")
         self.state_info = [dict(s) for s in state_info]
         self.state_names = [s["name"] for s in self.state_info]
         self.token_name = token_name
@@ -187,9 +291,10 @@ class StepProgram(object):
                 "+ %d next-state outputs (state_info order)"
                 % (len(step_sym), len(self.state_names)))
         # the spec program needs per-position raw logits (its accept
-        # logic takes the argmax); the plain step keeps the in-graph head
-        head = step_sym[0] if spec is not None else sym.argmax(
-            step_sym[0], axis=1, name="__decode_sample__")
+        # logic samples them), and so does a stochastic sampler; the
+        # greedy step keeps the in-graph head
+        head = step_sym[0] if spec is not None or not self.sampler.greedy \
+            else sym.argmax(step_sym[0], axis=1, name="__decode_sample__")
         self._serve_sym = sym.Group(
             [head] + [step_sym[i] for i in range(1, len(step_sym))])
         arg_names = self._serve_sym.list_arguments()
@@ -217,6 +322,17 @@ class StepProgram(object):
         self.draft_state_keys = []
         if spec is not None:
             self._init_spec(spec, pos_name)
+        # a stochastic sampler's noise: step t draws from a generator
+        # seeded by (seed, t), so draws are a pure function of the seed
+        # and the tick, whatever ran before on the device
+        self._tick = 0
+        seed = getattr(self.sampler, "seed", None)
+        if seed is None:
+            from .. import random as _random
+            seed = int(torch.randint(1 << 62, (1,),
+                                     generator=_random.generator()))
+        self._seed = int(seed)
+        self._gen = None
 
     def _place(self, order, feeds, arg_params, aux_params, what):
         """(flat template with every parameter on the device, {feed name:
@@ -345,6 +461,38 @@ class StepProgram(object):
     def _vec(self, v):
         return torch.tensor(np.asarray(v, np.float32), device=self._device)
 
+    # ------------------------------------------------------------ noise
+    def _next_tick(self):
+        self._tick = (self._tick + 1) & 0x7fffffff
+        return self._tick
+
+    def noise(self, tick):
+        """The generator of one step's draws, seeded by (seed, tick)."""
+        if self._gen is None:
+            self._gen = torch.Generator(device=self._device)
+        self._gen.manual_seed(_mix_seed(self._seed, tick))
+        return self._gen
+
+    def _uniform(self, gen, shape):
+        return torch.rand(shape, generator=gen, device=self._device,
+                          dtype=torch.float32)
+
+    def _gumbel(self, gen, shape):
+        return gumbel(self._uniform(gen, shape))
+
+    def sample_tokens(self, logits):
+        """Sample a ``(rows, vocab)`` logits tensor with this program's
+        sampler on its device: the bucketed prefill's first token (its
+        program returns raw logits for stochastic samplers).  Each call
+        takes a tick, so prefill draws never repeat a step's.  Returns
+        host float32 ids."""
+        if self.sampler.greedy:
+            return torch.argmax(logits, dim=-1).cpu().numpy().astype(
+                np.float32)
+        gen = self.noise(self._next_tick())
+        out = self.sampler.sample(logits, self._gumbel(gen, logits.shape))
+        return out.float().cpu().numpy()
+
     # -------------------------------------------------------------- step
     def _run_target(self, tok, pos, valid, cur, donated):
         flat = list(self._template)
@@ -390,6 +538,10 @@ class StepProgram(object):
             sampled, new_states = self._run_target(
                 self._vec(tokens), self._vec(pos), self._vec(valid), states,
                 donated=self.state_names)
+            tick = self._next_tick()
+            if not self.sampler.greedy:
+                sampled = self.sampler.sample(
+                    sampled, self._gumbel(self.noise(tick), sampled.shape))
             return sampled.cpu().numpy(), new_states
 
     def step_spec(self, tokens, pos, valid, spec, states, reset=None):
@@ -399,6 +551,12 @@ class StepProgram(object):
         exactly one position.  Returns ``(tokens, counts, new_states)``:
         a ``(slots, k+1)`` host token matrix, the per-slot committed
         counts, and the committed state dict.
+
+        Under a stochastic sampler the draft PROPOSES by sampling its
+        distribution and the accept is rejection sampling; the step's
+        noise is drawn in the JAX package's fold-in order: proposal j's
+        Gumbels, then uniform j, for each j, then the fallback Gumbels of
+        every position.
 
         The chains run on working copies of the caches (the executor
         copies an undonated buffer before a cache write), so the commit
@@ -411,24 +569,34 @@ class StepProgram(object):
         cache_t = [n for n, _ in self._cache_t]
         cache_d = [n for n, k in zip(self._d_states, self.draft_state_keys)
                    if k in dict(self._cache_d)]
+        sampler = self.sampler
         with torch.no_grad():
             self._zero_joining(states, reset)
             tok0, pos0 = self._vec(tokens), self._vec(pos)
             valid_t, spec_m = self._vec(valid), self._vec(spec)
+            gen = self.noise(self._next_tick())
             # draft chain: k proposals plus one state-advancing step
-            xs, d_chain = [tok0], []
+            xs, d_chain, dlogits, us = [tok0], [], [], []
             d_rows = {k: [] for k, _ in self._cache_d}
             cur = {k: states[k] for k in self.draft_state_keys}
             for j in range(K):
                 logits, cur = self._run_draft(
                     xs[j], pos0 + float(j), valid_t, cur,
                     donated=cache_d if j else ())
+                dlogits.append(logits)
                 d_chain.append(cur)
                 for key, T in self._cache_d:
                     d_rows[key].append(
                         _spec_mod.gather_row(cur[key], pos0, j, T))
                 if j < K - 1:
-                    xs.append(torch.argmax(logits, dim=1).to(logits.dtype))
+                    if sampler.greedy:
+                        xs.append(torch.argmax(logits, dim=1)
+                                  .to(logits.dtype))
+                    else:
+                        g = self._gumbel(gen, logits.shape)
+                        xs.append(categorical(sampler.spec_logits(logits), g)
+                                  .to(logits.dtype))
+                        us.append(self._uniform(gen, (logits.shape[0],)))
             # target chain: score all K positions
             t_chain, tlogits = [], []
             t_rows = {n: [] for n, _ in self._cache_t}
@@ -442,7 +610,12 @@ class StepProgram(object):
                 for name, T in self._cache_t:
                     t_rows[name].append(
                         _spec_mod.gather_row(cur[name], pos0, j, T))
-            toks, a = _spec_mod.greedy_accept(xs, tlogits)
+            if sampler.greedy:
+                toks, a = _spec_mod.greedy_accept(xs, tlogits)
+            else:
+                fallback = [self._gumbel(gen, L.shape) for L in tlogits]
+                toks, a = _spec_mod.rejection_accept(
+                    xs, tlogits, dlogits, sampler.spec_logits, us, fallback)
             count = torch.where(spec_m > 0, a + 1.0,
                                 torch.ones_like(a))
             idx = (count - 1.0).to(torch.int32)
@@ -477,16 +650,21 @@ class StepProgram(object):
 
     def probe_step(self):
         """One dispatch over an all-zero scratch pool with all-zero
-        feeds; touches no live state.  Two programs built from the same
-        graph must return exactly equal outputs here."""
+        feeds at tick 0; touches no live state and leaves the tick where
+        it was.  Two programs built from the same graph (and seed) must
+        return exactly equal outputs here."""
         z = np.zeros((self.num_slots,), np.float32)
         states = self.init_states()
-        if self._spec is not None:
-            toks, counts, states = self.step_spec(z, z, z, z, states)
-            outs = [toks, counts]
-        else:
-            sampled, states = self.step(z, z, z, states)
-            outs = [sampled]
+        tick, self._tick = self._tick, -1
+        try:
+            if self._spec is not None:
+                toks, counts, states = self.step_spec(z, z, z, z, states)
+                outs = [toks, counts]
+            else:
+                sampled, states = self.step(z, z, z, states)
+                outs = [sampled]
+        finally:
+            self._tick = tick
         keys = list(self.state_names) + list(self.draft_state_keys)
         return outs + [states[k].cpu().numpy() for k in keys]
 
@@ -551,6 +729,8 @@ class DecodeReplica(object):
         # prompt; ineligible slots commit one position per spec step
         self.spec_np = np.zeros((n,), np.float32)
         self.states = program.init_states()
+        self.prefill_caches = {}     # prompt bucket -> ProgramCache
+        self.prefill_buckets = ()
 
     def occupied(self):
         return [i for i, s in enumerate(self.slots) if s is not None]
@@ -571,6 +751,18 @@ class DecodeEngine(object):
     num_slots, max_len : slot-pool geometry (defaults from
         ``MXNET_DECODE_SLOTS`` / ``MXNET_DECODE_MAX_LEN``).
     eos_id : sampling this id ends a request with reason "eos".
+    prefill_sym : optional prompt-consumption graph with outputs
+        ``[logits at the last live position] + state rows`` over the
+        arguments ``prefill_data_name`` ((B, T) prompt ids, T padded onto
+        pow2 buckets) and ``prefill_len_name`` ((B,) live prompt
+        lengths).  Either one length-polymorphic Symbol or a callable
+        ``T -> Symbol``.  Run through one :class:`~.buckets.ProgramCache`
+        per prompt bucket; its state rows are written into the slot.
+        Without it, prompts are teacher-forced token by token.
+    sampler : the token-selection head (default :class:`GreedySampler`);
+        :class:`TemperatureSampler` samples on the device after the step.
+    overload_policy : ``"reject"`` or ``"shed-oldest"`` (default
+        ``MXNET_SERVE_OVERLOAD_POLICY``).
     ctx : the device; the first CUDA card when None (raises without
         one); ``cpu()`` for the CPU.
     draft_sym, draft_arg_params, draft_aux_params, draft_state_info,
@@ -581,7 +773,10 @@ class DecodeEngine(object):
     def __init__(self, step_sym, arg_params, aux_params, state_info,
                  token_name="token", pos_name="pos", valid_name="valid",
                  num_slots=None, max_len=None, eos_id=None,
-                 max_queue=None, default_deadline_ms=None, ctx=None,
+                 prefill_sym=None, prefill_data_name="prompt",
+                 prefill_len_name="plen",
+                 max_queue=None, default_deadline_ms=None,
+                 overload_policy=None, ctx=None,
                  dtype=np.float32, start=True, sampler=None,
                  draft_sym=None, draft_arg_params=None,
                  draft_aux_params=None, draft_state_info=None,
@@ -602,14 +797,23 @@ class DecodeEngine(object):
                 "spec_k=%d needs a draft model: pass draft_sym= (and its "
                 "params/state_info)" % spec_k)
         self._spec_k = spec_k if draft_sym is not None else 0
+        if self._spec_k and sampler is not None and not sampler.greedy \
+                and type(sampler).spec_logits is Sampler.spec_logits:
+            # refused at construction, like every other spec contract
+            # violation, not inside the first step
+            raise MXNetError(
+                "speculative decode needs the sampler's verification "
+                "distribution: %s must implement spec_logits() (see "
+                "TemperatureSampler), or use spec_k=0"
+                % type(sampler).__name__)
         self._sampler = sampler if sampler is not None else GreedySampler()
-        if not self._sampler.greedy:
-            raise MXNetError("only the greedy sampler is ported")
         if max_queue is None:
             max_queue = config.get("MXNET_SERVE_MAX_QUEUE")
         if default_deadline_ms is None:
             default_deadline_ms = config.get(
                 "MXNET_SERVE_DEFAULT_DEADLINE_MS")
+        if overload_policy is None:
+            overload_policy = config.get("MXNET_SERVE_OVERLOAD_POLICY")
         if num_slots < 1:
             raise MXNetError("num_slots must be >= 1, got %d" % num_slots)
         self.num_slots = int(num_slots)
@@ -657,12 +861,37 @@ class DecodeEngine(object):
                 pos_name=pos_name, valid_name=valid_name)
             self._spec_cfg.build(self.num_slots, state_info, dtype,
                                  device=self._ctx.device)
+        self._prefill_data_name = prefill_data_name
+        self._prefill_len_name = prefill_len_name
+        self._coalesce = bool(config.get("MXNET_DECODE_COALESCE_PREFILL"))
+        self._prefill_dispatches = 0
+        # prompt buckets: pow2 up to max_len; coalesced prefill also
+        # dispatches at pow2 BATCH buckets, serial prefill at batch 1
+        prefill_buckets = ()
+        if prefill_sym is not None:
+            prefill_buckets = tuple(1 << i for i in range(
+                _next_pow2(self.max_len).bit_length()))
+        self._prefill_batches = (tuple(1 << i for i in range(
+            _next_pow2(self.num_slots).bit_length()))
+            if self._coalesce else (1,))
+        self.memory_plan = None
+        if config.get("MXNET_MEMORY_PLAN") \
+                and config.get("MXNET_ANALYSIS_ON"):
+            self._memory_preflight(
+                step_sym, state_info, arg_params, aux_params, token_name,
+                pos_name, valid_name, prefill_sym, prefill_buckets,
+                draft_sym, draft_state_info, draft_arg_params,
+                draft_aux_params, config.get("MXNET_ANALYSIS_STRICT"))
         self._rep = DecodeReplica(StepProgram(
             step_sym, arg_params, aux_params, state_info, self.num_slots,
             token_name=token_name, pos_name=pos_name,
             valid_name=valid_name, ctx=self._ctx, dtype=dtype,
             sampler=self._sampler, spec=self._spec_cfg))
-        self._adm = AdmissionController(max_queue=max_queue)
+        if prefill_sym is not None:
+            self._attach_prefill(self._rep, prefill_sym, arg_params,
+                                 aux_params, dtype, prefill_buckets)
+        self._adm = AdmissionController(max_queue=max_queue,
+                                        overload_policy=overload_policy)
         self._lock = threading.Lock()
         self._tasks = collections.deque()
         self._step_ms = collections.deque(maxlen=4096)
@@ -680,6 +909,44 @@ class DecodeEngine(object):
     @property
     def program(self):
         return self._rep.program
+
+    def _attach_prefill(self, rep, prefill_sym, arg_params, aux_params,
+                        dtype, buckets):
+        """One prefill ProgramCache per prompt bucket: a callable
+        ``T -> Symbol`` is built once per bucket (an unrolled graph bakes
+        its length in); a Symbol is one length-polymorphic graph that
+        every bucket shares."""
+        rep.prefill_buckets = tuple(buckets)
+        if not isinstance(prefill_sym, sym.Symbol) and callable(prefill_sym):
+            for b in buckets:
+                rep.prefill_caches[b] = self._build_prefill(
+                    prefill_sym(b), arg_params, aux_params, dtype,
+                    rep.program)
+        else:
+            shared = self._build_prefill(prefill_sym, arg_params,
+                                         aux_params, dtype, rep.program)
+            for b in buckets:
+                rep.prefill_caches[b] = shared
+
+    def _build_prefill(self, psym, arg_params, aux_params, dtype, program):
+        """Wrap one prefill graph with the sampling head: outputs become
+        [first sampled token id] + state rows under the greedy head, or
+        [last-position logits] + state rows for a stochastic sampler
+        (sampled on the device by ``StepProgram.sample_tokens``, from the
+        step's noise stream)."""
+        if len(psym) != 1 + len(program.state_names):
+            raise MXNetError(
+                "prefill graph has %d outputs; expected 1 (logits at "
+                "the last valid position) + %d state rows"
+                % (len(psym), len(program.state_names)))
+        head = (sym.argmax(psym[0], axis=1,
+                           name="__decode_prefill_sample__")
+                if self._sampler.greedy else psym[0])
+        wrapped = sym.Group([head] + [psym[i] for i in range(1, len(psym))])
+        return ProgramCache(
+            wrapped, arg_params, aux_params,
+            data_names=[self._prefill_data_name, self._prefill_len_name],
+            ctx=self._ctx, dtype=dtype)
 
     def _check_draft_heads(self, step_sym, draft_sym, state_info,
                            draft_state_info, token_name, pos_name,
@@ -760,6 +1027,168 @@ class DecodeEngine(object):
                           "MXNET_ANALYSIS_STRICT=0; decoded output "
                           "WILL differ from single-request decode")
         return verdict, report
+
+    def _memory_preflight(self, step_sym, state_info, arg_params,
+                          aux_params, token_name, pos_name, valid_name,
+                          prefill_sym, prefill_buckets, draft_sym,
+                          draft_state_info, draft_arg_params,
+                          draft_aux_params, strict):
+        """The OOM preflight and the donation gate (analysis/memory.py).
+
+        The step program is priced at slot-pool shapes with the pool's
+        state-for-state donation (state ``i`` aliases output ``1+i``, as
+        the step donates its state buffers); an UNSOUND donation (a state
+        read by a node not ordered before its aliasing next-state write)
+        warns with the node named, or raises under strict.  A speculative
+        engine prices the draft step on top (both models and pools are
+        resident in a dispatch).  Prefill is priced at its largest
+        (batch, prompt) bucket PLUS the resident slot pool.  Over the
+        device budget warns naming the program, its bytes and how many
+        slots would fit; ``MXNET_ANALYSIS_STRICT=1`` raises.  All before
+        any program runs."""
+        from ..analysis import AnalysisError
+        from ..analysis.memory import (plan_memory, plan_digest,
+                                       device_memory_budget, format_bytes)
+        try:
+            n = self.num_slots
+
+            def price_step(sym_, infos, a_params, x_params):
+                arg_names = set(sym_.list_arguments())
+                shapes = {token_name: (n,)}
+                donate, names = {}, []
+                for i, info in enumerate(infos):
+                    shapes[info["name"]] = (n,) + tuple(info["shape"])
+                    names.append(info["name"])
+                    donate[info["name"]] = 1 + i
+                for extra in (pos_name, valid_name):
+                    if extra in arg_names:
+                        shapes[extra] = (n,)
+                dtypes = {k: self._dtype for k in shapes}
+                for src in (a_params or {}), (x_params or {}):
+                    for k, v in src.items():
+                        dt = getattr(v, "dtype", None)
+                        if dt is not None:
+                            dtypes.setdefault(k, dt)
+                plan, _rep = plan_memory(sym_, shapes, dtypes=dtypes,
+                                         donate=donate, state_names=names)
+                return plan
+
+            plan = price_step(step_sym, state_info, arg_params, aux_params)
+            if not plan:
+                return
+            dplan = None
+            if self._spec_k and draft_sym is not None:
+                dplan = price_step(draft_sym, draft_state_info or [],
+                                   draft_arg_params, draft_aux_params)
+            # the slot pool the step's inputs already hold stays resident
+            # under prefill too
+            pool = sum(int(np.prod((n,) + tuple(info["shape"])))
+                       * self._dtype.itemsize for info in state_info)
+            per_slot = pool // n
+
+            def row(label, p):
+                return {"program": label,
+                        "peak_bytes": p["peak_bytes"],
+                        "param_bytes": p["param_bytes"],
+                        "transient_peak_bytes": p["transient_peak_bytes"],
+                        "inplace_savings_bytes":
+                            p["inplace_savings_bytes"]}
+
+            programs = [row("step", plan)]
+            need = plan["peak_bytes"]
+            offender = "step"
+            donation = {"step": plan["donation"]}
+            if dplan:
+                programs.append(row("draft", dplan))
+                need += dplan["peak_bytes"]
+                offender = "step+draft"
+                donation["draft"] = dplan["donation"]
+            if prefill_sym is not None and prefill_buckets:
+                b_top = max(prefill_buckets)
+                bb = max(self._prefill_batches)
+                psym = prefill_sym
+                if not isinstance(psym, sym.Symbol) and callable(psym):
+                    psym = psym(b_top)
+                parg = set(psym.list_arguments())
+                pshapes = {}
+                if self._prefill_data_name in parg:
+                    pshapes[self._prefill_data_name] = (bb, b_top)
+                if self._prefill_len_name in parg:
+                    pshapes[self._prefill_len_name] = (bb,)
+                pdtypes = {}
+                for src in (arg_params or {}), (aux_params or {}):
+                    for k, v in src.items():
+                        dt = getattr(v, "dtype", None)
+                        if dt is not None:
+                            pdtypes.setdefault(k, dt)
+                pplan, _rep = plan_memory(psym, pshapes, dtypes=pdtypes)
+                if pplan:
+                    label = "prefill[b%dxT%d]" % (bb, b_top)
+                    r = row(label, pplan)
+                    r["peak_bytes"] = pplan["peak_bytes"] + pool
+                    programs.append(r)
+                    if r["peak_bytes"] > need:
+                        need = r["peak_bytes"]
+                        offender = label
+            mem = {
+                "enabled": True,
+                "programs": programs,
+                "predicted_peak_bytes": need,
+                "param_bytes": plan["param_bytes"],
+                "pool_bytes": pool,
+                "per_slot_bytes": per_slot,
+                "offender": offender,
+                "sharded": False,
+                "donation": donation,
+            }
+            mem["digest"] = plan_digest(
+                {k: mem[k] for k in ("programs", "predicted_peak_bytes",
+                                     "sharded", "donation")})
+            budget = device_memory_budget(self._ctx)
+            mem["budget_bytes"] = budget
+            mem["budget_ok"] = (None if budget is None else need <= budget)
+            mem["max_slots_fit"] = (
+                max(0, int((budget - (need - pool)) // per_slot))
+                if budget is not None and per_slot > 0 else None)
+            self.memory_plan = mem
+            bad = [(label, d) for label, d in sorted(donation.items())
+                   if d is not None and not d["accepted"]]
+            if bad:
+                detail = "\n".join(
+                    "  [%s] %s" % (label, reason)
+                    for label, d in bad for reason in d["reasons"])
+                msg = ("[memory] DecodeEngine slot-pool donation is "
+                       "UNSOUND — an in-place next-state write would "
+                       "clobber a state buffer before its last read:"
+                       "\n%s" % detail)
+                if strict:
+                    raise AnalysisError(msg)
+                warnings.warn(msg + "\ncontinuing because "
+                              "MXNET_ANALYSIS_STRICT=0; the engine "
+                              "does NOT donate these buffers safely")
+            if mem["budget_ok"] is False:
+                fit = mem["max_slots_fit"]
+                msg = ("DecodeEngine memory preflight: program %r "
+                       "predicts peak %s (slot pool %s for %d slots "
+                       "+ params %s) but the device budget is %s — "
+                       "the warm set cannot fit%s; shrink num_slots/"
+                       "max_len or raise MXNET_MEMORY_BUDGET_BYTES "
+                       "(priced before any program runs)"
+                       % (offender, format_bytes(need),
+                          format_bytes(pool), n,
+                          format_bytes(plan["param_bytes"]),
+                          format_bytes(budget),
+                          (" (at most %d slots fit)" % fit
+                           if fit is not None else "")))
+                if strict:
+                    raise AnalysisError("[memory] " + msg)
+                warnings.warn(msg)
+        except AnalysisError:
+            raise
+        except Exception as e:      # planner crash must never block
+            warnings.warn("DecodeEngine: memory preflight crashed "
+                          "(%r); continuing without a memory plan"
+                          % (e,))
 
     def _optimize_step(self, step_sym, state_info, token_name, pos_name,
                        valid_name, what="step"):
@@ -867,6 +1296,11 @@ class DecodeEngine(object):
         fut = Future()
         req = DecodeRequest(prompt, max_new_tokens, fut, deadline=deadline,
                             on_token=on_token)
+        # padded-element price for the cost-ranked shed: the bucketed
+        # prompt plus what the generation can occupy, k + 1 target
+        # positions a token under speculation
+        req.cost = int(_next_pow2(len(prompt))
+                       + max_new_tokens * (self._spec_k + 1))
         # a deadline hit while queued COMPLETES the request with what it
         # has (nothing yet), as one hit mid-generation does
         req.on_expire = lambda exc, r=req: DecodeResult(
@@ -936,21 +1370,100 @@ class DecodeEngine(object):
                     v.fill(0.0)
 
     def _join_many(self, rep, reqs):
-        """Seat admitted requests in free slots BETWEEN steps: mark each
-        slot's state rows for zeroing at the next step, stage the first
-        prompt token, mark the slot valid."""
-        for req in reqs:
-            if not self._seat_slot(rep, req):
-                continue
-            slot = req.slot
-            rep.reset_np[slot] = 1.0
-            rep.tokens_np[slot] = req.prompt[0]
-            rep.pos_np[slot] = 0.0
-            req.prompt_i = 1
-            # spec eligibility starts with the first sampling step, the
-            # one that consumes the last prompt token
-            rep.spec_np[slot] = (1.0 if req.prompt_i >= len(req.prompt)
-                                 else 0.0)
+        """Seat admitted requests in free slots BETWEEN steps.  Without a
+        prefill graph: mark each slot's state rows for zeroing at the
+        next step, stage the first prompt token, mark the slot valid.
+        With one, prefill: coalesced, one dispatch per prompt bucket for
+        every joiner of this iteration whose prompt pads into it; serial
+        (``MXNET_DECODE_COALESCE_PREFILL=0``), one batch-1 dispatch per
+        joiner, through the same code path."""
+        seated = [req for req in reqs if self._seat_slot(rep, req)]
+        if not seated:
+            return
+        if rep.prefill_caches:
+            groups = []                 # [(bucket, [reqs])], seat order
+            for req in seated:
+                b = next(bk for bk in rep.prefill_buckets
+                         if bk >= len(req.prompt))
+                g = next((g for g in groups if g[0] == b),
+                         None) if self._coalesce else None
+                if g is None:
+                    groups.append((b, [req]))
+                else:
+                    g[1].append(req)
+            for b, grp in groups:
+                self._prefill_group(rep, b, grp)
+        else:
+            for req in seated:
+                slot = req.slot
+                rep.reset_np[slot] = 1.0
+                rep.tokens_np[slot] = req.prompt[0]
+                rep.pos_np[slot] = 0.0
+                req.prompt_i = 1
+                # spec eligibility starts with the first sampling step,
+                # the one that consumes the last prompt token
+                rep.spec_np[slot] = (1.0 if req.prompt_i
+                                     >= len(req.prompt) else 0.0)
+        for req in seated:
+            if req.slot is not None and rep.slots[req.slot] is req:
+                self._check_finish(rep, req.slot)
+
+    def _prefill_group(self, rep, bucket, group):
+        """Every joiner whose prompt pads into ``bucket`` rides ONE
+        dispatch at the next pow2 batch extent (dead rows padded with
+        zero prompts and length 0, the rows warmup feeds); each request's
+        state rows are written into its slot.  A failed dispatch fails
+        the group's requests and nothing else."""
+        bb = next(b for b in self._prefill_batches if b >= len(group))
+        arr = np.zeros((bb, bucket), np.float32)
+        lens = np.zeros((bb,), np.float32)
+        for r_i, req in enumerate(group):
+            plen = len(req.prompt)
+            arr[r_i, :plen] = req.prompt
+            lens[r_i] = plen
+        try:
+            outs = rep.prefill_caches[bucket].run(
+                {self._prefill_data_name: arr,
+                 self._prefill_len_name: lens}, host=False)
+            with self._lock:
+                self._prefill_dispatches += 1
+            with torch.no_grad():
+                if self._sampler.greedy:
+                    first = outs[0].float().cpu().numpy()
+                else:
+                    first = rep.program.sample_tokens(outs[0])
+            rows_all = outs[1:]
+        except Exception as e:
+            for req in group:
+                self._fail_seated(rep, req, e)
+            return
+        for r_i, req in enumerate(group):
+            rows = {name: rows_all[i][r_i]
+                    for i, name in enumerate(rep.program.state_names)}
+            self._commit_prefill(rep, req, rows, first[r_i])
+
+    def _commit_prefill(self, rep, req, rows, first):
+        """Write one request's prefill state rows into its slot and
+        deliver its first generated token."""
+        slot = req.slot
+        rep.states = rep.program.write_row(rep.states, slot, rows)
+        if self._spec_k:
+            # the prefill graph made TARGET rows only; the draft never
+            # saw this prompt and must not read the previous occupant's
+            # rows: start it cold (its quality moves the accept rate,
+            # never the stream)
+            rep.states = rep.program.zero_row(rep.states, slot,
+                                              which="draft")
+            rep.spec_np[slot] = 1.0
+        rep.reset_np[slot] = 0.0        # prefill rows are live data
+        req.prompt_i = len(req.prompt)
+        req.tokens.append(int(first))
+        rep.tokens_np[slot] = first
+        rep.pos_np[slot] = float(len(req.prompt))
+        with self._lock:
+            self._tokens_out += 1
+        if req.on_token is not None:
+            self._fire_on_token(rep, req, int(first))
 
     def _seat_slot(self, rep, req):
         """Claim a free slot for one admitted request; False when the
@@ -1159,24 +1672,37 @@ class DecodeEngine(object):
 
     def _warm(self):
         z = np.zeros((self.num_slots,), np.float32)
-        prog = self._rep.program
+        rep = self._rep
+        prog = rep.program
         states = prog.zero_row(prog.init_states(), 0)
         for _ in range(2):
             if self._spec_k:
                 _t, _c, states = prog.step_spec(z, z, z, z, states)
             else:
                 _s, states = prog.step(z, z, z, states)
+        # the whole (prompt bucket x batch bucket) prefill grid: every
+        # shape live joiners can meet
+        for b in rep.prefill_buckets:
+            for bb in self._prefill_batches:
+                rep.prefill_caches[b].run(
+                    {self._prefill_data_name: np.zeros((bb, b), np.float32),
+                     self._prefill_len_name: np.zeros((bb,), np.float32)},
+                    host=False)
         if self._ctx.device.type == "cuda":
             torch.cuda.synchronize(self._ctx.device)
         return self.programs_built
 
     @property
     def programs_built(self):
-        """Graph functions the engine's step program built (step, draft,
-        commit).  The reference counts XLA traces here; the port builds
-        its programs once, at construction, and a test pins that churn
-        builds none."""
-        return self._rep.program.build_count
+        """Graph functions the engine built: the step program's (step,
+        draft, commit), all at construction, plus one per prefill bucket
+        signature dispatched.  The JAX package counts XLA traces here; a
+        test pins that churn after warmup builds none."""
+        n = self._rep.program.build_count
+        for cache in {id(c): c
+                      for c in self._rep.prefill_caches.values()}.values():
+            n += cache.compile_count
+        return n
 
     def _spec_stats(self):
         """The ``stats()["decode"]["spec"]`` block — caller holds
@@ -1208,10 +1734,12 @@ class DecodeEngine(object):
     def stats(self):
         """Admission counters plus the ``decode`` block: slot-pool
         geometry and occupancy, step/token/join/leave/eviction counts,
-        the selection and its gate, and per-step and end-to-end latency
+        the memory plan, the prefill grid and its dispatches, the
+        selection and its gate, and per-step and end-to-end latency
         percentiles (ms)."""
         snap = self._adm.stats()
         plan = self.opt_plan
+        mem = _memory_stats_block(self.memory_plan, self._ctx)
         with self._lock:
             step = sorted(self._step_ms)
             lat = sorted(self._lat_ms)
@@ -1228,6 +1756,12 @@ class DecodeEngine(object):
                 "requests_served": self._requests_served,
                 "programs_built": self.programs_built,
                 "sampler": self._sampler.describe(),
+                "memory": mem,
+                "prefill": "bucket" if self._rep.prefill_caches else "step",
+                "prefill_buckets": list(self._rep.prefill_buckets),
+                "prefill_coalesced": self._coalesce,
+                "prefill_batch_buckets": list(self._prefill_batches),
+                "prefill_dispatches": self._prefill_dispatches,
                 "analysis": {
                     "step_verdict": self.step_verdict,
                     "draft_verdict": self.draft_verdict,

@@ -1,12 +1,15 @@
-"""Speculative draft-k-verify decoding, greedy: the engine-side bundle.
+"""Speculative draft-k-verify decoding: the engine-side bundle.
 
-Counterpart of ``mxnet_tpu/serving/spec.py`` (its greedy half; the
-rejection sampler and TemperatureSampler are not ported).  Per scheduler
-iteration a cheap DRAFT model proposes ``k`` continuation tokens, the
-TARGET model scores all ``k+1`` positions, and a slot commits the prefix
-of proposals that equal the target's own argmax plus the target's next
-token: the emitted stream is the exact ``greedy_decode`` stream whatever
-the draft proposes (the draft moves throughput, never content).
+Counterpart of ``mxnet_tpu/serving/spec.py``.  Per scheduler iteration a
+cheap DRAFT model proposes ``k`` continuation tokens, the TARGET model
+scores all ``k+1`` positions, and a slot commits the accepted prefix of
+proposals plus one token of the target's.  Under the greedy sampler a
+proposal is accepted when it equals the target's own argmax, so the
+emitted stream is the exact ``greedy_decode`` stream whatever the draft
+proposes (the draft moves throughput, never content).  Under a
+stochastic sampler the draft samples its proposals and
+:func:`rejection_accept` accepts each with probability ``min(1, p/q)``,
+so the emitted stream is distributed as the single-token sampler's.
 
 Per-slot KV caches commit ONLY the accepted tokens.  This module builds
 the symbolic COMMIT graph — per declared cache state, a chain of K
@@ -27,7 +30,8 @@ from ..base import MXNetError
 from ..context import default_context
 
 __all__ = ["SpecConfig", "build_commit_sym", "select_commit",
-           "greedy_accept", "commit_select", "gather_rows"]
+           "greedy_accept", "rejection_accept", "commit_select",
+           "gather_rows"]
 
 
 def _draft_key(name):
@@ -220,6 +224,59 @@ def greedy_accept(xs, tlogits):
         a = torch.zeros((toks.shape[0],), dtype=torch.float32,
                         device=toks.device)
     return toks, a
+
+
+def rejection_accept(xs, tlogits, dlogits, transform, uniforms, gumbels):
+    """Standard speculative rejection sampling (Leviathan/Chen), with its
+    noise given: proposal ``x_j ~ q_j`` is accepted with probability
+    ``min(1, p_j(x_j) / q_j(x_j))`` (``uniforms[j] <`` that), the first
+    rejection at position j emits a draw from ``norm(max(p_j - q_j,
+    0))`` instead, and k accepts earn one bonus draw from ``p_k``; the
+    position-i draw is Gumbel-max with ``gumbels[i]``.  ``transform``
+    maps raw logits to the sampler's log-space distribution (temperature,
+    top-k mask), applied alike to both models.  ``xs`` is the draft's
+    input chain (``xs[0]`` the staged token, ``xs[1..k]`` the
+    proposals).  Returns ``(toks, a)``: the (N, K) emitted tokens and the
+    (N,) accepted count, in the logits' dtype and float32."""
+    from .decode import categorical
+    K = len(tlogits)
+    N = tlogits[0].shape[0]
+    dt = tlogits[0].dtype
+    zt = [transform(L) for L in tlogits]
+    p = torch.stack([torch.softmax(z, dim=-1) for z in zt], dim=1)
+    q = None
+    if K > 1:
+        zq = [transform(d) for d in dlogits[:K - 1]]
+        q = torch.stack([torch.softmax(z, dim=-1) for z in zq], dim=1)
+        xi = torch.stack([x.long() for x in xs[1:K]], dim=1)[..., None]
+        px = torch.gather(p[:, :K - 1], 2, xi)[..., 0]
+        qx = torch.gather(q, 2, xi)[..., 0]
+        ratio = torch.where(qx > 0, px / torch.where(qx > 0, qx,
+                                                     torch.ones_like(qx)),
+                            torch.zeros_like(qx))
+        us = torch.stack(list(uniforms), dim=1)
+        accept = (us < torch.clamp(ratio, max=1.0)).to(torch.float32)
+        a = torch.cumprod(accept, dim=1).sum(dim=1)
+    else:
+        a = torch.zeros((N,), dtype=torch.float32, device=p.device)
+    cols = []
+    for i in range(K):
+        if i < K - 1:
+            # the residual at the first rejection: the part of p the
+            # draft under-covered; an all-zero residual (p == q) falls
+            # back to p, as in the JAX package
+            r = torch.clamp(p[:, i] - q[:, i], min=0.0)
+            rs = r.sum(dim=-1, keepdim=True)
+            logr = torch.where(r > 0, torch.log(torch.where(
+                r > 0, r, torch.ones_like(r))),
+                torch.full_like(r, -float("inf")))
+            logits_i = torch.where(rs > 0, logr, zt[i])
+        else:
+            logits_i = zt[i]
+        fresh = categorical(logits_i, gumbels[i]).to(dt)
+        acc_tok = xs[i + 1].to(dt) if i < K - 1 else fresh
+        cols.append(torch.where(a > i, acc_tok, fresh))
+    return torch.stack(cols, dim=1), a
 
 
 def commit_select(chain, idx):
