@@ -2,7 +2,11 @@
 """Drive the PyTorch port on one CUDA card and fail loudly.
 
     python3 chip_smoke.py [--seed N] [--requests N] [--clients N]
-                          [--train-steps N] [--json PATH]
+                          [--train-steps N] [--json PATH] [--phase N]
+
+``--phase N`` runs phases 1-3 and then phase N alone (16 and 17 also
+phase 9, whose decoder they read), and prints no kernel table; without
+it every phase runs.
 
 Phases (none catches its own failure; there is no CPU path):
 
@@ -262,7 +266,44 @@ Phases (none catches its own failure; there is no CPU path):
    ``greedy_decode``'s, fewer step dispatches with prefill; the decode
    memory preflight beside ``max_memory_allocated``.  One JSON line
    ``{"serving": {...}}`` sums it up;
-18. the kernel table (K1-K11) as one JSON line, then the result line
+18. telemetry (``mxnet_tpu_torch.telemetry`` and ``profiler``): (a) phase
+   4's fused ResNet-50 (224x224) served by a ``ServingEngine`` built with
+   telemetry off (its 32 staged requests must move no instrument) and
+   one with it on, the HTTP server on port 0: every route answers 200
+   (``/events`` opens its stream), the request and batch counters and
+   the latency histogram's count equal ``stats()``, a served request's
+   span tree is queue-wait, coalesce, pad, dispatch, unpad, the measured
+   memory-peak gauge equals ``max_memory_allocated``, the fused graph is
+   left unpriced (an empty FLOPs ledger, every dispatch counted under
+   ``mxnet_serve_unpriced_dispatches_total``) while the plain graph of
+   the same model, served one batch of 8, has a ledger equal to
+   ``count_flops`` of its served graph, K1-K3 launch 12 times a batch
+   and the probabilities equal the telemetry-off engine's bit for bit.
+   (b) phase 5's fit (batch 32, MXNET_CONV1X1_FUSED_BWD=1, cuDNN
+   deterministic) for 16 steps with telemetry on: the phases' self-times
+   cover at least 95% of the step wall, the fused graph is left unpriced (its units fall to
+   ``count_flops``'s default rule, so no step FLOPs or MFU gauge), MFU is
+   ``count_flops(..., training=True)`` of the plain graph of the same
+   model against ``peak_flops_for`` (989 TFLOP/s on the H100 SXM), the
+   program-build counter is flat after step 1, one step compiles,
+   K1/K2/K3/K5/K6/K8 launch 12/12/12/24/12/3 a step, and every fit of
+   (e) gives the same parameters bit for bit.  (c) phase 9's decoder at
+   k = 0 (an untimed run, then the pairs of (e)) and k = 2: the token and
+   step counters equal ``stats()`` (0 with telemetry off), K9/K10 launch
+   as the graphs imply, every request's tokens equal the untimed run's.
+   (d) ``start_xla_trace``/``stop_xla_trace`` around one served batch
+   hold CUDA events of ``fmma::mma_kernel`` for K1-K3's launches, and
+   ``dump_profile()`` after one Executor step holds its ``forward``,
+   ``forward_backward`` and ``update`` spans.  (e) telemetry on against
+   off in 10 pairs of turns, the order alternating, each turn on an engine
+   or Module of its own and with telemetry off no thread of the plane
+   alive and no instrument moved: serving latency p50/p99 and images/s
+   (bursts of 128 requests from 4 clients, 6 a turn), decode tokens/s
+   (the jobs 3 times a turn) and the fit's step ms (steps 2-16); each
+   setting's median, each pair's difference, and whether a sign test
+   over the pairs resolves it (p < 0.05).  One JSON line
+   ``{"telemetry": {...}}`` sums it up;
+19. the kernel table (K1-K11) as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -4654,9 +4695,17 @@ def main():
     ap.add_argument("--train-steps", type=int, default=6)
     ap.add_argument("--json", metavar="PATH",
                     help="also write every measurement to this file")
+    ap.add_argument("--phase", type=int, choices=range(4, 19),
+                    metavar="N",
+                    help="run phases 1-3 and then phase N alone (4-18; "
+                         "16 and 17 also run phase 9, whose decoder they "
+                         "read); no kernel table")
     opts = ap.parse_args()
     if opts.train_steps < 2:
         sys.exit("chip_smoke: --train-steps must be at least 2")
+
+    def want(n):
+        return opts.phase is None or opts.phase == n
 
     import torch
     if not torch.cuda.is_available():
@@ -4697,7 +4746,7 @@ def main():
     bwd_rows = bwd_kernel_phase(torch, fu, nn, device, opts.seed)
 
     serve = {}
-    for mode in ("2d", "4d"):
+    for mode in ("2d", "4d") if want(4) else ():
         log("[4%s] serve ResNet-50 224x224 from a checkpoint on %s, the "
             "units' 3x3 %s" % ("a" if mode == "2d" else "b", name,
                                "in the row layout (K3)" if mode == "2d"
@@ -4722,91 +4771,121 @@ def main():
                 steady["images_per_s"], card))
         log_profile("one batch-8 forward, %s" % mode, prof, card)
 
-    log("[5] train ResNet-50 224x224 through Module.fit on %s, batch %d, "
-        "%d steps, the units' 3x3 in the row layout (K3/K6) and on 4D tiles "
-        "(K4/K7)" % (name, TRAIN_BATCH, opts.train_steps))
-    train = train_phase(torch, mt, fu, nn, kv, opts.seed, opts.train_steps,
-                        card)
+    train = bench = imagenet = kv_rows = decode = imp = rtc = mnist = None
+    gluon = rnn = ssd = analysis = serving = telemetry = None
+    if want(5):
+        log("[5] train ResNet-50 224x224 through Module.fit on %s, batch "
+            "%d, %d steps, the units' 3x3 in the row layout (K3/K6) and on "
+            "4D tiles (K4/K7)" % (name, TRAIN_BATCH, opts.train_steps))
+        train = train_phase(torch, mt, fu, nn, kv, opts.seed,
+                            opts.train_steps, card)
 
-    log("[6] bench.py's step: ResNet-50 224x224 in bfloat16 at batch %d "
-        "through bench_step.TrainStep on %s, stem fused, %s"
-        % (BENCH_BATCH, name, ", ".join(BENCH_CONFIGS)))
-    bench = bench_phase(torch, mt, fu, nn, kv, opts.seed, card)
+    if want(6):
+        log("[6] bench.py's step: ResNet-50 224x224 in bfloat16 at batch "
+            "%d through bench_step.TrainStep on %s, stem fused, %s"
+            % (BENCH_BATCH, name, ", ".join(BENCH_CONFIGS)))
+        bench = bench_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    log("[7] examples/train_imagenet.py: ImageRecordIter over raw records "
-        "and Module.fit of ResNet-50 224x224 in f32 at batch %d on %s, "
-        "unit_impl plain and fused; bench.py's step fed by the pipeline"
-        % (IMAGENET_BATCH, name))
-    imagenet = imagenet_phase(torch, mt, fu, nn, kv, opts.seed, card)
+    if want(7):
+        log("[7] examples/train_imagenet.py: ImageRecordIter over raw "
+            "records and Module.fit of ResNet-50 224x224 in f32 at batch %d "
+            "on %s, unit_impl plain and fused; bench.py's step fed by the "
+            "pipeline" % (IMAGENET_BATCH, name))
+        imagenet = imagenet_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    log("[8] K9/K10 against their plain versions: slots %s, max_len %s, "
-        "d %d, window %d" % (KV_SLOTS, KV_T, DECODER["d"], KV_WINDOW))
-    kv_rows = kv_phase(torch, kv, device, opts.seed)
+    if want(8):
+        log("[8] K9/K10 against their plain versions: slots %s, max_len "
+            "%s, d %d, window %d" % (KV_SLOTS, KV_T, DECODER["d"],
+                                     KV_WINDOW))
+        kv_rows = kv_phase(torch, kv, device, opts.seed)
 
-    log("[9] decode: the attention decoder (vocab %d, d %d, %d blocks, "
-        "max_len %d) through DecodeEngine on %s, %d slots, %d requests, "
-        "k = 0, %s" % (DECODER["vocab"], DECODER["d"], DECODER["layers"],
-                       DECODER["max_len"], name, DECODE_SLOTS,
-                       DECODE_REQUESTS, ", ".join(map(str, SPEC_KS))))
-    decode = decode_phase(torch, mt, fu, nn, kv, opts.seed, card)
+    if want(9) or opts.phase in (16, 17):
+        log("[9] decode: the attention decoder (vocab %d, d %d, %d blocks, "
+            "max_len %d) through DecodeEngine on %s, %d slots, %d requests, "
+            "k = 0, %s" % (DECODER["vocab"], DECODER["d"],
+                           DECODER["layers"], DECODER["max_len"], name,
+                           DECODE_SLOTS, DECODE_REQUESTS,
+                           ", ".join(map(str, SPEC_KS))))
+        decode = decode_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    log("[10] the imperative path: mt.nd._contrib_FusedBottleneckUnit at "
-        "the four stage shapes at batch %d under autograd.record(), 4d, "
-        "against the Executor" % TRAIN_BATCH)
-    imp = imperative_phase(torch, mt, fu, nn, kv, opts.seed, card)
+    if want(10):
+        log("[10] the imperative path: mt.nd._contrib_FusedBottleneckUnit "
+            "at the four stage shapes at batch %d under autograd.record(), "
+            "4d, against the Executor" % TRAIN_BATCH)
+        imp = imperative_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    log("[11] rtc: CUDA C++ written at run time through rtc.CudaModule and "
-        "register_kernel_op")
-    rtc = rtc_phase(torch, mt, fu, nn, kv, opts.seed, card)
+    if want(11):
+        log("[11] rtc: CUDA C++ written at run time through rtc.CudaModule "
+            "and register_kernel_op")
+        rtc = rtc_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    log("[12] examples/train_mnist.py: LeNet through Module.fit on %s, "
-        "batch %d, every optimizer against the port on the CPU, a resumed "
-        "checkpoint, a Monitor" % (name, MNIST_BATCH))
-    mnist = mnist_phase(torch, mt, fu, nn, kv, opts.seed, card)
+    if want(12):
+        log("[12] examples/train_mnist.py: LeNet through Module.fit on %s, "
+            "batch %d, every optimizer against the port on the CPU, a "
+            "resumed checkpoint, a Monitor" % (name, MNIST_BATCH))
+        mnist = mnist_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    log("[13] Gluon: model_zoo %s (%d classes, %dx%d NCHW) trained "
-        "imperatively and hybridized on %s at batch %d; the fused symbolic "
-        "ResNet-50 as a SymbolBlock" % (GLUON_FAMILY, GLUON_CLASSES,
-                                        GLUON_IMAGE, GLUON_IMAGE, name,
-                                        GLUON_BATCH))
-    gluon = gluon_phase(torch, mt, fu, nn, kv, opts.seed, card)
+    if want(13):
+        log("[13] Gluon: model_zoo %s (%d classes, %dx%d NCHW) trained "
+            "imperatively and hybridized on %s at batch %d; the fused "
+            "symbolic ResNet-50 as a SymbolBlock"
+            % (GLUON_FAMILY, GLUON_CLASSES, GLUON_IMAGE, GLUON_IMAGE, name,
+               GLUON_BATCH))
+        gluon = gluon_phase(torch, mt, fu, nn, kv, opts.seed, card)
 
-    log("[14] RNN: examples/rnn_ptb.py's bucketed LSTM (hidden %d, embed "
-        "%d, %d layers, batch %d, buckets %s) through BucketingModule on %s; "
-        "PTB's vocabulary (%d) through the fused RNN op; gluon.rnn.LSTM"
-        % (RNN_HIDDEN, RNN_EMBED, RNN_LAYERS, RNN_BATCH, RNN_BUCKETS, name,
-           PTB_VOCAB))
-    t0 = time.perf_counter()
-    rnn = rnn_phase(torch, mt, fu, nn, kv, opts.seed, card)
-    rnn["phase_s"] = time.perf_counter() - t0
-    log("  phase 14 took %.1f s" % rnn["phase_s"])
+    if want(14):
+        log("[14] RNN: examples/rnn_ptb.py's bucketed LSTM (hidden %d, "
+            "embed %d, %d layers, batch %d, buckets %s) through "
+            "BucketingModule on %s; PTB's vocabulary (%d) through the fused "
+            "RNN op; gluon.rnn.LSTM" % (RNN_HIDDEN, RNN_EMBED, RNN_LAYERS,
+                                        RNN_BATCH, RNN_BUCKETS, name,
+                                        PTB_VOCAB))
+        t0 = time.perf_counter()
+        rnn = rnn_phase(torch, mt, fu, nn, kv, opts.seed, card)
+        rnn["phase_s"] = time.perf_counter() - t0
+        log("  phase 14 took %.1f s" % rnn["phase_s"])
 
-    log("[15] SSD: examples/train_ssd.py's %s (%d classes, %dx%d, batch %d) "
-        "through io.ImageDetRecordIter and Module.fit on %s; the card's step "
-        "against the CPU's; the detect graph through Predictor"
-        % (SSD_NETWORK, SSD_CLASSES, SSD_IMAGE, SSD_IMAGE, SSD_BATCH, name))
-    t0 = time.perf_counter()
-    ssd = ssd_phase(torch, mt, fu, nn, kv, opts.seed, card)
-    ssd["phase_s"] = time.perf_counter() - t0
-    log("  phase 15 took %.1f s" % ssd["phase_s"])
+    if want(15):
+        log("[15] SSD: examples/train_ssd.py's %s (%d classes, %dx%d, batch "
+            "%d) through io.ImageDetRecordIter and Module.fit on %s; the "
+            "card's step against the CPU's; the detect graph through "
+            "Predictor" % (SSD_NETWORK, SSD_CLASSES, SSD_IMAGE, SSD_IMAGE,
+                           SSD_BATCH, name))
+        t0 = time.perf_counter()
+        ssd = ssd_phase(torch, mt, fu, nn, kv, opts.seed, card)
+        ssd["phase_s"] = time.perf_counter() - t0
+        log("  phase 15 took %.1f s" % ssd["phase_s"])
 
-    log("[16] analysis: the verifier, shapes, retrace, padding, FLOP and "
-        "memory passes and the optimizer, through ServingEngine (ResNet-50 "
-        "224x224, fused units) and DecodeEngine (phase 9's decoder) on %s"
-        % name)
-    analysis = analysis_phase(torch, mt, fu, nn, kv, opts.seed, card,
-                              decode)
+    if want(16):
+        log("[16] analysis: the verifier, shapes, retrace, padding, FLOP "
+            "and memory passes and the optimizer, through ServingEngine "
+            "(ResNet-50 224x224, fused units) and DecodeEngine (phase 9's "
+            "decoder) on %s" % name)
+        analysis = analysis_phase(torch, mt, fu, nn, kv, opts.seed, card,
+                                  decode)
 
-    log("[17] the rest of serving on %s: ResNet-50 under shed-oldest, the "
-        "pad probe and the memory preflight; sequence buckets (the LSTM LM "
-        "at PTB's widths, the seq softmax's masking repair); the decoder "
-        "under TemperatureSampler at k = 0, %s; bucketed prefill"
-        % (name, ", ".join(map(str, SPEC_KS))))
-    serving = serving_phase(torch, mt, fu, nn, kv, opts.seed, card, decode)
+    if want(17):
+        log("[17] the rest of serving on %s: ResNet-50 under shed-oldest, "
+            "the pad probe and the memory preflight; sequence buckets (the "
+            "LSTM LM at PTB's widths, the seq softmax's masking repair); "
+            "the decoder under TemperatureSampler at k = 0, %s; bucketed "
+            "prefill" % (name, ", ".join(map(str, SPEC_KS))))
+        serving = serving_phase(torch, mt, fu, nn, kv, opts.seed, card,
+                                decode)
 
-    table = kernel_table(rows, bwd_rows, kv_rows, serve, train, bench,
-                         imagenet, decode, imp, rtc, gluon, rnn, ssd,
-                         serving)
+    if want(18):
+        log("[18] telemetry on %s: the fused ResNet-50 served with the "
+            "HTTP server on port 0 and every route scraped; phase 5's fit "
+            "with its step phases and MFU; phase 9's decoder at k = %s; a "
+            "torch.profiler capture and dump_profile(); telemetry on "
+            "against off" % (name, ", ".join(map(str, TELEMETRY_KS))))
+        telemetry = telemetry_phase(torch, mt, fu, nn, kv, opts.seed, card)
+
+    table = None
+    if opts.phase is None:
+        table = kernel_table(rows, bwd_rows, kv_rows, serve, train, bench,
+                             imagenet, decode, imp, rtc, gluon, rnn, ssd,
+                             serving)
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)),
                     exist_ok=True)
@@ -4821,11 +4900,13 @@ def main():
                        "decode": decode, "imperative": imp, "rtc": rtc,
                        "mnist": mnist, "gluon": gluon, "rnn": rnn,
                        "ssd": ssd, "analysis": analysis,
-                       "serving": serving, "kernels": table,
+                       "serving": serving, "telemetry": telemetry,
+                       "kernels": table,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
-    log("[18] done in %.1f s" % (time.perf_counter() - t_start))
+    log("[19] done in %.1f s" % (time.perf_counter() - t_start))
     log(card)
-    log(json.dumps({"kernels": table}))
+    if table is not None:
+        log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
@@ -5837,6 +5918,642 @@ def serving_phase(torch, mt, fu, nn, kv, seed, card, decode):
         "sampling": {k: {kk: vv for kk, vv in r.items() if kk != "launches"}
                      for k, r in out["sampling"]["runs"].items()},
         "prefill": out["prefill"]["runs"],
+        "phase_s": out["phase_s"]}}))
+    return out
+
+
+# phase 18: the telemetry plane and the profiler on the card
+TELEMETRY_IMAGE = 224
+TELEMETRY_REQUESTS = 32
+TELEMETRY_CLIENTS = 4
+TELEMETRY_PAIRS = 10            # (e): on/off turn pairs, order alternating
+TELEMETRY_BURSTS = 6            # (e): bursts of the requests x 4 a turn
+TELEMETRY_DECODE_REPEAT = 3     # (e): a decode turn serves the jobs x 3
+TELEMETRY_TRAIN_STEPS = 16      # (b) and (e): steps a fit turn takes
+TELEMETRY_KS = (0, 2)
+TELEMETRY_PHASE_SHARE = 0.95    # phases' self-times over the step wall
+TELEMETRY_ROUTES = ("/metrics", "/metrics.json", "/traces", "/alerts",
+                    "/history?series=mxnet_serve_requests_total",
+                    "/timeline", "/timeline?format=chrome", "/healthz")
+
+
+def _http(port, path, nbytes=None):
+    """(status, body bytes) of one GET on the local telemetry server."""
+    import urllib.request
+    with urllib.request.urlopen("http://127.0.0.1:%d%s" % (port, path),
+                                timeout=30) as r:
+        return r.status, (r.read(nbytes) if nbytes else r.read())
+
+
+def _series(doc, name, **labels):
+    """{label tuple: value, or (count, sum) of a histogram} of one family
+    of a ``Registry.collect()`` document, the series matching
+    ``labels``."""
+    fam = doc.get(name)
+    out = {}
+    for s in (fam or {}).get("series", ()):
+        lab = s.get("labels") or {}
+        if all(lab.get(k) == v for k, v in labels.items()):
+            out[tuple(sorted(lab.items()))] = (
+                (s["count"], s["sum"]) if fam["kind"] == "histogram"
+                else s["value"])
+    return out
+
+
+def _total(doc, name, **labels):
+    """The sum of a family's matching series: values, or histogram
+    observation counts."""
+    vals = _series(doc, name, **labels).values()
+    return sum(v[0] if isinstance(v, tuple) else v for v in vals)
+
+
+def _hist_sum(doc, name, **labels):
+    return sum(v[1] for v in _series(doc, name, **labels).values())
+
+
+def _delta(after, before, name, **labels):
+    return _total(after, name, **labels) - _total(before, name, **labels)
+
+
+@contextlib.contextmanager
+def telemetry_switch(mt, on):
+    """Telemetry pinned on or off inside the block."""
+    mt.telemetry.set_enabled(on)
+    try:
+        yield
+    finally:
+        mt.telemetry.set_enabled(None)
+
+
+def _staged(eng, xs):
+    """Stage ``xs`` on the stopped engine, then start it: the batches form
+    the same way on every engine.  Returns the answers."""
+    futs = [eng.submit(x) for x in xs]
+    eng.start()
+    return [f.result(timeout=600) for f in futs]
+
+
+def _telemetry_threads():
+    """Names of the telemetry plane's live threads (server, recorder,
+    snapshotter)."""
+    return sorted(t.name for t in threading.enumerate()
+                  if t.name.startswith("mxnet-telemetry"))
+
+
+def _turn_order(i):
+    """(e): pair ``i``'s two settings, the first alternating, so a drift
+    of the card over the pairs falls on both settings alike."""
+    return ("on", "off") if i % 2 == 0 else ("off", "on")
+
+
+def _off_turn_check(mt, what, calls):
+    """(e): a turn with telemetry off ran with no thread of the plane alive
+    and moved no instrument (``calls``: ``instrument_calls()`` at its
+    start)."""
+    threads = _telemetry_threads()
+    moved = mt.telemetry.registry().instrument_calls() - calls
+    if threads or moved:
+        raise AssertionError("%s with telemetry off: threads %s alive, %d "
+                             "instrument calls" % (what, threads, moved))
+
+
+def _serve_turn(mt, engine, setting, xs):
+    """(e): one serving turn on a fresh engine: with telemetry on, the HTTP
+    server started and the engine's recorder sampling; with it off,
+    nothing of the plane alive.  TELEMETRY_BURSTS bursts of ``xs`` from
+    TELEMETRY_CLIENTS clients; the engine is closed (and the server
+    stopped) before the next turn, so no turn pays for the other
+    setting's threads."""
+    tm = mt.telemetry
+    lat, wall = [], 0.0
+    with telemetry_switch(mt, setting == "on"):
+        if setting == "on":
+            tm.start_server(0, host="127.0.0.1")
+        calls = tm.registry().instrument_calls()
+        eng = engine()
+        try:
+            eng.warmup()
+            eng.start()
+            for _ in range(TELEMETRY_BURSTS):
+                _f, w, l_ms = send_requests(eng, xs, TELEMETRY_CLIENTS)
+                wall += w
+                lat.extend(l_ms)
+            if setting == "off":
+                _off_turn_check(mt, "a serving turn", calls)
+        finally:
+            eng.close()
+            if setting == "on":
+                tm.stop_server()
+    lat.sort()
+    return {"latency_p50_ms": percentile(lat, 50),
+            "latency_p99_ms": percentile(lat, 99),
+            "images_per_s": len(lat) / wall, "window_s": wall}
+
+
+def _sign_p(diffs):
+    """Two-sided sign test: the chance of at least this many differences
+    of one sign among the nonzero ones, were on and off alike."""
+    import math
+    pos, neg = sum(d > 0 for d in diffs), sum(d < 0 for d in diffs)
+    n, k = pos + neg, max(pos, neg)
+    if not n:
+        return 1.0
+    return min(1.0, 2.0 * sum(math.comb(n, i) for i in range(k, n + 1))
+               / 2.0 ** n)
+
+
+def _cost(pairs, key):
+    """(e): one metric over the pairs ({"on": turn, "off": turn} each):
+    each setting's median, each pair's on-off difference in percent of
+    its off and their median, least and most, and whether the pairs
+    resolve a cost: a sign test at p < 0.05 (9 of 10 pairs of one sign);
+    else the cost lies inside the spread."""
+    diffs = [100.0 * (p["on"][key] - p["off"][key]) / p["off"][key]
+             for p in pairs]
+    p = _sign_p(diffs)
+    return {"on": _median([q["on"][key] for q in pairs]),
+            "off": _median([q["off"][key] for q in pairs]),
+            "pair_diffs_pct": diffs, "median_pct": _median(diffs),
+            "min_pct": min(diffs), "max_pct": max(diffs), "sign_p": p,
+            "resolved": p < 0.05}
+
+
+def priced_ledger(torch, mt, xs, seed):
+    """(a): the efficiency ledger of the plain graph of phase 4's model
+    (which ``count_flops`` prices) over one staged batch of ``xs``, held
+    against ``count_flops`` of the served graph at that batch; returns
+    the FLOPs."""
+    side = TELEMETRY_IMAGE
+    shape = (side, side, 3)
+    sym = mt.models.get_resnet_symbol(
+        num_classes=1000, num_layers=50, image_shape=(3, side, side),
+        layout="NHWC")
+    args, aux = mt.convert.random_params(sym, {"data": (1,) + shape},
+                                         seed=seed)
+    targs, taux = mt.convert.params_from_numpy(args, aux, device=mt.cpu())
+    eng = mt.ServingEngine(sym, targs, taux, {"data": shape},
+                           ctx=mt.gpu(0),
+                           policy=mt.serving.BucketPolicy(len(xs)),
+                           batch_timeout_ms=50.0, start=False)
+    try:
+        _staged(eng, xs)
+        st = eng.stats()
+        want = int(round(mt.analysis.count_flops(
+            eng.served_sym, {"data": (len(xs),) + shape})["total"]))
+    finally:
+        eng.close()
+    ledger = st["efficiency"]["flops"]
+    if st["batches"] != 1 or not ledger["total"] == ledger["useful"] \
+            == want > 0 or st["efficiency"]["unpriced_dispatches"]:
+        raise AssertionError("the plain graph's FLOPs ledger %s in %d "
+                             "batches, count_flops %d" % (ledger,
+                                                          st["batches"], want))
+    return want
+
+
+def telemetry_serve(torch, mt, fu, nn, wrappers, seed, card):
+    """(a) the fused ResNet-50 of phase 4 served with telemetry on and the
+    server on port 0: every route scraped, the counters against stats(),
+    a served request's span tree, the memory gauge against the
+    allocator, the fused graph left unpriced and the plain graph's FLOPs
+    ledger against count_flops, K1-K3 12 times a batch, the probabilities
+    bit-equal to an engine with telemetry off;
+    (d) one served batch under a torch.profiler capture; (e) serving's
+    latency and rate with telemetry on and off, in pairs of turns, each
+    turn on an engine of its own."""
+    import numpy as np
+    tm = mt.telemetry
+    side = TELEMETRY_IMAGE
+    shape = (side, side, 3)
+    sym = mt.models.get_resnet_symbol(
+        num_classes=1000, num_layers=50, image_shape=(3, side, side),
+        layout="NHWC", unit_impl="fused")
+    n_fused = sym.tojson().count('"_contrib_FusedBottleneckUnit"')
+    args, aux = mt.convert.random_params(sym, {"data": (1,) + shape},
+                                         seed=seed)
+    xs = np.random.default_rng(seed + 18).standard_normal(
+        (TELEMETRY_REQUESTS,) + shape).astype(np.float32)
+    targs, taux = mt.convert.params_from_numpy(args, aux, device=mt.cpu())
+
+    def engine():
+        return mt.ServingEngine(sym, targs, taux, {"data": shape},
+                                ctx=mt.gpu(0),
+                                policy=mt.serving.BucketPolicy(BATCH),
+                                batch_timeout_ms=50.0, start=False)
+    out = {}
+    engines = []
+    try:
+        # telemetry off first, before any server or recorder thread
+        # collects: the off engine must move no instrument at all
+        with telemetry_switch(mt, False):
+            off = engine()
+            engines.append(off)
+            off.warmup()
+            if off._tm is not None or off._eff is not None:
+                raise AssertionError("an engine built with telemetry off "
+                                     "holds instruments")
+            calls = tm.registry().instrument_calls()
+            outs_off = _staged(off, xs)
+            if tm.registry().instrument_calls() != calls:
+                raise AssertionError("telemetry off moved instruments")
+        srv = tm.start_server(0, host="127.0.0.1")
+        # the default trace retention: the tail sampler keeps the first
+        # requests while its top-K fills, so served requests have trees
+        on = engine()
+        engines.append(on)
+        on.warmup()
+        label = on._tm.engine_label
+        before = tm.registry().collect()
+        outs_on, launches = counted(wrappers, lambda: _staged(on, xs))
+        torch.cuda.synchronize()
+        st = on.stats()
+        tm.get_recorder().sample_now()
+        routes = {}
+        for path in TELEMETRY_ROUTES:
+            status, body = _http(srv.port, path)
+            routes[path] = status
+            if status != 200:
+                raise AssertionError("GET %s answered %d" % (path, status))
+        sse = b"retry: 3000\n\n"
+        status, head = _http(srv.port, "/events?keepalive=0.05", len(sse))
+        routes["/events"] = status
+        if (status, head) != (200, sse):
+            raise AssertionError("GET /events answered %d %r"
+                                 % (status, head))
+        doc = json.loads(_http(srv.port, "/metrics.json")[1])["metrics"]
+        peak = torch.cuda.max_memory_allocated(0)
+        after = tm.registry().collect()
+        ids = json.loads(_http(srv.port, "/traces")[1])["traces"]
+        served = [t for t in ids if t["name"] == "serve.request"]
+        status, body = _http(srv.port, "/traces/%s" % served[-1]["trace_id"])
+        tree = json.loads(body)
+        spans = [c["name"] for c in tree["root"]["children"]]
+        _fused_launches("telemetry on", launches, st["batches"], n_fused)
+        if not all(np.array_equal(a, b) for a, b in zip(outs_on, outs_off)):
+            raise AssertionError("probabilities differ with telemetry on "
+                                 "and off")
+        counts = {
+            "requests": _delta(after, before, "mxnet_serve_requests_total"),
+            "batches": _delta(after, before, "mxnet_serve_batches_total"),
+            "latency_count": _delta(after, before,
+                                    "mxnet_serve_request_latency_ms")}
+        want = {"requests": st["requests_served"],
+                "batches": st["batches"],
+                "latency_count": st["requests_served"]}
+        if counts != want or st["requests_served"] != len(xs):
+            raise AssertionError("registry %s against stats() %s"
+                                 % (counts, want))
+        gauge = _total(doc, "mxnet_serve_memory_measured_peak_bytes",
+                       engine=label)
+        if not 0 < gauge == peak:
+            raise AssertionError("memory gauge %r against "
+                                 "max_memory_allocated %d" % (gauge, peak))
+        if spans != ["queue-wait", "coalesce", "pad", "dispatch", "unpad"]:
+            raise AssertionError("a served request's spans: %s" % spans)
+        # the fused units fall to count_flops's default rule, so the
+        # efficiency plane leaves the fused graph unpriced: an empty FLOPs
+        # ledger, every dispatch counted as unpriced
+        ledger = st["efficiency"]["flops"]
+        unpriced = (st["efficiency"]["unpriced_dispatches"],
+                    _delta(after, before,
+                           "mxnet_serve_unpriced_dispatches_total",
+                           engine=label))
+        if any(ledger.values()) \
+                or _total(doc, "mxnet_serve_flops_total", engine=label) \
+                or unpriced != (st["batches"], st["batches"]):
+            raise AssertionError("the fused graph's FLOPs ledger %s, "
+                                 "unpriced dispatches %s of %d batches"
+                                 % (ledger, unpriced, st["batches"]))
+        flops = priced_ledger(torch, mt, xs[:BATCH], seed)
+        out["a"] = {"routes": routes, "counts": counts,
+                    "memory_gauge_bytes": gauge, "trace_spans": spans,
+                    "unpriced_dispatches": unpriced[0],
+                    "plain_graph_flops": flops, "launches": launches,
+                    "engine": label}
+        log("  (a) routes %s; requests %d, batches %d, latency count %d = "
+            "stats(); memory gauge %d = max_memory_allocated; the fused "
+            "graph unpriced (%d dispatches), the plain graph's ledger %d "
+            "FLOPs = count_flops; spans %s; launches %s; probabilities "
+            "bit-equal off [%s]"
+            % (routes, counts["requests"], counts["batches"],
+               counts["latency_count"], gauge, unpriced[0], flops, spans,
+               launches, card))
+        # (d) one served batch under a torch.profiler capture
+        with tempfile.TemporaryDirectory() as tmp:
+            mt.profiler.start_xla_trace(tmp)
+
+            def one_batch():
+                return [f.result(timeout=600)
+                        for f in [on.submit(x) for x in xs[:BATCH]]]
+            _r, cap_launches = counted(wrappers, one_batch)
+            path = mt.profiler.stop_xla_trace()
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events
+                   if e.get("cat") == "kernel" and "mma_kernel" in e["name"]]
+        fwd = sum(cap_launches[k] for k in SERVE_KERNELS["2d"])
+        if not kernels or len(kernels) < fwd or fwd < n_fused * 3:
+            raise AssertionError("the capture holds %d mma_kernel events for "
+                                 "%d K1-K3 launches" % (len(kernels), fwd))
+        out["d_capture"] = {"mma_kernel_events": len(kernels),
+                            "k1_k3_launches": fwd,
+                            "kernel_names": sorted(set(kernels))[:3]}
+        log("  (d) torch.profiler capture of one batch: %d CUDA events of "
+            "fmma::mma_kernel for %d K1-K3 launches" % (len(kernels), fwd))
+    finally:
+        for eng in engines:
+            eng.close()
+        tm.stop_server()
+    # (e) serving on and off in pairs of turns, each on an engine of its own
+    burst = np.concatenate([xs] * 4)
+    pairs = []
+    for i in range(TELEMETRY_PAIRS):
+        pairs.append({setting: _serve_turn(mt, engine, setting, burst)
+                      for setting in _turn_order(i)})
+    out["e_serve_pairs"] = pairs
+    out["e_serve"] = {k: _cost(pairs, k) for k in
+                      ("latency_p50_ms", "latency_p99_ms", "images_per_s")}
+    return out
+
+
+def _fit_steps(torch, mt, sym, args, aux, x, y, steps):
+    """``steps`` SGD steps of Module.fit on cuda:0 (K8 on, as phase 5);
+    returns (host stamps at each step's end, the program-build count at
+    each step's end, the parameters on the host)."""
+    from mxnet_tpu_torch.executor import xla_traces_ever
+    stamps, builds = [], []
+
+    def on_batch(param):
+        stamps.append(time.perf_counter())
+        builds.append(xla_traces_ever())
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    arg_nd, aux_nd = mt.convert.params_from_numpy(args, aux,
+                                                  device=mt.gpu(0))
+    stamps.append(time.perf_counter())
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH),
+            eval_metric=["acc", "ce"], optimizer="sgd",
+            optimizer_params=SGD, kvstore="local", num_epoch=steps,
+            arg_params=arg_nd, aux_params=aux_nd,
+            batch_end_callback=on_batch)
+    params = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    return stamps, builds, params, mod
+
+
+def telemetry_fit(torch, mt, fu, nn, wrappers, seed, card):
+    """(b) phase 5's fit with telemetry on: the phases' self-times against
+    the step wall, the fused graph left unpriced (no FLOPs or MFU gauge)
+    and MFU from count_flops of the plain graph and the card's peak, the
+    program-build counter flat after step 1, the launches; every fit with
+    telemetry off gives the same parameters bit for bit (cuDNN
+    deterministic in all); (d) the profiler's ring over one Executor
+    step; (e) the step time on and off in pairs of fits."""
+    import numpy as np
+    tm = mt.telemetry
+    side = TELEMETRY_IMAGE
+    kw = dict(num_classes=1000, num_layers=50, image_shape=(3, side, side),
+              layout="NHWC")
+    sym = mt.models.get_resnet_symbol(unit_impl="fused", **kw)
+    args, aux = mt.convert.random_params(sym, {"data": (1, side, side, 3)},
+                                         seed=seed)
+    rng = np.random.default_rng(seed + 2)
+    x = rng.standard_normal((TRAIN_BATCH, side, side, 3)).astype(np.float32)
+    y = rng.integers(0, 1000, TRAIN_BATCH).astype(np.float32)
+    steps = TELEMETRY_TRAIN_STEPS
+    runs = []                   # (setting, stamps, builds, launches, ...)
+    p_first = None
+    torch.backends.cudnn.deterministic = True
+    try:
+        with env_vars({"MXNET_CONV1X1_FUSED_BWD": "1"}):
+            for i in range(TELEMETRY_PAIRS):
+                for setting in _turn_order(i):
+                    with telemetry_switch(mt, setting == "on"):
+                        before = tm.registry().collect()
+                        calls = tm.registry().instrument_calls()
+                        (stamps, builds, params, mod), launches = counted(
+                            wrappers, lambda: _fit_steps(torch, mt, sym, args,
+                                                         aux, x, y, steps))
+                        if setting == "off":
+                            _off_turn_check(mt, "a fit", calls)
+                        after = tm.registry().collect()
+                    _launch_check("fit with telemetry %s" % setting, launches,
+                                  TRAIN_LAUNCHES["2d"], steps)
+                    if p_first is None:
+                        p_first = params
+                    elif sorted(params) != sorted(p_first) or not all(
+                            np.array_equal(params[k], p_first[k])
+                            for k in p_first):
+                        raise AssertionError("fit parameters differ with "
+                                             "telemetry on and %s" % setting)
+                    runs.append((setting, stamps, builds, launches, before,
+                                 after))
+                    if len(runs) == 1:
+                        ring = _profiler_ring(mt, mod, x, y)
+                    del mod, params
+                    gc.collect()
+                    torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    setting, stamps, builds, launches, before, after = runs[0]
+    assert setting == "on"
+    if len(builds) != steps or len(set(builds)) != 1:
+        raise AssertionError("program builds at each step's end %s: not "
+                             "flat after step 1" % builds)
+    step_s = _hist_sum(after, "mxnet_train_step_seconds", loop="fit") \
+        - _hist_sum(before, "mxnet_train_step_seconds", loop="fit")
+    phases = {}
+    for key, (count, total) in _series(
+            after, "mxnet_train_step_phase_seconds", loop="fit").items():
+        prev = _series(before, "mxnet_train_step_phase_seconds",
+                       loop="fit").get(key, (0, 0.0))
+        phases[dict(key)["phase"]] = (count - prev[0], total - prev[1])
+    n_steps = _delta(after, before, "mxnet_train_steps_total", loop="fit")
+    share = sum(t for _c, t in phases.values()) / step_s
+    if n_steps != steps or sorted(phases) != sorted(
+            ("data_wait", "h2d", "fwd_bwd", "optimizer", "metric")) \
+            or any(c != steps for c, _t in phases.values()) \
+            or not TELEMETRY_PHASE_SHARE <= share <= 1.0:
+        raise AssertionError("steps %d, phases %s, their share of the step "
+                             "wall %.4f" % (n_steps, phases, share))
+    compiles = _delta(after, before, "mxnet_train_step_compiles_total",
+                      loop="fit")
+    # the fused units fall to count_flops's default rule, so the plane
+    # leaves the fused graph unpriced; MFU here is count_flops of the plain
+    # graph of the same model (phase 16 holds it against FlopCounterMode)
+    shapes = {"data": x.shape, "softmax_label": y.shape}
+    fused_price = tm.goodput.analytic_flops(sym, shapes, training=True)
+    flops = mt.analysis.count_flops(mt.models.get_resnet_symbol(**kw),
+                                    shapes, training=True)["total"]
+    gauge_flops = _total(after, "mxnet_train_step_flops", loop="fit")
+    gauge_mfu = _total(after, "mxnet_train_mfu", loop="fit")
+    peak = mt.telemetry.peak_flops_for(torch.device("cuda", 0))
+    name = torch.cuda.get_device_name(0)
+    if ("H100 80GB HBM3" in name or "H100 SXM" in name) \
+            and peak != 989e12:
+        raise AssertionError("peak_flops_for(%s) = %r" % (name, peak))
+    pairs = []
+    for i in range(TELEMETRY_PAIRS):
+        pair = {}
+        for setting, st, *_rest in runs[2 * i:2 * i + 2]:
+            walls = [b - a for a, b in zip(st[1:], st[2:])]
+            pair[setting] = {"step_ms": _median(walls) * 1e3,
+                             "window_s": sum(walls)}
+        pairs.append(pair)
+    cost = {"step_ms": _cost(pairs, "step_ms")}
+    mfu = flops / (cost["step_ms"]["on"] / 1e3 * peak) if peak else None
+    if fused_price is not None or gauge_flops or gauge_mfu or compiles != 1:
+        raise AssertionError("the fused graph priced at %r, step FLOPs gauge "
+                             "%r, MFU gauge %r, compiling steps %r"
+                             % (fused_price, gauge_flops, gauge_mfu,
+                                compiles))
+    if not {"forward", "forward_backward", "update"} <= set(ring):
+        raise AssertionError("the profiler's ring holds %s" % ring)
+    out = {"phases_s": {k: t for k, (_c, t) in phases.items()},
+           "step_s": step_s, "phase_share": share, "step_flops": flops,
+           "peak_flops": peak, "mfu": mfu, "builds": builds,
+           "launches": launches, "e_fit_pairs": pairs, "e_fit": cost,
+           "step_walls_ms": [(b - a) * 1e3
+                             for a, b in zip(stamps, stamps[1:])],
+           "profiler_ring": ring}
+    log("  (b) %d steps: phases %s of %.4f s step wall (share %.4f); the "
+        "fused graph unpriced (no FLOPs or MFU gauge); the plain graph's "
+        "count_flops %.6g a step, MFU %s against %s; program builds %s; "
+        "launches %s; parameters bit-equal on and off in %d fits [%s]"
+        % (steps, {k: round(t, 5) for k, t in out["phases_s"].items()},
+           step_s, share, flops,
+           "%.5f" % mfu if mfu is not None else "not measured",
+           "%.0f TFLOP/s" % (peak / 1e12) if peak else "no peak",
+           builds, launches, len(runs), card))
+    log("  (d) dump_profile() holds %s" % ring)
+    return out
+
+
+def _profiler_ring(mt, mod, x, y):
+    """(d): the event names ``dump_profile()`` writes for one Executor
+    step of ``mod`` under the profiler."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "profile.json")
+        mt.profiler.profiler_set_config(filename=path)
+        mt.profiler.profiler_set_state("run")
+        try:
+            batch = mt.io.DataBatch(data=[mt.nd.array(x, ctx=mt.cpu())],
+                                    label=[mt.nd.array(y, ctx=mt.cpu())])
+            mod.forward_backward(batch)
+            mod.update()
+            mod.forward(batch, is_train=False)
+            mod.get_outputs()[0].asnumpy()
+        finally:
+            mt.profiler.profiler_set_state("stop")
+            mt.profiler.dump_profile()
+            mt.profiler.profiler_set_config(filename="profile.json")
+        with open(path) as f:
+            return sorted({e["name"] for e in json.load(f)["traceEvents"]})
+
+
+def telemetry_decode(torch, mt, fu, nn, kv, wrappers, seed, card):
+    """(c) phase 9's decoder at k = 0 and 2 with telemetry on: the token
+    and step counters against stats(), K9/K10 as the graphs imply; every
+    run with telemetry off gives the same tokens; (e) tokens/s on and off
+    in pairs of runs after one untimed run (the first decode engine of a
+    process pays the card's one-time costs), each pair serving the jobs
+    TELEMETRY_DECODE_REPEAT times."""
+    tm = mt.telemetry
+    target, t_info, draft, d_info, np_params = build_spec_models(
+        mt, seed=seed, **DECODER)
+    params = mt.convert.params_from_numpy(np_params, {},
+                                          device=mt.gpu(0))[0]
+    jobs = decode_jobs(seed)
+    window = jobs * TELEMETRY_DECODE_REPEAT
+    plan = [("k=0 untimed", 0, "off", jobs)]
+    for i in range(TELEMETRY_PAIRS):
+        plan += [("k=0 %s %d" % (setting, i), 0, setting, window)
+                 for setting in _turn_order(i)]
+    plan.append(("k=2", 2, "on", jobs))
+    out = {"runs": {}}
+    pairs = [{} for _ in range(TELEMETRY_PAIRS)]
+    streams = {}
+    for name, k, setting, run_jobs in plan:
+        with telemetry_switch(mt, setting == "on"):
+            before = tm.registry().collect()
+            calls = tm.registry().instrument_calls()
+            toks, _r, st, wall, launches, _sv = decode_run(
+                mt, target, t_info, draft, d_info, params, run_jobs, k,
+                wrappers)
+            if setting == "off":
+                _off_turn_check(mt, name, calls)
+            after = tm.registry().collect()
+        # a request's tokens do not depend on the requests beside it
+        streams[name] = [toks[i::len(jobs)] for i in range(len(jobs))]
+        steps = st["steps"]
+        for kname, per in zip(("cache_write_row", "cache_write_rows"),
+                              launches_per_step(k)):
+            if launches[kname] != per * steps:
+                raise AssertionError("%s: %s launched %d times in %d steps"
+                                     % (name, kname, launches[kname], steps))
+        got = {"tokens": _delta(after, before,
+                                "mxnet_serve_decode_tokens_total"),
+               "steps": _delta(after, before,
+                               "mxnet_serve_decode_steps_total")}
+        want = ({"tokens": st["tokens_generated"], "steps": steps}
+                if setting == "on" else {"tokens": 0, "steps": 0})
+        if got != want:
+            raise AssertionError("%s: registry %s against %s"
+                                 % (name, got, want))
+        rate = st["tokens_generated"] / wall
+        if run_jobs is window:
+            pairs[int(name.split()[-1])][setting] = {"tokens_per_s": rate,
+                                                     "window_s": wall}
+        out["runs"][name] = {"k": k, "telemetry": setting, "steps": steps,
+                             "tokens": st["tokens_generated"],
+                             "tokens_per_s": rate, "launches": launches}
+    first = [reps[0] for reps in streams["k=0 untimed"]]
+    for name, got in streams.items():
+        if any(r != first[i] for i, reps in enumerate(got) for r in reps):
+            raise AssertionError("decode streams of %s differ from the "
+                                 "untimed run's" % name)
+    out["e_decode_pairs"] = pairs
+    out["e_decode"] = {"tokens_per_s": _cost(pairs, "tokens_per_s")}
+    log("  (c) %s [%s]" % ({n: (r["steps"], r["tokens"],
+                                round(r["tokens_per_s"], 1))
+                            for n, r in out["runs"].items()
+                            if not n.startswith("k=0 o")}, card))
+    return out
+
+
+def telemetry_phase(torch, mt, fu, nn, kv, seed, card):
+    """Phase 18 (see the module docstring): (a)-(e)."""
+    t_phase = time.perf_counter()
+    wrappers = kernel_wrappers(fu, nn, kv)
+    if not mt.telemetry.enabled():
+        raise AssertionError("telemetry is off (MXNET_TELEMETRY_ON=0): "
+                             "phase 18 needs it on")
+    out = {"serve": telemetry_serve(torch, mt, fu, nn, wrappers, seed,
+                                    card),
+           "fit": telemetry_fit(torch, mt, fu, nn, wrappers, seed, card),
+           "decode": telemetry_decode(torch, mt, fu, nn, kv, wrappers, seed,
+                                      card)}
+    cost = {"serve_" + k: v for k, v in out["serve"]["e_serve"].items()}
+    cost["decode_tokens_per_s"] = out["decode"]["e_decode"]["tokens_per_s"]
+    cost["fit_step_ms"] = out["fit"]["e_fit"]["step_ms"]
+    out["cost"] = cost
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("  (e) on against off, %d pairs of turns, medians [%s]:"
+        % (TELEMETRY_PAIRS, card))
+    for k, c in cost.items():
+        log("    %-24s on %10.4f  off %10.4f  pairs %+.2f%% (%+.2f%% to "
+            "%+.2f%%), sign test p %.4f: %s"
+            % (k, c["on"], c["off"], c["median_pct"], c["min_pct"],
+               c["max_pct"], c["sign_p"],
+               "resolved" if c["resolved"] else "unresolved"))
+    log("  phase 18 took %.1f s" % out["phase_s"])
+    log(json.dumps({"telemetry": {
+        "cost_on_off": cost, "phase_share": out["fit"]["phase_share"],
+        "mfu": out["fit"]["mfu"], "peak_flops": out["fit"]["peak_flops"],
+        "serve_plain_graph_flops": out["serve"]["a"]["plain_graph_flops"],
+        "memory_gauge_bytes": out["serve"]["a"]["memory_gauge_bytes"],
+        "capture": out["serve"]["d_capture"],
+        "decode": {n: {k: v for k, v in r.items() if k != "launches"}
+                   for n, r in out["decode"]["runs"].items()
+                   if not n.startswith("k=0 o")},
         "phase_s": out["phase_s"]}}))
     return out
 

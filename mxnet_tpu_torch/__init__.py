@@ -28,6 +28,8 @@ __version__ = "0.12.0.torch1"
 
 from .base import MXNetError
 from . import config
+from . import profiler
+from . import telemetry
 from .context import Context, cpu, gpu, current_context
 from . import ops
 from . import ndarray

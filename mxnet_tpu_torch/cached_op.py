@@ -10,17 +10,20 @@ graph back to the caller's variables.  The op's new aux states
 (BatchNorm's moving statistics) are written into the callers' arrays in
 place, recording nothing (``ndarray.write_aux``), once per call.
 ``trace_count`` counts the distinct (shapes, dtypes, training)
-signatures met, the reference's compile counter.
+signatures met, the reference's compile counter; each new one also moves
+the process-wide program-build counter (``mxnet_xla_traces_total``).  A
+call inside an active trace records a ``CachedOp(<name>)`` span.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
 
 from . import autograd
 from .base import MXNetError
-from .executor import build_graph_fn
+from .executor import _count_xla_trace, build_graph_fn
 from .ndarray.ndarray import NDArray, write_aux
 
 __all__ = ["CachedOp"]
@@ -58,8 +61,19 @@ class CachedOp:
         sig = (tuple((tuple(t.shape), t.dtype) for t in args)
                + tuple((a.shape, a.dtype) for a in aux_nds), training)
         with self._lock:
+            new = sig not in self._signatures
             self._signatures.add(sig)
-        with torch.set_grad_enabled(autograd.is_recording()):
+        if new:
+            _count_xla_trace()
+        from . import telemetry
+        # one contextvar probe on the common no-trace path: the span
+        # exists only under an active trace
+        tc = telemetry.current_trace()
+        span = (tc.span("CachedOp(%s)" % (self._sym.name or "graph"),
+                        "op")
+                if tc is not None and not tc.finished
+                else contextlib.nullcontext())
+        with span, torch.set_grad_enabled(autograd.is_recording()):
             outs, new_aux = self._graph_fn(
                 args, [a._data for a in aux_nds], training)
         for arr, t in zip(aux_nds, new_aux):

@@ -2,8 +2,8 @@
 
 Counterpart of ``mxnet_tpu/config.py``, keeping only the variables the
 ResNet-50 serving and training paths, the image pipeline, the serving
-and decode engines and the analysis gates read, under the same names and
-defaults.
+and decode engines, the analysis gates, the telemetry plane and the
+profiler read, under the same names, defaults and help text.
 """
 from __future__ import annotations
 
@@ -171,6 +171,146 @@ VARIABLES = {v.name: v for v in [
     _Var("MXNET_SERVE_DEFAULT_DEADLINE_MS", float, 0.0,
          "Default per-request deadline; requests still queued past it "
          "fail with DeadlineExceededError.  0 = no default deadline."),
+    _Var("MXNET_PROFILER_AUTOSTART", bool, False,
+         "Start the profiler at import and dump on exit "
+         "(src/engine/profiler.cc:66)."),
+    _Var("MXNET_TELEMETRY_ON", bool, True,
+         "Master switch for the runtime telemetry registry "
+         "(mxnet_tpu.telemetry): metrics counters/gauges/histograms and "
+         "request-scoped tracing across serving, executor, kvstore, and "
+         "the input pipeline.  Off = instrumented call sites hold no "
+         "instruments and make zero registry calls per request."),
+    _Var("MXNET_TELEMETRY_TIMELINE", bool, True,
+         "Unified fleet timeline (telemetry/timeline.py): a process-"
+         "wide bounded ring of dual-stamped (wall + monotonic) events "
+         "fed by every plane — span trees, per-replica dispatches, "
+         "decode scheduler iterations and slot churn, lock holds, "
+         "alert transitions, flight dumps, regulator limit moves, "
+         "supervisor rehab/retire, injected faults.  Exported as "
+         "Chrome trace_event JSON (GET /timeline?format=chrome, "
+         "tools/telemetry_dump.py timeline, tools/request_autopsy.py)."
+         "  Requires MXNET_TELEMETRY_ON; 0 = zero ring appends and "
+         "bitwise-identical serving."),
+    _Var("MXNET_TELEMETRY_TIMELINE_CAP", int, 16384,
+         "Capacity of the timeline event ring (events, process-wide). "
+         "Oldest events drop first; the drop count is reported in "
+         "every export so a truncated window is never mistaken for a "
+         "quiet one."),
+    _Var("MXNET_TELEMETRY_SNAPSHOT_SECS", float, 0.0,
+         "Interval for the periodic telemetry snapshot thread (0 = "
+         "off).  Every interval the current metrics snapshot is "
+         "written to MXNET_TELEMETRY_SNAPSHOT_PATH (atomic replace) or "
+         "stdout, in MXNET_TELEMETRY_SNAPSHOT_FORMAT."),
+    _Var("MXNET_TELEMETRY_SNAPSHOT_PATH", str, "",
+         "Destination file for periodic telemetry snapshots; empty "
+         "writes to stdout."),
+    _Var("MXNET_TELEMETRY_SNAPSHOT_FORMAT", str, "prom",
+         "Snapshot format: 'prom' (Prometheus text exposition) or "
+         "'json' (metrics + finished traces, the document "
+         "tools/telemetry_dump.py renders)."),
+    _Var("MXNET_TELEMETRY_TRACE_SAMPLE", int, 64,
+         "Baseline-floor period of the serving trace-retention chain "
+         "(telemetry/sampling.py): every request is traced cheaply and "
+         "retention is decided at finish — every Nth request is kept "
+         "unconditionally, on top of the tail-biased and error-keep "
+         "samplers.  1 keeps every request; 0 disables tracing "
+         "entirely (no per-request TraceContext, no tail/error keeps)."),
+    _Var("MXNET_TELEMETRY_TRACE_TAIL_K", int, 8,
+         "Tail-biased trace retention: a finished request trace is "
+         "retroactively kept when its end-to-end latency lands in the "
+         "current top-K slowest or exceeds a moving p99 estimate, so "
+         "every tail request has a span tree (the traffic p99 "
+         "debugging actually needs).  0 disables the tail sampler, "
+         "leaving only the periodic floor and error keep."),
+    _Var("MXNET_TELEMETRY_TRACE_ERRORS", bool, True,
+         "Keep the span tree of every request that failed (rejected, "
+         "shed, expired, cancelled, dispatch error) regardless of the "
+         "periodic/tail samplers — overloaded traffic is exactly what "
+         "an operator debugs."),
+    _Var("MXNET_TELEMETRY_PORT", int, -1,
+         "Port for the live telemetry HTTP endpoint "
+         "(telemetry/server.py: GET /metrics, /metrics.json, /traces, "
+         "/traces/<id>, /healthz).  -1 = off; 0 = bind an ephemeral "
+         "port (telemetry.server_address() reads it back).  Started "
+         "at import when set, or lazily by ServingEngine construction "
+         "— in which case the last engine's close() shuts it down "
+         "(port and acceptor thread are released, never leaked)."),
+    _Var("MXNET_TELEMETRY_HISTORY_SECS", float, 1.0,
+         "Sampling interval of the in-process time-series recorder "
+         "(telemetry/recorder.py): every interval the metrics registry "
+         "is snapshotted into a bounded in-memory ring, giving true "
+         "rate()/delta()/windowed-quantile queries (GET /history) and "
+         "the SLO alert evaluation tick with zero external infra.  "
+         "Started lazily by the first ServingEngine/DecodeEngine (last "
+         "close() stops it) or explicitly via "
+         "telemetry.start_recorder().  0 = off."),
+    _Var("MXNET_TELEMETRY_HISTORY_WINDOW", int, 600,
+         "Ring capacity of the history recorder in samples (memory is "
+         "bounded by construction: deque(maxlen=N)).  At the default "
+         "1 s interval, 600 samples = a 10-minute trailing window — "
+         "enough for the 60 s/600 s multiwindow burn-rate rules."),
+    _Var("MXNET_TELEMETRY_ALERTS", bool, True,
+         "Evaluate SLO alert rules (telemetry/alerts.py) against the "
+         "history ring on every recorder sample.  Engines register "
+         "default rules at construction (queue-saturation and "
+         "deadline-miss burn rates, per-engine zero-progress watchdog "
+         "and retrace-storm) and remove them at close(); rule states "
+         "serve at GET /alerts, transitions stream over GET /events.  "
+         "0 = rules are neither registered nor evaluated."),
+    _Var("MXNET_TELEMETRY_ALERT_RULES", str, "",
+         "Path to a declarative SLO alert-rules file: a JSON list (or "
+         "{'rules': [...]} document) of AlertRule.from_dict dicts "
+         "loaded into the default AlertManager when the history "
+         "recorder starts (telemetry/alerts.py load_rules_file) — "
+         "operators add burn-rate/threshold/absence/watchdog rules "
+         "without redeploying.  Rules whose names are already "
+         "registered are skipped (idempotent across engine-driven "
+         "recorder rebuilds); a malformed file warns and loads "
+         "nothing.  Empty = off."),
+    _Var("MXNET_TELEMETRY_WATCHDOG_SECS", float, 30.0,
+         "Zero-progress threshold for the engines' default watchdog "
+         "alert rules: a worker heartbeat that is BUSY (work queued or "
+         "a dispatch in flight) yet stamped no progress for this many "
+         "seconds fires <kind>_engine<N>_stalled — a wedged dispatch "
+         "or starved queue, named, not inferred."),
+    _Var("MXNET_SERVE_EFFICIENCY", bool, True,
+         "Serving efficiency plane (telemetry/goodput.py): per-"
+         "compiled-program FLOPs ledger priced once at compile/AOT-"
+         "load time (analysis/flops.py over the concrete padded "
+         "shapes), per-dispatch counters decomposed into useful / "
+         "padding / dead-slot / spec-rejected classes that sum "
+         "exactly to total, live mxnet_serve_mfu and goodput_ratio "
+         "gauges, and per-tenant accounting.  Requires "
+         "MXNET_TELEMETRY_ON; 0 = no pricing, no ledger series, zero "
+         "instrument calls on the dispatch path, serving "
+         "bitwise-identical to the plane never existing."),
+    _Var("MXNET_TELEMETRY_TENANTS_MAX", int, 32,
+         "Bounded-cardinality guard on the per-tenant accounting "
+         "series (telemetry/goodput.py): the first N distinct tenant "
+         "ids an engine sees get their own {tenant=...} label; "
+         "later tenants aggregate into tenant=\"other\" and each "
+         "overflowed request increments "
+         "mxnet_serve_tenant_overflow_total so the collapse is "
+         "visible, not silent."),
+    _Var("MXNET_FLIGHT_RECORDER_DIR", str, "",
+         "Black-box post-mortem directory.  When set, any alert "
+         "transition to firing (watchdog trips included) atomically "
+         "dumps a flight bundle — trailing history window, rule "
+         "states, retained traces, per-engine stats(), heartbeats, "
+         "all-thread stacks via faulthandler — as flight_*.json under "
+         "this directory (rate-limited, pruned to the newest 16), and "
+         "fatal signals (SIGSEGV/SIGFPE/SIGABRT) append stacks to "
+         "fatal_stacks.log via faulthandler.enable.  Read bundles "
+         "back with tools/telemetry_dump.py bundle.  Empty = off."),
+    _Var("MXNET_TELEMETRY_TRACE_CAPACITY", int, 256,
+         "Bound on the in-process finished-trace store; beyond it the "
+         "oldest span trees are evicted (long serving runs must not "
+         "grow host memory without limit)."),
+    _Var("MXNET_PROFILER_MAX_EVENTS", int, 1000000,
+         "Bound on the in-memory profiler event buffer.  Beyond it the "
+         "oldest events are dropped (and counted in the dump's "
+         "otherData.dropped_events) so always-on profiling of long "
+         "serving runs cannot grow host memory without limit."),
 ]}
 
 

@@ -18,6 +18,18 @@ recorded outputs: loss heads ignore the head gradient, so
 gets a zero gradient.  ``set_monitor_callback`` reports each output by
 name after every forward (under ``monitor_all`` each argument and aux
 state first), as ``Monitor`` reads them.
+
+Telemetry, under the reference's names: ``mxnet_xla_traces_total``
+counts the graph programs built across the process (an Executor builds
+one per mode, eval and training, at its first forward in that mode; a
+CachedOp one per input signature; the serving caches one per bucket;
+``xla_traces_ever`` counts them whatever the telemetry switch), and
+``mxnet_executor_dispatch_total{kind}`` the dispatches: ``forward`` for
+an eval forward, ``forward_backward`` for a ``backward`` (whose
+training forward ran in ``forward(is_train=True)``).  The batch upload
+is the training step's ``h2d`` phase; ``executor.forward`` and
+``executor.forward_backward`` spans land in the active trace, and the
+profiler's ``forward``/``forward_backward`` spans in its ring.
 """
 from __future__ import annotations
 
@@ -30,6 +42,49 @@ from .ndarray.ndarray import NDArray, _host_tensor
 from .symbol.symbol import _topo
 
 __all__ = ["Executor", "build_graph_fn"]
+
+
+_TM_CACHE = {}          # memoized instrument children (see telemetry.bound)
+
+_XLA_TRACES_EVER = 0
+
+
+def xla_traces_ever():
+    """Graph programs built across the process, counted whatever the
+    telemetry switch says (the reference's name: its programs are XLA
+    traces)."""
+    return _XLA_TRACES_EVER
+
+
+def _count_xla_trace():
+    """One graph program built (an Executor mode, a CachedOp signature,
+    a serving bucket, a decode step): moves ``mxnet_xla_traces_total``;
+    warm dispatches never do."""
+    global _XLA_TRACES_EVER
+    _XLA_TRACES_EVER += 1
+    from . import telemetry
+    if telemetry.enabled():
+        telemetry.bound(
+            _TM_CACHE, "xla_traces",
+            lambda: telemetry.counter(
+                "mxnet_xla_traces_total",
+                "graph programs built across the process's graph "
+                "functions (CachedOp signatures, Executor modes, serving "
+                "buckets, decode steps); warm dispatches never move "
+                "this")).inc()
+
+
+def _count_dispatch(kind):
+    """One executor graph dispatch (forward / forward_backward);
+    memoized child, no registry lock on the warm path."""
+    from . import telemetry
+    if telemetry.enabled():
+        telemetry.bound(
+            _TM_CACHE, ("dispatch", kind),
+            lambda: telemetry.counter(
+                "mxnet_executor_dispatch_total",
+                "Executor graph dispatches by kind",
+                labelnames=("kind",)).labels(kind=kind)).inc()
 
 
 def build_graph_fn(symbol, arg_names, aux_names):
@@ -148,6 +203,7 @@ class Executor:
         self._recorded = None
         self._monitor = None
         self._monitor_all = False
+        self._built_modes = set()    # is_train values run so far
 
     def set_monitor_callback(self, callback, monitor_all=False):
         """``callback(name, NDArray)`` for each output after every forward;
@@ -186,15 +242,29 @@ class Executor:
         return [self.grad_dict.get(n) for n in self.arg_names]
 
     def forward(self, is_train=False, **kwargs):
-        for k, v in kwargs.items():
-            if k not in self.arg_dict:
-                raise MXNetError("forward: unknown argument %r" % k)
-            src = v._data if isinstance(v, NDArray) else _host_tensor(v)
-            self.arg_dict[k]._data.copy_(src)
+        from . import profiler
+        from . import telemetry
+        from .telemetry import step as _step
+        with _step.active_phase("h2d"):
+            # batch upload: the training step's h2d phase when a
+            # StepTimer is ambient (no-op otherwise)
+            for k, v in kwargs.items():
+                if k not in self.arg_dict:
+                    raise MXNetError("forward: unknown argument %r" % k)
+                src = v._data if isinstance(v, NDArray) \
+                    else _host_tensor(v)
+                self.arg_dict[k]._data.copy_(src)
         aux = [self.aux_dict[n]._data for n in self.aux_names]
         self._recorded = None
+        is_train = bool(is_train)
+        if is_train not in self._built_modes:
+            self._built_modes.add(is_train)
+            _count_xla_trace()
         if not is_train:
-            with torch.inference_mode():
+            _count_dispatch("forward")
+            with telemetry.maybe_span("executor.forward", "executor"), \
+                    profiler.record_span("forward", "forward"), \
+                    torch.inference_mode():
                 outs, _ = self._graph_fn(
                     [self.arg_dict[n]._data for n in self.arg_names], aux)
             self.outputs = [NDArray(o) for o in outs]
@@ -202,7 +272,9 @@ class Executor:
             return self.outputs
         leaves = {n: self.arg_dict[n]._data.detach().requires_grad_(True)
                   for n in self.arg_names if self._grad_req[n] != "null"}
-        with torch.enable_grad():
+        with telemetry.maybe_span("executor.forward", "executor"), \
+                profiler.record_span("forward", "forward"), \
+                torch.enable_grad():
             outs, new_aux = self._graph_fn(
                 [leaves.get(n, self.arg_dict[n]._data)
                  for n in self.arg_names], aux, training=True)
@@ -218,6 +290,14 @@ class Executor:
         into ``grad_dict``: written, or added under grad_req='add'."""
         if self._recorded is None:
             raise MXNetError("backward called without forward(is_train=True)")
+        from . import profiler
+        from . import telemetry
+        _count_dispatch("forward_backward")
+        with telemetry.maybe_span("executor.forward_backward", "executor"), \
+                profiler.record_span("forward_backward", "backward"):
+            self._backward(out_grads)
+
+    def _backward(self, out_grads):
         outs, leaves = self._recorded
         self._recorded = None
         if out_grads is None:

@@ -4,11 +4,14 @@ Counterpart of ``mxnet_tpu/gluon/data/dataloader.py``.  Workers are host
 threads (numpy's batching and the decoders release the GIL), with a
 bounded window of batches in flight; a batch is made on
 ``current_context()`` (the card unless a ``with mt.cpu():`` scope is
-open), once per step.
+open), once per step.  With telemetry on, each batch observes
+``mxnet_io_batch_latency_ms{iter="DataLoader"}``: its making time without
+workers, and with them how long the consumer waited for it.
 """
 from __future__ import annotations
 
 import contextlib
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from itertools import islice
@@ -68,9 +71,16 @@ class DataLoader:
             return self._batchify_fn([self._dataset[i] for i in batch])
 
     def __iter__(self):
+        from ... import telemetry
+        from ...io import _observe_batch
+        rec = telemetry.enabled()
         if self._num_workers == 0:
             for batch in self._batch_sampler:
-                yield self._load(batch)
+                t0 = time.perf_counter() if rec else 0.0
+                out = self._load(batch)
+                if rec:
+                    _observe_batch(self, t0)
+                yield out
             return
         # at most twice the workers' batches in flight, so a slow consumer
         # never holds a whole epoch in memory
@@ -85,7 +95,13 @@ class DataLoader:
                 nxt = next(batches, None)
                 if nxt is not None:
                     window.append(pool.submit(self._load, nxt, scope))
-                yield f.result()
+                # the consumer's stall for the prefetched batch (0 when
+                # the workers kept up): the pipeline-bubble signal
+                t0 = time.perf_counter() if rec else 0.0
+                out = f.result()
+                if rec:
+                    _observe_batch(self, t0)
+                yield out
 
     def __len__(self):
         return len(self._batch_sampler)

@@ -7,7 +7,9 @@ does for ``Module``.  ``step`` rescales the gradients by 1/batch_size and
 runs the optimizer's in-place update on each parameter's array, so the
 array stays the autograd variable the next recorded forward reaches.
 Each Parameter's ``lr_mult`` and ``wd_mult`` apply (the optimizer's
-``param_dict``).
+``param_dict``).  With telemetry on, ``step`` is the ``optimizer`` phase
+of the ambient training step, or, called outside one, a step of its own
+on the ``loop="trainer"`` series.
 """
 from __future__ import annotations
 
@@ -70,10 +72,13 @@ class Trainer:
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
-        for i, param in enumerate(self._params):
-            if param.grad_req == "null":
-                continue
-            self._updaters[0](i, param.grad(), param.data())
+        from ..telemetry import step as step_mod
+        with step_mod.ensure_step("trainer"), \
+                step_mod.active_phase("optimizer"):
+            for i, param in enumerate(self._params):
+                if param.grad_req == "null":
+                    continue
+                self._updaters[0](i, param.grad(), param.data())
 
     def save_states(self, fname):
         """The optimizer and its per-parameter states, as the Updater

@@ -5,11 +5,17 @@ Counterpart of ``mxnet_tpu/module/base_module.py``: ``forward_backward``,
 optimizer, then per epoch forward_backward / update / ``prepare`` of the
 next batch / metric with batch-end callbacks, the monitor ticked before
 each step and printed after it, and the epoch-end callbacks with a
-host-consistent copy of the parameters).  The reference's step telemetry
-is not ported.
+host-consistent copy of the parameters).  With telemetry on, ``fit``
+attributes each step's wall time to the phases ``data_wait``, ``h2d``
+(the executor's batch upload), ``fwd_bwd``, ``optimizer`` (``update``)
+and ``metric`` on the ``loop="fit"`` series (telemetry/step.py), with
+tail-biased per-step span trees and an MFU gauge against the card's
+peak.  Phases are host wall time: the card runs asynchronously, so its
+wait falls in whichever phase first reads a result (``metric``).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 
@@ -128,24 +134,59 @@ class BaseModule:
         validation_metric = validation_metric or eval_metric
         eval_metric = metric.create(eval_metric)
 
+        from ..telemetry import step as step_mod
+        # the device this module is bound to: MFU's peak and the memory
+        # watermark report against the training card
+        ctx = getattr(self, "_context", None)
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0] if ctx else None
+        st = step_mod.fit_timer(self._symbol, train_data.provide_data,
+                                train_data.provide_label,
+                                device=getattr(ctx, "device", None))
+
         for epoch in range(begin_epoch, num_epoch):
             t_epoch = time.time()
             eval_metric.reset()
-            for nbatch, (batch, upcoming) in enumerate(
-                    _lookahead_iter(train_data)):
-                if monitor is not None:
-                    monitor.tic()
-                self.forward_backward(batch)
-                self.update()
-                if upcoming is not None:
-                    self.prepare(upcoming)
-                self.update_metric(eval_metric, batch.label)
-                if monitor is not None:
-                    monitor.toc_print()
-                for cb in _as_list(batch_end_callback):
-                    cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                     eval_metric=eval_metric,
-                                     locals=locals()))
+            nbatch = 0
+            lookahead = _lookahead_iter(train_data)
+            while True:
+                if st is not None:
+                    st.begin_step()
+                exhausted = False
+                try:
+                    with (step_mod.activate(st) if st is not None
+                          else contextlib.nullcontext()):
+                        with step_mod.active_phase("data_wait"):
+                            pair = next(lookahead, None)
+                        if pair is None:
+                            exhausted = True
+                        else:
+                            batch, upcoming = pair
+                            if monitor is not None:
+                                monitor.tic()
+                            with step_mod.active_phase("fwd_bwd"):
+                                self.forward_backward(batch)
+                            self.update()   # the optimizer phase inside
+                            if upcoming is not None:
+                                self.prepare(upcoming)
+                            with step_mod.active_phase("metric"):
+                                self.update_metric(eval_metric,
+                                                   batch.label)
+                            if monitor is not None:
+                                monitor.toc_print()
+                            for cb in _as_list(batch_end_callback):
+                                cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                                 eval_metric=eval_metric,
+                                                 locals=locals()))
+                finally:
+                    if st is not None:
+                        if exhausted:
+                            st.abort_step()
+                        else:
+                            st.end_step()
+                if exhausted:
+                    break
+                nbatch += 1
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,

@@ -316,10 +316,19 @@ class Module(BaseModule):
         self._exec.backward(out_grads=out_grads)
 
     def update(self):
-        """Apply the optimizer to every parameter's gradient."""
+        """Apply the optimizer to every parameter's gradient: the
+        training step's ``optimizer`` phase and the profiler's
+        ``update`` span."""
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
+        from .. import profiler
+        from ..telemetry import step as step_mod
         self._params_dirty = True
+        with step_mod.active_phase("optimizer"), \
+                profiler.record_span("update", "update"):
+            self._update_impl()
+
+    def _update_impl(self):
         for idx, name in enumerate(self._param_names):
             grad = self._exec.grad_dict.get(name)
             if grad is not None:

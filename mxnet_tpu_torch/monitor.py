@@ -6,9 +6,9 @@ after every forward (with ``monitor_all`` each argument and aux state
 too); every ``interval`` batches, between ``tic`` and ``toc``, the tensors
 whose names match ``pattern`` are read back to the host and reduced by
 ``stat_func`` (mean |x| by default).  ``toc`` returns the (step, name,
-stat) rows and ``toc_print`` logs them.  The stats are kept here only:
-the reference also sets a telemetry gauge per tensor, which the port does
-not export yet.
+stat) rows and ``toc_print`` logs them.  With telemetry on, each scalar
+stat also sets the ``mxnet_monitor_tensor_stat{tensor}`` gauge, whose
+series ``close`` reclaims.
 """
 import logging
 import re
@@ -18,6 +18,8 @@ import numpy as np
 from .ndarray import NDArray
 
 __all__ = ["Monitor"]
+
+_STAT_GAUGES = {}       # tensor name -> memoized gauge child
 
 
 class Monitor:
@@ -35,6 +37,7 @@ class Monitor:
         self.step = 0
         self.activated = False
         self.exes = []
+        self._published = set()     # tensor labels this Monitor created
         self.logger = logging.getLogger(__name__)
 
     def stat_helper(self, name, arr):
@@ -43,7 +46,25 @@ class Monitor:
         if not self.activated or not self.re_pattern.match(name):
             return
         arr = arr.asnumpy() if isinstance(arr, NDArray) else np.asarray(arr)
-        self.queue.append((self.step, name, self.stat_func(arr)))
+        stat = self.stat_func(arr)
+        self.queue.append((self.step, name, stat))
+        # scalar stats also land on the telemetry registry (one gauge
+        # series per monitored tensor), scrapeable beside the rest
+        from . import telemetry
+        if telemetry.enabled():
+            try:
+                value = float(stat)
+            except (TypeError, ValueError):
+                pass        # non-scalar stat_func: log-only
+            else:
+                telemetry.bound(
+                    _STAT_GAUGES, name,
+                    lambda: telemetry.gauge(
+                        "mxnet_monitor_tensor_stat",
+                        "latest Monitor stat_func value per monitored "
+                        "tensor", ("tensor",)).labels(tensor=name)
+                ).set(value)
+                self._published.add(name)
 
     def install(self, exe):
         exe.set_monitor_callback(self.stat_helper, self.monitor_all)
@@ -72,7 +93,16 @@ class Monitor:
             self.logger.info("Batch: %7d %30s %s", step, name, stat)
 
     def close(self):
-        """Stop collecting and forget the executors."""
+        """Stop collecting, forget the executors, and reclaim this
+        Monitor's ``mxnet_monitor_tensor_stat`` series (and the shared
+        memo entries, so a later Monitor binds fresh children)."""
+        from . import telemetry
+        fam = telemetry.registry().get("mxnet_monitor_tensor_stat")
+        for name in self._published:
+            if fam is not None:
+                fam.remove(tensor=name)
+            _STAT_GAUGES.pop(name, None)
+        self._published.clear()
         self.activated = False
         self.queue = []
         self.exes = []

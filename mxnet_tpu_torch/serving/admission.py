@@ -12,9 +12,10 @@ queue of pending requests in front of the dispatcher.
 - **pressure**: :meth:`AdmissionController.apply_pressure` tightens the
   effective queue limit below ``max_queue``, shedding the highest-cost
   requests (``Request.cost``, padded elements) first; these sheds are
-  counted apart from the policy's (``pressure_shed``).  Nothing in the
-  port sets pressure yet: the overload regulator that does is not
-  ported.
+  counted apart from the policy's (``pressure_shed``, and
+  ``mxnet_serve_regulator_shed_total``).  Nothing in the port sets
+  pressure yet: the overload regulator that does is not ported, so that
+  counter registers and stays 0.
 - **deadlines**: a request may carry an absolute expiry; every queue
   interaction (and the blocking ``take`` wait) sweeps, so an expired
   request fails with :class:`DeadlineExceededError` instead of taking a
@@ -29,6 +30,9 @@ queue of pending requests in front of the dispatcher.
 
 One condition variable guards the state; client threads produce, the
 engine worker is the single consumer.  Futures fail outside the lock.
+With the engine's telemetry bundle (``telemetry=``) every decision also
+moves its counter (admitted, rejected, shed, regulator shed, expired)
+and the queue-depth gauge; without one, no instrument is touched.
 """
 from __future__ import annotations
 
@@ -85,20 +89,28 @@ class Request(object):
     ``on_expire(exc)``, when set, turns a deadline expiry from a failure
     into a completion: the sweep delivers its return value as the
     future's RESULT (a decode request's partial tokens with the
-    ``expired`` flag); returning None falls back to the exception."""
+    ``expired`` flag); returning None falls back to the exception.
+
+    ``trace`` optionally carries a :class:`~mxnet_tpu_torch.telemetry.
+    LazyTrace` across the thread hop to the worker; ``tenant`` the
+    resolved per-tenant accounting label (telemetry/goodput.py), None
+    when unattributed."""
     __slots__ = ("inputs", "group", "future", "t_enqueue", "deadline",
-                 "out_rows", "on_expire", "cost")
+                 "out_rows", "trace", "on_expire", "cost", "tenant")
 
     def __init__(self, inputs, group, future, deadline=None,
-                 out_rows=None, on_expire=None, cost=None):
+                 out_rows=None, trace=None, on_expire=None, cost=None,
+                 tenant=None):
         self.inputs = inputs
         self.group = group
         self.future = future
         self.t_enqueue = time.monotonic()
         self.deadline = deadline            # absolute time.monotonic()
         self.out_rows = out_rows
+        self.trace = trace
         self.on_expire = on_expire
         self.cost = cost                    # padded elements
+        self.tenant = tenant                # resolved accounting label
 
     def expired(self, now):
         return self.deadline is not None and now >= self.deadline
@@ -106,7 +118,7 @@ class Request(object):
 
 class AdmissionController(object):
     def __init__(self, max_queue=256, overload_policy="reject",
-                 sweep_interval=0.05):
+                 sweep_interval=0.05, telemetry=None):
         if overload_policy not in ("reject", "shed-oldest", "shed_oldest"):
             raise MXNetError("unknown overload policy %r "
                              "(use 'reject' or 'shed-oldest')"
@@ -127,6 +139,8 @@ class AdmissionController(object):
         self.pressure_shed = 0
         self.expired = 0
         self._pressure = None       # tightened queue limit, or None
+        # the engine's telemetry bundle, or None (zero instrument calls)
+        self._telemetry = telemetry
 
     def admit(self, req):
         """Enqueue, or apply the overload policy when the queue is full:
@@ -135,6 +149,7 @@ class AdmissionController(object):
         one.  Under pressure, below ``max_queue``, the highest-cost
         pending request (this one included) is shed instead."""
         reject = None
+        tm = self._telemetry
         with self._cond:
             if self._closed:
                 raise EngineClosedError("serving engine is closed")
@@ -144,6 +159,8 @@ class AdmissionController(object):
                     and len(self._queue) < self.max_queue:
                 victim = max(list(self._queue) + [req], key=self._cost_key)
                 self.pressure_shed += 1
+                if tm is not None:
+                    tm.regulator_shed.inc()
                 exc = ServerOverloadError(
                     "request shed under queue pressure: queue at the "
                     "tightened limit (%d < max_queue %d) and this is the "
@@ -158,6 +175,8 @@ class AdmissionController(object):
                 if self.overload_policy == "shed-oldest":
                     victim = self._queue.popleft()
                     self.shed += 1
+                    if tm is not None:
+                        tm.shed.inc()
                     failures.append((victim, ServerOverloadError(
                         "request shed after %.1f ms queued: queue full "
                         "(%d) under shed-oldest overload policy"
@@ -165,13 +184,19 @@ class AdmissionController(object):
                            self.max_queue))))
                 else:
                     self.rejected += 1
+                    if tm is not None:
+                        tm.rejected.inc()
                     reject = QueueFullError(
                         "serving queue full (%d pending): backpressure"
                         % self.max_queue)
             if reject is None:
                 self._queue.append(req)
                 self.admitted += 1
+                if tm is not None:
+                    tm.admitted.inc()
                 self._cond.notify()
+            if tm is not None:
+                tm.queue_depth.set(len(self._queue))
         self._deliver(failures)
         if reject is not None:
             raise reject
@@ -251,6 +276,8 @@ class AdmissionController(object):
                " (%s)" % detail if detail else ""))
         with self._cond:
             self.expired += 1
+            if self._telemetry is not None:
+                self._telemetry.expired.inc()
         self._deliver([(req, exc)])
 
     # ------------------------------------------------------------ pressure
@@ -268,6 +295,7 @@ class AdmissionController(object):
         """Set (or withdraw, ``None``) a tightened queue limit, shedding
         cost-aware down to it at once.  Futures fail outside the lock."""
         failures = []
+        tm = self._telemetry
         with self._cond:
             self._pressure = None if limit is None else max(1, int(limit))
             shed_to = self._pressure
@@ -275,11 +303,15 @@ class AdmissionController(object):
                 victim = max(self._queue, key=self._cost_key)
                 self._queue.remove(victim)
                 self.pressure_shed += 1
+                if tm is not None:
+                    tm.regulator_shed.inc()
                 failures.append((victim, ServerOverloadError(
                     "request shed under queue pressure after %.1f ms "
                     "queued: queue tightened to %d (max_queue %d)"
                     % ((time.monotonic() - victim.t_enqueue) * 1e3,
                        shed_to, self.max_queue))))
+            if failures and tm is not None:
+                tm.queue_depth.set(len(self._queue))
         self._deliver(failures)
 
     def _pop_group_locked(self, group, max_batch):
@@ -290,6 +322,8 @@ class AdmissionController(object):
             else:
                 keep.append(r)
         self._queue = keep
+        if self._telemetry is not None:
+            self._telemetry.queue_depth.set(len(keep))
         return taken
 
     def _sweep_locked(self):
@@ -300,19 +334,24 @@ class AdmissionController(object):
         for r in self._queue:
             if r.expired(now):
                 self.expired += 1
+                if self._telemetry is not None:
+                    self._telemetry.expired.inc()
                 failures.append((r, DeadlineExceededError(
                     "deadline exceeded after %.1f ms in queue"
                     % ((now - r.t_enqueue) * 1e3))))
             else:
                 live.append(r)
         self._queue = live
+        if failures and self._telemetry is not None:
+            self._telemetry.queue_depth.set(len(live))
         return failures
 
     @staticmethod
     def _deliver(failures):
         """Fail futures outside the lock; a deadline expiry of a request
         with ``on_expire`` resolves it with the handler's result
-        instead."""
+        instead.  A traced request's trace is finished either way
+        (aborted under the failure's name, or as "expired")."""
         for req, exc in failures:
             result = None
             if req.on_expire is not None and \
@@ -323,11 +362,16 @@ class AdmissionController(object):
                     result = None
             if result is None:
                 _fail_future(req.future, exc)
-            elif not req.future.cancelled():
+                if req.trace is not None:
+                    req.trace.abort(type(exc).__name__)
+                continue
+            if not req.future.cancelled():
                 try:
                     req.future.set_result(result)
                 except Exception:   # lost a cancel() race
                     pass
+            if req.trace is not None:
+                req.trace.abort("expired")
 
     def close(self, drain=True):
         """Stop admitting; with ``drain`` the worker keeps taking until the
@@ -340,6 +384,8 @@ class AdmissionController(object):
                     failures.append((self._queue.popleft(),
                                      EngineClosedError(
                                          "engine closed before dispatch")))
+                if self._telemetry is not None:
+                    self._telemetry.queue_depth.set(0)
             self._cond.notify_all()
         self._deliver(failures)
 

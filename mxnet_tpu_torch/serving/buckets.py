@@ -14,7 +14,11 @@ the parameters on the device once and one callable per bucket shape:
 the graph function with every non-data input (params, aux, placeholder
 labels sized for that bucket) already in place.  Torch runs eagerly, so
 building a bucket's callable compiles nothing; ``compile_count`` counts
-the callables built.
+the callables built (each also moves the process-wide program-build
+counter, ``mxnet_xla_traces_total``), ``plan_hits``/``plan_misses`` the
+dispatches that found or built one.  With the efficiency plane on
+(``telemetry.goodput.enabled()``) each bucket program is priced once, as
+it is built, by ``telemetry.goodput.price_graph``.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import torch
 
 from ..base import MXNetError
 from ..context import default_context
-from ..executor import build_graph_fn
+from ..executor import _count_xla_trace, build_graph_fn
 from ..ops.registry import torch_dtype
 from ..predict import _infer_label_shapes, _label_like
 
@@ -143,17 +147,32 @@ class ProgramCache(object):
         self._n_out = len(symbol._outputs)
         self._programs = {}          # shape key -> callable(feeds)
         self._lock = threading.Lock()
+        # plan-cache traffic: plain ints, touched by the one device
+        # thread; the engine's collect callback mirrors them
+        self.plan_hits = 0
+        self.plan_misses = 0
+        # efficiency plane: advisory integer FLOPs price per bucket
+        # signature, computed once as the program is built (None =
+        # the FLOPs pass could not price it)
+        self.flops_by_key = {}
 
     @property
     def compile_count(self):
         """Bucket callables built so far; warm traffic leaves it unchanged."""
         return len(self._programs)
 
-    def _program_for(self, shape_key):
+    def flops_for(self, shape_key):
+        """Advisory FLOPs price of one bucket program (shape key: sorted
+        (name, padded shape) tuples); None when unpriced."""
+        return self.flops_by_key.get(shape_key)
+
+    def _program_for(self, shape_key, record=True):
         with self._lock:
             prog = self._programs.get(shape_key)
             if prog is not None:
+                self.plan_hits += record
                 return prog
+            self.plan_misses += record
             data_shapes = dict(shape_key)
             labels = {n: torch.zeros(s, dtype=torch.float32,
                                      device=self._device)
@@ -171,7 +190,13 @@ class ProgramCache(object):
                     args[i] = feeds[n]
                 with torch.inference_mode():
                     return graph_fn(args, aux)[0]
+            from ..telemetry import goodput as _goodput
+            if _goodput.enabled():
+                self.flops_by_key[shape_key] = _goodput.price_graph(
+                    self._sym, data_shapes,
+                    label_names=self._label_names)
             self._programs[shape_key] = prog
+            _count_xla_trace()
             return prog
 
     @property
@@ -180,16 +205,17 @@ class ProgramCache(object):
         with self._lock:
             return sorted(self._programs)
 
-    def run(self, feeds, host=True, dtypes=None):
+    def run(self, feeds, host=True, dtypes=None, record=True):
         """Dispatch one padded batch: ``feeds`` maps data name to a host
         array WITH batch dim, already padded to a bucket shape.  Returns
         the outputs as host arrays (still batch-padded), or as tensors
         on the device with ``host=False``.  Inputs take the cache's
         dtype, except those ``dtypes`` names (a repaired graph's
-        float32 valid lengths)."""
+        float32 valid lengths).  ``record=False`` leaves the hit/miss
+        counts alone (the pad probe's second dispatch of one batch)."""
         shape_key = tuple(sorted((k, tuple(v.shape))
                                  for k, v in feeds.items()))
-        prog = self._program_for(shape_key)
+        prog = self._program_for(shape_key, record)
         dtypes = dtypes or {}
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
             self._device, torch_dtype(dtypes[k]) if k in dtypes
@@ -220,5 +246,5 @@ class ProgramCache(object):
             else:
                 probed_feeds[name] = np.where(
                     mask, arr, np.asarray(sentinel, arr.dtype))
-        probed = self.run(probed_feeds, dtypes=dtypes)
+        probed = self.run(probed_feeds, dtypes=dtypes, record=False)
         return base, probed

@@ -71,10 +71,18 @@ One scheduler thread does all of the engine's device work, warmup
 included (cuBLAS handles are per thread; a warmup on another thread
 would leave the first live steps to build them again).
 
-Not ported (ROADMAP Queue A, items 4 and 7): replicas and the router,
-sharding plans, the AOT cache, telemetry and SSE streams, fault
-injection, the supervisor and ``rehabilitate``, and the overload
-regulator.
+Telemetry (``MXNET_TELEMETRY_ON``): the reference's ``mxnet_serve_*``
+and ``mxnet_serve_decode_*`` families (``_DecodeTelemetry``), a
+tail-biased ``decode.request`` trace per request (queue-wait and decode
+spans), TTFT and TPOT histograms, the efficiency plane's FLOPs ledger
+(the step program priced once; live, dead-slot and rejected-draft
+shares), the fleet timeline, the scheduler's heartbeat with the default
+alert rules, and the HTTP endpoint.  Off, the engine holds no instrument
+and decodes the same tokens.
+
+Not ported: replicas and the router, sharding plans, the AOT cache, the
+SSE token streams (``submit(request_id=)``), fault injection, the
+supervisor and ``rehabilitate``, and the overload regulator.
 
 Step-graph contract: ``step_sym`` outputs ``[logits] + next_states`` over
 arguments ``token`` (slot vector of last token ids), the state names from
@@ -89,20 +97,24 @@ import collections
 import threading
 import time
 import warnings
+import weakref
 from concurrent.futures import Future, TimeoutError as FutureTimeout
 
 import numpy as np
 import torch
 
 from .. import symbol as sym
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..context import default_context
-from ..executor import build_graph_fn
+from ..executor import _count_xla_trace, build_graph_fn
 from ..ops.registry import torch_dtype
+from ..telemetry import goodput as _goodput
 from .admission import (AdmissionController, Request, EngineClosedError,
                         _fail_future)
 from .buckets import ProgramCache, _next_pow2
-from .engine import _memory_stats_block
+from .engine import (_ENGINE_SEQ, _REPLICA, _memory_stats_block,
+                     memory_metric_families, refresh_memory_gauges)
 from . import spec as _spec_mod
 
 __all__ = ["DecodeEngine", "DecodeResult", "StepProgram", "greedy_decode",
@@ -244,11 +256,13 @@ class DecodeRequest(Request):
     ``on_token`` is called with each generated id, in order, from the
     scheduler thread; a raising callback evicts only its own request."""
     __slots__ = ("prompt", "max_new", "tokens", "prompt_i", "slot",
-                 "t_join", "n_steps", "on_token")
+                 "t_join", "n_steps", "on_token", "t_first_tok",
+                 "t_last_tok", "uflops")
 
     def __init__(self, prompt, max_new, future, deadline=None,
-                 on_token=None):
-        super().__init__({}, ("__decode__",), future, deadline=deadline)
+                 trace=None, on_token=None):
+        super().__init__({}, ("__decode__",), future, deadline=deadline,
+                         trace=trace)
         self.prompt = list(prompt)
         self.max_new = int(max_new)
         self.on_token = on_token
@@ -257,6 +271,9 @@ class DecodeRequest(Request):
         self.slot = None
         self.t_join = None
         self.n_steps = 0
+        self.t_first_tok = None     # monotonic stamps: TTFT / TPOT
+        self.t_last_tok = None
+        self.uflops = 0             # useful FLOPs owed to the tenant
 
 
 class StepProgram(object):
@@ -317,6 +334,7 @@ class StepProgram(object):
             aux_params or {}, "StepProgram")
         self._gf = build_graph_fn(self._serve_sym, arg_names, aux_names)
         self.build_count = 1
+        _count_xla_trace()
         self._cache_t = []          # (name, T) target cache states
         self._cache_d = []          # (key, T) draft cache states
         self.draft_state_keys = []
@@ -381,6 +399,7 @@ class StepProgram(object):
         self.draft_state_keys = dspec.draft_keys()
         self._gf_d = build_graph_fn(dsym, d_args, d_auxs)
         self.build_count += 1
+        _count_xla_trace()
         for info in self.state_info:
             if info.get("cache"):
                 if self.pos_name is None:
@@ -403,6 +422,7 @@ class StepProgram(object):
             self._gf_commit = build_graph_fn(dspec.commit_sym,
                                              self._commit_args, [])
             self.build_count += 1
+            _count_xla_trace()
 
     # ------------------------------------------------------------- state
     def _state_infos(self, which="all"):
@@ -711,6 +731,250 @@ def _percentile(sorted_vals, q):
                                  int(len(sorted_vals) * q))])
 
 
+class _DecodeTelemetry(object):
+    """Decode engine's instrument bundle (mxnet_serve_decode_*), built
+    only when telemetry is enabled — the reference's, under the same
+    names and labels, less the replica set's and the AOT cache's
+    families.  Shares the admission families with the one-shot engine
+    (AdmissionController reads ``admitted``/``rejected``/``shed``/
+    ``regulator_shed``/``expired``/``queue_depth`` off this object) so
+    both engine kinds aggregate into one serving picture; per-engine
+    gauges are reclaimed at close()."""
+
+    def __init__(self, engine):
+        reg = _telemetry.registry()
+        self.engine_label = str(next(_ENGINE_SEQ))
+        self.closed = False
+        self.requests = reg.counter(
+            "mxnet_serve_requests_total", "serving requests submitted")
+        self.admitted = reg.counter(
+            "mxnet_serve_admitted_total", "requests admitted")
+        self.rejected = reg.counter(
+            "mxnet_serve_rejected_total",
+            "requests rejected with QueueFullError backpressure")
+        self.shed = reg.counter(
+            "mxnet_serve_shed_total",
+            "requests shed under the shed-oldest overload policy")
+        self.regulator_shed = reg.counter(
+            "mxnet_serve_regulator_shed_total",
+            "requests shed cost-aware by the overload regulator's "
+            "tightened queue limit — deliberately NOT part of the "
+            "queue-saturation burn numerator (the regulator's own "
+            "sheds must not re-fire the rule it is resolving)")
+        self.expired = reg.counter(
+            "mxnet_serve_expired_total",
+            "requests expired past their deadline while queued")
+        queue_depth_fam = reg.gauge(
+            "mxnet_serve_queue_depth",
+            "pending admission-queue depth per engine",
+            labelnames=("engine",))
+        self.queue_depth = queue_depth_fam.labels(
+            engine=self.engine_label)
+        self.tokens = reg.counter(
+            "mxnet_serve_decode_tokens_total",
+            "tokens generated by continuous-batching decode engines")
+        self.steps = reg.counter(
+            "mxnet_serve_decode_steps_total",
+            "decode step-program dispatches (each steps every live "
+            "slot once)")
+        # slot-occupancy decomposition of every step dispatch: the
+        # persistent step always computes num_slots rows, so each
+        # dispatch splits exactly into live and dead rows
+        self.slot_steps_live = reg.counter(
+            "mxnet_serve_decode_live_slot_steps_total",
+            "slot-steps computed for LIVE slots (a seated request's "
+            "row advanced one position) across decode step dispatches")
+        self.slot_steps_dead = reg.counter(
+            "mxnet_serve_decode_dead_slot_steps_total",
+            "slot-steps computed for DEAD slots (valid=0 rows riding "
+            "the fixed-extent persistent step) across decode step "
+            "dispatches")
+        # coalesced-prefill element split, per prompt bucket
+        self.prefill_live_elems = reg.counter(
+            "mxnet_serve_decode_prefill_live_elements_total",
+            "prompt positions carrying real tokens in coalesced "
+            "prefill dispatches, per prompt bucket",
+            labelnames=("bucket",))
+        self.prefill_padded_elems = reg.counter(
+            "mxnet_serve_decode_prefill_padded_elements_total",
+            "padding positions (batch-row and sequence overhang) in "
+            "coalesced prefill dispatches, per prompt bucket",
+            labelnames=("bucket",))
+        self._prefill_elem_handles = {}
+        self.joins = reg.counter(
+            "mxnet_serve_decode_joins_total",
+            "requests that joined the running decode batch (slot "
+            "assigned between steps — never a retrace)")
+        self.steals = reg.counter(
+            "mxnet_serve_decode_steals_total",
+            "routed-but-unseated requests STOLEN by a sibling replica "
+            "with free slots (cross-replica work stealing: a request "
+            "queued behind a full pool re-offers instead of waiting "
+            "out its pinned replica's generations)")
+        self.leaves = reg.counter(
+            "mxnet_serve_decode_leaves_total",
+            "requests that left the decode batch, by how generation "
+            "ended (eos / length / deadline / closed / cancelled)",
+            labelnames=("reason",))
+        # label handles resolved ONCE: leaves are hot-path
+        self._leave = {r: self.leaves.labels(reason=r)
+                       for r in ("eos", "length", "deadline", "closed",
+                                 "cancelled")}
+        self.evictions = reg.counter(
+            "mxnet_serve_decode_evictions_total",
+            "slot-resident requests evicted mid-generation by their "
+            "deadline: the future resolves with the PARTIAL tokens "
+            "and expired=True, and the slot frees for queued work")
+        self.step_ms = reg.histogram(
+            "mxnet_serve_decode_step_ms",
+            "wall time of one decode iteration (deadline sweep + step "
+            "dispatch + host bookkeeping), per engine and device "
+            "replica",
+            labelnames=("engine", "replica"),
+            buckets=_telemetry.LATENCY_MS_BUCKETS)
+        self.r_step_ms = self.step_ms.labels(engine=self.engine_label,
+                                             replica=_REPLICA)
+        # per-request tails: TTFT = submit -> first generated token,
+        # TPOT = mean inter-token gap over a finished request
+        ttft_fam = reg.histogram(
+            "mxnet_serve_decode_ttft_seconds",
+            "time to first token: submit -> first generated token id "
+            "(queue wait + prefill + first step), per decode engine",
+            labelnames=("engine",),
+            buckets=_telemetry.LATENCY_S_BUCKETS)
+        self.ttft = ttft_fam.labels(engine=self.engine_label)
+        tpot_fam = reg.histogram(
+            "mxnet_serve_decode_tpot_seconds",
+            "inter-token latency: mean gap between consecutive "
+            "generated tokens per finished request (>= 2 tokens), per "
+            "decode engine",
+            labelnames=("engine",),
+            buckets=_telemetry.LATENCY_S_BUCKETS)
+        self.tpot = tpot_fam.labels(engine=self.engine_label)
+        # speculative decode plane, registered ONLY for spec engines (a
+        # k=0 engine's scrape carries none of it) and reclaimed at close
+        self.spec_drafted = None
+        self._spec_fams = ()
+        if getattr(engine, "_spec_k", 0):
+            self.spec_drafted = reg.counter(
+                "mxnet_serve_decode_spec_drafted_total",
+                "draft tokens proposed by speculative decode steps "
+                "(k per spec-eligible slot per dispatch)")
+            self.spec_accepted = reg.counter(
+                "mxnet_serve_decode_spec_accepted_total",
+                "draft tokens ACCEPTED by target verification — the "
+                "tokens that cost one target dispatch for k+1 "
+                "positions instead of one dispatch each")
+            self.spec_rejected = reg.counter(
+                "mxnet_serve_decode_spec_rejected_total",
+                "draft tokens rejected by target verification "
+                "(speculative work thrown away)")
+            spec_accept_fam = reg.histogram(
+                "mxnet_serve_decode_spec_accept_rate",
+                "per-dispatch draft acceptance fraction "
+                "(accepted / drafted over the step's spec-eligible "
+                "slots), per decode engine",
+                labelnames=("engine",),
+                buckets=_telemetry.RATIO_BUCKETS)
+            self.spec_accept = spec_accept_fam.labels(
+                engine=self.engine_label)
+            spec_tps_fam = reg.gauge(
+                "mxnet_serve_decode_spec_tokens_per_step",
+                "mean committed tokens PER SLOT per speculative step "
+                "over the engine lifetime (1.0 = no speculative win; "
+                "the ceiling is k+1 — occupancy does not move this "
+                "number), per decode engine",
+                labelnames=("engine",))
+            self.spec_tps = spec_tps_fam.labels(
+                engine=self.engine_label)
+            self._spec_fams = (spec_accept_fam, spec_tps_fam)
+        self.slots_fam = reg.gauge(
+            "mxnet_serve_decode_slots",
+            "slot-pool capacity per decode engine and device replica",
+            labelnames=("engine", "replica"))
+        self.occupied_fam = reg.gauge(
+            "mxnet_serve_decode_slots_occupied",
+            "slots currently generating per decode engine and device "
+            "replica — occupied/capacity is decode's batch-occupancy "
+            "analog, and the router's most-free-slots signal",
+            labelnames=("engine", "replica"))
+        compile_fam = reg.gauge(
+            "mxnet_serve_compile_count",
+            "bucket programs built so far, per engine",
+            labelnames=("engine",))
+        self.compile_count = compile_fam.labels(
+            engine=self.engine_label)
+        mem_pred_fam, mem_meas_fam = memory_metric_families(reg)
+        self.mem_predicted = mem_pred_fam.labels(
+            engine=self.engine_label)
+        self._mem_meas_fam = mem_meas_fam
+        self._mem_measured = None
+        self._mem_probe_ok = True
+        self._engine_gauge_fams = (queue_depth_fam, compile_fam,
+                                   ttft_fam, tpot_fam,
+                                   mem_pred_fam, mem_meas_fam) \
+            + self._spec_fams
+        self._replica_fams = (self.slots_fam, self.occupied_fam,
+                              self.step_ms)
+        self._engine = weakref.ref(engine)
+        reg.register_callback(self._refresh)
+
+    def leave(self, reason):
+        handle = self._leave.get(reason)
+        (handle if handle is not None
+         else self.leaves.labels(reason=reason)).inc()
+
+    def prefill_elems(self, bucket, live, padded):
+        """Count one coalesced prefill dispatch's element split under
+        its prompt-bucket label (handles memoized)."""
+        h = self._prefill_elem_handles.get(bucket)
+        if h is None:
+            b = str(bucket)
+            h = (self.prefill_live_elems.labels(bucket=b),
+                 self.prefill_padded_elems.labels(bucket=b))
+            self._prefill_elem_handles[bucket] = h
+        if live:
+            h[0].inc(live)
+        if padded:
+            h[1].inc(padded)
+
+    def close(self):
+        self.closed = True
+        _telemetry.registry().unregister_callback(self._refresh)
+        self._remove_engine_series()
+
+    def _remove_engine_series(self):
+        for fam in self._engine_gauge_fams:
+            fam.remove(engine=self.engine_label)
+        for fam in self._replica_fams:
+            for values, _inst in fam.series():
+                if values[0] == self.engine_label:
+                    fam.remove(*values)
+
+    def _refresh(self, reg):
+        eng = self._engine()
+        if eng is None:
+            reg.unregister_callback(self._refresh)
+            self._remove_engine_series()
+            return
+        self.compile_count.set(eng.programs_built)
+        refresh_memory_gauges(self, eng)
+        eff = getattr(eng, "_eff", None)
+        if eff is not None:
+            eff.refresh()
+        if self.spec_drafted is not None:
+            # GIL-atomic int reads: a collect-time callback must not
+            # take scheduler locks
+            steps, toks = eng._spec_slot_steps, eng._spec_accepted
+            if steps:
+                self.spec_tps.set((toks + steps) / float(steps))
+        el = self.engine_label
+        self.slots_fam.labels(engine=el,
+                              replica=_REPLICA).set(eng.num_slots)
+        self.occupied_fam.labels(engine=el, replica=_REPLICA).set(
+            sum(1 for s in eng._rep.slots if s is not None))
+
+
 class DecodeReplica(object):
     """The engine's slot pool: the step program, the device-resident
     per-slot state and the host mirror vectors (counterpart of
@@ -890,18 +1154,54 @@ class DecodeEngine(object):
         if prefill_sym is not None:
             self._attach_prefill(self._rep, prefill_sym, arg_params,
                                  aux_params, dtype, prefill_buckets)
+        self._spec_steps = 0        # dispatches with >= 1 spec slot
+        self._spec_slot_steps = 0   # per-slot spec steps
+        self._spec_drafted = self._spec_accepted = 0
+        # telemetry bundle, timeline ring and efficiency ledger: None
+        # when off (zero instrument calls on the scheduler's path)
+        self._tm = (_DecodeTelemetry(self)
+                    if _telemetry.enabled() else None)
+        self._tl = (_telemetry.timeline.get()
+                    if _telemetry.timeline.enabled() else None)
+        # the step program is priced once here (memoized on it); the
+        # prefill buckets as their programs are built
+        self._eff = None
+        if self._tm is not None and _goodput.enabled():
+            self._eff = _goodput.EngineEfficiency(
+                "decode", self._tm.engine_label)
+            self._eff.add_replica(_REPLICA, ctx=self._ctx)
+            _goodput.price_step_program(self._rep.program)
+        self._trace_chain = (_telemetry.chain_from_config()
+                             if self._tm is not None else None)
+        self._owns_http_server = (_telemetry.server.engine_acquire()
+                                  if self._tm is not None else False)
         self._adm = AdmissionController(max_queue=max_queue,
-                                        overload_policy=overload_policy)
+                                        overload_policy=overload_policy,
+                                        telemetry=self._tm)
         self._lock = threading.Lock()
         self._tasks = collections.deque()
         self._step_ms = collections.deque(maxlen=4096)
         self._lat_ms = collections.deque(maxlen=4096)
         self._steps = self._joins = self._leaves = 0
         self._evictions = self._tokens_out = self._requests_served = 0
-        self._spec_steps = 0        # dispatches with >= 1 spec slot
-        self._spec_slot_steps = 0   # per-slot spec steps
-        self._spec_drafted = self._spec_accepted = 0
         self._abort = False
+        # heartbeat, flight-recorder registration and the default alert
+        # rules, registered last (see ServingEngine)
+        self._hb_t = time.monotonic()
+        self._hb_busy = False
+        self._owns_recorder = False
+        self._alert_owner = None
+        self._obs_name = None
+        if self._tm is not None:
+            self._obs_name = "decode.%s" % self._tm.engine_label
+            _telemetry.recorder.register_heartbeat(self._obs_name,
+                                                   self._heartbeat)
+            _telemetry.recorder.register_engine(self._obs_name, self)
+            self._owns_recorder = _telemetry.recorder.recorder_acquire()
+            if config.get("MXNET_TELEMETRY_ALERTS"):
+                self._alert_owner = \
+                    _telemetry.register_engine_default_rules(
+                        "decode", self._tm.engine_label)
         self._worker = None
         if start:
             self.start()
@@ -1251,6 +1551,25 @@ class DecodeEngine(object):
                 self._worker = None
         elif drain:
             self._run()     # never started: drain on the caller's thread
+        if self._eff is not None:
+            self._eff.close()
+            self._eff = None
+        self._tl = None
+        if self._tm is not None:
+            self._tm.close()
+        if self._obs_name is not None:
+            _telemetry.recorder.unregister_heartbeat(self._obs_name)
+            _telemetry.recorder.unregister_engine(self._obs_name)
+            self._obs_name = None
+        if self._alert_owner is not None:
+            _telemetry.default_manager().remove_owner(self._alert_owner)
+            self._alert_owner = None
+        if self._owns_recorder:
+            token, self._owns_recorder = self._owns_recorder, False
+            _telemetry.recorder.recorder_release(token)
+        if self._owns_http_server:
+            self._owns_http_server = False
+            _telemetry.server.engine_release()
 
     def __enter__(self):
         return self
@@ -1261,7 +1580,7 @@ class DecodeEngine(object):
 
     # ------------------------------------------------------------- client
     def submit(self, prompt, max_new_tokens=None, deadline_ms=None,
-               on_token=None):
+               on_token=None, tenant=None):
         """Enqueue one generation request; returns a Future resolving to
         a :class:`DecodeResult`.
 
@@ -1271,7 +1590,8 @@ class DecodeEngine(object):
         (partial result, ``expired=True``).  ``on_token`` is called with
         each generated id, in order (the exact prefix of the final
         tokens), from the scheduler thread; a raising callback fails only
-        its own request."""
+        its own request.  ``tenant`` names the caller for the efficiency
+        plane's per-tenant accounting."""
         if self._adm.closed:
             raise EngineClosedError("decode engine is closed")
         prompt = [int(t) for t in prompt]
@@ -1294,8 +1614,20 @@ class DecodeEngine(object):
         deadline = None if not deadline_ms else \
             time.monotonic() + float(deadline_ms) / 1e3
         fut = Future()
+        trace = None
+        if self._tm is not None:
+            self._tm.requests.inc()
+            if self._trace_chain is not None:
+                trace = _telemetry.LazyTrace(self._trace_chain,
+                                             name="decode.request")
         req = DecodeRequest(prompt, max_new_tokens, fut, deadline=deadline,
-                            on_token=on_token)
+                            trace=trace, on_token=on_token)
+        if tenant is not None and self._eff is not None:
+            req.tenant = self._eff.tenant_enter(tenant)
+            if req.tenant is not None:
+                fut.add_done_callback(
+                    lambda f, _eff=self._eff, _t=req.tenant,
+                    _t0=req.t_enqueue: _eff.tenant_done(_t, f, _t0))
         # padded-element price for the cost-ranked shed: the bucketed
         # prompt plus what the generation can occupy, k + 1 target
         # positions a token under speculation
@@ -1306,7 +1638,12 @@ class DecodeEngine(object):
         req.on_expire = lambda exc, r=req: DecodeResult(
             r.tokens, "deadline", n_steps=r.n_steps,
             prompt_len=len(r.prompt))
-        self._adm.admit(req)
+        try:
+            self._adm.admit(req)
+        except Exception as e:
+            if trace is not None:
+                trace.abort(type(e).__name__)
+            raise
         return fut
 
     def generate(self, prompt, max_new_tokens=None, deadline_ms=None,
@@ -1314,6 +1651,20 @@ class DecodeEngine(object):
         """Synchronous convenience wrapper around :meth:`submit`."""
         return self.submit(prompt, max_new_tokens=max_new_tokens,
                            deadline_ms=deadline_ms).result(timeout=timeout)
+
+    def _heartbeat(self):
+        """Watchdog probe: progress age of the scheduler loop, busy
+        when any slot is generating or work is queued."""
+        now = time.monotonic()
+        queued = len(self._adm)
+        occupied = sum(1 for s in self._rep.slots if s is not None)
+        return {"age_s": now - self._hb_t,
+                "busy": bool(self._hb_busy or queued or occupied),
+                "in_step": bool(self._hb_busy),
+                "queued": queued, "slots_occupied": occupied,
+                "kind": "decode",
+                "engine": (self._tm.engine_label
+                           if self._tm is not None else None)}
 
     # ------------------------------------------------------------- worker
     def _run(self):
@@ -1333,6 +1684,8 @@ class DecodeEngine(object):
         """One thread admits, seats and steps the slot pool, and runs the
         engine's other device work (warmup) between steps."""
         while True:
+            self._hb_t = time.monotonic()
+            self._hb_busy = False
             try:
                 self._run_tasks()
                 if self._abort:
@@ -1346,8 +1699,11 @@ class DecodeEngine(object):
                     if batch is None:
                         self._run_tasks()
                         return          # closed and drained
+                    self._hb_t = time.monotonic()
+                    self._hb_busy = True
                     self._join_many(rep, batch)
                     continue
+                self._hb_busy = True    # a wedged step must read busy
                 # busy: admit without blocking a step, and keep queued
                 # deadlines honest even when no slot is free
                 if free:
@@ -1364,6 +1720,8 @@ class DecodeEngine(object):
                     rep.valid_np[i] = 0.0
                     if not req.future.done():
                         _fail_future(req.future, e)
+                        if req.trace is not None:
+                            req.trace.abort(type(e).__name__)
                 rep.states = rep.program.init_states()
                 for v in (rep.tokens_np, rep.pos_np, rep.reset_np,
                           rep.spec_np):
@@ -1421,6 +1779,7 @@ class DecodeEngine(object):
             plen = len(req.prompt)
             arr[r_i, :plen] = req.prompt
             lens[r_i] = plen
+        t_pf0 = time.perf_counter()
         try:
             outs = rep.prefill_caches[bucket].run(
                 {self._prefill_data_name: arr,
@@ -1437,6 +1796,31 @@ class DecodeEngine(object):
             for req in group:
                 self._fail_seated(rep, req, e)
             return
+        # element split + FLOPs ledger for this one dispatch: the
+        # program computed bb*bucket positions, sum(prompt lengths) of
+        # them real tokens
+        live_elems = int(sum(len(r.prompt) for r in group))
+        padded_elems = bb * bucket
+        if self._tm is not None:
+            self._tm.prefill_elems(bucket, live_elems,
+                                   padded_elems - live_elems)
+        if self._tl is not None:
+            self._tl.complete("decode.prefill", "decode", "decode:0",
+                              t_pf0, time.perf_counter(),
+                              args={"bucket": bucket, "group": len(group)})
+        if self._eff is not None:
+            shape_key = tuple(sorted(
+                (k, v.shape)
+                for k, v in ((self._prefill_data_name, arr),
+                             (self._prefill_len_name, lens))))
+            useful = self._eff.record_batch(
+                _REPLICA, rep.prefill_caches[bucket].flops_for(shape_key),
+                live_elems, padded_elems)
+            if useful:
+                for req in group:
+                    if req.tenant is not None:
+                        req.uflops += (useful * len(req.prompt)
+                                       // live_elems)
         for r_i, req in enumerate(group):
             rows = {name: rows_all[i][r_i]
                     for i, name in enumerate(rep.program.state_names)}
@@ -1458,10 +1842,15 @@ class DecodeEngine(object):
         rep.reset_np[slot] = 0.0        # prefill rows are live data
         req.prompt_i = len(req.prompt)
         req.tokens.append(int(first))
+        now = time.monotonic()
+        req.t_first_tok = req.t_last_tok = now
         rep.tokens_np[slot] = first
         rep.pos_np[slot] = float(len(req.prompt))
         with self._lock:
             self._tokens_out += 1
+        if self._tm is not None:
+            self._tm.tokens.inc()
+            self._tm.ttft.observe(now - req.t_enqueue)
         if req.on_token is not None:
             self._fire_on_token(rep, req, int(first))
 
@@ -1469,8 +1858,12 @@ class DecodeEngine(object):
         """Claim a free slot for one admitted request; False when the
         request was cancelled before seating (counted as a leave)."""
         if not req.future.set_running_or_notify_cancel():
+            if req.trace is not None:
+                req.trace.abort("cancelled")
             with self._lock:
                 self._leaves += 1
+            if self._tm is not None:
+                self._tm.leave("cancelled")
             return False
         slot = rep.slots.index(None)
         req.slot = slot
@@ -1480,6 +1873,12 @@ class DecodeEngine(object):
         rep.spec_np[slot] = 0.0
         with self._lock:
             self._joins += 1
+        if self._tm is not None:
+            self._tm.joins.inc()
+        if self._tl is not None:
+            self._tl.instant("decode.join", "decode", "decode:0",
+                             args={"slot": slot, "request": None,
+                                   "prompt_len": len(req.prompt)})
         return True
 
     def _fail_seated(self, rep, req, exc):
@@ -1492,7 +1891,15 @@ class DecodeEngine(object):
             rep.spec_np[slot] = 0.0
         with self._lock:
             self._leaves += 1
+        if self._tm is not None:
+            self._tm.leave("error")
+        if req.tenant is not None and req.uflops \
+                and self._eff is not None:
+            self._eff.tenant_useful(req.tenant, req.uflops)
+            req.uflops = 0
         _fail_future(req.future, exc)
+        if req.trace is not None:
+            req.trace.abort(type(exc).__name__)
 
     def _fire_on_token(self, rep, req, tok):
         """Streaming hook: a raising callback evicts ONLY its own request.
@@ -1524,14 +1931,32 @@ class DecodeEngine(object):
                 rep.tokens_np, rep.pos_np, rep.valid_np, rep.spec_np,
                 rep.states, reset=rep.reset_np)
             rep.reset_np.fill(0.0)
+            if self._eff is not None:
+                # FLOPs ledger before the slot advance (a slot finishing
+                # this very step must still absorb its tenant share)
+                cl = counts.tolist()
+                committed = int(sum(cl[i] for i in occ))
+                self._ledger_step(
+                    rep, occ,
+                    self._eff.record_spec_step(
+                        _REPLICA, _goodput.price_step_program(rep.program),
+                        len(occ), self.num_slots, committed,
+                        self._spec_k + 1))
             new_tokens = self._advance_spec(rep, occ, toks_mat, counts)
         else:
             sampled, rep.states = rep.program.step(
                 rep.tokens_np, rep.pos_np, rep.valid_np, rep.states,
                 reset=rep.reset_np)
             rep.reset_np.fill(0.0)      # consumed: rows are zeroed now
+            if self._eff is not None:
+                self._ledger_step(
+                    rep, occ,
+                    self._eff.record_step(
+                        _REPLICA, _goodput.price_step_program(rep.program),
+                        len(occ), self.num_slots))
             sampled_l = sampled.tolist()
             new_tokens = 0
+            t_tok = time.monotonic()    # one stamp serves every slot
             for i in occ:
                 req = rep.slots[i]
                 req.n_steps += 1
@@ -1546,15 +1971,48 @@ class DecodeEngine(object):
                     req.tokens.append(int(tok))
                     rep.tokens_np[i] = tok
                     new_tokens += 1
+                    if req.t_first_tok is None:
+                        req.t_first_tok = t_tok
+                        if self._tm is not None:
+                            self._tm.ttft.observe(t_tok - req.t_enqueue)
+                    req.t_last_tok = t_tok
                     if req.on_token is not None \
                             and not self._fire_on_token(rep, req, tok):
                         continue    # evicted by its own callback
                 self._check_finish(rep, i)
-        dt_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        dt_ms = (t1 - t0) * 1e3
         with self._lock:
             self._steps += 1
             self._tokens_out += new_tokens
             self._step_ms.append(dt_ms)
+        if self._tl is not None:
+            self._tl.complete("decode.step", "decode", "decode:0", t0, t1,
+                              args={"live": len(occ),
+                                    "tokens": new_tokens})
+        if self._tm is not None:
+            self._tm.steps.inc()
+            if new_tokens:
+                self._tm.tokens.inc(new_tokens)
+            self._tm.r_step_ms.observe(dt_ms)
+            self._tm.slot_steps_live.inc(len(occ))
+            dead = self.num_slots - len(occ)
+            if dead:
+                self._tm.slot_steps_dead.inc(dead)
+
+    def _ledger_step(self, rep, occ, useful):
+        """Spread one step dispatch's useful FLOPs over the live slots
+        for tenant accounting (integer shares; the remainder stays in
+        the engine-level ledger, which is exact by construction)."""
+        if not useful:
+            return
+        share = useful // len(occ)
+        if not share:
+            return
+        for i in occ:
+            req = rep.slots[i]
+            if req.tenant is not None:
+                req.uflops += share
 
     def _advance_spec(self, rep, occ, toks_mat, counts):
         """The variable-width slot advance: slot ``i`` committed
@@ -1565,6 +2023,7 @@ class DecodeEngine(object):
         toks_l = toks_mat.tolist()
         counts_l = counts.tolist()
         new_tokens = drafted = accepted = spec_slots = 0
+        t_tok = time.monotonic()
         for i in occ:
             req = rep.slots[i]
             req.n_steps += 1
@@ -1591,6 +2050,11 @@ class DecodeEngine(object):
                 tok = int(toks_l[i][jj])
                 req.tokens.append(tok)
                 new_tokens += 1
+                if req.t_first_tok is None:
+                    req.t_first_tok = t_tok
+                    if self._tm is not None:
+                        self._tm.ttft.observe(t_tok - req.t_enqueue)
+                req.t_last_tok = t_tok
                 if req.on_token is not None \
                         and not self._fire_on_token(rep, req, tok):
                     evicted = True
@@ -1609,6 +2073,14 @@ class DecodeEngine(object):
                 self._spec_slot_steps += spec_slots
                 self._spec_drafted += drafted
                 self._spec_accepted += accepted
+            if self._tm is not None and self._tm.spec_drafted \
+                    is not None:
+                self._tm.spec_drafted.inc(drafted)
+                self._tm.spec_accepted.inc(accepted)
+                self._tm.spec_rejected.inc(drafted - accepted)
+                if drafted:
+                    self._tm.spec_accept.observe(accepted
+                                                 / float(drafted))
         return new_tokens
 
     def _check_finish(self, rep, slot):
@@ -1631,8 +2103,16 @@ class DecodeEngine(object):
         rep.slots[slot] = None
         for v in (rep.valid_np, rep.tokens_np, rep.pos_np, rep.spec_np):
             v[slot] = 0.0
+        now = time.monotonic()
+        t1 = time.perf_counter()
         res = DecodeResult(req.tokens, reason, n_steps=req.n_steps,
                            prompt_len=len(req.prompt))
+        if req.tenant is not None and req.uflops \
+                and self._eff is not None:
+            # the request's useful-FLOPs share goes to its tenant (tokens,
+            # outcome and latency ride the future's done callback)
+            self._eff.tenant_useful(req.tenant, req.uflops)
+            req.uflops = 0
         if not req.future.cancelled():
             try:
                 req.future.set_result(res)
@@ -1643,7 +2123,34 @@ class DecodeEngine(object):
             self._requests_served += 1
             if reason == "deadline":
                 self._evictions += 1
-            self._lat_ms.append((time.monotonic() - req.t_enqueue) * 1e3)
+            self._lat_ms.append((now - req.t_enqueue) * 1e3)
+        if self._tl is not None:
+            self._tl.instant(
+                "decode.evict" if reason == "deadline"
+                else "decode.leave", "decode", "decode:0",
+                args={"slot": slot, "reason": reason, "request": None,
+                      "tokens": len(req.tokens)})
+        if self._tm is not None:
+            self._tm.leave(reason)
+            if reason == "deadline":
+                self._tm.evictions.inc()
+            if len(req.tokens) >= 2 and req.t_first_tok is not None \
+                    and req.t_last_tok is not None:
+                self._tm.tpot.observe(
+                    (req.t_last_tok - req.t_first_tok)
+                    / (len(req.tokens) - 1))
+        if req.trace is not None:
+            t_join = req.t_join if req.t_join is not None else t1
+
+            def build(tc, _req=req, _t_join=t_join, _t1=t1,
+                      _reason=reason):
+                tc.add("queue-wait", tc.root.t0, _t_join, "serve")
+                tc.add("decode", _t_join, _t1, "serve",
+                       meta={"steps": _req.n_steps,
+                             "tokens": len(_req.tokens),
+                             "prompt_len": len(_req.prompt),
+                             "finish_reason": _reason})
+            req.trace.finish(t1, build=build)
 
     # ------------------------------------------------------------ observe
     def _on_scheduler(self, fn):
@@ -1776,6 +2283,9 @@ class DecodeEngine(object):
                     "gate": plan.gate if plan is not None else None,
                 },
                 "spec": self._spec_stats(),
+                "efficiency": (self._eff.stats_block()
+                               if self._eff is not None
+                               else {"enabled": False}),
                 "step_ms": {
                     "count": len(step),
                     "mean": float(np.mean(step)) if step else 0.0,
